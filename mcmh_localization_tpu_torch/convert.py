@@ -1,0 +1,42 @@
+"""Carry a map and a filter state across from numpy arrays.
+
+Both packages then compute on the same map and state: a JAX ``GridMap`` or
+``FilterState`` flattened to numpy arrays (``np.asarray`` of each field)
+rebuilds here.  The PRNG key is the one field that cannot transfer: the
+port's state takes a fresh ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mcmh_localization_tpu_torch.filter.state import FilterState, make_generator
+from mcmh_localization_tpu_torch.maps.grid_map import GridMap, build_grid_map
+
+STATE_FIELDS = ("particles", "prev_particles", "weights", "count", "w_slow",
+                "w_fast", "delta", "anchor", "anchor_streak")
+_INT_FIELDS = ("count", "anchor_streak")
+
+
+def grid_map_from_numpy(occupancy, resolution, origin, distance=None,
+                        device="cpu") -> GridMap:
+    """A GridMap from trinary int8 occupancy, resolution, origin (x, y) and
+    optionally the distance field (else scipy's EDT)."""
+    return build_grid_map(np.asarray(occupancy), float(resolution),
+                          tuple(float(o) for o in np.asarray(origin)[:2]),
+                          distance=distance, device=device)
+
+
+def state_from_numpy(arrays: dict, device="cpu",
+                     generator: torch.Generator | None = None) -> FilterState:
+    """A FilterState from a dict of numpy arrays with the JAX FilterState's
+    field names (``key`` is ignored); ``generator`` (default: seeded with
+    0) becomes the state's random source."""
+    dev = torch.device(device)
+    kw = {}
+    for name in STATE_FIELDS:
+        dtype = torch.int32 if name in _INT_FIELDS else torch.float32
+        kw[name] = torch.as_tensor(np.array(arrays[name]), dtype=dtype,
+                                   device=dev)
+    return FilterState(key=generator or make_generator(0, dev), **kw)

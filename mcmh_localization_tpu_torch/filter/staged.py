@@ -1,0 +1,259 @@
+"""Staged two-program execution (port of
+``mcmh_localization_tpu/filter/staged.py``, single device).
+
+A KLD-adaptive config runs as two programs over the same config:
+
+  * BIG:   n_max = max_particles (global localization, recovery); no corr
+           window (full-map field, all theta bins), "sum" aggregation,
+           capacity-scaled injection refill;
+  * SMALL: n_max = tracking capacity (converged tracking); the windowed
+           field without the coarse fallback, optional ESS-gated resampling.
+
+The host runs ``chunk`` scans at a time, reads the chunk's StepInfo and
+hands the state over: down (an exact prefix slice) when the counts fit the
+small capacity and one mode dominates, up (zero tail pad) on injection, a
+count pegged at capacity, or decaying mode dominance.  See the JAX module
+docstring for the measured rationale of each choice.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch.nn.functional as F
+
+from mcmh_localization_tpu_torch.filter.state import FilterState
+from mcmh_localization_tpu_torch.filter.step import (
+    FilterModel,
+    StepInfo,
+    as_f32,
+    concat_infos,
+    make_model,
+    state_size,
+)
+
+
+class StagedModel(NamedTuple):
+    config: object          # the BIG config
+    small_config: object    # capacity-reduced twin
+    grid_map: object
+    big: FilterModel
+    small: FilterModel
+    init: object
+
+
+def default_tracking_capacity(config) -> int:
+    """1.3x min_particles rounded up to 1024, below the full capacity."""
+    cap = int(1.3 * config.min_particles)
+    cap = -(-cap // 1024) * 1024
+    return min(max(cap, 1024), state_size(config))
+
+
+def make_staged_model(
+    config,
+    grid_map,
+    tracking_capacity: int | None = None,
+    global_scoring: str = "full",
+    tracking_ess_threshold: float | None = None,
+    tracking_theta_bins: int | None = None,
+    tracking_window_cells: int | None = None,
+    global_score_aggregation: str | None = "sum",
+) -> StagedModel:
+    """Build the two programs; ``config`` must be adaptive.  The knobs are
+    the JAX ``make_staged_model``'s."""
+    big_config, small_config = _staged_configs(
+        config, tracking_capacity, global_scoring, tracking_ess_threshold,
+        tracking_theta_bins, tracking_window_cells, global_score_aggregation,
+    )
+    big = make_model(big_config, grid_map)
+    small = make_model(small_config, grid_map)
+    return StagedModel(config=big_config, small_config=small_config,
+                       grid_map=grid_map, big=big, small=small,
+                       init=big.init)
+
+
+def _staged_configs(
+    config,
+    tracking_capacity: int | None,
+    global_scoring: str,
+    tracking_ess_threshold: float | None,
+    tracking_theta_bins: int | None,
+    tracking_window_cells: int | None,
+    global_score_aggregation: str | None = "sum",
+):
+    """(big_config, small_config), as the JAX _staged_configs derives them."""
+    if not config.use_adaptive:
+        raise ValueError(
+            "make_staged_model needs an adaptive mode (AMCL/*AMCL): "
+            "non-adaptive counts never change, one program suffices"
+        )
+    if global_scoring not in ("full", "windowed"):
+        raise ValueError(f"unknown global_scoring {global_scoring!r}")
+    cap = tracking_capacity or default_tracking_capacity(config)
+    n_big = state_size(config)
+    if cap >= n_big:
+        raise ValueError(
+            f"tracking_capacity {cap} must be < max capacity {n_big}")
+    if cap < config.min_particles:
+        raise ValueError(
+            f"tracking_capacity {cap} < min_particles {config.min_particles}")
+    big_config = config
+    # BIG scores the full per-scan log-likelihood (product over beams)
+    if (global_score_aggregation is not None
+            and global_score_aggregation != config.score_aggregation):
+        big_config = big_config.replace(
+            score_aggregation=global_score_aggregation)
+    # BIG is the recovery program: injection refills to capacity
+    if big_config.use_adaptive and big_config.adaptive_resampler == "kld":
+        big_config = big_config.replace(injection_refill=True)
+    if global_scoring == "full" and config.corr_window_cells:
+        big_config = big_config.replace(
+            corr_window_cells=0, corr_theta_window_bins=0,
+            beam_impl=(
+                "table" if config.sensor_model == "beam"
+                and config.beam_impl in ("auto", "field") else config.beam_impl
+            ),
+        )
+    small_kw = {}
+    if tracking_ess_threshold is not None:
+        small_kw["resample_ess_threshold"] = tracking_ess_threshold
+    if tracking_theta_bins is not None:
+        if not config.corr_window_cells:
+            raise ValueError("tracking_theta_bins needs a windowed scorer "
+                             "(corr_window_cells > 0)")
+        if (config.corr_theta_window_bins
+                and tracking_theta_bins > config.corr_theta_window_bins):
+            raise ValueError(
+                f"tracking_theta_bins {tracking_theta_bins} > the config's "
+                f"corr_theta_window_bins {config.corr_theta_window_bins}: "
+                "the tracking theta window only shrinks")
+        small_kw["corr_theta_window_bins"] = tracking_theta_bins
+    if tracking_window_cells is not None:
+        if not config.corr_window_cells:
+            raise ValueError("tracking_window_cells needs a windowed scorer "
+                             "(corr_window_cells > 0)")
+        if tracking_window_cells > config.corr_window_cells:
+            raise ValueError(
+                f"tracking_window_cells {tracking_window_cells} > the "
+                f"config's corr_window_cells {config.corr_window_cells}: "
+                "the tracking window only shrinks")
+        small_kw["corr_window_cells"] = tracking_window_cells
+    # SMALL drops the (optimistic, max-pooled) coarse out-of-window fallback
+    if config.corr_window_cells and config.corr_coarse_factor:
+        small_kw.setdefault("corr_coarse_factor", 0)
+    small_config = config.replace(
+        num_particles=min(config.num_particles, cap),
+        max_particles=cap,
+        **small_kw,
+    )
+    return big_config, small_config
+
+
+def shrink_state(state: FilterState, cap: int) -> FilterState:
+    """BIG -> SMALL: exact prefix slice (the active particles occupy slots
+    [0, count) after the KLD resample).  Copies, so the BIG arrays free."""
+    return state.replace(
+        particles=state.particles[:cap].clone(),
+        prev_particles=state.prev_particles[:cap].clone(),
+        weights=state.weights[:cap].clone(),
+    )
+
+
+def grow_state(state: FilterState, n_big: int) -> FilterState:
+    """SMALL -> BIG: zero-pad the inactive tail."""
+    pad = n_big - state.particles.shape[0]
+    return state.replace(
+        particles=F.pad(state.particles, (0, 0, 0, pad)),
+        prev_particles=F.pad(state.prev_particles, (0, 0, 0, pad)),
+        weights=F.pad(state.weights, (0, pad)),
+    )
+
+
+def next_stage(
+    in_small: bool,
+    counts,
+    p_rand,
+    mass,
+    cap: int,
+    shrink_margin: float = 0.9,
+    escalate_p_random: float = 1e-6,
+    shrink_mass: float = 0.6,
+    escalate_mass: float = 0.35,
+) -> bool:
+    """The stage-switch policy over a chunk's StepInfo scalars (host
+    arrays); returns the next in_small."""
+    counts = np.atleast_1d(np.asarray(counts))
+    p_rand = np.atleast_1d(np.asarray(p_rand))
+    mass = np.atleast_1d(np.asarray(mass))
+    if in_small:
+        return not (
+            counts.max() >= cap
+            or p_rand.max() > escalate_p_random
+            or mass.min() < escalate_mass
+        )
+    # never shrink mid-recovery or without a dominant mode
+    return bool(
+        counts.max() <= int(shrink_margin * cap)
+        and p_rand.max() <= escalate_p_random
+        and mass.min() >= shrink_mass
+    )
+
+
+class StagedRun(NamedTuple):
+    state: FilterState
+    infos: StepInfo        # stacked over all T scans
+    modes: np.ndarray      # (T,) 0 = big program, 1 = small program
+    switches: int
+
+
+def run_staged(
+    model: StagedModel,
+    state: FilterState,
+    ranges_seq,
+    angles,
+    deltas,
+    chunk: int = 16,
+    shrink_margin: float = 0.9,
+    escalate_p_random: float = 1e-6,
+    shrink_mass: float = 0.6,
+    escalate_mass: float = 0.35,
+) -> StagedRun:
+    """Host-staged trajectory run; returns per-scan infos plus the program
+    trace."""
+    cap = state_size(model.small_config)
+    n_big = state_size(model.config)
+    dev = model.grid_map.device
+    ranges_seq = as_f32(ranges_seq, dev)
+    deltas = as_f32(deltas, dev)
+    t_total = ranges_seq.shape[0]
+    in_small = state.particles.shape[0] == cap
+
+    infos_chunks = []
+    modes = np.zeros(t_total, np.int8)
+    switches = 0
+    t = 0
+    while t < t_total:
+        tc = min(chunk, t_total - t)
+        m = model.small if in_small else model.big
+        state, infos = m.run(state, ranges_seq[t:t + tc], angles,
+                             deltas[t:t + tc])
+        infos_chunks.append(infos)
+        modes[t:t + tc] = 1 if in_small else 0
+        nxt = next_stage(
+            in_small, infos.count.cpu().numpy(),
+            infos.p_random.cpu().numpy(), infos.anchor_mass.cpu().numpy(),
+            cap, shrink_margin=shrink_margin,
+            escalate_p_random=escalate_p_random,
+            shrink_mass=shrink_mass, escalate_mass=escalate_mass,
+        )
+        if nxt and not in_small:
+            state = shrink_state(state, cap)
+            switches += 1
+        elif in_small and not nxt:
+            state = grow_state(state, n_big)
+            switches += 1
+        in_small = nxt
+        t += tc
+    return StagedRun(state=state, infos=concat_infos(infos_chunks),
+                     modes=modes, switches=switches)

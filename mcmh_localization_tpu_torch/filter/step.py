@@ -1,0 +1,470 @@
+"""The filter step (port of ``mcmh_localization_tpu/filter/step.py``) for
+the KLD-adaptive modes with the corr scorer.
+
+One scan is ``_predict`` (odometry proposal) then ``_correct`` (score the
+proposed and previous sets in one call, MH, augmented-MCL bookkeeping,
+anchor refresh, estimate, ESS-gated KLD resample).  PyTorch runs eagerly,
+so ``run`` is a Python loop in place of ``lax.scan``, and the JAX
+program's data-dependent branches are host ``if``s on synced scalars: the
+window origin, the ESS gate (JAX ``while_loop`` at step.py:748), the KLD
+escalation (resampling.py:464) and the injection ``lax.cond`` (:529).
+Capturing the step in a CUDA graph is later work.
+
+Random draws: each scan's draws come from the state's generator, or from
+an optional ``Draws`` record (so a test can hand in the JAX draws).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from mcmh_localization_tpu_torch.config import check_supported
+from mcmh_localization_tpu_torch.filter.estimate import (
+    PoseEstimate,
+    cluster_mass,
+    estimate_pose,
+    estimate_pose_cluster,
+)
+from mcmh_localization_tpu_torch.filter.init import init_gaussian, init_uniform
+from mcmh_localization_tpu_torch.filter.mh import asymmetric_mh, symmetric_mh
+from mcmh_localization_tpu_torch.filter.state import (
+    FilterState,
+    make_generator,
+    make_state,
+)
+from mcmh_localization_tpu_torch.models.corr_field import correlation_field_scores
+from mcmh_localization_tpu_torch.models.motion import (
+    invert_delta,
+    motion_density,
+    sample_motion,
+)
+from mcmh_localization_tpu_torch.models.sensor import log_likelihood_field
+from mcmh_localization_tpu_torch.ops.resampling import (
+    effective_sample_size,
+    kld_resample,
+    softmax_weights,
+)
+from mcmh_localization_tpu_torch.utils.angles import (
+    normalize_angle,
+    normalize_angle_about,
+)
+
+
+class StepInfo(NamedTuple):
+    """Per-scan observability record (fields as the JAX StepInfo)."""
+
+    estimate: PoseEstimate
+    ess: torch.Tensor
+    accept_rate: torch.Tensor
+    count: torch.Tensor
+    p_random: torch.Tensor
+    w_slow: torch.Tensor
+    w_fast: torch.Tensor
+    anchor_mass: torch.Tensor
+
+
+@dataclasses.dataclass
+class Draws:
+    """One scan's random draws; a field left None is drawn from the
+    state's generator.  Shapes (n = n_max):
+
+    motion (n, 3) normals; mh_u (n,) uniforms; kld_r () uniform;
+    kld_noise / kld_noise_tail: see ops/resampling.py::kld_resample;
+    inject_cells / inject_jitter / inject_theta: see filter/init.py::
+    init_uniform."""
+
+    motion: torch.Tensor | None = None
+    mh_u: torch.Tensor | None = None
+    kld_r: torch.Tensor | None = None
+    kld_noise: torch.Tensor | None = None
+    kld_noise_tail: torch.Tensor | None = None
+    inject_cells: torch.Tensor | None = None
+    inject_jitter: torch.Tensor | None = None
+    inject_theta: torch.Tensor | None = None
+
+
+def as_f32(x, device) -> torch.Tensor:
+    """A float32 tensor on ``device`` from a tensor, array or list."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.array(x, dtype=np.float32))
+    return x.to(device=device, dtype=torch.float32)
+
+
+def state_size(config) -> int:
+    """Static particle-array size for a config."""
+    return config.max_particles if config.use_adaptive else config.num_particles
+
+
+def stack_infos(infos: list) -> StepInfo:
+    """Stack per-scan StepInfos along a new leading axis."""
+    return StepInfo(
+        estimate=PoseEstimate(
+            mean=torch.stack([i.estimate.mean for i in infos]),
+            cov=torch.stack([i.estimate.cov for i in infos]),
+        ),
+        **{f: torch.stack([getattr(i, f) for i in infos])
+           for f in StepInfo._fields if f != "estimate"},
+    )
+
+
+def concat_infos(chunks: list) -> StepInfo:
+    """Concatenate stacked StepInfos along the scan axis."""
+    return StepInfo(
+        estimate=PoseEstimate(
+            mean=torch.cat([c.estimate.mean for c in chunks]),
+            cov=torch.cat([c.estimate.cov for c in chunks]),
+        ),
+        **{f: torch.cat([getattr(c, f) for c in chunks])
+           for f in StepInfo._fields if f != "estimate"},
+    )
+
+
+# ---------------------------------------------------------------------------
+# predict (odom) step
+# ---------------------------------------------------------------------------
+
+def advance_anchor(anchor: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """Noise-free rot1/trans/rot2 odometry applied to the anchor pose."""
+    th1 = anchor[2] + delta[0]
+    x = anchor[0] + delta[1] * torch.cos(th1)
+    y = anchor[1] + delta[1] * torch.sin(th1)
+    return torch.stack([x, y, normalize_angle(th1 + delta[2])]).to(torch.float32)
+
+
+def _predict(state: FilterState, delta: torch.Tensor, grid_map, config,
+             draws: Draws | None = None) -> FilterState:
+    """Motion proposal with no validity retries (motion_validity="score")."""
+    delta = torch.as_tensor(delta, dtype=torch.float32, device=state.device)
+    proposed = sample_motion(
+        state.particles, delta, config.alpha,
+        noise=draws.motion if draws is not None else None,
+        generator=state.key,
+    )
+    return state.replace(
+        prev_particles=state.particles,
+        particles=proposed,
+        delta=delta,
+        anchor=advance_anchor(state.anchor, delta),
+    )
+
+
+# ---------------------------------------------------------------------------
+# correct (scan) step
+# ---------------------------------------------------------------------------
+
+def _window_origin(state: FilterState, grid_map, config,
+                   n_theta: int | None = None) -> tuple:
+    """(oy0, ox0[, kstart]) python ints: the corr window's lower-left cell
+    and first theta bin, centered on the anchor (window_center="anchor")
+    or the active cloud's mean; see the JAX docstring (step.py:231-263)."""
+    mask = state.active_mask
+    half = config.corr_window_cells // 2
+    if config.window_center == "anchor":
+        cx, cy = state.anchor[0], state.anchor[1]
+        mean_t = state.anchor[2]
+        if config.use_mh:
+            mean_t = normalize_angle(
+                mean_t - 0.5 * (state.delta[0] + state.delta[2]))
+    else:
+        n = torch.clamp(mask.sum(), min=1)
+        cx = torch.where(mask, state.particles[:, 0], 0.0).sum() / n
+        cy = torch.where(mask, state.particles[:, 1], 0.0).sum() / n
+        mean_t = None
+    ox0 = ((cx - grid_map.origin[0]) * grid_map.inv_res).to(torch.int32) - half
+    oy0 = ((cy - grid_map.origin[1]) * grid_map.inv_res).to(torch.int32) - half
+    if not config.corr_theta_window_bins:
+        return tuple(torch.stack([oy0, ox0]).tolist())
+    if mean_t is None:
+        sets = ((state.particles, state.prev_particles) if config.use_mh
+                else (state.particles,))
+        c = sum(torch.where(mask, torch.cos(p[:, 2]), 0.0).sum() for p in sets)
+        s = sum(torch.where(mask, torch.sin(p[:, 2]), 0.0).sum() for p in sets)
+        mean_t = torch.atan2(s, c)
+    k = n_theta if n_theta is not None else config.corr_n_theta
+    kmid = ((mean_t + math.pi) * (k / (2.0 * math.pi))).to(torch.int32) % k
+    kstart = (kmid - config.corr_theta_window_bins // 2) % k
+    return tuple(torch.stack([oy0, ox0, kstart]).tolist())
+
+
+def refresh_anchor(particles, weights, anchor, streak, config, mask,
+                   score_scale=1.0):
+    """Cluster-mass-gated, debounced window-anchor update; returns
+    (anchor, anchor_mass, streak).  See the JAX docstring (step.py:307)."""
+    w = torch.where(mask, weights, 0.0)
+    top = torch.argmax(w)
+    cand = particles[top].to(torch.float32)
+    rxy, rth = config.cluster_radius_xy, config.cluster_radius_theta
+    m_cand = cluster_mass(particles, w, cand, rxy, rth)
+    m_cur = cluster_mass(particles, w, anchor, rxy, rth)
+    d_xy = torch.hypot(cand[0] - anchor[0], cand[1] - anchor[1])
+    d_th = torch.abs(normalize_angle_about(cand[2], anchor[2]))
+    same_mode = (d_xy <= rxy) & (d_th <= rth)
+    migrate = m_cand > config.anchor_hysteresis * m_cur
+    if config.anchor_score_margin > 0.0:
+        d2 = ((particles[:, 0] - anchor[0]) ** 2
+              + (particles[:, 1] - anchor[1]) ** 2)
+        inc = (d2 <= rxy ** 2) & (
+            torch.abs(normalize_angle_about(particles[:, 2], anchor[2])) <= rth)
+        w_inc_top = torch.where(inc, w, 0.0).max()
+        w_cand_top = w[top]
+        migrate = migrate & (
+            w_inc_top < w_cand_top * torch.exp(
+                torch.as_tensor(-config.anchor_score_margin * score_scale)))
+    challenge = migrate & ~same_mode
+    streak = torch.where(challenge, streak + 1, 0).to(torch.int32)
+    migrate = migrate & (streak >= config.anchor_commit_scans)
+    adopt = same_mode | migrate
+    streak = torch.where(migrate, 0, streak).to(torch.int32)
+    return (
+        torch.where(adopt, cand, anchor).to(torch.float32),
+        torch.where(adopt, m_cand, m_cur),
+        streak,
+    )
+
+
+def _transition_probabilities(state: FilterState, config):
+    fwd = motion_density(state.prev_particles, state.particles, state.delta,
+                         config.alpha)
+    bwd_delta = invert_delta(state.delta,
+                             ref_compat=config.ref_compat_backward_delta)
+    bwd = motion_density(state.particles, state.prev_particles, bwd_delta,
+                         config.alpha)
+    return fwd, bwd
+
+
+def _p_random(state: FilterState, config) -> torch.Tensor:
+    p = torch.clamp(1.0 - state.w_fast / (state.w_slow + 1e-9), min=0.0)
+    return torch.where(p >= config.min_injection_prob, p, 0.0)
+
+
+def _resample_kld(state: FilterState, grid_map, config, d: Draws):
+    """Augmented-MCL injection + KLD-sized systematic resampling
+    (resample_amcl_kld, amcmh_localizer.py:496-527)."""
+    n = state.count
+    n_max = state.n_max
+    dev = state.device
+    p_random = _p_random(state, config)
+    n_drop = (p_random * n.to(torch.float32)).to(torch.int32)
+    n_resampled = n - n_drop
+    if config.injection_refill:
+        n_random = (p_random * float(n_max)).to(torch.int32)
+    else:
+        n_random = n_drop
+    samples, n_kept = kld_resample(
+        state.particles, state.weights,
+        max_samples=n_max,
+        min_particles=config.min_particles,
+        bin_size_xy=config.kld_bin_size_xy,
+        bin_size_theta=config.kld_bin_size_theta,
+        epsilon=config.kld_epsilon,
+        z=config.kld_z,
+        count=n_resampled,
+        eval_window=config.kld_eval_window,
+        stop_rule=("new_bin" if config.ref_compat_kld_newbin_stop
+                   else "every_sample"),
+        r=d.kld_r, noise=d.kld_noise, noise_tail=d.kld_noise_tail,
+        generator=state.key,
+    )
+    n_kept = torch.minimum(n_kept, n_resampled)
+    nr = int(n_random)  # host if in place of the JAX lax.cond (step.py:529)
+    if nr > 0:
+        # injected randoms take the FIRST slots (reference order); the kept
+        # samples shift behind them
+        randoms = init_uniform(n_max, grid_map, generator=state.key,
+                               cells=d.inject_cells, jitter=d.inject_jitter,
+                               theta=d.inject_theta)
+        take_random = torch.arange(n_max, device=dev) < nr
+        particles = torch.where(take_random[:, None], randoms,
+                                torch.roll(samples, nr, dims=0))
+    else:
+        particles = samples
+    new_count = torch.clamp(n_random + n_kept, config.min_particles,
+                            n_max).to(torch.int32)
+    mask = torch.arange(n_max, device=dev) < new_count
+    weights = torch.where(mask, 1.0 / new_count.to(torch.float32), 0.0)
+    return (state.replace(particles=particles, weights=weights,
+                          count=new_count), p_random)
+
+
+def _beam_count(ranges: torch.Tensor, config) -> torch.Tensor:
+    sig = ranges[:: config.step] if config.step > 1 else ranges
+    return (torch.isfinite(sig) & (sig < config.max_range)).sum()
+
+
+def _correct(state: FilterState, ranges: torch.Tensor, angles: torch.Tensor,
+             grid_map, log_field: torch.Tensor, config,
+             draws: Draws | None = None):
+    """Measurement update (lidar_callback, amcmh_localizer.py:294-338)."""
+    d = draws if draws is not None else Draws()
+    mask = state.active_mask
+    wo = (_window_origin(state, grid_map, config)
+          if config.corr_window_cells else None)
+
+    def score(p):
+        return correlation_field_scores(
+            p, ranges, angles, grid_map, config, log_field=log_field,
+            n_theta=config.corr_n_theta, window_origin=wo)
+
+    # inactive slots collapse onto slot 0 (always active) before scoring
+    anchor = state.particles[0]
+    p_sc = torch.where(mask[:, None], state.particles, anchor)
+    carry_on = config.resample_ess_threshold < 1.0
+    log_carry = (torch.log(torch.clamp(state.weights, min=1e-30))
+                 if carry_on else 0.0)
+    if config.use_mh:
+        n_max = state.n_max
+        prev_sc = torch.where(mask[:, None], state.prev_particles, anchor)
+        s_both = score(torch.cat([p_sc, prev_sc]))  # one field build
+        s_post = s_both[:n_max]
+        weights_post = softmax_weights(s_post + log_carry, mask)
+        weights_pre = softmax_weights(s_both[n_max:] + log_carry, mask)
+        if config.asymmetric:
+            fwd, bwd = _transition_probabilities(state, config)
+            particles, weights, accepted = asymmetric_mh(
+                state.prev_particles, state.particles, weights_post,
+                weights_pre, fwd, bwd,
+                ref_compat_guard=config.ref_compat_assym_guard,
+                u=d.mh_u, generator=state.key)
+        else:
+            particles, weights, accepted = symmetric_mh(
+                state.prev_particles, state.particles, weights_post,
+                weights_pre, u=d.mh_u, generator=state.key)
+        accept_rate = (torch.where(mask, accepted, False).sum()
+                       / torch.clamp(state.count, min=1))
+        state = state.replace(particles=particles)
+    else:
+        s_post = score(p_sc)
+        weights = softmax_weights(s_post + log_carry, mask)
+        accept_rate = torch.tensor(1.0, device=state.device)
+
+    # -- augmented-MCL bookkeeping (update_acml_weights, :276-286)
+    weights = torch.where(mask, weights, 0.0)
+    weights = weights / torch.clamp(weights.sum(), min=1e-30)
+    if config.ref_compat_w_avg:
+        w_avg = weights.sum() / torch.clamp(state.count, min=1)
+    else:
+        # per-beam geometric-mean likelihood of the current set
+        per_beam = (s_post / torch.clamp(_beam_count(ranges, config), min=1)
+                    if config.score_aggregation == "sum" else s_post)
+        w_avg = (torch.where(mask, torch.exp(per_beam), 0.0).sum()
+                 / torch.clamp(state.count, min=1))
+    state = state.replace(
+        w_slow=state.w_slow + config.alpha_slow * (w_avg - state.w_slow),
+        w_fast=state.w_fast + config.alpha_fast * (w_avg - state.w_fast),
+        weights=weights,
+    )
+
+    # -- window anchor refresh on the pre-resample weights
+    scale = (torch.clamp(_beam_count(ranges, config), min=1).to(torch.float32)
+             if config.score_aggregation == "sum" else 1.0)
+    new_anchor, anchor_mass, new_streak = refresh_anchor(
+        state.particles, state.weights, state.anchor, state.anchor_streak,
+        config, mask, score_scale=scale)
+    state = state.replace(anchor=new_anchor, anchor_streak=new_streak)
+
+    # -- estimate before resampling (:327)
+    if config.estimate_mode in ("cluster", "anchor"):
+        est = estimate_pose_cluster(
+            state.particles, state.weights, mask,
+            radius_xy=config.cluster_radius_xy,
+            radius_theta=config.cluster_radius_theta,
+            anchor=state.anchor if config.estimate_mode == "anchor" else None)
+    else:
+        est = estimate_pose(state.particles, state.weights, mask)
+    ess = effective_sample_size(state.weights)
+
+    # -- resample, ESS-gated when the threshold is below 1 (host if in
+    # place of the JAX 0/1-iteration while_loop, step.py:748)
+    p_random = torch.tensor(0.0, device=state.device)
+    if carry_on:
+        need = ((ess < config.resample_ess_threshold
+                 * state.count.to(torch.float32))
+                | (_p_random(state, config) > 0))
+        if bool(need):
+            state, p_random = _resample_kld(state, grid_map, config, d)
+    else:
+        state, p_random = _resample_kld(state, grid_map, config, d)
+
+    info = StepInfo(
+        estimate=est, ess=ess, accept_rate=accept_rate, count=state.count,
+        p_random=p_random, w_slow=state.w_slow, w_fast=state.w_fast,
+        anchor_mass=anchor_mass,
+    )
+    return state, info
+
+
+# ---------------------------------------------------------------------------
+# public factory
+# ---------------------------------------------------------------------------
+
+class FilterModel:
+    """A config + map bound into init / predict / correct / step / run.
+
+    ``log_field`` is the per-(map, config) log-likelihood table, built once
+    on the map's device."""
+
+    def __init__(self, config, grid_map):
+        check_supported(config)
+        self.config = config
+        self.grid_map = grid_map
+        self.log_field = log_likelihood_field(grid_map, config)
+
+    @property
+    def device(self) -> torch.device:
+        return self.grid_map.device
+
+    def init(self, seed: int | torch.Generator = 0, initial_pose=None,
+             initial_cov=None) -> FilterState:
+        """Gaussian around a pose when config.initialized (or a pose is
+        given), else uniform over free space (amcmh_localizer.py:179-197)."""
+        cfg = self.config
+        gen = (seed if isinstance(seed, torch.Generator)
+               else make_generator(seed, self.device))
+        n = cfg.num_particles
+        if cfg.initialized or initial_pose is not None:
+            mean = initial_pose if initial_pose is not None else cfg.initial_pose
+            cov = (torch.diag(torch.tensor(cfg.initial_cov, dtype=torch.float32))
+                   if initial_cov is None else initial_cov)
+            particles = init_gaussian(
+                mean, cov, n, self.grid_map,
+                ref_compat=cfg.ref_compat_gaussian_init, generator=gen)
+        else:
+            particles = init_uniform(n, self.grid_map, generator=gen)
+        w_init = 1e-3 if cfg.ref_compat_w_init else 1.0 / n
+        return make_state(particles, n, gen, state_size(cfg), w_init=w_init)
+
+    def predict(self, state, delta, draws: Draws | None = None):
+        return _predict(state, delta, self.grid_map, self.config, draws)
+
+    def correct(self, state, ranges, angles, draws: Draws | None = None):
+        return _correct(state, self._on_device(ranges),
+                        self._on_device(angles), self.grid_map,
+                        self.log_field, self.config, draws)
+
+    def step(self, state, ranges, angles, delta, draws: Draws | None = None):
+        return self.correct(self.predict(state, delta, draws), ranges,
+                            angles, draws)
+
+    def run(self, state, ranges_seq, angles, deltas):
+        """A trajectory, one step per scan: (T, M) ranges, (M,) angles,
+        (T, 3) deltas -> (final state, stacked StepInfo)."""
+        ranges_seq = self._on_device(ranges_seq)
+        angles = self._on_device(angles)
+        deltas = self._on_device(deltas)
+        infos = []
+        for t in range(ranges_seq.shape[0]):
+            state, info = self.step(state, ranges_seq[t], angles, deltas[t])
+            infos.append(info)
+        return state, stack_infos(infos)
+
+    def _on_device(self, x) -> torch.Tensor:
+        return as_f32(x, self.device)
+
+
+def make_model(config, grid_map) -> FilterModel:
+    return FilterModel(config, grid_map)

@@ -1,0 +1,112 @@
+"""Odometry motion model (port of ``mcmh_localization_tpu/models/motion.py``).
+
+Only the ``retries=0`` proposal is ported: the main path takes the raw draw
+and folds map validity into the sensor score (``motion_validity="score"``);
+the rejection retries are ROADMAP item 11.  The proposal noise comes in as
+``noise`` (so a test can hand it the JAX draws) or from ``generator``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from mcmh_localization_tpu_torch.utils.angles import normalize_angle
+
+_SIGMA_MIN = 1e-9
+
+
+def compute_motion(odom_prev: torch.Tensor, odom_curr: torch.Tensor) -> torch.Tensor:
+    """(rot1, trans, rot2) between two odometry poses
+    (amcmh_localizer.py:410-421; rot1 is not wrapped, like the reference)."""
+    dx = odom_curr[0] - odom_prev[0]
+    dy = odom_curr[1] - odom_prev[1]
+    dtheta = normalize_angle(odom_curr[2] - odom_prev[2])
+    rot1 = torch.atan2(dy, dx) - odom_prev[2]
+    trans = torch.hypot(dx, dy)
+    rot2 = dtheta - rot1
+    return torch.stack([rot1, trans, rot2])
+
+
+def invert_delta(delta: torch.Tensor, ref_compat: bool = False) -> torch.Tensor:
+    """The reverse motion of ``delta``: ``(pi - rot2, trans, -rot1 - pi)``
+    wrapped, or the reference's rigid-body quirk with ``ref_compat``."""
+    r1, t, r2 = delta[0], delta[1], delta[2]
+    if ref_compat:
+        return torch.stack([
+            -r1 * torch.cos(r2) - t * torch.sin(r2),
+            r1 * torch.sin(r2) - t * torch.cos(r2),
+            -r2,
+        ])
+    return torch.stack([normalize_angle(math.pi - r2), t,
+                        normalize_angle(-r1 - math.pi)])
+
+
+def _noise_stds(delta, alpha):
+    rot1, trans, rot2 = delta[0], delta[1], delta[2]
+    a1, a2, a3, a4 = alpha
+    s_rot1 = a1 * torch.abs(rot1) + a2 * torch.abs(trans)
+    s_trans = a3 * torch.abs(trans) + a4 * (torch.abs(rot1) + torch.abs(rot2))
+    s_rot2 = a1 * torch.abs(rot2) + a2 * torch.abs(trans)
+    return s_rot1, s_trans, s_rot2
+
+
+def sample_motion(
+    particles: torch.Tensor,
+    delta: torch.Tensor,
+    alpha: Tuple[float, float, float, float],
+    noise: torch.Tensor | None = None,
+    generator: torch.Generator | None = None,
+) -> torch.Tensor:
+    """(N, 3) proposals through the noisy odometry model, no validity
+    check (the JAX ``retries=0`` path).  ``noise``: (N, 3) standard
+    normals; drawn from ``generator`` when None."""
+    n = particles.shape[0]
+    if noise is None:
+        noise = torch.randn((n, 3), generator=generator,
+                            device=particles.device, dtype=particles.dtype)
+    s_rot1, s_trans, s_rot2 = _noise_stds(delta, alpha)
+    r1_hat = delta[0] + noise[:, 0] * s_rot1
+    t_hat = delta[1] + noise[:, 1] * s_trans
+    r2_hat = delta[2] + noise[:, 2] * s_rot2
+    heading = particles[:, 2] + r1_hat
+    return torch.stack([
+        particles[:, 0] + t_hat * torch.cos(heading),
+        particles[:, 1] + t_hat * torch.sin(heading),
+        normalize_angle(heading + r2_hat),
+    ], dim=-1)
+
+
+def _gaussian_prob(diff, sigma):
+    s = torch.clamp(sigma, min=_SIGMA_MIN)
+    return torch.exp(-0.5 * (diff / s) ** 2) / torch.sqrt(2.0 * math.pi * s * s)
+
+
+def motion_density(
+    particles_prev: torch.Tensor,
+    particles_curr: torch.Tensor,
+    delta: torch.Tensor,
+    alpha: Tuple[float, float, float, float],
+    normalize: bool = True,
+) -> torch.Tensor:
+    """p(x_t | x_{t-1}, u_t) per particle pair, normalized to sum 1
+    (parallel_utils.py:282-330)."""
+    dx = particles_curr[:, 0] - particles_prev[:, 0]
+    dy = particles_curr[:, 1] - particles_prev[:, 1]
+    theta_prev = particles_prev[:, 2]
+    theta_curr = particles_curr[:, 2]
+    trans_hat = torch.sqrt(dx * dx + dy * dy)
+    rot1_hat = normalize_angle(torch.atan2(dy, dx) - theta_prev)
+    rot2_hat = normalize_angle(theta_curr - theta_prev - rot1_hat)
+    s_rot1, s_trans, s_rot2 = _noise_stds(delta, alpha)
+    p = (
+        _gaussian_prob(normalize_angle(delta[0] - rot1_hat), s_rot1)
+        * _gaussian_prob(delta[1] - trans_hat, s_trans)
+        * _gaussian_prob(normalize_angle(delta[2] - rot2_hat), s_rot2)
+    )
+    if not normalize:
+        return p
+    total = p.sum()
+    return torch.where(total > 0, p / total, p)

@@ -1,0 +1,152 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+The ``csrc/*.cu`` sources compile with plain ``nvcc`` for Hopper
+(``sm_90a``) into one shared library with a C interface, loaded with
+``ctypes``.  The build runs at first use, into ``build/torch_kernels/`` at
+the root of the checkout (listed in ``.gitignore``), under a file name that
+carries a hash of the sources and flags: an edited source rebuilds, an
+unchanged one loads the library already built.
+
+Every wrapper in ``ops/`` launches on ``torch.cuda.current_stream()``,
+raises when the launch reports an error, and adds one to its launch count
+(``launch_counts``) where it launches its kernel and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+SOURCES = ("corr_field_build.cu", "gather.cu", "rank.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    # no multiply-add contraction: the index math must round like the
+    # plain PyTorch version (the kernels also use explicit _rn intrinsics)
+    "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    "mcmh_corr_field_build": (_P, _I, _I, _P, _P, _I, _I, _P, _I, _I, _P),
+    "mcmh_gather_2d": (_P, _I, _I, _P, _P, _I, _P, _P),
+    "mcmh_corr_lookup": (
+        _P, _I, _I, _I, _P, _I, _P, _F, _F, _F, _F, _F, _I, _I, _I, _I, _I,
+        _I, _I, _I, _I, _I, _F, _F, _P, _P,
+    ),
+    "mcmh_rank_in_sorted": (_P, _I, _I, _P, _P, _P),
+    "mcmh_expand_sorted": (_P, _I, _P, _I, _I, _P, _P, _P),
+}
+
+_lib = None
+build_log = ""          # nvcc's output of the last build (ptxas -v lines)
+build_seconds = 0.0     # wall time of the last build; 0.0 when it was cached
+_launches: dict[str, int] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
+            "and PATH): the CUDA kernels build only where the CUDA toolkit "
+            "is installed"
+        )
+    return found
+
+
+def library_path() -> Path:
+    """The library file for the current sources and flags."""
+    h = hashlib.sha256()
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libmcmh_torch_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless the library for these sources exists."""
+    global build_log, build_seconds
+    import time
+
+    so = library_path()
+    if so.exists():
+        build_seconds = 0.0
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(CSRC / s) for s in SOURCES)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    build_log = res.stdout + res.stderr
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{build_log}"
+        )
+    os.replace(tmp, so)  # atomic: concurrent builders never see half a file
+    return so
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, args in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(args)
+            fn.restype = ctypes.c_int
+        lib.mcmh_error_string.argtypes = [ctypes.c_int]
+        lib.mcmh_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_launch(name: str, code: int) -> None:
+    """Raise on a refused launch; otherwise count it."""
+    if code != 0:
+        msg = library().mcmh_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed ({code}: {msg})")
+    _launches[name] = _launches.get(name, 0) + 1
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """A wrapper's device rule: CPU tensors take the plain version (the
+    caller checks that first); anything else must be CUDA, contiguous."""
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(
+                f"{name}: tensors must all be on one CUDA device or all on "
+                f"the CPU, got {t.device}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def launch_counts() -> dict[str, int]:
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    _launches.clear()

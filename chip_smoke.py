@@ -5,23 +5,36 @@
 
 1. Requires CUDA (exits non-zero without it) and prints the card's name
    and power limit as nvidia-smi reports them.
-2. Builds the port's CUDA kernels from ``mcmh_localization_tpu_torch/csrc``.
-3. Compares every kernel with its plain PyTorch version on the card at the
-   main path's shapes (BIG field K=120 384^2 M=360, SMALL field K=32 128^2,
-   lookups of 2x1M and 2x130048 poses, the 1M resampling expansion) and
-   times both with CUDA events.
-4. Drives the main path: AMHAMCL, KLD-adaptive at 1M capacity / 100k
-   minimum, 360 beams, the staged two-program runner with a 0.9 tracking
-   ESS gate and the windowed corr scorer, on a procedural 384x384 house map
-   at 0.05 m, over 4x16 scans of a closed circle; then times the SMALL
-   (tracking) and BIG programs.  Checks the run ends in the SMALL program,
-   estimates are finite, the final error is under 0.2 m, and the field
-   build, lookup and expansion kernels all launched.
-5. Prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` as
+2. Builds the port's CUDA kernels from ``mcmh_localization_tpu_torch/csrc``
+   (one nvcc per source, in parallel).
+3. ``[kernel]``: compares every kernel with its plain PyTorch version on
+   the card at the main paths' shapes and times both (``device_ms``):
+   BIG field K=120 384^2 M=360, SMALL/window field K=32 128^2, coarse field
+   K=36 96^2, lookups of 2x1M and 2x130048 poses, the window-score lookup
+   of 2x1M poses, the exact scorer at 2x1500 and 2x100k poses, the 1M
+   resampling expansion and take.
+4. ``[main]``: the staged main path: AMHAMCL, KLD-adaptive at 1M capacity /
+   100k minimum, 360 beams, the staged two-program runner with a 0.9
+   tracking ESS gate and the windowed corr scorer, on a procedural 384x384
+   house map at 0.05 m, over 4x16 scans of a closed circle; then times the
+   SMALL (tracking) and BIG programs.  Checks the run ends in the SMALL
+   program, estimates are finite, the final error is under 0.2 m, and the
+   field build, lookup and expansion kernels all launched.
+5. ``[single]``: the single-program flagship (``make_model``): AMHAMCL at
+   1M particles, the windowed corr scorer with its coarse fallback
+   (ungated), 16 settle + 16 timed scans; error under 0.2 m, the window
+   score and coarse build launched; then its KLD-adaptive twin (100k
+   minimum) and the 100k point with the default build gate of 8, timed.
+6. ``[exact]``: ``FilterConfig()`` with the exact "pallas" scorer and
+   motion_validity="reject" in all six modes (1500 particles, min 100, max
+   5000), each under 0.25 m over its last 8 scans with the exact scorer
+   and ``gather_2d`` launched; then corr vs exact ms/scan at 1500 and 100k
+   particles (where "auto"'s crossover lies on this card).
+7. Prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` as
    the last line.
 
-``--profile DIR`` also writes a torch.profiler table and trace of the
-tracking stretch to DIR.
+``--profile DIR`` also writes torch.profiler tables and traces of the
+timed stretches to DIR and prints each one's device idle share.
 """
 
 from __future__ import annotations
@@ -94,18 +107,33 @@ def nvidia_smi_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    for _ in range(warmup):
-        fn()
+def device_ms(fn, runs: int = 20) -> float:
+    """Device ms of one call: CUDA events around a run of back-to-back
+    calls, over the count; the median of ``runs`` runs.  A sleep kernel
+    queued ahead of each run holds the card while the host enqueues the
+    whole run, so the wrapper's host work stays out of the reading."""
+    fn()
     torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(reps):
-        fn()
-    e1.record()
+    t0 = time.perf_counter()
+    fn()
+    enqueue = time.perf_counter() - t0
     torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
+    per_run = max(1, min(100, int(2e-3 / (time.perf_counter() - t0))))
+    # at 2e9 cycles/s (above the card's top clock) the sleep outlasts three
+    # times the run's enqueue
+    cycles = int(3 * per_run * enqueue * 2e9)
+    times = []
+    for _ in range(runs):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        e0.record()
+        for _ in range(per_run):
+            fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1) / per_run)
+    return float(np.median(times))
 
 
 def compare_kernels(gm, cfg, small_cfg, log_field, ranges, angles, rows):
@@ -158,8 +186,8 @@ def compare_kernels(gm, cfg, small_cfg, log_field, ranges, angles, rows):
         err = float((out - ref).abs().max())
         tol = 1e-5 * m * lmax  # f32 sums of M log values
         check(err <= tol, f"{name}: max abs err {err} > {tol}")
-        ms = cuda_ms(lambda: corr_field_build(padded, ox, oy, fh, fw), 20)
-        pms = cuda_ms(lambda: corr_field_build_plain(padded, ox, oy, fh, fw), 3, 1)
+        ms = device_ms(lambda: corr_field_build(padded, ox, oy, fh, fw))
+        pms = device_ms(lambda: corr_field_build_plain(padded, ox, oy, fh, fw))
         print(f"[kernel] {name}: K={ox.shape[0]} {fh}x{fw} M={m} "
               f"max_abs_err={err} (tol {tol:.3g}) ms={ms:.4f} plain_ms={pms:.4f}")
         return out, err, ms, pms
@@ -206,8 +234,8 @@ def compare_kernels(gm, cfg, small_cfg, log_field, ranges, angles, rows):
         ref = corr_lookup_plain(field, parts, n_valid, geo, agg, True)
         torch.cuda.synchronize()
         check(torch.equal(out, ref), f"{name}: kernel != plain")
-        ms = cuda_ms(lambda: corr_lookup(field, parts, n_valid, geo, agg, True), 50)
-        pms = cuda_ms(lambda: corr_lookup_plain(field, parts, n_valid, geo, agg, True), 20)
+        ms = device_ms(lambda: corr_lookup(field, parts, n_valid, geo, agg, True))
+        pms = device_ms(lambda: corr_lookup_plain(field, parts, n_valid, geo, agg, True))
         print(f"[kernel] {name}: N=2x{n} bitwise=True ms={ms:.4f} plain_ms={pms:.4f}")
         look[name] = (ms, pms, parts)
     ms_lb, pms_lb, _ = look["corr_lookup BIG"]
@@ -225,9 +253,9 @@ def compare_kernels(gm, cfg, small_cfg, log_field, ranges, angles, rows):
     x = mxc.to(torch.int32).contiguous()
     g = gather_2d(table, y, x)
     check(torch.equal(g, gather_2d_plain(table, y, x)), "gather_2d != plain")
-    ms_g = cuda_ms(lambda: gather_2d(table, y, x), 50)
-    pms_g = cuda_ms(lambda: gather_2d_plain(table, y, x), 20)
-    print(f"[kernel] gather_2d (off the main path): table {tuple(table.shape)} "
+    ms_g = device_ms(lambda: gather_2d(table, y, x))
+    pms_g = device_ms(lambda: gather_2d_plain(table, y, x))
+    print(f"[kernel] gather_2d: table {tuple(table.shape)} "
           f"N={y.numel()} bitwise=True ms={ms_g:.4f} plain_ms={pms_g:.4f}")
 
     # resampling expansion: bounds of 1M posterior weights
@@ -244,10 +272,10 @@ def compare_kernels(gm, cfg, small_cfg, log_field, ranges, angles, rows):
         ri = rank_in_sorted(bound, num_out, count=n_big)
         check(torch.equal(ri, rank_in_sorted_plain(bound, num_out, n_big)),
               f"rank_in_sorted != plain at num_out={num_out}")
-        ms_e = cuda_ms(lambda: expand_sorted(bound, parts, num_out, n_big), 50)
-        pms_e = cuda_ms(lambda: expand_sorted_plain(bound, parts, num_out, n_big), 20)
-        ms_r = cuda_ms(lambda: rank_in_sorted(bound, num_out, n_big), 50)
-        pms_r = cuda_ms(lambda: rank_in_sorted_plain(bound, num_out, n_big), 20)
+        ms_e = device_ms(lambda: expand_sorted(bound, parts, num_out, n_big))
+        pms_e = device_ms(lambda: expand_sorted_plain(bound, parts, num_out, n_big))
+        ms_r = device_ms(lambda: rank_in_sorted(bound, num_out, n_big))
+        pms_r = device_ms(lambda: rank_in_sorted_plain(bound, num_out, n_big))
         print(f"[kernel] expand_sorted R={n_big} num_out={num_out}: bitwise=True "
               f"ms={ms_e:.4f} plain_ms={pms_e:.4f}")
         print(f"[kernel] rank_in_sorted (off the main path) R={n_big} "
@@ -256,6 +284,178 @@ def compare_kernels(gm, cfg, small_cfg, log_field, ranges, angles, rows):
                      source="mcmh_localization_tpu_torch/csrc/rank.cu",
                      replaces="mcmh_localization_tpu/ops/rank_pallas.py:361",
                      max_abs_err=0.0, ms=ms_e, plain_ms=pms_e))
+    rows.append(dict(name="gather_2d", route="cuda",
+                     source="mcmh_localization_tpu_torch/csrc/gather.cu",
+                     replaces="mcmh_localization_tpu/ops/gather_pallas.py:180",
+                     max_abs_err=0.0, ms=ms_g, plain_ms=pms_g))
+    rows.append(dict(name="rank_in_sorted", route="cuda",
+                     source="mcmh_localization_tpu_torch/csrc/rank.cu",
+                     replaces="mcmh_localization_tpu/ops/rank_pallas.py:212",
+                     max_abs_err=0.0, ms=ms_r, plain_ms=pms_r,
+                     on_main_path=False))
+    return field_small, (ox0, oy0, kstart), u, v, valid, wts
+
+
+def compare_slice2_kernels(gm, single_cfg, log_field, ranges, angles,
+                           field_small, window, u, v, valid, wts, rows):
+    """Phase 3 for the kernels of the single-program and exact paths:
+    window score (with the coarse field build), exact scorer, monotone take."""
+    from mcmh_localization_tpu_torch.filter.init import init_gaussian, init_uniform
+    from mcmh_localization_tpu_torch.models.corr_field import (
+        _coarse_field,
+        coarse_build_inputs,
+        coarse_shape,
+        window_geometry,
+    )
+    from mcmh_localization_tpu_torch.ops.corr_field_build import (
+        corr_field_build,
+        corr_field_build_plain,
+    )
+    from mcmh_localization_tpu_torch.ops.fused_score import (
+        window_escapees,
+        window_indices,
+        window_score,
+        window_score_plain,
+    )
+    from mcmh_localization_tpu_torch.ops.likelihood import (
+        likelihood_scores,
+        likelihood_scores_plain,
+    )
+    from mcmh_localization_tpu_torch.ops.resampling import (
+        systematic_resample_indices,
+    )
+    from mcmh_localization_tpu_torch.ops.take import (
+        take_rows_monotone,
+        take_rows_monotone_plain,
+    )
+
+    dev = log_field.device
+    m = int(ranges.shape[0])
+    lmax = float(log_field.abs().max())
+    gen = torch.Generator(device=dev).manual_seed(11)
+    cov = torch.diag(torch.tensor(single_cfg.initial_cov))
+
+    # the coarse field build: K=36, 96^2, M=360
+    kc, hc, wc = coarse_shape(single_cfg, *log_field.shape)
+    padded, ox, oy = coarse_build_inputs(u, v, valid, log_field, gm, single_cfg)
+    out = corr_field_build(padded, ox, oy, hc, wc)
+    ref = corr_field_build_plain(padded, ox, oy, hc, wc)
+    torch.cuda.synchronize()
+    err_c = float((out - ref).abs().max())
+    tol = 1e-5 * m * lmax
+    check(err_c <= tol, f"coarse field build: max abs err {err_c} > {tol}")
+    ms_c = device_ms(lambda: corr_field_build(padded, ox, oy, hc, wc))
+    pms_c = device_ms(lambda: corr_field_build_plain(padded, ox, oy, hc, wc))
+    print(f"[kernel] corr_field_build coarse: K={kc} {hc}x{wc} M={m} "
+          f"max_abs_err={err_c} (tol {tol:.3g}) ms={ms_c:.4f} plain_ms={pms_c:.4f}")
+    for row in rows:
+        if row["name"] == "corr_field_build":
+            row.update(max_abs_err=max(row["max_abs_err"], err_c),
+                       ms_coarse=ms_c, plain_ms_coarse=pms_c)
+
+    # kernel 5: the window score at 2x1M poses, a mixed cloud: tracked
+    # poses in the window, escapees across the map (coarse reads), and off
+    # the map (fills)
+    n = 2_000_000
+    nbins, fh, fw = field_small.shape
+    geo = window_geometry(gm, single_cfg, single_cfg.corr_n_theta, nbins,
+                          window[2], fh, fw, window[:2])
+    fine_t = field_small.transpose(0, 1).reshape(fh * nbins, fw).contiguous()
+    cfield = _coarse_field(u, v, valid, log_field, gm, single_cfg)
+    coarse_t = cfield.transpose(0, 1).reshape(hc * kc, wc).contiguous()
+    tracked = init_gaussian(START, cov, n - n // 4, gm, generator=gen)
+    spread = init_uniform(n // 4 - n // 64, gm, generator=gen)
+    off_map = (torch.rand((n // 64, 3), generator=gen, device=dev) - 0.5) * 60.0
+    parts = torch.cat([tracked, spread, off_map]).contiguous()
+    n_valid = valid.sum().to(torch.int32)
+    denom = n_valid.clamp(min=1).to(torch.float32)
+    args = (fine_t, coarse_t, parts, geo, denom, -100.0)
+    out = window_score(*args, count=n_valid)
+    ref = window_score_plain(*args, count=n_valid)
+    esc = window_escapees(parts, geo)
+    covered, _, _, in_map = window_indices(parts, geo)
+    torch.cuda.synchronize()
+    check(torch.equal(out, ref), "window_score: kernel != plain")
+    n_esc = int((in_map & ~covered).sum())
+    check(int(esc) == n_esc, f"window_escapees {int(esc)} != plain {n_esc}")
+    ms5 = device_ms(lambda: window_score(*args, count=n_valid))
+    pms5 = device_ms(lambda: window_score_plain(*args, count=n_valid))
+    ms_e = device_ms(lambda: window_escapees(parts, geo))
+    print(f"[kernel] window_score: N=2x{n // 2} fine {tuple(fine_t.shape)} "
+          f"coarse {tuple(coarse_t.shape)} escapees={n_esc} "
+          f"off_map={int((~in_map).sum())} bitwise=True ms={ms5:.4f} "
+          f"plain_ms={pms5:.4f}; window_escapees ms={ms_e:.4f}")
+    # the beam score field's op forms (divide by res, divide by the bin
+    # width, clip before the window), which the beam slice reuses
+    geo_b = geo._replace(
+        fine_scale=gm.res, theta_div=True, fine_div=True,
+        theta_scale=float(np.float32(2.0 * math.pi / geo.n_theta)),
+        clip_before_window=True)
+    out = window_score(fine_t, coarse_t, parts, geo_b, denom, -100.0,
+                       count=n_valid)
+    ref = window_score_plain(fine_t, coarse_t, parts, geo_b, denom, -100.0,
+                             count=n_valid)
+    torch.cuda.synchronize()
+    check(torch.equal(out, ref), "window_score (beam op forms): kernel != plain")
+    print(f"[kernel] window_score, beam op forms (fine_div, theta_div, "
+          f"clip_before_window): N=2x{n // 2} bitwise=True")
+    rows.append(dict(name="window_score", route="cuda",
+                     source="mcmh_localization_tpu_torch/csrc/fused_score.cu",
+                     replaces="mcmh_localization_tpu/ops/fused_score_pallas.py:170",
+                     max_abs_err=0.0, ms=ms5, plain_ms=pms5,
+                     ms_escapees=ms_e))
+
+    # kernel 6: the exact scorer at 2x1500 and 2x100k poses, 360 beams, on
+    # the 384^2 log field; the [exact] path's multiply form and the "jnp"
+    # divide form.  The beam sum runs in another order: |err| <= 1e-5 *
+    # max|L| after the "mean" divide
+    cnt = valid.sum().to(torch.int32)
+    tol6 = 1e-5 * lmax
+    err6, times6 = 0.0, {}
+    for n6 in (1500, 100_000):
+        p6 = init_gaussian(START, cov, 2 * n6, gm, generator=gen).contiguous()
+        for div in (False, True):
+            scale = gm.res if div else gm.inv_res
+            a6 = (p6, u, v, valid, log_field, gm.origin_xy[0], gm.origin_xy[1],
+                  scale, div, cnt, "mean")
+            got = likelihood_scores(*a6)
+            want = likelihood_scores_plain(*a6)
+            torch.cuda.synchronize()
+            e = float((got - want).abs().max())
+            check(e <= tol6, f"likelihood_scores n=2x{n6} div={div}: "
+                  f"max abs err {e} > {tol6}")
+            err6 = max(err6, e)
+            ms6 = device_ms(lambda: likelihood_scores(*a6))
+            pms6 = device_ms(lambda: likelihood_scores_plain(*a6))
+            times6[(n6, div)] = (ms6, pms6)
+            print(f"[kernel] likelihood_scores: N=2x{n6} M={m} "
+                  f"form={'div' if div else 'mul'} max_abs_err={e} "
+                  f"(tol {tol6:.3g}) ms={ms6:.4f} plain_ms={pms6:.4f}")
+    rows.append(dict(name="likelihood_scores", route="cuda",
+                     source="mcmh_localization_tpu_torch/csrc/likelihood.cu",
+                     replaces="mcmh_localization_tpu/ops/likelihood_pallas.py:113",
+                     max_abs_err=err6, ms=times6[(100_000, False)][0],
+                     plain_ms=times6[(100_000, False)][1],
+                     ms_1500=times6[(1500, False)][0],
+                     plain_ms_1500=times6[(1500, False)][1]))
+
+    # kernel 8: the monotone take of the 1M systematic indices, (1M, 3)
+    n8 = wts.shape[0]
+    r = torch.rand((), generator=gen, device=dev)
+    idx = systematic_resample_indices(wts, n8, count=n8, r=r)
+    got = take_rows_monotone(parts[:n8].contiguous(), idx)
+    check(torch.equal(got, take_rows_monotone_plain(parts[:n8], idx)),
+          "take_rows_monotone != plain")
+    src = parts[:n8].contiguous()
+    ms8 = device_ms(lambda: take_rows_monotone(src, idx))
+    pms8 = device_ms(lambda: take_rows_monotone_plain(src, idx))
+    print(f"[kernel] take_rows_monotone (off the main paths): ({n8}, 3) "
+          f"bitwise=True ms={ms8:.4f} plain_ms={pms8:.4f}")
+    rows.append(dict(name="take_rows_monotone", route="cuda",
+                     source="mcmh_localization_tpu_torch/csrc/take.cu",
+                     replaces="mcmh_localization_tpu/ops/take_pallas.py:98",
+                     max_abs_err=0.0, ms=ms8, plain_ms=pms8,
+                     on_main_path=False))
 
 
 def main(argv=None) -> int:
@@ -274,13 +474,13 @@ def main(argv=None) -> int:
           f"python {sys.version.split()[0]}")
 
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from mcmh_localization_tpu_torch.config import FilterConfig
+    from mcmh_localization_tpu_torch.config import MODES, FilterConfig
     from mcmh_localization_tpu_torch.filter.staged import (
         grow_state,
         make_staged_model,
         run_staged,
     )
-    from mcmh_localization_tpu_torch.filter.step import state_size
+    from mcmh_localization_tpu_torch.filter.step import make_model, state_size
     from mcmh_localization_tpu_torch.maps.grid_map import build_grid_map
     from mcmh_localization_tpu_torch.models.sensor import raycast
     from mcmh_localization_tpu_torch.ops import _cuda
@@ -322,10 +522,40 @@ def main(argv=None) -> int:
 
     # -- 3. kernels vs plain versions
     rows: list[dict] = []
-    compare_kernels(gm, staged.config, staged.small_config,
-                    staged.big.log_field, scans[0], angles, rows)
+    single_cfg = cfg.replace(min_particles=1_000_000)
+    field_small, window, u, v, valid, wts = compare_kernels(
+        gm, staged.config, staged.small_config, staged.big.log_field,
+        scans[0], angles, rows)
+    compare_slice2_kernels(gm, single_cfg, staged.big.log_field, scans[0],
+                           angles, field_small, window, u, v, valid, wts, rows)
+    del field_small, wts
+    path_counts: dict[str, dict[str, int]] = {}
 
-    # -- 4. the main path
+    def add_counts(path: str, counts: dict) -> None:
+        tot = path_counts.setdefault(path, {})
+        for k, n in counts.items():
+            tot[k] = tot.get(k, 0) + n
+
+    def timed(model, st, reps):
+        seq = scans.repeat(reps, 1)
+        dls = deltas.repeat(reps, 1)
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        st, infos = model.run(st, seq, angles, dls)
+        e1.record()
+        torch.cuda.synchronize()
+        return st, infos, e0.elapsed_time(e1) / seq.shape[0]
+
+    def final_error(infos) -> float:
+        e = infos.estimate.mean.cpu().numpy()
+        check(np.isfinite(e).all(), "non-finite estimate")
+        return float(np.hypot(e[-1, 0] - poses[-1, 0], e[-1, 1] - poses[-1, 1]))
+
+    to_profile = []
+
+    # -- 4. the staged main path
     _cuda.reset_launch_counts()
     state = staged.init(0)
     torch.cuda.synchronize()
@@ -347,48 +577,138 @@ def main(argv=None) -> int:
     check(np.isfinite(est).all(), "non-finite estimate")
     check(errs[-1] < 0.2, f"final error {errs[-1]:.3f} m >= 0.2 m")
 
-    def timed(model, st, reps):
-        seq = scans.repeat(reps, 1)
-        dls = deltas.repeat(reps, 1)
-        torch.cuda.synchronize()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        st, infos = model.run(st, seq, angles, dls)
-        e1.record()
-        torch.cuda.synchronize()
-        return st, infos, e0.elapsed_time(e1) / seq.shape[0]
-
     small_state, s_infos, ms_small = timed(staged.small, out.state, 3)
-    s_est = s_infos.estimate.mean.cpu().numpy()
-    s_err = float(np.hypot(s_est[-1, 0] - poses[-1, 0], s_est[-1, 1] - poses[-1, 1]))
+    s_err = final_error(s_infos)
     print(f"[main] SMALL (n_max={state_size(staged.small_config)}) tracking: "
           f"{ms_small:.4f} ms/scan over {3 * SCAN_LEN} scans on {smi}; "
           f"final error {s_err:.4f} m; counts {s_infos.count.min().item()}.."
           f"{s_infos.count.max().item()}")
-    check(np.isfinite(s_est).all(), "non-finite SMALL estimate")
     check(s_err < 0.2, f"SMALL final error {s_err:.3f} m >= 0.2 m")
     big_state = grow_state(small_state, state_size(staged.config))
     _, b_infos, ms_big = timed(staged.big, big_state, 1)
     print(f"[main] BIG (n_max={state_size(staged.config)}) program: "
           f"{ms_big:.4f} ms/scan over {SCAN_LEN} scans on {smi}")
-    check(np.isfinite(b_infos.estimate.mean.cpu().numpy()).all(),
-          "non-finite BIG estimate")
-    counts_after = _cuda.launch_counts()
-    print(f"[main] kernel launches in the main path: {counts_after}")
+    final_error(b_infos)
+    add_counts("main", _cuda.launch_counts())
+    print(f"[main] kernel launches in the main path: {path_counts['main']}")
+    for name in ("corr_field_build", "corr_lookup", "expand_sorted"):
+        check(path_counts["main"].get(name, 0) > 0, f"[main] {name} never launched")
+    to_profile += [("small", staged.small, small_state, ms_small),
+                   ("big", staged.big, big_state, ms_big)]
+    del staged, out, big_state
+
+    # -- 5. the single-program flagship: make_model at 1M, ungated coarse
+    # fallback, then its KLD twin and the 100k point with the gate of 8
+    _cuda.reset_launch_counts()
+    single = make_model(single_cfg, gm)
+    st, _, ms_settle = timed(single, single.init(0), 1)
+    c_settle = _cuda.launch_counts()
+    st, g_infos, ms_single = timed(single, st, 1)
+    err_single = final_error(g_infos)
+    c_single = _cuda.launch_counts()
+    n_scans = 2 * SCAN_LEN
+    builds = c_single.get("corr_field_build", 0)
+    print(f"[single] flagship (n={state_size(single_cfg)}, window 128, 32 of "
+          f"{single_cfg.corr_n_theta} bins, coarse x{single_cfg.corr_coarse_factor} "
+          f"at {single_cfg.corr_coarse_n_theta} bins, ungated): "
+          f"{ms_single:.4f} ms/scan over {SCAN_LEN} timed scans "
+          f"(settle {ms_settle:.4f}) on {smi}; final error {err_single:.4f} m; "
+          f"launches {c_single}")
+    check(err_single < 0.2, f"[single] final error {err_single:.3f} m >= 0.2 m")
+    check(c_single.get("window_score", 0) >= n_scans,
+          "[single] window_score not launched every scan")
+    # one fine and one coarse field build per scan
+    check(builds >= 2 * n_scans and c_settle.get("corr_field_build", 0) >= 2 * SCAN_LEN,
+          f"[single] {builds} field builds in {n_scans} scans: the coarse "
+          "build did not run every scan")
+    to_profile.append(("single", single, st, ms_single))
+    del single
+    for tag, cfg_x in (
+            ("kld_adaptive", single_cfg.replace(min_particles=100_000)),
+            ("100k_gated", single_cfg.replace(
+                num_particles=100_000, min_particles=100_000,
+                max_particles=100_000, coarse_gate_escapees=8))):
+        model = make_model(cfg_x, gm)
+        st, _, _ = timed(model, model.init(0), 1)
+        st, x_infos, ms_x = timed(model, st, 1)
+        err_x = final_error(x_infos)
+        print(f"[single] {tag} (n_max={state_size(cfg_x)}, min "
+              f"{cfg_x.min_particles}, gate {cfg_x.coarse_gate_escapees}): "
+              f"{ms_x:.4f} ms/scan on {smi}; final error {err_x:.4f} m; "
+              f"counts {x_infos.count.min().item()}..{x_infos.count.max().item()}")
+        check(err_x < 0.2, f"[single] {tag} final error {err_x:.3f} m >= 0.2 m")
+        del model, st
+    add_counts("single", _cuda.launch_counts())
+    print(f"[single] kernel launches: {path_counts['single']}")
+    check(path_counts["single"].get("window_escapees", 0) > 0,
+          "[single] the gated run never counted escapees")
+
+    # -- 6. the exact scorer: FilterConfig() in all six modes, then corr vs
+    # exact at 1500 and 100k
+    for mode in MODES:
+        _cuda.reset_launch_counts()
+        cfg_b = FilterConfig(mode=mode, initialized=True, initial_pose=START,
+                             likelihood_impl="pallas")
+        model = make_model(cfg_b, gm)
+        st, b1, _ = timed(model, model.init(0), 1)
+        st, b2, ms_b = timed(model, st, 1)
+        e = np.concatenate([b1.estimate.mean.cpu().numpy(),
+                            b2.estimate.mean.cpu().numpy()])
+        tr = np.tile(poses, (2, 1))
+        err8 = float(np.mean(np.hypot(e[-8:, 0] - tr[-8:, 0],
+                                      e[-8:, 1] - tr[-8:, 1])))
+        c = _cuda.launch_counts()
+        add_counts("exact", c)
+        print(f"[exact] {mode}: {ms_b:.4f} ms/scan (n={cfg_b.num_particles}, "
+              f"max {cfg_b.max_particles}, 'reject') on {smi}; mean error "
+              f"last 8 {err8:.4f} m; count {int(st.count)}; launches {c}")
+        check(np.isfinite(e).all(), f"[exact] {mode}: non-finite estimate")
+        check(err8 < 0.25, f"[exact] {mode}: error {err8:.3f} m >= 0.25 m")
+        check(c.get("likelihood_scores", 0) > 0 and c.get("gather_2d", 0) > 0,
+              f"[exact] {mode}: the exact scorer or gather_2d never launched")
+    cross = {}
+    for n in (1500, 100_000):
+        for impl in ("corr", "jnp"):
+            _cuda.reset_launch_counts()
+            kw = dict(num_particles=n, min_particles=n, max_particles=n)
+            cfg_x = (cfg.replace(coarse_gate_escapees=8, **kw) if impl == "corr"
+                     else FilterConfig(mode="AMHAMCL", initialized=True,
+                                       initial_pose=START,
+                                       likelihood_impl=impl, **kw))
+            model = make_model(cfg_x, gm)
+            st, _, _ = timed(model, model.init(0), 1)
+            st, x_infos, ms_x = timed(model, st, 1)
+            err_x = final_error(x_infos)
+            add_counts("exact" if impl == "jnp" else "single",
+                       _cuda.launch_counts())
+            cross[(n, impl)] = ms_x
+            print(f"[exact] AMHAMCL n={n} {impl}: {ms_x:.4f} ms/scan on {smi}; "
+                  f"final error {err_x:.4f} m")
+            check(err_x < 0.25, f"[exact] n={n} {impl}: error {err_x:.3f} m")
+            if impl == "jnp" and n == 100_000:
+                to_profile.append(("exact100k", model, st, ms_x))
+            del model, st
+    for n in (1500, 100_000):
+        faster = "corr" if cross[(n, "corr")] < cross[(n, "jnp")] else "exact"
+        print(f"[exact] auto crossover at n={n}: corr {cross[(n, 'corr')]:.4f} "
+              f"vs exact {cross[(n, 'jnp')]:.4f} ms/scan -> {faster} is "
+              f"faster on {smi} (auto picks "
+              f"{'corr' if n >= 8192 else 'exact'})")
+    print(f"[exact] kernel launches: {path_counts['exact']}")
+
     for row in rows:
-        row["launches"] = counts_after.get(row["name"], 0)
-        check(row["launches"] > 0, f"{row['name']} never launched")
+        row["launches"] = sum(c.get(row["name"], 0)
+                              for c in path_counts.values())
+        if row.get("on_main_path", True):
+            check(row["launches"] > 0, f"{row['name']} never launched")
+    print(f"[paths] launches per path: {json.dumps(path_counts)}")
 
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
 
         pdir = Path(args.profile)
         pdir.mkdir(parents=True, exist_ok=True)
-        for tag, model, st, ms in (
-                ("small", staged.small, small_state, ms_small),
-                ("big", staged.big,
-                 grow_state(small_state, state_size(staged.config)), ms_big)):
+        for tag, model, st, ms in to_profile:
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 timed(model, st, 1)
@@ -408,7 +728,10 @@ def main(argv=None) -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({"kernels": [
+        {**{k: r[k] for k in keys},
+         **({} if r.get("on_main_path", True) else {"on_main_path": False})}
+        for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

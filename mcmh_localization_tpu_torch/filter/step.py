@@ -1,14 +1,18 @@
-"""The filter step (port of ``mcmh_localization_tpu/filter/step.py``) for
-the KLD-adaptive modes with the corr scorer.
+"""The filter step (port of ``mcmh_localization_tpu/filter/step.py``): all
+six modes with the likelihood-field scorers (corr, and the exact "jnp" and
+"pallas" scorers).
 
-One scan is ``_predict`` (odometry proposal) then ``_correct`` (score the
-proposed and previous sets in one call, MH, augmented-MCL bookkeeping,
-anchor refresh, estimate, ESS-gated KLD resample).  PyTorch runs eagerly,
-so ``run`` is a Python loop in place of ``lax.scan``, and the JAX
-program's data-dependent branches are host ``if``s on synced scalars: the
-window origin, the ESS gate (JAX ``while_loop`` at step.py:748), the KLD
-escalation (resampling.py:464) and the injection ``lax.cond`` (:529).
-Capturing the step in a CUDA graph is later work.
+One scan is ``_predict`` (odometry proposal, with rejection retries under
+motion_validity="reject") then ``_correct`` (score the proposed and
+previous sets in one call, MH, augmented-MCL bookkeeping, anchor refresh,
+estimate, the optionally ESS-gated resample: KLD, "simple" or "lvr" in the
+adaptive modes, systematic otherwise).  PyTorch runs eagerly, so ``run`` is
+a Python loop in place of ``lax.scan``, and the JAX program's
+data-dependent branches are host ``if``s on synced scalars: the window
+origin, the ESS gate (JAX ``while_loop`` at step.py:748), the coarse-build
+gate (corr_field.py:562), the KLD escalation (resampling.py:464) and the
+injection ``lax.cond`` (:529).  Capturing the step in a CUDA graph is
+later work.
 
 Random draws: each scan's draws come from the state's generator, or from
 an optional ``Draws`` record (so a test can hand in the JAX draws).
@@ -43,16 +47,23 @@ from mcmh_localization_tpu_torch.models.motion import (
     motion_density,
     sample_motion,
 )
-from mcmh_localization_tpu_torch.models.sensor import log_likelihood_field
+from mcmh_localization_tpu_torch.models.sensor import (
+    likelihood_field_scores,
+    log_likelihood_field,
+    wrap_score_with_validity,
+)
 from mcmh_localization_tpu_torch.ops.resampling import (
     effective_sample_size,
     kld_resample,
+    multinomial_resample_indices,
     softmax_weights,
+    systematic_resample_particles,
 )
 from mcmh_localization_tpu_torch.utils.angles import (
     normalize_angle,
     normalize_angle_about,
 )
+from mcmh_localization_tpu_torch.utils.f32 import scalar
 
 
 class StepInfo(NamedTuple):
@@ -73,10 +84,15 @@ class Draws:
     """One scan's random draws; a field left None is drawn from the
     state's generator.  Shapes (n = n_max):
 
-    motion (n, 3) normals; mh_u (n,) uniforms; kld_r () uniform;
+    motion (n, 3) normals, or (motion_retries, n, 3) under
+    motion_validity="reject"; mh_u (n,) uniforms; kld_r () uniform;
     kld_noise / kld_noise_tail: see ops/resampling.py::kld_resample;
     inject_cells / inject_jitter / inject_theta: see filter/init.py::
-    init_uniform."""
+    init_uniform (the injected or, for "simple" and "lvr", the candidate
+    random particles); resample_r () uniform, the systematic offset of the
+    systematic and "lvr" resamplers; multinomial_u (n,) uniforms of the
+    "simple" resampler; lvr_coins (n,) uniforms of the "lvr" replacement
+    coins."""
 
     motion: torch.Tensor | None = None
     mh_u: torch.Tensor | None = None
@@ -86,6 +102,9 @@ class Draws:
     inject_cells: torch.Tensor | None = None
     inject_jitter: torch.Tensor | None = None
     inject_theta: torch.Tensor | None = None
+    resample_r: torch.Tensor | None = None
+    multinomial_u: torch.Tensor | None = None
+    lvr_coins: torch.Tensor | None = None
 
 
 def as_f32(x, device) -> torch.Tensor:
@@ -138,12 +157,16 @@ def advance_anchor(anchor: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
 
 def _predict(state: FilterState, delta: torch.Tensor, grid_map, config,
              draws: Draws | None = None) -> FilterState:
-    """Motion proposal with no validity retries (motion_validity="score")."""
+    """Motion proposal (move_particles, amcmh_localizer.py:384-408): the
+    raw draw under motion_validity="score", else ``motion_retries`` draws
+    checked against the map."""
     delta = torch.as_tensor(delta, dtype=torch.float32, device=state.device)
     proposed = sample_motion(
         state.particles, delta, config.alpha,
         noise=draws.motion if draws is not None else None,
-        generator=state.key,
+        generator=state.key, grid_map=grid_map,
+        retries=(0 if config.motion_validity == "score"
+                 else config.motion_retries),
     )
     return state.replace(
         prev_particles=state.particles,
@@ -156,6 +179,41 @@ def _predict(state: FilterState, delta: torch.Tensor, grid_map, config,
 # ---------------------------------------------------------------------------
 # correct (scan) step
 # ---------------------------------------------------------------------------
+
+# the corr field pays a particle-independent build; below this state size
+# the exact scorer is cheaper (the JAX package's TPU rule, step.py:118-128)
+AUTO_CORR_MIN_STATE = 8192
+
+
+def _resolved_likelihood_impl(config, device) -> str:
+    """``likelihood_impl`` with "auto" resolved: "corr" on a CUDA device at
+    ``state_size >= 8192``, the exact "jnp" scorer otherwise (the JAX rule
+    with the card in the TPU's place; off the accelerator both pick "jnp")."""
+    impl = config.likelihood_impl
+    if impl == "auto":
+        big = state_size(config) >= AUTO_CORR_MIN_STATE
+        impl = "corr" if (torch.device(device).type == "cuda" and big) else "jnp"
+    return impl
+
+
+def _make_scorer(ranges, angles, grid_map, log_field, config, impl,
+                 window_origin):
+    """The likelihood-field scorer for the resolved ``impl``: corr (with the
+    window origin, when windowed) or the exact scorer in the "jnp" (divide)
+    or "pallas" (multiply) cell form."""
+    if impl == "corr":
+        def score(p):
+            return correlation_field_scores(
+                p, ranges, angles, grid_map, config, log_field=log_field,
+                n_theta=config.corr_n_theta, window_origin=window_origin)
+        return score
+
+    def score(p):
+        return likelihood_field_scores(p, ranges, angles, grid_map, config,
+                                       log_field=log_field,
+                                       cell_div=impl == "jnp")
+    return score
+
 
 def _window_origin(state: FilterState, grid_map, config,
                    n_theta: int | None = None) -> tuple:
@@ -242,6 +300,67 @@ def _p_random(state: FilterState, config) -> torch.Tensor:
     return torch.where(p >= config.min_injection_prob, p, 0.0)
 
 
+def _uniform_weights(state: FilterState) -> torch.Tensor:
+    return torch.where(state.active_mask,
+                       1.0 / torch.clamp(state.count, min=1), 0.0
+                       ).to(torch.float32)
+
+
+def _resample_systematic(state: FilterState, grid_map, config, d: Draws):
+    """Non-adaptive path (resample_lvr, amcmh_localizer.py:488-492):
+    systematic resampling to the fixed count; the weights stay, except
+    under the ESS-gated carry-over, where they reset to uniform."""
+    resampled = systematic_resample_particles(
+        state.particles, state.weights, state.n_max, count=state.count,
+        r=d.resample_r, generator=state.key)
+    zero = scalar(0.0, state.device)
+    if config.resample_ess_threshold < 1.0:
+        return (state.replace(particles=resampled,
+                              weights=_uniform_weights(state)), zero)
+    return state.replace(particles=resampled), zero
+
+
+def _candidates(state: FilterState, grid_map, d: Draws) -> torch.Tensor:
+    return init_uniform(state.n_max, grid_map, generator=state.key,
+                        cells=d.inject_cells, jitter=d.inject_jitter,
+                        theta=d.inject_theta)
+
+
+def _resample_amcl_simple(state: FilterState, grid_map, config, d: Draws):
+    """Adaptive 'simple' (resample_amcl_simple, amcmh_localizer.py:444-458):
+    multinomial resampling of N - N_random slots, N_random fresh uniform
+    particles; count unchanged; uniform weights."""
+    n = state.count
+    p_random = _p_random(state, config)
+    n_random = (p_random * n.to(torch.float32)).to(torch.int32)
+    idx = multinomial_resample_indices(state.weights, state.n_max,
+                                       u=d.multinomial_u, generator=state.key)
+    randoms = _candidates(state, grid_map, d)
+    slot = torch.arange(state.n_max, device=state.device)
+    particles = torch.where((slot < n - n_random)[:, None],
+                            state.particles[idx.to(torch.int64)], randoms)
+    return (state.replace(particles=particles,
+                          weights=_uniform_weights(state)), p_random)
+
+
+def _resample_amcl_lvr(state: FilterState, grid_map, config, d: Draws):
+    """Adaptive 'lvr' (resample_amcl_lvr, amcmh_localizer.py:460-479):
+    systematic resampling, each slot replaced by a fresh uniform particle
+    with probability p_random; count unchanged; uniform weights."""
+    p_random = _p_random(state, config)
+    resampled = systematic_resample_particles(
+        state.particles, state.weights, state.n_max, count=state.count,
+        r=d.resample_r, generator=state.key)
+    randoms = _candidates(state, grid_map, d)
+    coins = d.lvr_coins
+    if coins is None:
+        coins = torch.rand((state.n_max,), generator=state.key,
+                           device=state.device)
+    particles = torch.where((coins < p_random)[:, None], randoms, resampled)
+    return (state.replace(particles=particles,
+                          weights=_uniform_weights(state)), p_random)
+
+
 def _resample_kld(state: FilterState, grid_map, config, d: Draws):
     """Augmented-MCL injection + KLD-sized systematic resampling
     (resample_amcl_kld, amcmh_localizer.py:496-527)."""
@@ -302,13 +421,14 @@ def _correct(state: FilterState, ranges: torch.Tensor, angles: torch.Tensor,
     """Measurement update (lidar_callback, amcmh_localizer.py:294-338)."""
     d = draws if draws is not None else Draws()
     mask = state.active_mask
+    impl = _resolved_likelihood_impl(config, state.device)
     wo = (_window_origin(state, grid_map, config)
-          if config.corr_window_cells else None)
-
-    def score(p):
-        return correlation_field_scores(
-            p, ranges, angles, grid_map, config, log_field=log_field,
-            n_theta=config.corr_n_theta, window_origin=wo)
+          if config.corr_window_cells and impl == "corr" else None)
+    score = _make_scorer(ranges, angles, grid_map, log_field, config, impl, wo)
+    if config.motion_validity == "score" and impl != "corr":
+        # the corr field folds the penalty into its build; the exact
+        # scorers take the explicit wrap (JAX step.py:581-593)
+        score = wrap_score_with_validity(score, grid_map, config, ranges)
 
     # inactive slots collapse onto slot 0 (always active) before scoring
     anchor = state.particles[0]
@@ -340,24 +460,25 @@ def _correct(state: FilterState, ranges: torch.Tensor, angles: torch.Tensor,
     else:
         s_post = score(p_sc)
         weights = softmax_weights(s_post + log_carry, mask)
-        accept_rate = torch.tensor(1.0, device=state.device)
+        accept_rate = scalar(1.0, state.device)
 
     # -- augmented-MCL bookkeeping (update_acml_weights, :276-286)
     weights = torch.where(mask, weights, 0.0)
     weights = weights / torch.clamp(weights.sum(), min=1e-30)
-    if config.ref_compat_w_avg:
-        w_avg = weights.sum() / torch.clamp(state.count, min=1)
-    else:
-        # per-beam geometric-mean likelihood of the current set
-        per_beam = (s_post / torch.clamp(_beam_count(ranges, config), min=1)
-                    if config.score_aggregation == "sum" else s_post)
-        w_avg = (torch.where(mask, torch.exp(per_beam), 0.0).sum()
-                 / torch.clamp(state.count, min=1))
-    state = state.replace(
-        w_slow=state.w_slow + config.alpha_slow * (w_avg - state.w_slow),
-        w_fast=state.w_fast + config.alpha_fast * (w_avg - state.w_fast),
-        weights=weights,
-    )
+    if config.use_adaptive:
+        if config.ref_compat_w_avg:
+            w_avg = weights.sum() / torch.clamp(state.count, min=1)
+        else:
+            # per-beam geometric-mean likelihood of the current set
+            per_beam = (s_post / torch.clamp(_beam_count(ranges, config), min=1)
+                        if config.score_aggregation == "sum" else s_post)
+            w_avg = (torch.where(mask, torch.exp(per_beam), 0.0).sum()
+                     / torch.clamp(state.count, min=1))
+        state = state.replace(
+            w_slow=state.w_slow + config.alpha_slow * (w_avg - state.w_slow),
+            w_fast=state.w_fast + config.alpha_fast * (w_avg - state.w_fast),
+        )
+    state = state.replace(weights=weights)
 
     # -- window anchor refresh on the pre-resample weights
     scale = (torch.clamp(_beam_count(ranges, config), min=1).to(torch.float32)
@@ -380,15 +501,20 @@ def _correct(state: FilterState, ranges: torch.Tensor, angles: torch.Tensor,
 
     # -- resample, ESS-gated when the threshold is below 1 (host if in
     # place of the JAX 0/1-iteration while_loop, step.py:748)
-    p_random = torch.tensor(0.0, device=state.device)
-    if carry_on:
-        need = ((ess < config.resample_ess_threshold
-                 * state.count.to(torch.float32))
-                | (_p_random(state, config) > 0))
-        if bool(need):
-            state, p_random = _resample_kld(state, grid_map, config, d)
+    if config.use_adaptive:
+        resample = {"kld": _resample_kld, "simple": _resample_amcl_simple,
+                    "lvr": _resample_amcl_lvr}[config.adaptive_resampler]
     else:
-        state, p_random = _resample_kld(state, grid_map, config, d)
+        resample = _resample_systematic
+    p_random = scalar(0.0, state.device)
+    if carry_on:
+        need = ess < config.resample_ess_threshold * state.count.to(torch.float32)
+        if config.use_adaptive:
+            need = need | (_p_random(state, config) > 0)
+        if bool(need):
+            state, p_random = resample(state, grid_map, config, d)
+    else:
+        state, p_random = resample(state, grid_map, config, d)
 
     info = StepInfo(
         estimate=est, ess=ess, accept_rate=accept_rate, count=state.count,

@@ -86,6 +86,10 @@ class GridMap:
         vals = gather_2d(self.free_mask, myc, mxc).reshape(ok.shape)
         return ok & (vals > 0.5)
 
+    def valid_mask(self, particles: torch.Tensor) -> torch.Tensor:
+        """(N,) bool: the pose's cell is free, for (N, 3) poses."""
+        return self.is_free_world(particles[..., 0], particles[..., 1])
+
 
 def build_grid_map(
     occupancy: np.ndarray,

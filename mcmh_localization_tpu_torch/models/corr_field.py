@@ -1,35 +1,52 @@
 """Correlation-field likelihood scorer (port of
-``mcmh_localization_tpu/models/corr_field.py``, the two modes the staged
-runner uses).
+``mcmh_localization_tpu/models/corr_field.py``).
 
 Per scan, ``F[k, cy, cx]`` is the summed per-beam log-likelihood a pose in
 cell (cy, cx) with heading in theta bin k would get; each particle then
-scores with one read of F.  Two modes:
+scores with one read of F.  Three modes:
 
-* full map, all ``n_theta`` bins (the BIG program: no window);
+* full map, all ``n_theta`` bins (the staged BIG program: no window);
 * a spatial + theta window at ``window_origin`` with no coarse fallback
-  (the SMALL program): out-of-window particles take the blind penalty.
+  (the staged SMALL program): out-of-window particles take the blind
+  penalty;
+* the window with the coarse fallback (``corr_coarse_factor > 0``, the
+  single-program configurations): out-of-window particles read a coarse
+  full-map field built on the block-max-pooled log field.
 
-The field build (``ops/corr_field_build.py``) and the fused per-particle
-lookup (``ops/gather.py::corr_lookup``) are CUDA kernels on the card.  One
-build serves every particle passed in, so the step scores the proposed and
-previous sets in one call.  The coarse out-of-window fallback is ROADMAP
-item 11.
+The field builds (``ops/corr_field_build.py``), the fused per-particle
+lookup (``ops/gather.py::corr_lookup``) and the windowed lookup with the
+coarse fallback (``ops/fused_score.py::window_score``) are CUDA kernels on
+the card.  One build serves every particle passed in, so the step scores
+the proposed and previous sets in one call.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from mcmh_localization_tpu_torch.models.sensor import (
+    BLIND_SCORE,
     INVALID_SCORE,
     log_likelihood_field,
 )
 from mcmh_localization_tpu_torch.ops.corr_field_build import corr_field_build
-from mcmh_localization_tpu_torch.ops.gather import LookupGeometry, corr_lookup
+from mcmh_localization_tpu_torch.ops.fused_score import (
+    WindowGeometry,
+    window_escapees,
+    window_score,
+)
+from mcmh_localization_tpu_torch.ops.gather import (
+    LookupGeometry,
+    corr_lookup,
+    theta_scale,
+)
+from mcmh_localization_tpu_torch.utils.f32 import scalar
+
+LOG_FLOOR_LOG = -13.815511  # log(1e-6), the coarse max-pool's pad value
 
 
 def _bin_offsets(u, v, valid, inv_res, n_theta, pad_cells, zero_band_row,
@@ -58,6 +75,63 @@ def pad_cells_for(config, grid_map) -> int:
     return int(-(-config.max_range // grid_map.res)) + 2
 
 
+def coarse_shape(config, h: int, w: int) -> tuple[int, int, int]:
+    """(kc, hc, wc) of the coarse fallback field for an (h, w) map."""
+    f = config.corr_coarse_factor
+    return config.corr_coarse_n_theta, -(-h // f), -(-w // f)
+
+
+def coarse_build_inputs(u, v, valid, log_field, grid_map, config,
+                        offsets=None):
+    """(padded, ox, oy): the coarse field build's table and bin offsets
+    (JAX :152-175).  The table is the f x f block MAX of the log field (an
+    optimistic bound, so out-of-window hypotheses are not handicapped
+    against fine scores), zero-padded, with the all-zero band below it that
+    invalid beams point at.  ``offsets``: optional (ox, oy) computed
+    elsewhere."""
+    f = config.corr_coarse_factor
+    kc, hc, wc = coarse_shape(config, *log_field.shape)
+    h, w = log_field.shape
+    lf = F.pad(log_field.to(torch.float32), (0, wc * f - w, 0, hc * f - h),
+               value=LOG_FLOOR_LOG)
+    coarse_lf = lf.reshape(hc, f, wc, f).amax(dim=(1, 3))
+    # res_c and 1 / res_c in python double, rounded to f32 once where they
+    # meet f32 data (JAX :163-167; the fine path's inv_res is f32 math)
+    res_c = f * grid_map.res
+    pad_c = int(-(-config.max_range // res_c)) + 2
+    padded = F.pad(coarse_lf, (pad_c, pad_c, pad_c, pad_c))
+    zero_band_row = padded.shape[0]
+    if offsets is None:
+        ox, oy = _bin_offsets(u, v, valid, 1.0 / res_c, kc, pad_c,
+                              zero_band_row)
+    else:
+        ox, oy = (o.to(torch.int32).contiguous() for o in offsets)
+    padded = torch.cat([padded, torch.zeros((hc, padded.shape[1]),
+                                            device=padded.device)])
+    return padded.contiguous(), ox, oy
+
+
+def _coarse_field(u, v, valid, log_field, grid_map, config, offsets=None):
+    """(kc, hc, wc) coarse full-map fallback field (JAX :127-190), built by
+    the field-build kernel at ``corr_coarse_n_theta`` bins; with
+    motion_validity="score", blocks without a free cell take the invalid
+    penalty."""
+    f = config.corr_coarse_factor
+    _, hc, wc = coarse_shape(config, *log_field.shape)
+    h, w = log_field.shape
+    padded, ox, oy = coarse_build_inputs(u, v, valid, log_field, grid_map,
+                                         config, offsets)
+    field = corr_field_build(padded, ox, oy, hc, wc)
+    if config.motion_validity == "score":
+        free = F.pad((grid_map.occupancy == 0).to(torch.uint8),
+                     (0, wc * f - w, 0, hc * f - h))
+        any_free = free.reshape(hc, f, wc, f).amax(dim=(1, 3)) > 0
+        count = valid.sum().to(torch.float32)
+        field = field + (INVALID_SCORE * count.clamp(min=1.0)) * torch.where(
+            any_free, 0.0, 1.0)[None]
+    return field.to(torch.float32)
+
+
 def correlation_field_scores(
     particles: torch.Tensor,
     ranges: torch.Tensor,
@@ -68,12 +142,15 @@ def correlation_field_scores(
     n_theta: int = 180,
     window_origin: tuple | None = None,  # (oy0, ox0[, kstart]) python ints
     offsets: tuple | None = None,
+    coarse_offsets: tuple | None = None,
 ) -> torch.Tensor:
     """(N,) per-particle scores via one field read each; the same
-    normalization, blind penalty and motion-validity fold as the JAX scorer.
+    normalization, blind penalty, coarse fallback and motion-validity fold
+    as the JAX scorer.
 
     ``offsets``: optional (ox, oy) from ``_bin_offsets`` (global zero-band
-    row), to score with offsets computed elsewhere."""
+    row), and ``coarse_offsets`` the coarse field's, to score with offsets
+    computed elsewhere."""
     if log_field is None:
         log_field = log_likelihood_field(grid_map, config)
     if config.step > 1:
@@ -91,9 +168,7 @@ def correlation_field_scores(
 
     win = config.corr_window_cells
     use_window = bool(win) and win < min(h, w) and window_origin is not None
-    if use_window and config.corr_coarse_factor:
-        raise NotImplementedError(
-            "the coarse out-of-window fallback is ROADMAP item 11")
+    use_coarse = use_window and bool(config.corr_coarse_factor)
     tw = config.corr_theta_window_bins
     use_theta_win = bool(tw) and use_window and len(window_origin) == 3
     nbins = tw if use_theta_win else n_theta
@@ -129,6 +204,11 @@ def correlation_field_scores(
         pen_total = INVALID_SCORE * n_valid.clamp(min=1).to(torch.float32)
         field = field + pen_total * torch.where(occ_win == 0, 0.0, 1.0)[None]
 
+    if use_coarse:
+        return _window_scores_with_coarse(
+            field, particles, u, v, valid, n_valid, log_field, grid_map,
+            config, n_theta, kstart, (ox0, oy0), coarse_offsets)
+
     geo = LookupGeometry(
         origin_x=grid_map.origin_xy[0], origin_y=grid_map.origin_xy[1],
         inv_res=grid_map.inv_res, n_theta=n_theta, nbins=nbins, fh=fh, fw=fw,
@@ -138,3 +218,56 @@ def correlation_field_scores(
     )
     return corr_lookup(field.contiguous(), particles.contiguous(), n_valid,
                        geo, config.score_aggregation, score_validity)
+
+
+def window_geometry(grid_map, config, n_theta, nbins, kstart, fh, fw,
+                    window) -> WindowGeometry:
+    """The corr scorer's lookup geometry for the window-score kernel: the
+    multiply forms (``(p - origin) * inv_res``, ``(pth + pi) * n_theta /
+    2pi``) and the coarse cell ``f32(f * res)`` divided (JAX :193-208)."""
+    h, w = grid_map.height, grid_map.width
+    kc, hc, wc = coarse_shape(config, h, w)
+    return WindowGeometry(
+        origin_x=grid_map.origin_xy[0], origin_y=grid_map.origin_xy[1],
+        fine_scale=grid_map.inv_res, theta_scale=theta_scale(n_theta),
+        n_theta=n_theta, nbins=nbins, kstart=kstart, fh=fh, fw=fw, h=h, w=w,
+        ox0=window[0], oy0=window[1], kc=kc, hc=hc, wc=wc,
+        res_c=float(np.float32(config.corr_coarse_factor * grid_map.res)),
+        kc_scale=theta_scale(kc))
+
+
+def _window_scores_with_coarse(field, particles, u, v, valid, n_valid,
+                               log_field, grid_map, config, n_theta, kstart,
+                               window, coarse_offsets):
+    """The windowed lookup with the coarse fallback (JAX :515-616): covered
+    particles read the (nbins, fh, fw) fine ``field``, in-map escapees the
+    coarse one, through the window-score kernel."""
+    nbins, fh, fw = field.shape
+    kc, hc, wc = coarse_shape(config, *log_field.shape)
+    geo = window_geometry(grid_map, config, n_theta, nbins, kstart, fh, fw,
+                          window)
+    mean = config.score_aggregation == "mean"
+    cnt = n_valid.clamp(min=1).to(torch.float32)
+    build = True
+    if config.coarse_gate_escapees:
+        # host if in place of the JAX 0-or-1-iteration while_loop (:553-565):
+        # below the gate the escapees take the blind fill, the build is
+        # skipped
+        build = (int(window_escapees(particles.contiguous(), geo))
+                 >= config.coarse_gate_escapees)
+    if build:
+        cfield = _coarse_field(u, v, valid, log_field, grid_map, config,
+                               offsets=coarse_offsets)
+        cfield_t = cfield.transpose(0, 1).reshape(hc * kc, wc).contiguous()
+    else:
+        # the blind fill (:539-544): BLIND_SCORE after the "mean" divide
+        fill = BLIND_SCORE * cnt if mean else scalar(BLIND_SCORE, field.device)
+        cfield_t = fill.expand(hc * kc, wc).contiguous()
+    fine_t = field.transpose(0, 1).reshape(fh * nbins, fw).contiguous()
+    denom = cnt if mean else 1.0
+    if config.motion_validity == "score":
+        fill_oom = INVALID_SCORE if mean else INVALID_SCORE * cnt
+    else:
+        fill_oom = 0.0
+    return window_score(fine_t, cfield_t, particles.contiguous(), geo, denom,
+                        fill_oom, count=n_valid)

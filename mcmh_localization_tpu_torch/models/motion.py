@@ -1,9 +1,10 @@
 """Odometry motion model (port of ``mcmh_localization_tpu/models/motion.py``).
 
-Only the ``retries=0`` proposal is ported: the main path takes the raw draw
-and folds map validity into the sensor score (``motion_validity="score"``);
-the rejection retries are ROADMAP item 11.  The proposal noise comes in as
-``noise`` (so a test can hand it the JAX draws) or from ``generator``.
+``sample_motion`` takes the raw draw (``retries=0``, for
+``motion_validity="score"``, which folds map validity into the sensor
+score) or the first of ``retries`` draws that lands on a free cell
+(``motion_validity="reject"``).  The proposal noise comes in as ``noise``
+(so a test can hand it the JAX draws) or from ``generator``.
 """
 
 from __future__ import annotations
@@ -59,24 +60,43 @@ def sample_motion(
     alpha: Tuple[float, float, float, float],
     noise: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
+    grid_map=None,
+    retries: int = 0,
 ) -> torch.Tensor:
-    """(N, 3) proposals through the noisy odometry model, no validity
-    check (the JAX ``retries=0`` path).  ``noise``: (N, 3) standard
-    normals; drawn from ``generator`` when None."""
+    """(N, 3) proposals through the noisy odometry model.
+
+    ``retries=0``: the raw draw, no validity check; ``noise`` (N, 3)
+    standard normals.  ``retries > 0``: ``noise`` (retries, N, 3); each
+    particle takes its first candidate on a free cell of ``grid_map`` and
+    keeps its old pose when none is (JAX motion.py:154-178).  ``noise`` is
+    drawn from ``generator`` when None."""
     n = particles.shape[0]
+    shape = (n, 3) if retries == 0 else (retries, n, 3)
     if noise is None:
-        noise = torch.randn((n, 3), generator=generator,
+        noise = torch.randn(shape, generator=generator,
                             device=particles.device, dtype=particles.dtype)
     s_rot1, s_trans, s_rot2 = _noise_stds(delta, alpha)
-    r1_hat = delta[0] + noise[:, 0] * s_rot1
-    t_hat = delta[1] + noise[:, 1] * s_trans
-    r2_hat = delta[2] + noise[:, 2] * s_rot2
-    heading = particles[:, 2] + r1_hat
-    return torch.stack([
-        particles[:, 0] + t_hat * torch.cos(heading),
-        particles[:, 1] + t_hat * torch.sin(heading),
-        normalize_angle(heading + r2_hat),
-    ], dim=-1)
+    r1_hat = delta[0] + noise[..., 0] * s_rot1
+    t_hat = delta[1] + noise[..., 1] * s_trans
+    r2_hat = delta[2] + noise[..., 2] * s_rot2
+    x, y, theta = particles[:, 0], particles[:, 1], particles[:, 2]
+    heading = theta + r1_hat
+    if retries == 0:
+        return torch.stack([
+            x + t_hat * torch.cos(heading),
+            y + t_hat * torch.sin(heading),
+            normalize_angle(heading + r2_hat),
+        ], dim=-1)
+    cand = torch.stack([
+        x + t_hat * torch.cos(heading),
+        y + t_hat * torch.sin(heading),
+        normalize_angle(theta + r1_hat + r2_hat),
+    ], dim=-1)                                               # (R, N, 3)
+    valid = grid_map.is_free_world(cand[..., 0], cand[..., 1])   # (R, N)
+    any_valid = valid.any(dim=0)
+    first = valid.to(torch.uint8).argmax(dim=0)              # first free draw
+    picked = cand.gather(0, first[None, :, None].expand(1, n, 3))[0]
+    return torch.where(any_valid[:, None], picked, particles)
 
 
 def _gaussian_prob(diff, sigma):

@@ -1,6 +1,8 @@
-"""Likelihood-field sensor basics (port of
+"""Likelihood-field sensor model (port of
 ``mcmh_localization_tpu/models/sensor.py``): the per-map log-likelihood
-table, the score constants and the fixed-step ray cast that makes scans."""
+table, the score constants, the exact scorer (its reads are the kernel of
+``ops/likelihood.py``), the motion-validity wrap and the fixed-step ray
+cast that makes scans."""
 
 from __future__ import annotations
 
@@ -27,6 +29,60 @@ def log_likelihood_field(grid_map, config) -> torch.Tensor:
     p_hit = torch.where(d <= config.max_range, p_hit, 0.0)
     p = config.z_hit * p_hit + config.z_rand / config.max_range
     return torch.log(torch.clamp(p, min=LOG_FLOOR)).to(torch.float32)
+
+
+def scan_endpoints(particles: torch.Tensor, ranges: torch.Tensor,
+                   angles: torch.Tensor):
+    """(lx, ly), each (N, M): world endpoints of every beam from every
+    pose, ``x + cos(theta) u - sin(theta) v`` with ``u, v = r cos(a),
+    r sin(a)``."""
+    from mcmh_localization_tpu_torch.ops.likelihood import scan_endpoints_uv
+
+    return scan_endpoints_uv(particles, ranges * torch.cos(angles),
+                             ranges * torch.sin(angles))
+
+
+def likelihood_field_scores(particles: torch.Tensor, ranges: torch.Tensor,
+                            angles: torch.Tensor, grid_map, config,
+                            log_field: torch.Tensor | None = None,
+                            cell_div: bool = True) -> torch.Tensor:
+    """(N,) exact per-particle scores (parallel_utils.py:85-149): beams
+    subsampled by ``config.step``; valid = finite and < max_range; valid
+    beams off the map count in the denominator and add 0; the blind
+    penalty when no beam is valid.  ``cell_div`` finds a beam's cell by
+    dividing by the resolution (the JAX "jnp" scorer) or, when False, by
+    multiplying by its f32 inverse (the JAX "pallas" scorer)."""
+    from mcmh_localization_tpu_torch.ops.likelihood import likelihood_scores
+
+    if log_field is None:
+        log_field = log_likelihood_field(grid_map, config)
+    if config.step > 1:
+        ranges = ranges[:: config.step]
+        angles = angles[:: config.step]
+    valid = torch.isfinite(ranges) & (ranges < config.max_range)
+    safe_r = torch.where(valid, ranges, 0.0)
+    u = (safe_r * torch.cos(angles)).to(torch.float32).contiguous()
+    v = (safe_r * torch.sin(angles)).to(torch.float32).contiguous()
+    return likelihood_scores(
+        particles.contiguous(), u, v, valid.contiguous(), log_field.contiguous(),
+        grid_map.origin_xy[0], grid_map.origin_xy[1],
+        grid_map.res if cell_div else grid_map.inv_res, cell_div,
+        valid.sum().to(torch.int32), config.score_aggregation)
+
+
+def wrap_score_with_validity(score, grid_map, config, ranges):
+    """Wrap a scorer so poses on non-free cells take INVALID_SCORE (times
+    the valid-beam count under "sum"): the motion_validity="score" penalty
+    for the scorers that do not fold it into their field build."""
+    rr = ranges[:: config.step] if config.step > 1 else ranges
+    n_valid = (torch.isfinite(rr) & (rr < config.max_range)).sum()
+    pen = (INVALID_SCORE * n_valid.clamp(min=1).to(torch.float32)
+           if config.score_aggregation == "sum" else INVALID_SCORE)
+
+    def wrapped(p):
+        return torch.where(grid_map.valid_mask(p), score(p), pen)
+
+    return wrapped
 
 
 def raycast(pose_xy: torch.Tensor, angles: torch.Tensor, grid_map,

@@ -1,11 +1,12 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 The ``csrc/*.cu`` sources compile with plain ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a C interface, loaded with
-``ctypes``.  The build runs at first use, into ``build/torch_kernels/`` at
-the root of the checkout (listed in ``.gitignore``), under a file name that
-carries a hash of the sources and flags: an edited source rebuilds, an
-unchanged one loads the library already built.
+(``sm_90a``), one ``nvcc`` process per source, all started together, and
+link into one shared library with a C interface, loaded with ``ctypes``.
+The build runs at first use, into ``build/torch_kernels/`` at the root of
+the checkout (listed in ``.gitignore``), under a file name that carries a
+hash of the sources and flags: an edited source rebuilds, an unchanged one
+loads the library already built.
 
 Every wrapper in ``ops/`` launches on ``torch.cuda.current_stream()``,
 raises when the launch reports an error, and adds one to its launch count
@@ -26,17 +27,30 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("corr_field_build.cu", "gather.cu", "rank.cu")
+SOURCES = ("corr_field_build.cu", "gather.cu", "rank.cu", "fused_score.cu",
+           "likelihood.cu", "take.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # no multiply-add contraction: the index math must round like the
     # plain PyTorch version (the kernels also use explicit _rn intrinsics)
-    "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+
+
+class WindowArgs(ctypes.Structure):
+    """csrc/fused_score.cu's ``WindowArgs``, passed by value."""
+
+    _fields_ = [(name, _F) for name in (
+        "origin_x", "origin_y", "fine_scale", "theta_scale", "pi_f", "res_c",
+        "kc_scale", "blind_score")] + [(name, _I) for name in (
+            "n_theta", "nbins", "kstart", "fh", "fw", "h", "w", "ox0", "oy0",
+            "kc", "hc", "wc", "fine_div", "theta_div", "clip_before_window")]
+
+
 _SIGNATURES = {
     "mcmh_corr_field_build": (_P, _I, _I, _P, _P, _I, _I, _P, _I, _I, _P),
     "mcmh_gather_2d": (_P, _I, _I, _P, _P, _I, _P, _P),
@@ -46,6 +60,13 @@ _SIGNATURES = {
     ),
     "mcmh_rank_in_sorted": (_P, _I, _I, _P, _P, _P),
     "mcmh_expand_sorted": (_P, _I, _P, _I, _I, _P, _P, _P),
+    "mcmh_window_score": (_P, _P, _P, _I, _P, _P, WindowArgs, _P, _P),
+    "mcmh_window_escapees": (_P, _I, WindowArgs, _P, _P),
+    "mcmh_likelihood_scores": (
+        _P, _I, _P, _P, _P, _I, _P, _I, _I, _F, _F, _F, _I, _P, _I, _F, _P,
+        _P,
+    ),
+    "mcmh_take_rows": (_P, _I, _I, _P, _I, _P, _P),
 }
 
 _lib = None
@@ -80,7 +101,8 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the kernels unless the library for these sources exists."""
+    """Compile the kernels unless the library for these sources exists:
+    one ``nvcc -c`` per source, all started together, then one link."""
     global build_log, build_seconds
     import time
 
@@ -89,17 +111,29 @@ def build() -> Path:
         build_seconds = 0.0
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
+    objs = [tmp.with_suffix(f".{Path(src).stem}.o") for src in SOURCES]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(SOURCES, objs)]
+    jobs = [(p.args, p.communicate()[0], p.returncode) for p in procs]
+    if all(code == 0 for _, _, code in jobs):
+        res = subprocess.run(
+            [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True)
+        jobs.append((res.args, res.stdout + res.stderr, res.returncode))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{build_log}"
-        )
+    build_log = "".join(log for _, log, _ in jobs)
+    failed = [f"nvcc failed ({code}):\n{' '.join(cmd)}\n{log}"
+              for cmd, log, code in jobs if code != 0]
+    if failed:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError("\n".join(failed))
     os.replace(tmp, so)  # atomic: concurrent builders never see half a file
     return so
 

@@ -1,0 +1,98 @@
+"""Exact likelihood-field scores, the endpoint math fused with the reads.
+
+Port of ``mcmh_localization_tpu/ops/likelihood_pallas.py``; the CUDA kernel
+is ``csrc/likelihood.cu``.  It serves both JAX exact scorers: the "jnp"
+scorer (``models/sensor.py::likelihood_field_scores``) finds a beam's cell
+by dividing by the resolution (``GridMap.world_to_grid``), the "pallas"
+scorer by multiplying by ``f32(1 / resolution)``; the two differ by an ulp
+at cell edges, so ``cell_div`` picks the form.  The TPU kernel's VMEM table
+and lane-group partial sums are TPU mechanics.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mcmh_localization_tpu_torch.models.sensor import BLIND_SCORE
+from mcmh_localization_tpu_torch.ops import _cuda
+from mcmh_localization_tpu_torch.utils.f32 import divide
+
+MAX_BEAMS = 2048  # the kernel stages the scan in shared memory
+
+
+def scan_endpoints_uv(particles: torch.Tensor, u: torch.Tensor,
+                      v: torch.Tensor):
+    """(lx, ly), each (N, M): the world endpoints of sensor-frame beam
+    endpoints (u, v) from every pose, in the JAX evaluation order."""
+    c = torch.cos(particles[:, 2])[:, None]
+    s = torch.sin(particles[:, 2])[:, None]
+    lx = particles[:, 0][:, None] + c * u[None, :] - s * v[None, :]
+    ly = particles[:, 1][:, None] + s * u[None, :] + c * v[None, :]
+    return lx, ly
+
+
+def endpoint_cells(particles: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                   origin_x: float, origin_y: float, scale: float,
+                   cell_div: bool):
+    """(mx, my) int32 (N, M): the cell of every beam endpoint,
+    ``i32((l - origin) / scale)`` or ``i32((l - origin) * scale)``."""
+    lx, ly = scan_endpoints_uv(particles, u, v)
+    dx, dy = lx - origin_x, ly - origin_y
+    if cell_div:
+        return (divide(dx, scale).to(torch.int32),
+                divide(dy, scale).to(torch.int32))
+    return (dx * scale).to(torch.int32), (dy * scale).to(torch.int32)
+
+
+def likelihood_scores_plain(particles, u, v, valid, field, origin_x, origin_y,
+                            scale, cell_div, count, aggregation):
+    h, w = field.shape
+    mx, my = endpoint_cells(particles, u, v, origin_x, origin_y, scale,
+                            cell_div)
+    in_map = (mx >= 0) & (mx < w) & (my >= 0) & (my < h)
+    flat = my.clamp(0, h - 1).to(torch.int64) * w + mx.clamp(0, w - 1)
+    contrib = torch.where(valid[None, :] & in_map, field.reshape(-1)[flat], 0.0)
+    total = contrib.sum(dim=1)
+    score = (total if aggregation == "sum"
+             else total / count.clamp(min=1).to(torch.float32))
+    return torch.where(count > 0, score, BLIND_SCORE).to(torch.float32)
+
+
+def likelihood_scores(particles: torch.Tensor, u: torch.Tensor,
+                      v: torch.Tensor, valid: torch.Tensor,
+                      field: torch.Tensor, origin_x: float, origin_y: float,
+                      scale: float, cell_div: bool, count: torch.Tensor,
+                      aggregation: str) -> torch.Tensor:
+    """(N,) exact scores: particles (N, 3) f32; the beams' sensor-frame
+    endpoints ``u``, ``v`` (M,) f32 and ``valid`` (M,) bool; the (H, W)
+    f32 log field; ``scale`` the resolution (``cell_div``) or its inverse;
+    ``count`` the 0-d int valid-beam count: the "mean" divisor, and the
+    blind penalty when it is 0.  CPU tensors take the plain version."""
+    if particles.device.type == "cpu":
+        return likelihood_scores_plain(particles, u, v, valid, field,
+                                       origin_x, origin_y, scale, cell_div,
+                                       count, aggregation)
+    cnt = count.to(torch.int32).reshape(())
+    _cuda.require_cuda("likelihood_scores", particles, u, v, valid, field, cnt)
+    if (particles.dtype != torch.float32 or u.dtype != torch.float32
+            or v.dtype != torch.float32 or field.dtype != torch.float32):
+        raise ValueError("likelihood_scores: particles, u, v and field must "
+                         "be float32")
+    if valid.dtype != torch.bool or particles.dim() != 2 or particles.shape[1] != 3:
+        raise ValueError("likelihood_scores: valid must be bool and "
+                         "particles (N, 3)")
+    m = u.shape[0]
+    if m > MAX_BEAMS or v.shape != u.shape or valid.shape != u.shape:
+        raise ValueError(f"likelihood_scores: u, v, valid must be (M,) alike "
+                         f"with M <= {MAX_BEAMS}")
+    n = particles.shape[0]
+    h, w = field.shape
+    out = torch.empty(n, dtype=torch.float32, device=particles.device)
+    code = _cuda.library().mcmh_likelihood_scores(
+        particles.data_ptr(), n, u.data_ptr(), v.data_ptr(), valid.data_ptr(),
+        m, field.data_ptr(), h, w, origin_x, origin_y, scale, int(cell_div),
+        cnt.data_ptr(), int(aggregation == "sum"), BLIND_SCORE,
+        out.data_ptr(), _cuda.stream_of(particles),
+    )
+    _cuda.check_launch("likelihood_scores", code)
+    return out

@@ -18,6 +18,8 @@ from typing import Tuple
 import torch
 
 from mcmh_localization_tpu_torch.ops.rank import expand_sorted, rank_in_sorted
+from mcmh_localization_tpu_torch.ops.take import take_rows_monotone
+from mcmh_localization_tpu_torch.utils.f32 import divide, scalar
 
 # Per-sample jitter applied by KLD sampling (parallel_utils.py:552)
 KLD_NOISE_STD = (0.001, 0.001, 0.02)
@@ -77,13 +79,38 @@ def systematic_resample_indices(weights: torch.Tensor, num_out: int,
 def systematic_resample_particles(particles: torch.Tensor,
                                   weights: torch.Tensor, num_out: int,
                                   count=None, r=None,
-                                  generator: torch.Generator | None = None
-                                  ) -> torch.Tensor:
-    """(num_out, 3) ``particles[systematic_resample_indices(...)]`` through
-    the fused expansion."""
+                                  generator: torch.Generator | None = None,
+                                  impl: str = "fused") -> torch.Tensor:
+    """(num_out, 3) ``particles[systematic_resample_indices(...)]``, all
+    impls the same draw: "fused", the rank and take in one expansion
+    (``ops/rank.py::expand_sorted``); "gather", the indices then a plain
+    row gather; "mxu", the indices then the monotone take kernel
+    (``ops/take.py``), as the JAX impl of that name."""
+    if impl not in ("fused", "gather", "mxu"):
+        raise ValueError(f"unknown impl {impl!r}")
     r = _uniform_offset(r, weights.device, generator)
-    bound = _segment_bounds(weights, num_out, count, r)
-    return expand_sorted(bound, particles, num_out, count=count)
+    if impl == "fused":
+        bound = _segment_bounds(weights, num_out, count, r)
+        return expand_sorted(bound, particles, num_out, count=count)
+    idx = systematic_resample_indices(weights, num_out, count=count, r=r)
+    if impl == "mxu":
+        return take_rows_monotone(particles, idx)
+    return particles[idx.to(torch.int64)]
+
+
+def multinomial_resample_indices(weights: torch.Tensor, num_out: int,
+                                 u: torch.Tensor | None = None,
+                                 generator: torch.Generator | None = None
+                                 ) -> torch.Tensor:
+    """(num_out,) int32 i.i.d. resampling: the first normalized-cumsum entry
+    >= u_m for ``u`` (num_out,) uniforms (drawn from ``generator`` when
+    None), clipped to the last index (JAX resampling.py:188-193)."""
+    if u is None:
+        u = torch.rand((num_out,), generator=generator, device=weights.device)
+    c = torch.cumsum(weights, dim=0)
+    c = c / torch.clamp(c[-1], min=1e-30)
+    idx = torch.searchsorted(c, u.to(c.dtype), right=False)
+    return idx.clamp(max=weights.shape[0] - 1).to(torch.int32)
 
 
 def _kld_chi2_bound(k: torch.Tensor, epsilon: float, z: float) -> torch.Tensor:
@@ -144,7 +171,9 @@ def kld_resample(
         raise ValueError(f"unknown stop_rule {stop_rule!r}")
     dev = particles.device
     r = _uniform_offset(r, dev, generator)
-    noise_std = torch.tensor(KLD_NOISE_STD, dtype=particles.dtype, device=dev)
+    # no host wait: the copy of a pageable host tensor with non_blocking
+    noise_std = torch.tensor(KLD_NOISE_STD, dtype=particles.dtype).to(
+        dev, non_blocking=True)
     stride = count if count is not None else max_samples
 
     def normals(rows, given):
@@ -159,9 +188,9 @@ def kld_resample(
         return d + normals(num_out, nz) * noise_std
 
     def first_stop(sub):
-        bx = (sub[:, 0] / bin_size_xy).to(torch.int32)
-        by = (sub[:, 1] / bin_size_xy).to(torch.int32)
-        bt = (sub[:, 2] / bin_size_theta).to(torch.int32)
+        bx = divide(sub[:, 0], bin_size_xy).to(torch.int32)
+        by = divide(sub[:, 1], bin_size_xy).to(torch.int32)
+        bt = divide(sub[:, 2], bin_size_theta).to(torch.int32)
         new_bin = _first_occurrence_sort(bx, by, bt)
         k_bins = torch.cumsum(new_bin, dim=0)
         m = torch.arange(sub.shape[0], device=dev)
@@ -176,8 +205,7 @@ def kld_resample(
 
     if min_particles >= max_samples:
         # the caller clamps the count to [min, max]: the stop rule is dead
-        return draw(max_samples, noise), torch.tensor(
-            max_samples, dtype=torch.int32, device=dev)
+        return draw(max_samples, noise), scalar(max_samples, dev, torch.int32)
 
     if eval_window and eval_window < max_samples:
         samples = draw(max_samples, noise)

@@ -1,0 +1,241 @@
+"""The port's windowed lookup with the coarse fallback (kernel 5,
+ops/fused_score.py) and the coarse field (models/corr_field.py) against the
+JAX package on the same inputs."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from mcmh_localization_tpu.config import FilterConfig as JConfig  # noqa: E402
+from mcmh_localization_tpu.models import corr_field as jcf  # noqa: E402
+from mcmh_localization_tpu.models.sensor import (  # noqa: E402
+    log_likelihood_field as j_log_field,
+)
+from mcmh_localization_tpu.ops.fused_score_pallas import (  # noqa: E402
+    fused_window_score_gather,
+)
+from mcmh_localization_tpu_torch.config import FilterConfig  # noqa: E402
+from mcmh_localization_tpu_torch.convert import grid_map_from_numpy  # noqa: E402
+from mcmh_localization_tpu_torch.models import corr_field as tcf  # noqa: E402
+from mcmh_localization_tpu_torch.ops.fused_score import (  # noqa: E402
+    WindowGeometry,
+    window_escapees,
+    window_indices,
+    window_score,
+)
+from tests.test_fused_lookup import _spec_rows_lanes  # noqa: E402
+from tests.test_torch_corr_field import _jax_offsets, _particles, _scan  # noqa: E402
+from tests.test_torch_ops import torch_one_thread  # noqa: E402,F401
+
+N_THETA = 48
+
+
+@pytest.fixture(scope="module")
+def torch_map(house_map):
+    return grid_map_from_numpy(
+        np.asarray(house_map.occupancy), float(house_map.resolution),
+        np.asarray(house_map.origin), distance=np.asarray(house_map.distance))
+
+
+def _fused_case(flags):
+    """The inputs of tests/test_fused_lookup.py::test_fused_matches_spec_
+    bitwise: an in-window cluster, escapees anywhere in the map, and poses
+    mostly off the map."""
+    fine_div, theta_div, clip_before = flags
+    rng = np.random.default_rng(0)
+    n_theta, nbins, fh, fw = 120, 24, 64, 64
+    kc, hc, wc = 30, 96, 96
+    res, res_c = 0.05, 0.2
+    field_t = (rng.normal(size=(fh * nbins, fw)) * 800).astype(np.float32)
+    cfield_t = (rng.normal(size=(hc * kc, wc)) * 800).astype(np.float32)
+    n = 4096
+    px = np.concatenate([rng.uniform(-2.3, -1.5, n // 2),
+                         rng.uniform(-9.5, 9.0, n // 4),
+                         rng.uniform(-30.0, 30.0, n - n // 2 - n // 4)])
+    py = np.concatenate([rng.uniform(-2.8, -2.0, n // 2),
+                         rng.uniform(-9.5, 9.0, n // 4),
+                         rng.uniform(-30.0, 30.0, n - n // 2 - n // 4)])
+    pth = rng.uniform(-np.pi, np.pi, n)
+    parts = np.stack([px, py, pth], 1).astype(np.float32)
+    fine_scale = np.float32(res) if fine_div else np.float32(1.0 / res)
+    theta_scale = (np.float32(2.0 * np.pi / n_theta) if theta_div
+                   else np.float32(n_theta / (2.0 * np.pi)))
+    spec = dict(orx=-9.6, ory=-9.6, fine_scale=fine_scale, fine_div=fine_div,
+                theta_scale=theta_scale, theta_div=theta_div,
+                n_theta=n_theta, nbins=nbins, kstart=97, h=384, w=384,
+                fh=fh, fw=fw, ox0=150, oy0=140, kc=kc, hc=hc, wc=wc,
+                res_c=res_c, clip_before_window=clip_before,
+                coarse_base=fh * nbins)
+    geo = WindowGeometry(
+        origin_x=float(np.float32(-9.6)), origin_y=float(np.float32(-9.6)),
+        fine_scale=float(fine_scale), theta_scale=float(theta_scale),
+        n_theta=n_theta, nbins=nbins, kstart=97, fh=fh, fw=fw, h=384, w=384,
+        ox0=150, oy0=140, kc=kc, hc=hc, wc=wc,
+        res_c=float(np.float32(res_c)),
+        kc_scale=float(np.float32(kc / (2.0 * np.pi))), fine_div=fine_div,
+        theta_div=theta_div, clip_before_window=clip_before)
+    return field_t, cfield_t, parts, spec, geo
+
+
+FLAG_SETS = [(False, False, False), (True, True, True)]
+
+
+@pytest.mark.parametrize("flags", FLAG_SETS, ids=["corr_forms", "beam_forms"])
+def test_window_score_bitwise_vs_index_spec(flags):
+    """Index triples bitwise equal to the numpy spec of the TPU kernel's
+    semantics, values bitwise equal to the table read, divided and
+    filled."""
+    field_t, cfield_t, parts, spec, geo = _fused_case(flags)
+    rows, lanes, in_map = _spec_rows_lanes(parts[:, 0], parts[:, 1],
+                                           parts[:, 2], **spec)
+    covered, row, lane, in_map_t = window_indices(torch.from_numpy(parts), geo)
+    covered, row = covered.numpy(), row.numpy()
+    np.testing.assert_array_equal(
+        np.where(covered, row, spec["coarse_base"] + row), rows)
+    np.testing.assert_array_equal(lane.numpy(), lanes)
+    np.testing.assert_array_equal(in_map_t.numpy(), in_map)
+    assert covered.any() and (~covered & in_map).any() and (~in_map).any()
+
+    denom, fill = np.float32(37.0), np.float32(-123.0)
+    got = window_score(torch.from_numpy(field_t), torch.from_numpy(cfield_t),
+                       torch.from_numpy(parts), geo, float(denom),
+                       float(fill)).numpy()
+    cb = spec["coarse_base"]
+    read = np.where(covered,
+                    field_t[np.where(covered, rows, 0), np.where(covered, lanes, 0)],
+                    cfield_t[np.where(covered, 0, rows - cb),
+                             np.where(covered, 0, lanes)])
+    want = np.where(in_map, read / denom, fill)
+    np.testing.assert_array_equal(got, want.astype(np.float32))
+    # a count of 0 valid beams gives the blind score everywhere
+    blind = window_score(torch.from_numpy(field_t), torch.from_numpy(cfield_t),
+                         torch.from_numpy(parts), geo, float(denom),
+                         float(fill), count=torch.tensor(0)).numpy()
+    assert (blind == -50.0).all()
+    # the gate's count is the in-map escapees
+    assert int(window_escapees(torch.from_numpy(parts), geo)) == int(
+        (~covered & in_map).sum())
+
+
+@pytest.mark.parametrize("flags", FLAG_SETS, ids=["corr_forms", "beam_forms"])
+def test_window_score_vs_tpu_kernel_interpret(flags):
+    """The TPU kernel reads through split bf16 hi/lo planes, a TPU
+    approximation of about |v| * 2^-16 (hi keeps 8 bits, lo the next 8):
+    the port's exact read agrees within |v| * 2^-15."""
+    field_t, cfield_t, parts, spec, geo = _fused_case(flags)
+    denom, fill = np.float32(37.0), np.float32(-123.0)
+    got = window_score(torch.from_numpy(field_t), torch.from_numpy(cfield_t),
+                       torch.from_numpy(parts), geo, float(denom),
+                       float(fill)).numpy()
+    want = np.asarray(fused_window_score_gather(
+        jnp.asarray(field_t), jnp.asarray(cfield_t),
+        jnp.asarray(parts[:, 0]), jnp.asarray(parts[:, 1]),
+        jnp.asarray(parts[:, 2]), jnp.float32(spec["orx"]),
+        jnp.float32(spec["ory"]), jnp.float32(spec["fine_scale"]),
+        jnp.int32(spec["ox0"]), jnp.int32(spec["oy0"]),
+        jnp.int32(spec["kstart"]), jnp.float32(denom), jnp.float32(fill),
+        n_theta=spec["n_theta"], nbins=spec["nbins"], fh=spec["fh"],
+        fw=spec["fw"], h=spec["h"], w=spec["w"], kc=spec["kc"],
+        hc=spec["hc"], wc=spec["wc"], res_c=spec["res_c"],
+        theta_scale=float(spec["theta_scale"]), fine_div=flags[0],
+        theta_div=flags[1], clip_before_window=flags[2], interpret=True))
+    assert (np.abs(got - want) <= np.abs(got) * 2.0 ** -15 + 1e-30).all()
+
+
+def _coarse_offsets(cfg, u, v, valid, h, res):
+    """The coarse field's bin offsets as JAX _coarse_field computes them
+    (corr_field.py:152-167)."""
+    f = cfg.corr_coarse_factor
+    hc = -(-h // f)
+    res_c = f * res
+    pad_c = int(-(-cfg.max_range // res_c)) + 2
+    return jcf._bin_offsets(u, v, valid, 1.0 / res_c, cfg.corr_coarse_n_theta,
+                            pad_c, hc + 2 * pad_c)
+
+
+@pytest.mark.parametrize("validity", ["score", "reject"])
+def test_coarse_field_matches_jax(house_map, torch_map, validity):
+    """Port _coarse_field vs JAX _coarse_field (its XLA build on the CPU) on
+    the same bin offsets: the field-build tolerance (f32 sums of M log
+    values in another order: rtol 1e-5, atol 1e-5 * M * max|L|).  The
+    port's own offsets differ from JAX's only where an ulp of cos/sin moves
+    a truncated offset: at most 0.5% of them, by one cell."""
+    kw = dict(max_range=5.0, corr_window_cells=64, motion_validity=validity)
+    jcfg, tcfg = JConfig(**kw), FilterConfig(**kw)
+    ranges, angles = _scan(house_map, (1.0, 1.0, 0.4), m=120)
+    res = float(jax.device_get(house_map.resolution))
+    lf = j_log_field(house_map, jcfg)
+    valid = jnp.isfinite(ranges) & (ranges < jcfg.max_range)
+    safe_r = jnp.where(valid, ranges, 0.0)
+    u = (safe_r * jnp.cos(angles)).astype(jnp.float32)
+    v = (safe_r * jnp.sin(angles)).astype(jnp.float32)
+    want = np.asarray(jcf._coarse_field(u, v, valid, lf, house_map, jcfg, res))
+    ox, oy = _coarse_offsets(jcfg, u, v, valid, lf.shape[0], res)
+    t = [torch.from_numpy(np.array(a)) for a in (u, v, valid, lf)]
+    got = tcf._coarse_field(*t, torch_map, tcfg,
+                            offsets=(torch.from_numpy(np.array(ox)),
+                                     torch.from_numpy(np.array(oy)))).numpy()
+    assert got.shape == want.shape == (36, 48, 48)
+    atol = 1e-5 * 120 * float(np.abs(np.asarray(lf)).max())
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=atol)
+    if validity == "score":
+        assert (want < -100.0).any()      # blocks without a free cell
+    f = tcfg.corr_coarse_factor
+    pad_c = int(-(-5.0 // (f * res))) + 2
+    ox_t, oy_t = tcf._bin_offsets(t[0], t[1], t[2], 1.0 / (f * res), 36,
+                                  pad_c, 48 + 2 * pad_c)
+    for g_, w_ in ((ox_t.numpy(), np.asarray(ox)), (oy_t.numpy(), np.asarray(oy))):
+        diff = np.abs(g_.astype(np.int64) - w_)
+        assert diff.max() <= 1 and (diff > 0).mean() <= 0.005
+
+
+@pytest.mark.parametrize("gate", [0, 1, 100000], ids=["ungated", "gate_fires",
+                                                      "gate_blind"])
+@pytest.mark.parametrize("aggregation,validity", [("mean", "score"),
+                                                  ("sum", "score"),
+                                                  ("mean", "reject")])
+def test_windowed_coarse_scores_match_jax(house_map, torch_map, gate,
+                                          aggregation, validity):
+    """The single-program windowed scorer with the coarse fallback vs JAX
+    correlation_field_scores on the CPU (its gather_2d_select path) on the
+    same fine and coarse bin offsets: the field-build tolerance, rtol 1e-5
+    (atol 1e-5 * M * max|L| under "sum").  Below the build gate every
+    escapee takes the blind fill on both sides."""
+    kw = dict(max_range=5.0, likelihood_impl="corr", corr_n_theta=N_THETA,
+              corr_window_cells=64, corr_theta_window_bins=16,
+              motion_validity=validity, score_aggregation=aggregation,
+              coarse_gate_escapees=gate)
+    jcfg, tcfg = JConfig(**kw), FilterConfig(**kw)
+    ranges, angles = _scan(house_map, (1.0, 1.0, 0.4))
+    parts = _particles(3000, 9)
+    lf = j_log_field(house_map, jcfg)
+    wo = (40, 50, 44)
+    (ox, oy), (u, v, valid, _, _) = _jax_offsets(
+        house_map, jcfg, jnp.asarray(ranges), jnp.asarray(angles), N_THETA,
+        wo[2], 16)
+    res = float(jax.device_get(house_map.resolution))
+    cox, coy = _coarse_offsets(jcfg, u, v, valid, lf.shape[0], res)
+    want = np.asarray(jcf.correlation_field_scores(
+        jnp.asarray(parts), jnp.asarray(ranges), jnp.asarray(angles),
+        house_map, jcfg, log_field=lf, n_theta=N_THETA,
+        window_origin=tuple(jnp.int32(x) for x in wo)))
+    got = tcf.correlation_field_scores(
+        torch.from_numpy(parts), torch.from_numpy(ranges),
+        torch.from_numpy(angles), torch_map, tcfg,
+        log_field=torch.from_numpy(np.array(lf)), n_theta=N_THETA,
+        window_origin=wo,
+        offsets=(torch.from_numpy(np.array(ox)), torch.from_numpy(np.array(oy))),
+        coarse_offsets=(torch.from_numpy(np.array(cox)),
+                        torch.from_numpy(np.array(coy)))).numpy()
+    atol = 1e-5 if aggregation == "mean" else 1e-5 * 90 * 14.0
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=atol)
+    # the blind fill reads -50 after the "mean" divide and raw under "sum"
+    n_blind = int((want == -50.0).sum())
+    if gate == 100000:
+        assert n_blind > 100               # every escapee took the fill
+    else:
+        assert n_blind == 0                # the coarse field scored them

@@ -22,6 +22,7 @@ from mcmh_localization_tpu_torch.ops.gather import (  # noqa: E402
     LookupGeometry,
     corr_lookup_indices,
 )
+from tests.test_torch_ops import torch_one_thread  # noqa: E402,F401
 
 N_THETA = 48
 
@@ -191,11 +192,30 @@ def test_scorer_own_offsets_and_log_field_close_to_jax(house_map, torch_map):
     assert np.quantile(np.abs(got - want), 0.99) < 0.01
 
 
-def test_coarse_fallback_with_window_not_ported(torch_map):
+def test_coarse_fallback_with_window_not_ported(house_map, torch_map):
+    """Formerly refused, the coarse out-of-window fallback now scores: an
+    escapee at the true pose outscores one by the wall, both beat the blind
+    penalty, and with the fallback off or under the build gate both take
+    the blind penalty (the port's twin of
+    tests/test_corr_field.py::test_corr_coarse_fallback_scores_out_of_window)."""
+    ranges, angles = _scan(house_map, (1.0, 1.0, 0.4))
     cfg = FilterConfig(max_range=5.0, corr_window_cells=64,
-                       corr_coarse_factor=4)
-    r = torch.full((8,), 2.0)
-    a = torch.linspace(-3.1, 3.1, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        tcf.correlation_field_scores(torch.zeros(4, 3), r, a, torch_map, cfg,
-                                     n_theta=N_THETA, window_origin=(40, 50))
+                       corr_coarse_factor=4, coarse_gate_escapees=1)
+    res = 0.05
+    ox0 = int((-3.0 - (-4.8)) / res) - 32
+    parts = torch.tensor([[1.0, 1.0, 0.4], [-4.75, 2.0, 0.4],
+                          [-3.0, -3.0, 0.4]])
+
+    def score(c):
+        return tcf.correlation_field_scores(
+            parts, torch.from_numpy(ranges), torch.from_numpy(angles),
+            torch_map, c, n_theta=64, window_origin=(ox0, ox0)).numpy()
+
+    s = score(cfg)
+    assert s[0] > -50.0 and s[1] > -50.0
+    assert s[0] > s[1], s
+    for off in (cfg.replace(corr_coarse_factor=0),
+                cfg.replace(coarse_gate_escapees=3)):
+        s_off = score(off)
+        assert s_off[0] == -50.0 and s_off[1] == -50.0
+        assert s_off[2] == s[2]

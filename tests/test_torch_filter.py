@@ -33,6 +33,7 @@ from mcmh_localization_tpu_torch.filter.staged import (  # noqa: E402
 )
 from mcmh_localization_tpu_torch.filter.step import Draws, make_model  # noqa: E402
 from mcmh_localization_tpu_torch.ops import resampling as tres  # noqa: E402
+from tests.test_torch_ops import torch_one_thread  # noqa: E402,F401
 
 
 def _t(x):

@@ -26,6 +26,7 @@ from mcmh_localization_tpu_torch.filter import init as tinit  # noqa: E402
 from mcmh_localization_tpu_torch.maps.grid_map import build_grid_map  # noqa: E402
 from mcmh_localization_tpu_torch.models import motion as tmotion  # noqa: E402
 from mcmh_localization_tpu_torch.models import sensor as tsensor  # noqa: E402
+from tests.test_torch_ops import torch_one_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parent.parent
 ALPHA = (0.002, 0.03, 0.08, 0.002)
@@ -56,12 +57,8 @@ def test_config_is_the_jax_source():
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(sensor_model="beam"), "13-14"),
-    (dict(likelihood_impl="jnp"), "item 11"),
-    (dict(corr_window_cells=64, corr_coarse_factor=4), "item 11"),
-    (dict(motion_validity="reject"), "item 11"),
-    (dict(mode="MHMCL"), "item 7"),
-    (dict(adaptive_resampler="lvr"), "item 7"),
+    (dict(sensor_model="beam"), "item 13"),
+    (dict(sensor_model="lidar3d"), "item 14"),
 ])
 def test_out_of_slice_config_raises(kw, item):
     base = dict(mode="AMHAMCL", motion_validity="score", corr_coarse_factor=0,
@@ -71,6 +68,23 @@ def test_out_of_slice_config_raises(kw, item):
         tconfig.check_supported(tconfig.FilterConfig(**base))
     tconfig.check_supported(tconfig.FilterConfig(
         mode="AMHAMCL", motion_validity="score", likelihood_impl="auto"))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(likelihood_impl="jnp"),
+    dict(corr_window_cells=64, corr_coarse_factor=4),
+    dict(motion_validity="reject"),
+    dict(mode="MHMCL"),
+    dict(adaptive_resampler="lvr"),
+], ids=["jnp", "coarse", "reject", "MHMCL", "lvr"])
+def test_formerly_refused_config_accepted(kw):
+    """The exact scorer, the coarse fallback, "reject", the non-adaptive
+    modes and the simple/lvr resamplers were refused before they were
+    ported; check_supported accepts them now."""
+    base = dict(mode="AMHAMCL", motion_validity="score", corr_coarse_factor=0,
+                likelihood_impl="auto")
+    base.update(kw)
+    tconfig.check_supported(tconfig.FilterConfig(**base))
 
 
 def test_pgm_map_roundtrip(tmp_path, house_occupancy):
@@ -241,6 +255,9 @@ def test_port_imports_without_jax():
         "import sys, mcmh_localization_tpu_torch\n"
         "import mcmh_localization_tpu_torch.filter.staged\n"
         "import mcmh_localization_tpu_torch.convert\n"
+        "import mcmh_localization_tpu_torch.ops.fused_score\n"
+        "import mcmh_localization_tpu_torch.ops.likelihood\n"
+        "import mcmh_localization_tpu_torch.ops.take\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'mcmh_localization_tpu')]\n"
         "assert not bad, bad\n"

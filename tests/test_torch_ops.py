@@ -22,6 +22,19 @@ from mcmh_localization_tpu_torch.ops.rank import (  # noqa: E402
 )
 
 
+@pytest.fixture(autouse=True, scope="module")
+def torch_one_thread():
+    """One torch thread in each test process.  The tensors here are small,
+    and the suite runs in several worker processes: torch's default of one
+    thread per core in each of them oversubscribes the cores (measured on
+    8 cores with 6 workers: the port's tests took 226 s, 73 s with one
+    thread).  Every tests/test_torch_*.py module imports this fixture."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(x, dtype=None):
     return torch.from_numpy(np.array(x, dtype=dtype))
 

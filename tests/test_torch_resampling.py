@@ -11,6 +11,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from mcmh_localization_tpu.ops import resampling as jres  # noqa: E402
 from mcmh_localization_tpu_torch.ops import resampling as tres  # noqa: E402
+from tests.test_torch_ops import torch_one_thread  # noqa: E402,F401
 
 
 def _t(x):

@@ -12,7 +12,8 @@
    BIG field K=120 384^2 M=360, SMALL/window field K=32 128^2, coarse field
    K=36 96^2, lookups of 2x1M and 2x130048 poses, the window-score lookup
    of 2x1M poses, the exact scorer at 2x1500 and 2x100k poses, the 1M
-   resampling expansion and take.
+   resampling expansion and take, and the beam LUT field at the beam
+   path's fine (B=24, K=96, 64^2) and coarse (B=24, 96^2) builds.
 4. ``[main]``: the staged main path: AMHAMCL, KLD-adaptive at 1M capacity /
    100k minimum, 360 beams, the staged two-program runner with a 0.9
    tracking ESS gate and the windowed corr scorer, on a procedural 384x384
@@ -30,7 +31,14 @@
    5000), each under 0.25 m over its last 8 scans with the exact scorer
    and ``gather_2d`` launched; then corr vs exact ms/scan at 1500 and 100k
    particles (where "auto"'s crossover lies on this card).
-7. Prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` as
+7. ``[beam]``: the ray-cast beam model at the bench's beam point
+   (``bench.py:391-398``): AMHAMCL at 100k particles, the windowed beam
+   score field (96 table bins, a 64-cell window with 24 theta bins, the
+   coarse fallback at 24 bins behind the build gate of 8), 16 settle + 16
+   timed scans, error under 0.2 m, the LUT field and the window score
+   launched every scan; then its ESS-gated twin (0.9), and the range-table
+   scorer at 1500 particles (error under 0.25 m, ``gather_2d`` launched).
+8. Prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` as
    the last line.
 
 ``--profile DIR`` also writes torch.profiler tables and traces of the
@@ -458,6 +466,51 @@ def compare_slice2_kernels(gm, single_cfg, log_field, ranges, angles,
                      on_main_path=False))
 
 
+def compare_beam_kernel(gm, beam_model, ranges, angles, rows):
+    """Phase 3 for kernel 7: the LUT field at the beam path's fine and
+    coarse builds, on the path's own quantized table and per-scan LUT."""
+    from mcmh_localization_tpu_torch.models.range_table import (
+        _beam_lut,
+        coarse_lut_inputs,
+        fine_lut_inputs,
+    )
+    from mcmh_localization_tpu_torch.ops.beam_field import (
+        lut_field,
+        lut_field_plain,
+    )
+
+    cfg = beam_model.config
+    tables = beam_model.log_field
+    k = cfg.beam_table_n_theta
+    valid = torch.isfinite(ranges) & (ranges < cfg.max_range)
+    lp = _beam_lut(torch.where(valid, ranges, 0.0), valid, tables.dvals, cfg)
+    win, tw = cfg.corr_window_cells, cfg.corr_theta_window_bins
+    oy0 = int((START[1] - gm.origin_xy[1]) / RES) - win // 2
+    ox0 = int((START[0] - gm.origin_xy[0]) / RES) - win // 2
+    kstart = (int((START[2] + math.pi) * k / (2 * math.pi)) - tw // 2) % k
+    times = {}
+    for tag, (qt, s) in (
+            ("fine", fine_lut_inputs(tables, lp, angles, k, (oy0, ox0, kstart),
+                                     win, tw, True)),
+            ("coarse", coarse_lut_inputs(lp, angles, tables, cfg, k))):
+        out = lut_field(qt, s)
+        ref = lut_field_plain(qt, s)
+        torch.cuda.synchronize()
+        check(torch.equal(out, ref), f"lut_field {tag}: kernel != plain")
+        ms = device_ms(lambda: lut_field(qt, s))
+        pms = device_ms(lambda: lut_field_plain(qt, s))
+        times[tag] = (ms, pms)
+        b, kk, nq = s.shape
+        print(f"[kernel] lut_field {tag}: B={b} K={kk} nq={nq} C={qt.shape[1]} "
+              f"bitwise=True ms={ms:.4f} plain_ms={pms:.4f}")
+    rows.append(dict(name="lut_field", route="cuda",
+                     source="mcmh_localization_tpu_torch/csrc/beam_field.cu",
+                     replaces="mcmh_localization_tpu/ops/beam_field_pallas.py:115",
+                     max_abs_err=0.0, ms=times["fine"][0],
+                     plain_ms=times["fine"][1], ms_coarse=times["coarse"][0],
+                     plain_ms_coarse=times["coarse"][1]))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None,
@@ -529,6 +582,21 @@ def main(argv=None) -> int:
     compare_slice2_kernels(gm, single_cfg, staged.big.log_field, scans[0],
                            angles, field_small, window, u, v, valid, wts, rows)
     del field_small, wts
+    # the bench's beam point (bench.py:391-398) at 100k particles
+    beam_cfg = FilterConfig(
+        mode="AMHAMCL", num_particles=100_000, min_particles=100_000,
+        max_particles=100_000, initialized=True, initial_pose=START,
+        sensor_model="beam", beam_impl="field", beam_table_n_theta=96,
+        corr_window_cells=64, corr_theta_window_bins=24,
+        corr_coarse_n_theta=24, motion_validity="score",
+        min_injection_prob=0.02,
+    )
+    t0 = time.perf_counter()
+    beam = make_model(beam_cfg, gm)
+    torch.cuda.synchronize()
+    print(f"[beam] range table (96, {MAP_CELLS}, {MAP_CELLS}) and its int8 "
+          f"forms built in {time.perf_counter() - t0:.2f} s")
+    compare_beam_kernel(gm, beam, scans[0], angles, rows)
     path_counts: dict[str, dict[str, int]] = {}
 
     def add_counts(path: str, counts: dict) -> None:
@@ -695,6 +763,47 @@ def main(argv=None) -> int:
               f"faster on {smi} (auto picks "
               f"{'corr' if n >= 8192 else 'exact'})")
     print(f"[exact] kernel launches: {path_counts['exact']}")
+
+    # -- 7. the beam model: the score field at 100k and its ESS-gated twin,
+    # then the range-table scorer at 1500
+    for tag, model in (("field", beam),
+                       ("field_essgate", make_model(
+                           beam_cfg.replace(resample_ess_threshold=0.9), gm))):
+        _cuda.reset_launch_counts()
+        st, _, ms_settle = timed(model, model.init(0), 1)
+        st, x_infos, ms_x = timed(model, st, 1)
+        err_x = final_error(x_infos)
+        c = _cuda.launch_counts()
+        add_counts("beam", c)
+        print(f"[beam] {tag} (n={state_size(model.config)}, 96 table bins, "
+              f"window 64, 24 theta bins, coarse x4 at 24 bins, gate 8, "
+              f"ESS {model.config.resample_ess_threshold}): {ms_x:.4f} ms/scan "
+              f"over {SCAN_LEN} timed scans (settle {ms_settle:.4f}) on {smi}; "
+              f"final error {err_x:.4f} m; launches {c}")
+        check(err_x < 0.2, f"[beam] {tag}: final error {err_x:.3f} m >= 0.2 m")
+        check(c.get("lut_field", 0) >= 2 * SCAN_LEN,
+              f"[beam] {tag}: lut_field not launched every scan")
+        check(c.get("window_score", 0) >= 2 * SCAN_LEN,
+              f"[beam] {tag}: window_score not launched every scan")
+        if tag == "field":
+            to_profile.append(("beam", model, st, ms_x))
+        del model, st
+    del beam
+    _cuda.reset_launch_counts()
+    tcfg = beam_cfg.replace(beam_impl="table", num_particles=1500,
+                            min_particles=1500, max_particles=1500)
+    model = make_model(tcfg, gm)
+    st, _, _ = timed(model, model.init(0), 1)
+    st, x_infos, ms_x = timed(model, st, 1)
+    err_x = final_error(x_infos)
+    c = _cuda.launch_counts()
+    add_counts("beam", c)
+    print(f"[beam] table (n=1500, 96 table bins): {ms_x:.4f} ms/scan on {smi}; "
+          f"final error {err_x:.4f} m; launches {c}")
+    check(err_x < 0.25, f"[beam] table: final error {err_x:.3f} m >= 0.25 m")
+    check(c.get("gather_2d", 0) > 0, "[beam] table: gather_2d never launched")
+    del model, st
+    print(f"[beam] kernel launches: {path_counts['beam']}")
 
     for row in rows:
         row["launches"] = sum(c.get(row["name"], 0)

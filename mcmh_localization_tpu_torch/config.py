@@ -19,9 +19,6 @@ MODES = _src.MODES
 
 def check_supported(config) -> None:
     """Raise NotImplementedError for a value outside the ported slices."""
-    if config.sensor_model == "beam":
-        raise NotImplementedError(
-            "sensor_model='beam': the beam model is ROADMAP item 13")
     if config.sensor_model == "lidar3d":
         raise NotImplementedError(
             "sensor_model='lidar3d': 3-D lidar is ROADMAP item 14")

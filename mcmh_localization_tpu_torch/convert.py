@@ -1,9 +1,9 @@
-"""Carry a map and a filter state across from numpy arrays.
+"""Carry a map, a filter state and beam tables across from numpy arrays.
 
-Both packages then compute on the same map and state: a JAX ``GridMap`` or
-``FilterState`` flattened to numpy arrays (``np.asarray`` of each field)
-rebuilds here.  The PRNG key is the one field that cannot transfer: the
-port's state takes a fresh ``torch.Generator``.
+Both packages then compute on the same inputs: a JAX ``GridMap``,
+``FilterState`` or ``BeamTables`` flattened to numpy arrays (``np.asarray``
+of each field) rebuilds here.  The PRNG key is the one field that cannot
+transfer: the port's state takes a fresh ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import torch
 
 from mcmh_localization_tpu_torch.filter.state import FilterState, make_generator
 from mcmh_localization_tpu_torch.maps.grid_map import GridMap, build_grid_map
+from mcmh_localization_tpu_torch.models.range_table import BeamTables
 
 STATE_FIELDS = ("particles", "prev_particles", "weights", "count", "w_slow",
                 "w_fast", "delta", "anchor", "anchor_streak")
@@ -26,6 +27,21 @@ def grid_map_from_numpy(occupancy, resolution, origin, distance=None,
     return build_grid_map(np.asarray(occupancy), float(resolution),
                           tuple(float(o) for o in np.asarray(origin)[:2]),
                           distance=distance, device=device)
+
+
+def beam_tables_from_numpy(table, qt, dvals, qtc=None,
+                           device="cpu") -> BeamTables:
+    """BeamTables from a JAX BeamTables' fields as numpy arrays: the f32
+    range table, its int8 ``qt``, the ``dvals`` and the coarse ``qtc`` (or
+    None)."""
+    dev = torch.device(device)
+
+    def t(a, dtype):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=dev)
+
+    return BeamTables(table=t(table, torch.float32), qt=t(qt, torch.int8),
+                      dvals=t(dvals, torch.float32),
+                      qtc=None if qtc is None else t(qtc, torch.int8))
 
 
 def state_from_numpy(arrays: dict, device="cpu",

@@ -1,6 +1,7 @@
 """The filter step (port of ``mcmh_localization_tpu/filter/step.py``): all
 six modes with the likelihood-field scorers (corr, and the exact "jnp" and
-"pallas" scorers).
+"pallas" scorers) and the ray-cast beam model (its score field, range-table
+and ray-march scorers).
 
 One scan is ``_predict`` (odometry proposal, with rejection retries under
 motion_validity="reject") then ``_correct`` (score the proposed and
@@ -10,8 +11,8 @@ adaptive modes, systematic otherwise).  PyTorch runs eagerly, so ``run`` is
 a Python loop in place of ``lax.scan``, and the JAX program's
 data-dependent branches are host ``if``s on synced scalars: the window
 origin, the ESS gate (JAX ``while_loop`` at step.py:748), the coarse-build
-gate (corr_field.py:562), the KLD escalation (resampling.py:464) and the
-injection ``lax.cond`` (:529).  Capturing the step in a CUDA graph is
+gates (corr_field.py:562, range_table.py:629), the KLD escalation
+(resampling.py:464) and the injection ``lax.cond`` (:529).  Capturing the step in a CUDA graph is
 later work.
 
 Random draws: each scan's draws come from the state's generator, or from
@@ -47,9 +48,17 @@ from mcmh_localization_tpu_torch.models.motion import (
     motion_density,
     sample_motion,
 )
+from mcmh_localization_tpu_torch.models.range_table import (
+    beam_field_scores,
+    build_range_table,
+    make_beam_tables,
+    raycast_table_scores,
+    table_cell_major,
+)
 from mcmh_localization_tpu_torch.models.sensor import (
     likelihood_field_scores,
     log_likelihood_field,
+    raycast_beam_scores,
     wrap_score_with_validity,
 )
 from mcmh_localization_tpu_torch.ops.resampling import (
@@ -196,21 +205,65 @@ def _resolved_likelihood_impl(config, device) -> str:
     return impl
 
 
-def _make_scorer(ranges, angles, grid_map, log_field, config, impl,
+def _resolved_beam_impl(config, device) -> str:
+    """``beam_impl`` with "auto" resolved: on a CUDA device the score
+    "field" when a window is set, else the range "table"; off the card the
+    "dense" ray march (the JAX rule, step.py:131-148, with the card in the
+    TPU's place)."""
+    impl = config.beam_impl
+    if impl == "auto":
+        if torch.device(device).type == "cuda":
+            impl = "field" if config.corr_window_cells else "table"
+        else:
+            impl = "dense"
+    if impl == "field" and not config.corr_window_cells:
+        raise ValueError(
+            "beam_impl='field' requires corr_window_cells > 0 (the beam "
+            "score field is built over the particle-cloud window)")
+    return impl
+
+
+def _make_scorer(ranges, angles, grid_map, table, config, impl,
                  window_origin):
-    """The likelihood-field scorer for the resolved ``impl``: corr (with the
-    window origin, when windowed) or the exact scorer in the "jnp" (divide)
-    or "pallas" (multiply) cell form."""
+    """The scorer for the resolved ``impl`` on the sensor ``table``
+    (``_sensor_table``): the beam score field (with the window origin), the
+    range-table or ray-march beam scorer; corr (with the window origin,
+    when windowed) or the exact scorer in the "jnp" (divide) or "pallas"
+    (multiply) cell form."""
+    if impl == "field":
+        def score(p):
+            return beam_field_scores(p, ranges, angles, grid_map, config,
+                                     table, config.beam_table_n_theta,
+                                     window_origin)
+        return score
+    if impl == "table":
+        def score(p):
+            return raycast_table_scores(p, ranges, angles, grid_map, config,
+                                        table, config.beam_table_n_theta)
+        return score
+    if impl == "dense":
+        # config.step subsampling here (the ray-march scorer takes no
+        # config), so every beam impl scores the same beams
+        r = ranges[:: config.step] if config.step > 1 else ranges
+        a = angles[:: config.step] if config.step > 1 else angles
+
+        def score(p):
+            return raycast_beam_scores(
+                p, r, a, grid_map, sigma_hit=config.sigma_hit,
+                z_hit=config.z_hit, z_rand=config.z_rand,
+                max_range=config.max_range,
+                aggregation=config.score_aggregation)
+        return score
     if impl == "corr":
         def score(p):
             return correlation_field_scores(
-                p, ranges, angles, grid_map, config, log_field=log_field,
+                p, ranges, angles, grid_map, config, log_field=table,
                 n_theta=config.corr_n_theta, window_origin=window_origin)
         return score
 
     def score(p):
         return likelihood_field_scores(p, ranges, angles, grid_map, config,
-                                       log_field=log_field,
+                                       log_field=table,
                                        cell_div=impl == "jnp")
     return score
 
@@ -421,13 +474,18 @@ def _correct(state: FilterState, ranges: torch.Tensor, angles: torch.Tensor,
     """Measurement update (lidar_callback, amcmh_localizer.py:294-338)."""
     d = draws if draws is not None else Draws()
     mask = state.active_mask
-    impl = _resolved_likelihood_impl(config, state.device)
-    wo = (_window_origin(state, grid_map, config)
-          if config.corr_window_cells and impl == "corr" else None)
+    impl = (_resolved_beam_impl(config, state.device)
+            if config.sensor_model == "beam"
+            else _resolved_likelihood_impl(config, state.device))
+    field = impl in ("corr", "field")
+    wo = (_window_origin(state, grid_map, config,
+                         n_theta=(config.beam_table_n_theta
+                                  if impl == "field" else None))
+          if config.corr_window_cells and field else None)
     score = _make_scorer(ranges, angles, grid_map, log_field, config, impl, wo)
-    if config.motion_validity == "score" and impl != "corr":
-        # the corr field folds the penalty into its build; the exact
-        # scorers take the explicit wrap (JAX step.py:581-593)
+    if config.motion_validity == "score" and not field:
+        # the corr and beam fields fold the penalty into their builds; the
+        # other scorers take the explicit wrap (JAX step.py:581-593)
         score = wrap_score_with_validity(score, grid_map, config, ranges)
 
     # inactive slots collapse onto slot 0 (always active) before scoring
@@ -528,17 +586,31 @@ def _correct(state: FilterState, ranges: torch.Tensor, angles: torch.Tensor,
 # public factory
 # ---------------------------------------------------------------------------
 
+def _sensor_table(grid_map, config):
+    """The per-(map, config) sensor precompute (JAX step.py:786-816): the
+    BeamTables of the beam score field, the cell-major range table of the
+    beam "table" scorer, or the log-likelihood field."""
+    if config.sensor_model == "beam":
+        impl = _resolved_beam_impl(config, grid_map.device)
+        if impl == "field":
+            return make_beam_tables(grid_map, config)
+        if impl == "table":
+            return table_cell_major(build_range_table(
+                grid_map, config.beam_table_n_theta, config.max_range))
+    return log_likelihood_field(grid_map, config)
+
+
 class FilterModel:
     """A config + map bound into init / predict / correct / step / run.
 
-    ``log_field`` is the per-(map, config) log-likelihood table, built once
-    on the map's device."""
+    ``log_field`` is the per-(map, config) sensor table (``_sensor_table``),
+    built once on the map's device."""
 
     def __init__(self, config, grid_map):
         check_supported(config)
         self.config = config
         self.grid_map = grid_map
-        self.log_field = log_likelihood_field(grid_map, config)
+        self.log_field = _sensor_table(grid_map, config)
 
     @property
     def device(self) -> torch.device:

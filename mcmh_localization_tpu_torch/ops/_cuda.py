@@ -28,7 +28,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("corr_field_build.cu", "gather.cu", "rank.cu", "fused_score.cu",
-           "likelihood.cu", "take.cu")
+           "likelihood.cu", "take.cu", "beam_field.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # no multiply-add contraction: the index math must round like the
@@ -67,6 +67,7 @@ _SIGNATURES = {
         _P,
     ),
     "mcmh_take_rows": (_P, _I, _I, _P, _I, _P, _P),
+    "mcmh_lut_field": (_P, _P, _I, _I, _I, _I, _P, _P),
 }
 
 _lib = None

@@ -56,7 +56,8 @@ class WindowGeometry(NamedTuple):
 
 def window_indices(particles: torch.Tensor, g: WindowGeometry):
     """(covered, row, lane, in_map) per particle: a fine-table index where
-    ``covered``, else a coarse-table one (fused_score_pallas.py:71-115)."""
+    ``covered``, else a coarse-table one (fused_score_pallas.py:71-115);
+    with ``kc = 0`` (no coarse table) the clamped fine index throughout."""
     px, py, pth = particles[:, 0], particles[:, 1], particles[:, 2]
     dx = px - g.origin_x
     dy = py - g.origin_y
@@ -80,6 +81,8 @@ def window_indices(particles: torch.Tensor, g: WindowGeometry):
     covered = in_theta & (mxw >= 0) & (mxw < g.fw) & (myw >= 0) & (myw < g.fh)
     row_a = myw.clamp(0, g.fh - 1) * g.nbins + tbin_w
     lane_a = mxw.clamp(0, g.fw - 1)
+    if not g.kc:  # no coarse table: every index is the clamped fine one
+        return covered, row_a, lane_a, in_map
     cx = divide(dx, g.res_c).to(torch.int32).clamp(0, g.wc - 1)
     cy = divide(dy, g.res_c).to(torch.int32).clamp(0, g.hc - 1)
     ck = (tpi * g.kc_scale).to(torch.int32) % g.kc

@@ -61,11 +61,17 @@ def test_config_is_the_jax_source():
     (dict(sensor_model="lidar3d"), "item 14"),
 ])
 def test_out_of_slice_config_raises(kw, item):
+    """check_supported refuses a configuration of a ROADMAP item not yet
+    ported, naming the item, and accepts the items ported since (item 13,
+    the beam model)."""
     base = dict(mode="AMHAMCL", motion_validity="score", corr_coarse_factor=0,
                 likelihood_impl="auto")
     base.update(kw)
-    with pytest.raises(NotImplementedError, match=item):
+    if item in ("item 13",):
         tconfig.check_supported(tconfig.FilterConfig(**base))
+    else:
+        with pytest.raises(NotImplementedError, match=item):
+            tconfig.check_supported(tconfig.FilterConfig(**base))
     tconfig.check_supported(tconfig.FilterConfig(
         mode="AMHAMCL", motion_validity="score", likelihood_impl="auto"))
 

@@ -1,0 +1,407 @@
+"""The port's range table, per-scan LUT matrices, LUT field (kernel 7's
+plain version), beam score field and beam scorers against the JAX package
+on the same inputs (models/range_table.py, ops/beam_field.py)."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from mcmh_localization_tpu.config import FilterConfig as JConfig  # noqa: E402
+from mcmh_localization_tpu.maps.grid_map import (  # noqa: E402
+    build_grid_map as j_build_grid_map,
+)
+from mcmh_localization_tpu.models import range_table as jrt  # noqa: E402
+from mcmh_localization_tpu.models import sensor as jsensor  # noqa: E402
+from mcmh_localization_tpu.ops.beam_field_pallas import (  # noqa: E402
+    lut_field as j_lut_field,
+)
+from mcmh_localization_tpu_torch.config import FilterConfig  # noqa: E402
+from mcmh_localization_tpu_torch.convert import (  # noqa: E402
+    beam_tables_from_numpy,
+    grid_map_from_numpy,
+)
+from mcmh_localization_tpu_torch.maps.grid_map import build_grid_map  # noqa: E402
+from mcmh_localization_tpu_torch.models import range_table as trt  # noqa: E402
+from mcmh_localization_tpu_torch.models import sensor as tsensor  # noqa: E402
+from mcmh_localization_tpu_torch.ops.beam_field import (  # noqa: E402
+    lut_field,
+    lut_field_plain,
+)
+from mcmh_localization_tpu_torch.ops.fused_score import window_indices  # noqa: E402
+from tests.test_torch_ops import torch_one_thread  # noqa: E402,F401
+
+LOG_FLOOR_ABS = 13.82  # |log(1e-6)|: no per-beam term is larger
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _box_occupancy():
+    """tests/test_range_table.py's 64x64 box: a wall ring at index 2/61 and
+    a centre pillar."""
+    occ = np.full((64, 64), 0, dtype=np.int8)
+    occ[2, 2:62] = 100
+    occ[61, 2:62] = 100
+    occ[2:62, 2] = 100
+    occ[2:62, 61] = 100
+    occ[30:34, 30:34] = 100
+    return occ
+
+
+@pytest.fixture(scope="module")
+def box_maps():
+    occ = _box_occupancy()
+    return (j_build_grid_map(occ, resolution=0.05, origin=(-1.6, -1.6),
+                             edt_impl="scipy"),
+            build_grid_map(occ, 0.05, (-1.6, -1.6)))
+
+
+@pytest.fixture(scope="module")
+def torch_house(house_map):
+    return grid_map_from_numpy(
+        np.asarray(house_map.occupancy), float(house_map.resolution),
+        np.asarray(house_map.origin), distance=np.asarray(house_map.distance))
+
+
+def _angles(m):
+    """Beam angles off the bin edges of every table size used here, so
+    both packages' bin formulas place each beam in the same bin."""
+    return (np.linspace(-np.pi, np.pi, m, endpoint=False) + 0.01).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("k_bins,where,hit_unknown", [
+    (16, "box", False), (36, "box", False), (36, "house", True)])
+def test_range_table_bitwise(box_maps, house_map, torch_house, k_bins, where,
+                             hit_unknown):
+    """build_range_table, quantize_table, table_cell_major and
+    make_beam_tables (the coarse block centres) bitwise equal to JAX: the
+    offsets are the same float64 numbers and the march selects exact
+    values."""
+    jm, tm = box_maps if where == "box" else (house_map, torch_house)
+    max_range = 2.0 if where == "box" else 5.0
+    want = np.asarray(jrt.build_range_table(jm, k_bins, max_range,
+                                            hit_unknown=hit_unknown))
+    got = trt.build_range_table(tm, k_bins, max_range,
+                                hit_unknown=hit_unknown)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want < max_range).any() and (want == np.float32(max_range)).any()
+    qt_j, dv_j = jrt.quantize_table(jnp.asarray(want), max_range)
+    qt_t, dv_t = trt.quantize_table(got, max_range)
+    assert qt_t.dtype == torch.int8
+    np.testing.assert_array_equal(qt_t.numpy(), np.asarray(qt_j))
+    np.testing.assert_array_equal(dv_t.numpy(), np.asarray(dv_j))
+    np.testing.assert_array_equal(dv_t.numpy()[qt_t.numpy().astype(int)], want)
+    np.testing.assert_array_equal(trt.table_cell_major(got).numpy(),
+                                  np.asarray(jrt.table_cell_major(want)))
+    cfg = dict(max_range=max_range, beam_table_n_theta=k_bins)
+    if not hit_unknown:
+        jt = jrt.make_beam_tables(jm, JConfig(**cfg))
+        tt = trt.make_beam_tables(tm, FilterConfig(**cfg))
+        for a, b in zip(tt, jt):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        assert tt.qtc.shape == (k_bins, 16, 16)
+
+
+def _scan(jm, pose, m, max_range):
+    angles = _angles(m)
+    ranges = np.array(jsensor.raycast(
+        jnp.asarray(pose[:2], jnp.float32), pose[2] + jnp.asarray(angles), jm,
+        max_range, hit_unknown=True))
+    ranges[::7] = np.inf                       # a few invalid beams
+    return ranges, angles
+
+
+def _lut_inputs(box_maps, k_bins, m=60):
+    jm, _ = box_maps
+    ranges, angles = _scan(jm, (0.3, -0.4, 0.7), m, 2.0)
+    cfg = dict(max_range=2.0, sigma_hit=0.1, beam_table_n_theta=k_bins)
+    valid = np.isfinite(ranges) & (ranges < 2.0)
+    safe_r = np.where(valid, ranges, 0.0).astype(np.float32)
+    _, dvals = jrt.quantize_table(jnp.zeros((1, 1, 1)), 2.0)
+    lp_j = jrt._beam_lut(jnp.asarray(safe_r), jnp.asarray(valid), dvals,
+                         JConfig(**cfg))
+    lp_t = trt._beam_lut(_t(safe_r), _t(valid), _t(dvals), FilterConfig(**cfg))
+    return np.asarray(lp_j), lp_t, angles
+
+
+def test_beam_lut_matches_jax(box_maps):
+    """The (M, nq) per-beam log mixture within f32 rounding of JAX's
+    (exp and log may round an ulp apart); invalid beams exactly 0."""
+    lp_j, lp_t, _ = _lut_inputs(box_maps, 48)
+    np.testing.assert_allclose(lp_t.numpy(), lp_j, rtol=1e-6, atol=1e-6)
+    assert (lp_j[::7] == 0).all() and (lp_t.numpy()[::7] == 0).all()
+
+
+# (k_bins, starts, use_half): the theta window's rolled rows; coarse bins at
+# an even (r = 4) and an odd (r = 3) width ratio; and the general matrix
+@pytest.mark.parametrize("case", ["theta_window", "coarse_even", "coarse_odd",
+                                  "bin_matrix"])
+def test_lut_matrices_match_jax(box_maps, case):
+    """S matrices within f32 sum-order rounding of JAX's einsums (a bin
+    sums at most a few beams of |lp| <= 13.82: atol 1e-5); in the port, the
+    rolled form equals the general matrix bitwise where both place every
+    beam in the same bin."""
+    k_bins = {"theta_window": 48, "coarse_even": 48, "coarse_odd": 36,
+              "bin_matrix": 90}[case]
+    lp_j, lp_t, angles = _lut_inputs(box_maps, k_bins)
+    a_j, a_t = jnp.asarray(angles), _t(angles)
+    pi32 = np.float32(np.pi)
+    if case == "theta_window":
+        kstart, nbins = 45, 6                  # wraps past bin 47
+        starts = [kstart + b for b in range(nbins)]
+        use_half = True
+        centers = ((kstart + np.arange(nbins)).astype(np.float32) + 0.5) * \
+            np.float32(2 * np.pi / k_bins) - pi32
+    elif case == "bin_matrix":
+        nbins = 36
+        centers = (np.arange(nbins, dtype=np.float32) + 0.5) * \
+            np.float32(2 * np.pi / nbins) - pi32
+    else:
+        kc = 12
+        r = k_bins // kc
+        starts = [r * i + (r // 2 if r % 2 == 0 else (r - 1) // 2)
+                  for i in range(kc)]
+        use_half = r % 2 == 1
+        centers = (np.arange(kc, dtype=np.float32) + 0.5) * \
+            np.float32(2 * np.pi / kc) - pi32
+    g = np.floor((centers[:, None] + angles[None, :] + pi32)
+                 / np.float32(2 * np.pi / k_bins)).astype(np.int32) % k_bins
+    s_bin = trt._bin_lut_matrix(_t(g), lp_t, k_bins).numpy()
+    if case == "bin_matrix":
+        want = np.asarray(jrt._bin_lut_matrix(jnp.asarray(g), jnp.asarray(lp_j),
+                                              k_bins))
+        got = s_bin
+    else:
+        want = np.asarray(jrt._rolled_bin_lut_matrix(
+            jnp.asarray(lp_j), a_j, k_bins, starts, use_half))
+        got = trt._rolled_bin_lut_matrix(lp_t, a_t, k_bins,
+                                         torch.tensor(starts), use_half).numpy()
+        np.testing.assert_array_equal(got, s_bin)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-5)
+    # every valid beam's terms land somewhere in each row
+    np.testing.assert_allclose(got.sum(axis=1), np.broadcast_to(
+        lp_j.sum(axis=0), (got.shape[0], lp_j.shape[1])), rtol=1e-5, atol=1e-4)
+
+
+def test_bin_lut_matrix_adds_beams_in_ascending_order():
+    """The S matrices' bin sums: bitwise equal to a numpy loop over the
+    beams in ascending order with f32 adds (the order on every device),
+    with several beams in one bin and empty bins."""
+    rng = np.random.default_rng(2)
+    r, m, k, nq = 3, 50, 7, 5
+    idx = rng.integers(0, k, (r, m))
+    idx[1] = 3                                   # every beam in one bin
+    lp = (rng.normal(size=(m, nq)) * 9.0).astype(np.float32)
+    want = np.zeros((r, k, nq), np.float32)
+    for b in range(r):
+        for j in range(m):
+            want[b, idx[b, j]] = (want[b, idx[b, j]] + lp[j]).astype(np.float32)
+    got = trt._bin_lut_matrix(_t(idx), _t(lp), k).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_lut_field_plain_bitwise_and_vs_jax_int8():
+    """lut_field_plain (and the CPU wrapper) bitwise equal to a numpy loop
+    of f32 adds over g in ascending order from 0; the JAX kernel (interpret
+    mode, int8 hi/lo planes of s, exact int32 accumulation) within its
+    quantization bound K * amax|s| / (127 * 254)."""
+    rng = np.random.default_rng(0)
+    b, k, nq, c = 6, 36, 21, 300
+    qt = rng.integers(0, nq, (k, c)).astype(np.int8)
+    s = (rng.normal(size=(b, k, nq)) * 8.0).astype(np.float32)
+    want = np.zeros((b, c), np.float32)
+    for g in range(k):
+        want = (want + s[:, g, :][:, qt[g].astype(np.int64)]).astype(np.float32)
+    got = lut_field(_t(qt), _t(s)).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(lut_field_plain(_t(qt), _t(s)).numpy(), want)
+    tpu = np.asarray(j_lut_field(jnp.asarray(qt), jnp.asarray(s), nq,
+                                 precision="int8", interpret=True))
+    bound = k * np.abs(s).max() / (127 * 254)
+    assert np.abs(tpu - got).max() <= bound, (np.abs(tpu - got).max(), bound)
+
+
+# beam-score cases: the coarse fallback off, on and ungated, on with the
+# build gate firing, on with the gate skipping the build
+COARSE = {"coarse_off": dict(corr_coarse_factor=0),
+          "ungated": dict(coarse_gate_escapees=0),
+          "gate_fires": dict(coarse_gate_escapees=1),
+          "gate_skips": dict(coarse_gate_escapees=10 ** 6)}
+
+
+@pytest.mark.parametrize("coarse", list(COARSE))
+@pytest.mark.parametrize("aggregation,validity", [("mean", "score"),
+                                                  ("sum", "reject")])
+@pytest.mark.parametrize("k_bins,kc", [(48, 12), (90, 36)],
+                         ids=["K48_kc12", "K90_kc36"])
+def test_beam_field_scores_match_jax_dense(box_maps, coarse, aggregation,
+                                           validity, k_bins, kc):
+    """The port's beam field (the LUT build, as the card runs it) vs JAX
+    beam_field_scores(impl="dense") on the same tables: fine-scored poses
+    within f32 sum-order rounding (rtol 1e-5, atol 1e-5 * M * 13.82 before
+    the "mean" divide); coarse-scored poses within the int8 bound of JAX's
+    coarse build, which always runs lut_field's int8 planes
+    (range_table.py:353): K * amax|S| / (127 * 254), amax|S| <= the most
+    beams in one bin times 13.82; fills and penalties exact."""
+    jm, tm = box_maps
+    kw = dict(max_range=2.0, sigma_hit=0.1, beam_table_n_theta=k_bins,
+              corr_window_cells=32, corr_theta_window_bins=6,
+              corr_coarse_n_theta=kc, score_aggregation=aggregation,
+              motion_validity=validity, **COARSE[coarse])
+    jcfg, tcfg = JConfig(**kw), FilterConfig(**kw)
+    jtab = jrt.make_beam_tables(jm, jcfg)
+    ttab = beam_tables_from_numpy(*(None if a is None else np.asarray(a)
+                                    for a in jtab))
+    m = 60
+    ranges, angles = _scan(jm, (0.3, -0.4, 0.7), m, 2.0)
+    rng = np.random.default_rng(k_bins)
+    n = 400
+    parts = np.stack([rng.uniform(-1.7, 1.7, n), rng.uniform(-1.7, 1.7, n),
+                      rng.uniform(-np.pi, np.pi, n)], 1).astype(np.float32)
+    kstart = 22 if k_bins == 48 else 42
+    parts[:150, :2] = rng.uniform(-0.8, 0.0, (150, 2))   # the window's cells
+    parts[:150, 2] = -np.pi + (kstart + rng.uniform(0, 6, 150)) * 2 * np.pi / k_bins
+    wo = (16, 16, kstart)
+    want = np.asarray(jrt.beam_field_scores(
+        jnp.asarray(parts), jnp.asarray(ranges), jnp.asarray(angles), jm, jcfg,
+        jtab, k_bins, tuple(jnp.int32(x) for x in wo), impl="dense"))
+    got = trt.beam_field_scores(_t(parts), _t(ranges), _t(angles), tm, tcfg,
+                                ttab, k_bins, wo).numpy()
+    geo = trt._beam_geometry(tm, k_bins, 6, kstart, 32, (16, 16), None)
+    covered, _, _, in_map = (x.numpy() for x in window_indices(_t(parts), geo))
+    cnt = int((np.isfinite(ranges) & (ranges < 2.0)).sum())
+    div = cnt if aggregation == "mean" else 1
+    fine = covered & in_map
+    escaped = ~covered & in_map
+    assert fine.sum() >= 100 and escaped.sum() >= 100 and (~in_map).sum() >= 10
+    np.testing.assert_allclose(got[fine], want[fine], rtol=1e-5,
+                               atol=1e-5 * m * 13.82 / div)
+    np.testing.assert_array_equal(got[~in_map], want[~in_map])
+    if coarse in ("coarse_off", "gate_skips"):
+        # the blind penalty (or fill) on both sides
+        assert (want[escaped] == -50.0).all()
+        np.testing.assert_allclose(got[escaped], want[escaped], rtol=1e-6)
+    else:
+        per_bin = -(-m // k_bins) + 1
+        bound = k_bins * per_bin * LOG_FLOOR_ABS / (127 * 254) / div
+        err = np.abs(got[escaped] - want[escaped]).max()
+        assert err <= bound, (err, bound)
+        assert (want[escaped] > -50.0).any()
+
+
+def test_beam_field_lut_matches_dense_in_port(box_maps):
+    """The port's own "dense" form (the JAX CPU form, each beam's mixture
+    on the table window) agrees with its LUT build: the same terms summed
+    in another order."""
+    jm, tm = box_maps
+    kw = dict(max_range=2.0, sigma_hit=0.1, beam_table_n_theta=48,
+              corr_window_cells=32, corr_theta_window_bins=6,
+              corr_coarse_factor=0, score_aggregation="sum")
+    tcfg = FilterConfig(**kw)
+    tab = trt.make_beam_tables(tm, tcfg)
+    ranges, angles = _scan(jm, (0.3, -0.4, 0.7), 60, 2.0)
+    rng = np.random.default_rng(7)
+    parts = np.stack([rng.uniform(-0.8, 0.0, 200), rng.uniform(-0.8, 0.0, 200),
+                      -np.pi + (22 + rng.uniform(0, 6, 200)) * 2 * np.pi / 48],
+                     1).astype(np.float32)
+    args = (_t(parts), _t(ranges), _t(angles), tm, tcfg, tab, 48, (16, 16, 22))
+    lut = trt.beam_field_scores(*args, impl="lut").numpy()
+    dense = trt.beam_field_scores(*args, impl="dense").numpy()
+    np.testing.assert_allclose(lut, dense, rtol=1e-5, atol=1e-5 * 60 * 13.82)
+    assert (lut != -50.0).all()             # every pose read the field
+
+
+def test_raycast_table_scores_match_jax(box_maps):
+    """One table read per (particle, beam) on the same cell-major table:
+    the bin and cell indices are the same f32 arithmetic in both packages;
+    exp and log round an ulp apart and the beam sum runs in another order
+    (rtol 1e-5, atol 1e-5 * 13.82)."""
+    jm, tm = box_maps
+    k_bins = 36
+    cfg = dict(max_range=2.0, sigma_hit=0.1, beam_table_n_theta=k_bins)
+    table = jrt.build_range_table(jm, k_bins, 2.0)
+    table_cm = np.asarray(jrt.table_cell_major(table))
+    ranges, angles = _scan(jm, (0.3, -0.4, 0.7), 60, 2.0)
+    rng = np.random.default_rng(3)
+    parts = np.stack([rng.uniform(-1.8, 1.8, 300), rng.uniform(-1.8, 1.8, 300),
+                      rng.uniform(-np.pi, np.pi, 300)], 1).astype(np.float32)
+    for agg in ("mean", "sum"):
+        want = np.asarray(jrt.raycast_table_scores(
+            jnp.asarray(parts), jnp.asarray(ranges), jnp.asarray(angles), jm,
+            JConfig(score_aggregation=agg, **cfg), jnp.asarray(table_cm),
+            k_bins))
+        got = trt.raycast_table_scores(
+            _t(parts), _t(ranges), _t(angles), tm,
+            FilterConfig(score_aggregation=agg, **cfg), _t(table_cm),
+            k_bins).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * 13.82)
+    blind = trt.raycast_table_scores(
+        _t(parts), _t(np.full(60, np.inf, np.float32)), _t(angles), tm,
+        FilterConfig(**cfg), _t(table_cm), k_bins).numpy()
+    assert (blind == -50.0).all()
+
+
+def test_raycast_beam_scores_match_jax(house_map, torch_house):
+    """The ray-march scorer: each (particle, beam) march is the same f32
+    arithmetic but for cos/sin, which round an ulp apart between XLA and
+    torch and can move a sample across a cell edge (one 0.1 m step on at
+    most 2% of rays, tests/test_torch_models.py::test_raycast_matches_jax).
+    So 90% of the scores agree to rtol 1e-5 and every one within the
+    change of 2% of its beams by at most 13.82 each."""
+    m = 90
+    ranges, angles = _scan(house_map, (1.0, 1.0, 0.4), m, 5.0)
+    rng = np.random.default_rng(4)
+    parts = np.stack([1.0 + rng.normal(0, 0.3, 130), 1.0 + rng.normal(0, 0.3, 130),
+                      0.4 + rng.normal(0, 0.2, 130)], 1).astype(np.float32)
+    kw = dict(sigma_hit=0.2, z_hit=0.75, z_rand=0.25, max_range=5.0)
+    want = np.asarray(jsensor.raycast_beam_scores(
+        jnp.asarray(parts), jnp.asarray(ranges), jnp.asarray(angles),
+        house_map, **kw))
+    got = tsensor.raycast_beam_scores(_t(parts), _t(ranges), _t(angles),
+                                      torch_house, **kw).numpy()
+    close = np.abs(got - want) <= 1e-5 * np.abs(want) + 1e-5
+    assert close.mean() >= 0.9, close.mean()
+    cnt = int((np.isfinite(ranges) & (ranges < 5.0)).sum())
+    assert np.abs(got - want).max() <= np.ceil(0.02 * m) * 13.82 / cnt
+    # the batched march equals the one-pose march it generalizes
+    one = tsensor.raycast(_t(parts[0, :2]), parts[0, 2] + _t(angles),
+                          torch_house, 5.0)
+    many = tsensor.raycast(_t(parts[:3, :2]), _t(parts[:3, 2:3]) + _t(angles)[None],
+                           torch_house, 5.0)
+    np.testing.assert_array_equal(many[0].numpy(), one.numpy())
+
+
+def test_window_indices_at_the_beam_bench_geometry():
+    """Kernel 5's index math in the beam op forms (the plain version, which
+    the card holds bitwise) at the bench's beam geometry on a 384^2 map: a
+    64-cell window, 24 of 96 theta bins, the coarse table at factor 4 and
+    24 bins; bitwise equal to the numpy spec of the TPU kernel."""
+    from tests.test_fused_lookup import _spec_rows_lanes
+
+    gm = build_grid_map(np.zeros((384, 384), np.int8), 0.05, (-9.6, -9.6))
+    geo = trt._beam_geometry(gm, 96, 24, 90, 64, (150, 140), (4, 24, 96, 96))
+    rng = np.random.default_rng(1)
+    n = 20000
+    parts = np.stack([
+        np.concatenate([rng.uniform(-2.3, -1.5, n // 2), rng.uniform(-10, 10, n // 2)]),
+        np.concatenate([rng.uniform(-2.8, -2.0, n // 2), rng.uniform(-10, 10, n // 2)]),
+        rng.uniform(-np.pi, np.pi, n)], 1).astype(np.float32)
+    rows, lanes, in_map = _spec_rows_lanes(
+        parts[:, 0], parts[:, 1], parts[:, 2], orx=-9.6, ory=-9.6,
+        fine_scale=np.float32(0.05), fine_div=True,
+        theta_scale=np.float32(2 * np.pi / 96), theta_div=True, n_theta=96,
+        nbins=24, kstart=90, h=384, w=384, fh=64, fw=64, ox0=150, oy0=140,
+        kc=24, hc=96, wc=96, res_c=0.2, clip_before_window=True,
+        coarse_base=64 * 24)
+    covered, row, lane, in_map_t = (x.numpy() for x in
+                                    window_indices(_t(parts), geo))
+    np.testing.assert_array_equal(np.where(covered, row, 64 * 24 + row), rows)
+    np.testing.assert_array_equal(lane, lanes)
+    np.testing.assert_array_equal(in_map_t, in_map)
+    assert covered.mean() > 0.05 and (~covered & in_map).mean() > 0.3

@@ -10,10 +10,16 @@
 3. ``[kernel]``: compares every kernel with its plain PyTorch version on
    the card at the main paths' shapes and times both (``device_ms``):
    BIG field K=120 384^2 M=360, SMALL/window field K=32 128^2, coarse field
-   K=36 96^2, lookups of 2x1M and 2x130048 poses, the window-score lookup
-   of 2x1M poses, the exact scorer at 2x1500 and 2x100k poses, the 1M
-   resampling expansion and take, and the beam LUT field at the beam
-   path's fine (B=24, K=96, 64^2) and coarse (B=24, 96^2) builds.
+   K=36 96^2 (bitwise, beside a ``conv2d`` yardstick), lookups of 2x1M and
+   2x130048 poses, the window-score lookup of 2x1M poses, the exact scorer
+   at 2x1500 and 2x100k poses, the 1M resampling expansion (bitwise on the
+   path's raw bound and on one with injected dips, beside ``torch.cummax``
+   of that bound) and take, and the beam LUT field at the beam path's fine
+   (B=24, K=96, 64^2) and coarse (B=24, 96^2) builds.  Each row gives its
+   bound (the larger of its operations over the f32 rate and its bytes
+   over the HBM rate, from this run's inputs), its share of it, the time
+   of one PyTorch call computing the same function where there is one,
+   and, at the end, its launches per scan on each path.
 4. ``[main]``: the staged main path: AMHAMCL, KLD-adaptive at 1M capacity /
    100k minimum, 360 beams, the staged two-program runner with a 0.9
    tracking ESS gate and the windowed corr scorer, on a procedural 384x384
@@ -42,7 +48,8 @@
    the last line.
 
 ``--profile DIR`` also writes torch.profiler tables and traces of the
-timed stretches to DIR and prints each one's device idle share.
+timed stretches to DIR, prints each one's device-busy ms/scan and idle
+share, and fails if any of them ran a cummax.
 """
 
 from __future__ import annotations
@@ -144,16 +151,120 @@ def device_ms(fn, runs: int = 20) -> float:
     return float(np.median(times))
 
 
+# Published peaks of one H100 SXM at its full 700 W limit (NVIDIA's data
+# sheet): f32 outside the tensor cores, and HBM3.
+PEAK_F32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+SRC = "mcmh_localization_tpu_torch/csrc/"
+TPU = "mcmh_localization_tpu/ops/"
+
+
+def bound_ms(ops: float, nbytes: float) -> tuple[float, str]:
+    """The least time the card could take for the work: the larger of the
+    operations over the f32 rate and the bytes over the memory rate."""
+    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def gathered_bytes(table: torch.Tensor, n_reads: int) -> int:
+    """A gather's input table, read once: the whole table, or one value a
+    read where the reads touch less of it."""
+    return min(table.numel() * table.element_size(),
+               n_reads * table.element_size())
+
+
+def kernel_row(name, source, replaces, shape, *, ms, plain_ms, err, ops,
+               nbytes, library_ms=None, library=None, **extra) -> dict:
+    """One [kernel] line and its JSON row: the kernel's time beside its
+    bound (from the operation and byte counts given), the plain version's
+    and, where one PyTorch call computes the same function, that call's."""
+    b, by = bound_ms(ops, nbytes)
+    row = dict(name=name, route="cuda", source=SRC + source,
+               replaces=TPU + replaces, shape=shape, max_abs_err=err, ms=ms,
+               plain_ms=plain_ms, bound_ms=b, bound_by=by,
+               pct_of_bound=100.0 * b / ms, library_ms=library_ms,
+               ops=ops, bytes=nbytes, **extra)
+    lib = ("none" if library_ms is None
+           else f"{library_ms:.4f} ({library})")
+    print(f"[kernel] {name} {shape}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"bound_ms={b:.4f} by {by} ({ops:.4g} ops, {nbytes:.4g} bytes) "
+          f"pct_of_bound={row['pct_of_bound']:.1f} library_ms={lib} "
+          f"max_abs_err={err}")
+    return row
+
+
+def conv_field_call(table, ox, oy, live, h, w):
+    """The library yardstick of the field build: one ``F.conv2d`` of the
+    table with a (K, 1, kh, kw) kernel that counts each bin's valid beams
+    at their offsets (cuDNN, TF32 off).  Returns the call."""
+    k = ox.shape[0]
+    kh, kw = table.shape[0] - h + 1, table.shape[1] - w + 1
+    counts = torch.zeros((k, kh * kw), device=table.device)
+    flat = (oy.to(torch.int64) * kw + ox).clamp(0, kh * kw - 1)
+    counts.scatter_add_(1, flat, live.to(torch.float32))
+    weight = counts.reshape(k, 1, kh, kw)
+    x = table[None, None].contiguous()
+    return lambda: torch.nn.functional.conv2d(x, weight)[0]
+
+
+def field_build_row(tag, padded, ox, oy, fh, fw, m, lmax):
+    """Kernel 1 at one path shape: bitwise against its plain version, timed
+    beside its bound and the conv2d yardstick.  Returns (row, field)."""
+    from mcmh_localization_tpu_torch.ops.corr_field_build import (
+        corr_field_build,
+        corr_field_build_plain,
+    )
+
+    out = corr_field_build(padded, ox, oy, fh, fw)
+    ref = corr_field_build_plain(padded, ox, oy, fh, fw)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    check(torch.equal(out, ref), f"corr_field_build {tag}: kernel != plain "
+          f"(max abs err {err})")
+    live = oy < padded.shape[0] - fh
+    conv = conv_field_call(padded[:padded.shape[0] - fh], ox, oy, live, fh, fw)
+    tol = 1e-5 * m * lmax  # f32 sums of M log values in another order
+    cerr = float((conv() - out).abs().max())
+    check(cerr <= tol, f"conv2d yardstick {tag}: max abs err {cerr} > {tol}")
+    k = ox.shape[0]
+    m_valid = int(live.sum()) / k
+    # the share of table loads that a thread already holds from the bin's
+    # previous valid beam (the beams in the build's order): in the kernel's
+    # layout (csrc/corr_field_build.cu: RY rows, 4 columns 32 apart; RY = 2
+    # where fh * fw >= 65536) and in a strip of 8 consecutive columns
+    ry = 2 if fh * fw >= 65536 else 1
+    lx, ly = ox[live].reshape(k, -1), oy[live].reshape(k, -1)
+    dx, dy = lx[:, 1:] - lx[:, :-1], ly[:, 1:] - ly[:, :-1]
+    rows_held = (ry - dy.abs()).clamp(min=0)
+    cols_held = torch.where(dx % 32 == 0, (4 - (dx // 32).abs()).clamp(min=0), 0)
+    held = float((rows_held * cols_held).float().mean()) / (4 * ry)
+    strip = float(torch.where(dy == 0, (8 - dx.abs()).clamp(min=0), 0)
+                  .float().mean()) / 8
+    same = float(((dx == 0) & (dy == 0)).float().mean())
+    print(f"[kernel] corr_field_build {tag}: loads held from the previous "
+          f"beam {held:.4f} in the kernel's layout ({ry}x4, columns 32 apart), "
+          f"{strip:.4f} in a strip of 8 consecutive columns; {same:.4f} of "
+          "consecutive valid beams repeat the offset")
+    ms = device_ms(lambda: corr_field_build(padded, ox, oy, fh, fw))
+    pms = device_ms(lambda: corr_field_build_plain(padded, ox, oy, fh, fw))
+    lms = device_ms(conv, runs=5)
+    # one add per output and valid beam; the table and the offsets read
+    # once, the field written once
+    return kernel_row(
+        "corr_field_build", "corr_field_build.cu", "corr_field_pallas.py:40",
+        f"{tag} K={k} {fh}x{fw} M={m} ({m_valid:.0f} valid)", ms=ms,
+        plain_ms=pms, err=err, ops=k * fh * fw * m_valid * 1.0,
+        nbytes=4.0 * (padded.numel() + 2 * ox.numel() + k * fh * fw),
+        library_ms=lms, library=f"conv2d, err {cerr:.3g}"), out
+
+
 def compare_kernels(gm, cfg, small_cfg, log_field, ranges, angles, rows):
     """Phase 3: each kernel vs its plain version at main-path shapes."""
     from mcmh_localization_tpu_torch.filter.init import init_gaussian
     from mcmh_localization_tpu_torch.models.corr_field import (
         _bin_offsets,
         pad_cells_for,
-    )
-    from mcmh_localization_tpu_torch.ops.corr_field_build import (
-        corr_field_build,
-        corr_field_build_plain,
     )
     from mcmh_localization_tpu_torch.ops.gather import (
         LookupGeometry,
@@ -187,24 +298,11 @@ def compare_kernels(gm, cfg, small_cfg, log_field, ranges, angles, rows):
     m = int(ranges.shape[0])
     lmax = float(log_field.abs().max())
 
-    def field_row(name, padded, ox, oy, fh, fw):
-        out = corr_field_build(padded, ox, oy, fh, fw)
-        ref = corr_field_build_plain(padded, ox, oy, fh, fw)
-        torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        tol = 1e-5 * m * lmax  # f32 sums of M log values
-        check(err <= tol, f"{name}: max abs err {err} > {tol}")
-        ms = device_ms(lambda: corr_field_build(padded, ox, oy, fh, fw))
-        pms = device_ms(lambda: corr_field_build_plain(padded, ox, oy, fh, fw))
-        print(f"[kernel] {name}: K={ox.shape[0]} {fh}x{fw} M={m} "
-              f"max_abs_err={err} (tol {tol:.3g}) ms={ms:.4f} plain_ms={pms:.4f}")
-        return out, err, ms, pms
-
-    # BIG: full map, all 120 bins
+    # kernel 1, BIG: full map, all 120 bins, beams in the build's order
     ox, oy = _bin_offsets(u, v, valid, gm.inv_res, cfg.corr_n_theta, pad, zb)
     padded_big = torch.cat([padded0, torch.zeros((h, padded0.shape[1]), device=dev)])
-    field_big, err_b, ms_b, pms_b = field_row("corr_field_build BIG", padded_big,
-                                              ox, oy, h, w)
+    field_row, field_big = field_build_row("BIG", padded_big, ox, oy, h, w,
+                                           m, lmax)
     # SMALL: 128-cell window at the start pose, 32 theta bins
     win, tw = small_cfg.corr_window_cells, small_cfg.corr_theta_window_bins
     oy0 = int((START[1] - gm.origin_xy[1]) / RES) - win // 2
@@ -217,15 +315,12 @@ def compare_kernels(gm, cfg, small_cfg, log_field, ranges, angles, rows):
     padded_small = torch.cat([padded0[oy0:oy0 + side, ox0:ox0 + side],
                               torch.zeros((win, side), device=dev)]).contiguous()
     oys = torch.where(oys >= zb, side, oys).to(torch.int32).contiguous()
-    field_small, err_s, ms_s, pms_s = field_row(
-        "corr_field_build SMALL", padded_small, oxs, oys, win, win)
-    rows.append(dict(name="corr_field_build", route="cuda",
-                     source="mcmh_localization_tpu_torch/csrc/corr_field_build.cu",
-                     replaces="mcmh_localization_tpu/ops/corr_field_pallas.py:40",
-                     max_abs_err=max(err_b, err_s), ms=ms_b, plain_ms=pms_b,
-                     ms_small=ms_s, plain_ms_small=pms_s))
+    small_row, field_small = field_build_row("SMALL", padded_small, oxs, oys,
+                                             win, win, m, lmax)
+    rows.append({**field_row, "shapes": [small_row]})
 
-    # lookups: 2 x n poses (the MH step scores both sets in one call)
+    # kernel 2: lookups of 2 x n poses (the MH step scores both sets in one
+    # call); each pose reads one field value
     gen = torch.Generator(device=dev).manual_seed(7)
     cov = torch.diag(torch.tensor(cfg.initial_cov))
     geo_big = LookupGeometry(gm.origin_xy[0], gm.origin_xy[1], gm.inv_res,
@@ -233,26 +328,23 @@ def compare_kernels(gm, cfg, small_cfg, log_field, ranges, angles, rows):
     geo_small = LookupGeometry(gm.origin_xy[0], gm.origin_xy[1], gm.inv_res,
                                cfg.corr_n_theta, tw, win, win, h, w,
                                kstart=kstart, window=(ox0, oy0))
-    look = {}
-    for name, n, field, geo, agg in (
-            ("corr_lookup BIG", 1_000_000, field_big, geo_big, "sum"),
-            ("corr_lookup SMALL", 130_048, field_small, geo_small, "mean")):
+    look = []
+    for tag, n, field, geo, agg in (
+            ("BIG", 1_000_000, field_big, geo_big, "sum"),
+            ("SMALL", 130_048, field_small, geo_small, "mean")):
         parts = init_gaussian(START, cov, 2 * n, gm, generator=gen)
         out = corr_lookup(field, parts, n_valid, geo, agg, True)
         ref = corr_lookup_plain(field, parts, n_valid, geo, agg, True)
         torch.cuda.synchronize()
-        check(torch.equal(out, ref), f"{name}: kernel != plain")
+        check(torch.equal(out, ref), f"corr_lookup {tag}: kernel != plain")
         ms = device_ms(lambda: corr_lookup(field, parts, n_valid, geo, agg, True))
         pms = device_ms(lambda: corr_lookup_plain(field, parts, n_valid, geo, agg, True))
-        print(f"[kernel] {name}: N=2x{n} bitwise=True ms={ms:.4f} plain_ms={pms:.4f}")
-        look[name] = (ms, pms, parts)
-    ms_lb, pms_lb, _ = look["corr_lookup BIG"]
-    ms_ls, pms_ls, parts_s = look["corr_lookup SMALL"]
-    rows.append(dict(name="corr_lookup", route="cuda",
-                     source="mcmh_localization_tpu_torch/csrc/gather.cu",
-                     replaces="mcmh_localization_tpu/ops/gather_pallas.py:96",
-                     max_abs_err=0.0, ms=ms_lb, plain_ms=pms_lb,
-                     ms_small=ms_ls, plain_ms_small=pms_ls))
+        look.append(kernel_row(
+            "corr_lookup", "gather.cu", "gather_pallas.py:96",
+            f"{tag} N=2x{n}", ms=ms, plain_ms=pms, err=0.0, ops=2 * n,
+            nbytes=2 * n * (3 * 4 + 4) + gathered_bytes(field, 2 * n)))
+        parts_s = parts
+    rows.append({**look[0], "shapes": look[1:]})
 
     # gather_2d at the TPU's SMALL lookup shape: a (4096, 128) table, 2x130048
     tbin, myc, mxc, _, _ = corr_lookup_indices(parts_s, geo_small)
@@ -261,46 +353,85 @@ def compare_kernels(gm, cfg, small_cfg, log_field, ranges, angles, rows):
     x = mxc.to(torch.int32).contiguous()
     g = gather_2d(table, y, x)
     check(torch.equal(g, gather_2d_plain(table, y, x)), "gather_2d != plain")
+    y64, x64 = y.to(torch.int64), x.to(torch.int64)
+    check(torch.equal(g, table[y64, x64]), "gather_2d != table[y, x]")
     ms_g = device_ms(lambda: gather_2d(table, y, x))
     pms_g = device_ms(lambda: gather_2d_plain(table, y, x))
-    print(f"[kernel] gather_2d: table {tuple(table.shape)} "
-          f"N={y.numel()} bitwise=True ms={ms_g:.4f} plain_ms={pms_g:.4f}")
+    lms_g = device_ms(lambda: table[y64, x64])
+    n_g = y.numel()
+    gather_row = kernel_row(
+        "gather_2d", "gather.cu", "gather_pallas.py:180",
+        f"table {tuple(table.shape)} N={n_g}", ms=ms_g, plain_ms=pms_g,
+        err=0.0, ops=n_g, nbytes=n_g * 12 + gathered_bytes(table, n_g),
+        library_ms=lms_g, library="table[y, x]")
 
-    # resampling expansion: bounds of 1M posterior weights
+    # kernels 3 and 4: one bound of 1M posterior weights at the draw's
+    # max_samples serves the KLD stage-1 draw (131072 slots) and the full
+    # draw (1M); the raw bound may dip, and the kernels rank against its
+    # running max
     n_big = 1_000_000
     parts = init_gaussian(START, cov, n_big, gm, generator=gen)
     s = corr_lookup(field_big, parts, n_valid, geo_big, "mean", True)
     wts = softmax_weights(s * 40.0)
     r = torch.rand((), generator=gen, device=dev)
-    for num_out in (131_072, n_big):
-        bound = _segment_bounds(wts, num_out, n_big, r)
-        e = expand_sorted(bound, parts, num_out, count=n_big)
-        check(torch.equal(e, expand_sorted_plain(bound, parts, num_out, n_big)),
-              f"expand_sorted != plain at num_out={num_out}")
-        ri = rank_in_sorted(bound, num_out, count=n_big)
-        check(torch.equal(ri, rank_in_sorted_plain(bound, num_out, n_big)),
-              f"rank_in_sorted != plain at num_out={num_out}")
-        ms_e = device_ms(lambda: expand_sorted(bound, parts, num_out, n_big))
-        pms_e = device_ms(lambda: expand_sorted_plain(bound, parts, num_out, n_big))
-        ms_r = device_ms(lambda: rank_in_sorted(bound, num_out, n_big))
-        pms_r = device_ms(lambda: rank_in_sorted_plain(bound, num_out, n_big))
-        print(f"[kernel] expand_sorted R={n_big} num_out={num_out}: bitwise=True "
-              f"ms={ms_e:.4f} plain_ms={pms_e:.4f}")
-        print(f"[kernel] rank_in_sorted (off the main path) R={n_big} "
-              f"num_out={num_out}: bitwise=True ms={ms_r:.4f} plain_ms={pms_r:.4f}")
-    rows.append(dict(name="expand_sorted", route="cuda",
-                     source="mcmh_localization_tpu_torch/csrc/rank.cu",
-                     replaces="mcmh_localization_tpu/ops/rank_pallas.py:361",
-                     max_abs_err=0.0, ms=ms_e, plain_ms=pms_e))
-    rows.append(dict(name="gather_2d", route="cuda",
-                     source="mcmh_localization_tpu_torch/csrc/gather.cu",
-                     replaces="mcmh_localization_tpu/ops/gather_pallas.py:180",
-                     max_abs_err=0.0, ms=ms_g, plain_ms=pms_g))
-    rows.append(dict(name="rank_in_sorted", route="cuda",
-                     source="mcmh_localization_tpu_torch/csrc/rank.cu",
-                     replaces="mcmh_localization_tpu/ops/rank_pallas.py:212",
-                     max_abs_err=0.0, ms=ms_r, plain_ms=pms_r,
-                     on_main_path=False))
+    bound = _segment_bounds(wts, n_big, n_big, r)
+    natural = int((bound[1:] < bound[:-1]).sum())
+    dipped = bound.clone()
+    edges = torch.nonzero(dipped[1:] > dipped[:-1]).flatten() + 1
+    pick = edges[torch.randperm(edges.numel(), generator=gen, device=dev)[:4096]]
+    drop = 1 + (torch.rand(pick.shape, generator=gen, device=dev) < 0.5).int()
+    dipped[pick] = (dipped[pick - 1] - drop).clamp(min=0).to(torch.int32)
+    injected = int((dipped[1:] < dipped[:-1]).sum())
+    check(injected > 1000, f"only {injected} dips injected")
+    print(f"[kernel] segment bound R={n_big}: {natural} natural dips of the "
+          f"card's cumsum; {injected} in the injected copy")
+    # the count as the path holds it, a 0-d int32 on the card: a python int
+    # would cost a pageable copy, which waits for the queue, every call
+    cnt = torch.tensor(n_big, dtype=torch.int32, device=dev)
+    exp_rows, rank_rows = [], []
+    for num_out in (n_big, 131_072):
+        for tag, bd in (("dips injected", dipped), ("path", bound)):
+            e = expand_sorted(bd, parts, num_out, count=cnt)
+            check(torch.equal(e, expand_sorted_plain(bd, parts, num_out, cnt)),
+                  f"expand_sorted != plain at num_out={num_out} ({tag})")
+            ri = rank_in_sorted(bd, num_out, count=cnt)
+            check(torch.equal(ri, rank_in_sorted_plain(bd, num_out, cnt)),
+                  f"rank_in_sorted != plain at num_out={num_out} ({tag})")
+        ms_e = device_ms(lambda: expand_sorted(bound, parts, num_out, cnt))
+        pms_e = device_ms(lambda: expand_sorted_plain(bound, parts, num_out, cnt))
+        ms_cm = device_ms(lambda: torch.cummax(bound, 0))
+        ms_r = device_ms(lambda: rank_in_sorted(bound, num_out, cnt))
+        pms_r = device_ms(lambda: rank_in_sorted_plain(bound, num_out, cnt))
+        mono = torch.cummax(bound, 0).values
+        v32 = torch.arange(num_out, dtype=torch.int32, device=dev)
+        check(torch.equal(ri, torch.searchsorted(mono, v32, right=True,
+                                                 out_int32=True).clamp(max=n_big - 1)),
+              "rank_in_sorted != searchsorted of the running max")
+        # not the same function: searchsorted needs the running max first
+        ss_r = device_ms(lambda: torch.searchsorted(mono, v32, right=True,
+                                                    out_int32=True))
+        # each input read once (the particles as the rows the slots
+        # gather), each output written once
+        exp_rows.append(kernel_row(
+            "expand_sorted", "rank.cu", "rank_pallas.py:361",
+            f"R={n_big} num_out={num_out}", ms=ms_e, plain_ms=pms_e, err=0.0,
+            ops=n_big + num_out,
+            nbytes=4 * n_big + gathered_bytes(parts, 3 * num_out) + 12 * num_out,
+            cummax_ms=ms_cm))
+        print(f"[kernel] expand_sorted R={n_big} num_out={num_out}: the scan "
+              f"and the expansion {ms_e:.4f} ms; torch.cummax of the same raw "
+              f"bound, which the path no longer runs, {ms_cm:.4f} ms")
+        rank_rows.append(kernel_row(
+            "rank_in_sorted", "rank.cu", "rank_pallas.py:212",
+            f"R={n_big} num_out={num_out}", ms=ms_r, plain_ms=pms_r, err=0.0,
+            ops=n_big + num_out, nbytes=4 * n_big + 4 * num_out,
+            searchsorted_ms=ss_r, on_main_path=False))
+        print(f"[kernel] rank_in_sorted R={n_big} num_out={num_out}: "
+              f"searchsorted of the running max {ss_r:.4f} ms, beside "
+              f"torch.cummax {ms_cm:.4f} ms")
+    rows.append({**exp_rows[0], "shapes": exp_rows[1:]})
+    rows.append(gather_row)
+    rows.append({**rank_rows[0], "shapes": rank_rows[1:]})
     return field_small, (ox0, oy0, kstart), u, v, valid, wts
 
 
@@ -314,10 +445,6 @@ def compare_slice2_kernels(gm, single_cfg, log_field, ranges, angles,
         coarse_build_inputs,
         coarse_shape,
         window_geometry,
-    )
-    from mcmh_localization_tpu_torch.ops.corr_field_build import (
-        corr_field_build,
-        corr_field_build_plain,
     )
     from mcmh_localization_tpu_torch.ops.fused_score import (
         window_escapees,
@@ -346,20 +473,10 @@ def compare_slice2_kernels(gm, single_cfg, log_field, ranges, angles,
     # the coarse field build: K=36, 96^2, M=360
     kc, hc, wc = coarse_shape(single_cfg, *log_field.shape)
     padded, ox, oy = coarse_build_inputs(u, v, valid, log_field, gm, single_cfg)
-    out = corr_field_build(padded, ox, oy, hc, wc)
-    ref = corr_field_build_plain(padded, ox, oy, hc, wc)
-    torch.cuda.synchronize()
-    err_c = float((out - ref).abs().max())
-    tol = 1e-5 * m * lmax
-    check(err_c <= tol, f"coarse field build: max abs err {err_c} > {tol}")
-    ms_c = device_ms(lambda: corr_field_build(padded, ox, oy, hc, wc))
-    pms_c = device_ms(lambda: corr_field_build_plain(padded, ox, oy, hc, wc))
-    print(f"[kernel] corr_field_build coarse: K={kc} {hc}x{wc} M={m} "
-          f"max_abs_err={err_c} (tol {tol:.3g}) ms={ms_c:.4f} plain_ms={pms_c:.4f}")
     for row in rows:
         if row["name"] == "corr_field_build":
-            row.update(max_abs_err=max(row["max_abs_err"], err_c),
-                       ms_coarse=ms_c, plain_ms_coarse=pms_c)
+            row["shapes"].append(field_build_row("coarse", padded, ox, oy,
+                                                 hc, wc, m, lmax)[0])
 
     # kernel 5: the window score at 2x1M poses, a mixed cloud: tracked
     # poses in the window, escapees across the map (coarse reads), and off
@@ -389,10 +506,16 @@ def compare_slice2_kernels(gm, single_cfg, log_field, ranges, angles,
     ms5 = device_ms(lambda: window_score(*args, count=n_valid))
     pms5 = device_ms(lambda: window_score_plain(*args, count=n_valid))
     ms_e = device_ms(lambda: window_escapees(parts, geo))
-    print(f"[kernel] window_score: N=2x{n // 2} fine {tuple(fine_t.shape)} "
-          f"coarse {tuple(coarse_t.shape)} escapees={n_esc} "
-          f"off_map={int((~in_map).sum())} bitwise=True ms={ms5:.4f} "
-          f"plain_ms={pms5:.4f}; window_escapees ms={ms_e:.4f}")
+    n_off = int((~in_map).sum())
+    print(f"[kernel] window_score: fine {tuple(fine_t.shape)} coarse "
+          f"{tuple(coarse_t.shape)} escapees={n_esc} off_map={n_off}; "
+          f"window_escapees ms={ms_e:.4f}")
+    # each pose reads one fine or one coarse value (none off the map)
+    window_row = kernel_row(
+        "window_score", "fused_score.cu", "fused_score_pallas.py:170",
+        f"N=2x{n // 2}", ms=ms5, plain_ms=pms5, err=0.0, ops=n,
+        nbytes=n * (12 + 4) + gathered_bytes(fine_t, n - n_esc - n_off)
+        + gathered_bytes(coarse_t, n_esc), ms_escapees=ms_e)
     # the beam score field's op forms (divide by res, divide by the bin
     # width, clip before the window), which the beam slice reuses
     geo_b = geo._replace(
@@ -407,20 +530,17 @@ def compare_slice2_kernels(gm, single_cfg, log_field, ranges, angles,
     check(torch.equal(out, ref), "window_score (beam op forms): kernel != plain")
     print(f"[kernel] window_score, beam op forms (fine_div, theta_div, "
           f"clip_before_window): N=2x{n // 2} bitwise=True")
-    rows.append(dict(name="window_score", route="cuda",
-                     source="mcmh_localization_tpu_torch/csrc/fused_score.cu",
-                     replaces="mcmh_localization_tpu/ops/fused_score_pallas.py:170",
-                     max_abs_err=0.0, ms=ms5, plain_ms=pms5,
-                     ms_escapees=ms_e))
+    rows.append(window_row)
 
     # kernel 6: the exact scorer at 2x1500 and 2x100k poses, 360 beams, on
     # the 384^2 log field; the [exact] path's multiply form and the "jnp"
     # divide form.  The beam sum runs in another order: |err| <= 1e-5 *
     # max|L| after the "mean" divide
     cnt = valid.sum().to(torch.int32)
+    m_valid = int(cnt)
     tol6 = 1e-5 * lmax
-    err6, times6 = 0.0, {}
-    for n6 in (1500, 100_000):
+    rows6 = []
+    for n6 in (100_000, 1500):
         p6 = init_gaussian(START, cov, 2 * n6, gm, generator=gen).contiguous()
         for div in (False, True):
             scale = gm.res if div else gm.inv_res
@@ -432,20 +552,18 @@ def compare_slice2_kernels(gm, single_cfg, log_field, ranges, angles,
             e = float((got - want).abs().max())
             check(e <= tol6, f"likelihood_scores n=2x{n6} div={div}: "
                   f"max abs err {e} > {tol6}")
-            err6 = max(err6, e)
             ms6 = device_ms(lambda: likelihood_scores(*a6))
             pms6 = device_ms(lambda: likelihood_scores_plain(*a6))
-            times6[(n6, div)] = (ms6, pms6)
-            print(f"[kernel] likelihood_scores: N=2x{n6} M={m} "
-                  f"form={'div' if div else 'mul'} max_abs_err={e} "
-                  f"(tol {tol6:.3g}) ms={ms6:.4f} plain_ms={pms6:.4f}")
-    rows.append(dict(name="likelihood_scores", route="cuda",
-                     source="mcmh_localization_tpu_torch/csrc/likelihood.cu",
-                     replaces="mcmh_localization_tpu/ops/likelihood_pallas.py:113",
-                     max_abs_err=err6, ms=times6[(100_000, False)][0],
-                     plain_ms=times6[(100_000, False)][1],
-                     ms_1500=times6[(1500, False)][0],
-                     plain_ms_1500=times6[(1500, False)][1]))
+            # per pose and valid beam: 8 flops for the endpoint, 4 for its
+            # cell, 1 for the sum; one field read each
+            pairs = 2 * n6 * m_valid
+            rows6.append(kernel_row(
+                "likelihood_scores", "likelihood.cu", "likelihood_pallas.py:113",
+                f"N=2x{n6} M={m} ({m_valid} valid) form="
+                f"{'div' if div else 'mul'}", ms=ms6, plain_ms=pms6, err=e,
+                ops=13.0 * pairs, nbytes=2 * n6 * 16 + m * 12
+                + gathered_bytes(log_field, pairs)))
+    rows.append({**rows6[0], "shapes": rows6[1:]})
 
     # kernel 8: the monotone take of the 1M systematic indices, (1M, 3)
     n8 = wts.shape[0]
@@ -455,15 +573,15 @@ def compare_slice2_kernels(gm, single_cfg, log_field, ranges, angles,
     check(torch.equal(got, take_rows_monotone_plain(parts[:n8], idx)),
           "take_rows_monotone != plain")
     src = parts[:n8].contiguous()
+    check(torch.equal(got, torch.index_select(src, 0, idx)),
+          "take_rows_monotone != index_select")
     ms8 = device_ms(lambda: take_rows_monotone(src, idx))
     pms8 = device_ms(lambda: take_rows_monotone_plain(src, idx))
-    print(f"[kernel] take_rows_monotone (off the main paths): ({n8}, 3) "
-          f"bitwise=True ms={ms8:.4f} plain_ms={pms8:.4f}")
-    rows.append(dict(name="take_rows_monotone", route="cuda",
-                     source="mcmh_localization_tpu_torch/csrc/take.cu",
-                     replaces="mcmh_localization_tpu/ops/take_pallas.py:98",
-                     max_abs_err=0.0, ms=ms8, plain_ms=pms8,
-                     on_main_path=False))
+    lms8 = device_ms(lambda: torch.index_select(src, 0, idx))
+    rows.append(kernel_row(
+        "take_rows_monotone", "take.cu", "take_pallas.py:98", f"({n8}, 3)",
+        ms=ms8, plain_ms=pms8, err=0.0, ops=n8, nbytes=n8 * (12 + 4 + 12),
+        library_ms=lms8, library="index_select", on_main_path=False))
 
 
 def compare_beam_kernel(gm, beam_model, ranges, angles, rows):
@@ -488,7 +606,7 @@ def compare_beam_kernel(gm, beam_model, ranges, angles, rows):
     oy0 = int((START[1] - gm.origin_xy[1]) / RES) - win // 2
     ox0 = int((START[0] - gm.origin_xy[0]) / RES) - win // 2
     kstart = (int((START[2] + math.pi) * k / (2 * math.pi)) - tw // 2) % k
-    times = {}
+    lut_rows = []
     for tag, (qt, s) in (
             ("fine", fine_lut_inputs(tables, lp, angles, k, (oy0, ox0, kstart),
                                      win, tw, True)),
@@ -499,16 +617,14 @@ def compare_beam_kernel(gm, beam_model, ranges, angles, rows):
         check(torch.equal(out, ref), f"lut_field {tag}: kernel != plain")
         ms = device_ms(lambda: lut_field(qt, s))
         pms = device_ms(lambda: lut_field_plain(qt, s))
-        times[tag] = (ms, pms)
         b, kk, nq = s.shape
-        print(f"[kernel] lut_field {tag}: B={b} K={kk} nq={nq} C={qt.shape[1]} "
-              f"bitwise=True ms={ms:.4f} plain_ms={pms:.4f}")
-    rows.append(dict(name="lut_field", route="cuda",
-                     source="mcmh_localization_tpu_torch/csrc/beam_field.cu",
-                     replaces="mcmh_localization_tpu/ops/beam_field_pallas.py:115",
-                     max_abs_err=0.0, ms=times["fine"][0],
-                     plain_ms=times["fine"][1], ms_coarse=times["coarse"][0],
-                     plain_ms_coarse=times["coarse"][1]))
+        c = qt.shape[1]
+        # one add per output and bin; qt, s read once, the field written
+        lut_rows.append(kernel_row(
+            "lut_field", "beam_field.cu", "beam_field_pallas.py:115",
+            f"{tag} B={b} K={kk} nq={nq} C={c}", ms=ms, plain_ms=pms,
+            err=0.0, ops=b * kk * c, nbytes=kk * c + 4 * (b * kk * nq + b * c)))
+    rows.append({**lut_rows[0], "shapes": lut_rows[1:]})
 
 
 def main(argv=None) -> int:
@@ -546,7 +662,7 @@ def main(argv=None) -> int:
     print(f"[build] kernels ready in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_cuda.build_seconds:.2f} s) -> {_cuda.library_path().name}")
     for line in _cuda.build_log.splitlines():  # ptxas -v: registers, smem
-        if "entry function" in line or "registers" in line:
+        if "entry function" in line or "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
 
     dev = torch.device("cuda")
@@ -598,8 +714,11 @@ def main(argv=None) -> int:
           f"forms built in {time.perf_counter() - t0:.2f} s")
     compare_beam_kernel(gm, beam, scans[0], angles, rows)
     path_counts: dict[str, dict[str, int]] = {}
+    path_scans: dict[str, int] = {}
 
-    def add_counts(path: str, counts: dict) -> None:
+    def add_counts(path: str, counts: dict, scans: int) -> None:
+        """The launches a path's phase made over its ``scans`` scans."""
+        path_scans[path] = path_scans.get(path, 0) + scans
         tot = path_counts.setdefault(path, {})
         for k, n in counts.items():
             tot[k] = tot.get(k, 0) + n
@@ -657,7 +776,8 @@ def main(argv=None) -> int:
     print(f"[main] BIG (n_max={state_size(staged.config)}) program: "
           f"{ms_big:.4f} ms/scan over {SCAN_LEN} scans on {smi}")
     final_error(b_infos)
-    add_counts("main", _cuda.launch_counts())
+    # 64 settle scans, 48 SMALL and 16 BIG
+    add_counts("main", _cuda.launch_counts(), 8 * SCAN_LEN)
     print(f"[main] kernel launches in the main path: {path_counts['main']}")
     for name in ("corr_field_build", "corr_lookup", "expand_sorted"):
         check(path_counts["main"].get(name, 0) > 0, f"[main] {name} never launched")
@@ -706,7 +826,7 @@ def main(argv=None) -> int:
               f"counts {x_infos.count.min().item()}..{x_infos.count.max().item()}")
         check(err_x < 0.2, f"[single] {tag} final error {err_x:.3f} m >= 0.2 m")
         del model, st
-    add_counts("single", _cuda.launch_counts())
+    add_counts("single", _cuda.launch_counts(), 3 * n_scans)
     print(f"[single] kernel launches: {path_counts['single']}")
     check(path_counts["single"].get("window_escapees", 0) > 0,
           "[single] the gated run never counted escapees")
@@ -726,7 +846,7 @@ def main(argv=None) -> int:
         err8 = float(np.mean(np.hypot(e[-8:, 0] - tr[-8:, 0],
                                       e[-8:, 1] - tr[-8:, 1])))
         c = _cuda.launch_counts()
-        add_counts("exact", c)
+        add_counts("exact", c, 2 * SCAN_LEN)
         print(f"[exact] {mode}: {ms_b:.4f} ms/scan (n={cfg_b.num_particles}, "
               f"max {cfg_b.max_particles}, 'reject') on {smi}; mean error "
               f"last 8 {err8:.4f} m; count {int(st.count)}; launches {c}")
@@ -748,7 +868,7 @@ def main(argv=None) -> int:
             st, x_infos, ms_x = timed(model, st, 1)
             err_x = final_error(x_infos)
             add_counts("exact" if impl == "jnp" else "single",
-                       _cuda.launch_counts())
+                       _cuda.launch_counts(), 2 * SCAN_LEN)
             cross[(n, impl)] = ms_x
             print(f"[exact] AMHAMCL n={n} {impl}: {ms_x:.4f} ms/scan on {smi}; "
                   f"final error {err_x:.4f} m")
@@ -774,7 +894,7 @@ def main(argv=None) -> int:
         st, x_infos, ms_x = timed(model, st, 1)
         err_x = final_error(x_infos)
         c = _cuda.launch_counts()
-        add_counts("beam", c)
+        add_counts("beam", c, 2 * SCAN_LEN)
         print(f"[beam] {tag} (n={state_size(model.config)}, 96 table bins, "
               f"window 64, 24 theta bins, coarse x4 at 24 bins, gate 8, "
               f"ESS {model.config.resample_ess_threshold}): {ms_x:.4f} ms/scan "
@@ -797,7 +917,7 @@ def main(argv=None) -> int:
     st, x_infos, ms_x = timed(model, st, 1)
     err_x = final_error(x_infos)
     c = _cuda.launch_counts()
-    add_counts("beam", c)
+    add_counts("beam", c, 2 * SCAN_LEN)
     print(f"[beam] table (n=1500, 96 table bins): {ms_x:.4f} ms/scan on {smi}; "
           f"final error {err_x:.4f} m; launches {c}")
     check(err_x < 0.25, f"[beam] table: final error {err_x:.3f} m >= 0.25 m")
@@ -808,9 +928,15 @@ def main(argv=None) -> int:
     for row in rows:
         row["launches"] = sum(c.get(row["name"], 0)
                               for c in path_counts.values())
+        row["launches_per_scan"] = {
+            path: c[row["name"]] / path_scans[path]
+            for path, c in path_counts.items() if c.get(row["name"], 0)}
         if row.get("on_main_path", True):
             check(row["launches"] > 0, f"{row['name']} never launched")
-    print(f"[paths] launches per path: {json.dumps(path_counts)}")
+        print(f"[kernel] {row['name']}: launches per scan by path "
+              f"{json.dumps(row['launches_per_scan'])}")
+    print(f"[paths] launches per path: {json.dumps(path_counts)} over "
+          f"scans {json.dumps(path_scans)}")
 
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
@@ -821,8 +947,11 @@ def main(argv=None) -> int:
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 timed(model, st, 1)
-            (pdir / f"{tag}_profile.txt").write_text(prof.key_averages().table(
-                sort_by="self_device_time_total", row_limit=40))
+            averages = prof.key_averages()
+            (pdir / f"{tag}_profile.txt").write_text(averages.table(
+                sort_by="self_device_time_total", row_limit=80))
+            cummax = sorted({e.key for e in averages if "cummax" in e.key})
+            check(not cummax, f"[profile] {tag}: a cummax ran: {cummax}")
             trace = pdir / f"{tag}_trace.json"
             prof.export_chrome_trace(str(trace))
             # device busy = the kernels' and copies' own time on the card
@@ -833,13 +962,20 @@ def main(argv=None) -> int:
             busy = dev_us / 1e3 / SCAN_LEN
             print(f"[profile] {tag}: device busy {busy:.4f} ms/scan of "
                   f"{ms:.4f} ms/scan unprofiled -> idle share "
-                  f"{1 - busy / ms:.3f} on {smi}; wrote {pdir}/{tag}_*")
+                  f"{1 - busy / ms:.3f} on {smi}; no cummax ran; wrote "
+                  f"{pdir}/{tag}_*")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "pct_of_bound", "launches_per_scan", "shape")
+    shape_keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                  "library_ms", "pct_of_bound", "max_abs_err")
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys},
-         **({} if r.get("on_main_path", True) else {"on_main_path": False})}
+         **({} if r.get("on_main_path", True) else {"on_main_path": False}),
+         **{k: r[k] for k in ("cummax_ms", "searchsorted_ms") if k in r},
+         **({"shapes": [{k: x[k] for k in shape_keys} for x in r["shapes"]]}
+            if r.get("shapes") else {})}
         for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,9 @@
 Both packages then compute on the same inputs: a JAX ``GridMap``,
 ``FilterState`` or ``BeamTables`` flattened to numpy arrays (``np.asarray``
 of each field) rebuilds here.  The PRNG key is the one field that cannot
-transfer: the port's state takes a fresh ``torch.Generator``.
+transfer: the port's state takes a fresh ``torch.Generator``.  Each
+function puts its tensors on the card unless ``device`` names another
+device, and raises when there is no card to put them on.
 """
 
 from __future__ import annotations
@@ -14,6 +16,10 @@ import torch
 from mcmh_localization_tpu_torch.filter.state import FilterState, make_generator
 from mcmh_localization_tpu_torch.maps.grid_map import GridMap, build_grid_map
 from mcmh_localization_tpu_torch.models.range_table import BeamTables
+from mcmh_localization_tpu_torch.utils.device import (
+    DEFAULT_DEVICE,
+    resolve_device,
+)
 
 STATE_FIELDS = ("particles", "prev_particles", "weights", "count", "w_slow",
                 "w_fast", "delta", "anchor", "anchor_streak")
@@ -21,7 +27,7 @@ _INT_FIELDS = ("count", "anchor_streak")
 
 
 def grid_map_from_numpy(occupancy, resolution, origin, distance=None,
-                        device="cpu") -> GridMap:
+                        device=DEFAULT_DEVICE) -> GridMap:
     """A GridMap from trinary int8 occupancy, resolution, origin (x, y) and
     optionally the distance field (else scipy's EDT)."""
     return build_grid_map(np.asarray(occupancy), float(resolution),
@@ -30,11 +36,11 @@ def grid_map_from_numpy(occupancy, resolution, origin, distance=None,
 
 
 def beam_tables_from_numpy(table, qt, dvals, qtc=None,
-                           device="cpu") -> BeamTables:
+                           device=DEFAULT_DEVICE) -> BeamTables:
     """BeamTables from a JAX BeamTables' fields as numpy arrays: the f32
     range table, its int8 ``qt``, the ``dvals`` and the coarse ``qtc`` (or
     None)."""
-    dev = torch.device(device)
+    dev = resolve_device(device)
 
     def t(a, dtype):
         return torch.as_tensor(np.array(a), dtype=dtype, device=dev)
@@ -44,12 +50,12 @@ def beam_tables_from_numpy(table, qt, dvals, qtc=None,
                       qtc=None if qtc is None else t(qtc, torch.int8))
 
 
-def state_from_numpy(arrays: dict, device="cpu",
+def state_from_numpy(arrays: dict, device=DEFAULT_DEVICE,
                      generator: torch.Generator | None = None) -> FilterState:
     """A FilterState from a dict of numpy arrays with the JAX FilterState's
     field names (``key`` is ignored); ``generator`` (default: seeded with
     0) becomes the state's random source."""
-    dev = torch.device(device)
+    dev = resolve_device(device)
     kw = {}
     for name in STATE_FIELDS:
         dtype = torch.int32 if name in _INT_FIELDS else torch.float32

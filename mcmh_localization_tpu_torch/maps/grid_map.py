@@ -18,6 +18,10 @@ import torch
 
 from mcmh_localization_tpu_torch.io.pgm import load_map_yaml
 from mcmh_localization_tpu_torch.maps.edt import distance_transform_edt
+from mcmh_localization_tpu_torch.utils.device import (
+    DEFAULT_DEVICE,
+    resolve_device,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,10 +100,12 @@ def build_grid_map(
     resolution: float,
     origin: Tuple[float, float] = (0.0, 0.0),
     distance: np.ndarray | None = None,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = DEFAULT_DEVICE,
 ) -> GridMap:
-    """Build a GridMap on ``device``, computing the EDT on the host with
-    scipy when ``distance`` is not given."""
+    """Build a GridMap on ``device`` (the card unless told otherwise; raises
+    without one), computing the EDT on the host with scipy when
+    ``distance`` is not given."""
+    dev = resolve_device(device)
     occupancy = np.asarray(occupancy, dtype=np.int8)
     if distance is None:
         distance = distance_transform_edt(occupancy != 0, resolution)
@@ -112,7 +118,6 @@ def build_grid_map(
     ).astype(np.float32)
     origin32 = np.asarray(origin[:2], dtype=np.float32)
     res32 = np.float32(resolution)
-    dev = torch.device(device)
     return GridMap(
         occupancy=torch.from_numpy(occupancy.copy()).to(dev),
         distance=torch.from_numpy(np.array(distance, np.float32)).to(dev),
@@ -126,8 +131,10 @@ def build_grid_map(
     )
 
 
-def load_map(yaml_path: str, device: str | torch.device = "cpu") -> GridMap:
-    """Load a ROS map YAML+PGM pair."""
+def load_map(yaml_path: str,
+             device: str | torch.device = DEFAULT_DEVICE) -> GridMap:
+    """Load a ROS map YAML+PGM pair onto ``device`` (the card unless told
+    otherwise)."""
     occ, meta = load_map_yaml(yaml_path)
     return build_grid_map(occ, meta["resolution"], meta["origin"][:2],
                           device=device)

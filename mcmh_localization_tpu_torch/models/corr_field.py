@@ -51,9 +51,30 @@ LOG_FLOOR_LOG = -13.815511  # log(1e-6), the coarse max-pool's pad value
 
 def _bin_offsets(u, v, valid, inv_res, n_theta, pad_cells, zero_band_row,
                  bin_start=0, nbins=None):
-    """(nbins, M) int32 slice-start offsets per theta bin (bin centers);
-    invalid beams point at the all-zero band.  ``bin_start`` selects a
-    circular window of ``nbins`` of the ``n_theta`` global bins."""
+    """(nbins, M) int32 slice-start offsets per theta bin, each bin's beams
+    ordered by (oy, ox) (``_order_beams``): the field build's summation
+    order, which reads neighbouring table rows one after another; the
+    invalid beams come last."""
+    return _order_beams(*_beam_offsets(u, v, valid, inv_res, n_theta,
+                                       pad_cells, zero_band_row, bin_start,
+                                       nbins), pad_cells)
+
+
+def _order_beams(ox, oy, pad_cells):
+    """Each row's beams sorted by (oy, ox), ties in beam order.  Valid
+    offsets lie in [0, 2 * pad_cells]; an invalid beam's oy is the zero
+    band's row, past every valid one."""
+    key = oy.to(torch.int64) * (2 * pad_cells + 1) + ox
+    order = torch.sort(key, dim=1, stable=True).indices
+    return ox.gather(1, order), oy.gather(1, order)
+
+
+def _beam_offsets(u, v, valid, inv_res, n_theta, pad_cells, zero_band_row,
+                  bin_start=0, nbins=None):
+    """(nbins, M) int32 slice-start offsets per theta bin (bin centers), in
+    beam order as the JAX package computes them; invalid beams point at the
+    all-zero band.  ``bin_start`` selects a circular window of ``nbins`` of
+    the ``n_theta`` global bins."""
     if nbins is None:
         nbins = n_theta
     thetas = (

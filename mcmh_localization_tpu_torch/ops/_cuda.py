@@ -10,7 +10,8 @@ loads the library already built.
 
 Every wrapper in ``ops/`` launches on ``torch.cuda.current_stream()``,
 raises when the launch reports an error, and adds one to its launch count
-(``launch_counts``) where it launches its kernel and nowhere else.
+(``launch_counts``) for each kernel it launches, where it launches them and
+nowhere else.
 """
 
 from __future__ import annotations
@@ -58,8 +59,9 @@ _SIGNATURES = {
         _P, _I, _I, _I, _P, _I, _P, _F, _F, _F, _F, _F, _I, _I, _I, _I, _I,
         _I, _I, _I, _I, _I, _F, _F, _P, _P,
     ),
-    "mcmh_rank_in_sorted": (_P, _I, _I, _P, _P, _P),
-    "mcmh_expand_sorted": (_P, _I, _P, _I, _I, _P, _P, _P),
+    "mcmh_rank_scratch_words": (_I,),
+    "mcmh_rank_in_sorted": (_P, _I, _I, _P, _P, _P, _P, _P),
+    "mcmh_expand_sorted": (_P, _I, _P, _I, _I, _P, _P, _P, _P, _P),
     "mcmh_window_score": (_P, _P, _P, _I, _P, _P, WindowArgs, _P, _P),
     "mcmh_window_escapees": (_P, _I, WindowArgs, _P, _P),
     "mcmh_likelihood_scores": (
@@ -158,12 +160,13 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def check_launch(name: str, code: int) -> None:
-    """Raise on a refused launch; otherwise count it."""
+def check_launch(name: str, code: int, kernels: int = 1) -> None:
+    """Raise on a refused launch; otherwise count it: ``kernels`` is the
+    number of kernels the call launched."""
     if code != 0:
         msg = library().mcmh_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA launch failed ({code}: {msg})")
-    _launches[name] = _launches.get(name, 0) + 1
+    _launches[name] = _launches.get(name, 0) + kernels
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

@@ -3,7 +3,12 @@
 Port of ``mcmh_localization_tpu/ops/corr_field_pallas.py``; the CUDA kernel
 is ``csrc/corr_field_build.cu``.  One kernel builds both staged programs'
 fields: BIG's full-map field (all theta bins) and SMALL's windowed field
-(the caller slices the window region first, models/corr_field.py).
+(the caller slices the window region first, models/corr_field.py), and the
+coarse fallback field.  The sum runs over the beams in the order given
+(``models/corr_field.py::_bin_offsets`` orders each bin's beams by
+(oy, ox)); the kernel skips the beams that point at the all-zero band
+(the last ``h`` rows of ``padded``), which add +0.0, so it stays bitwise
+equal to the plain version.
 """
 
 from __future__ import annotations
@@ -15,8 +20,8 @@ from mcmh_localization_tpu_torch.ops import _cuda
 
 def corr_field_build_plain(padded: torch.Tensor, ox: torch.Tensor,
                            oy: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """Plain PyTorch version: one shifted-slab add per beam, beams in order
-    (the kernel's summation order)."""
+    """Plain PyTorch version: one shifted-slab add per beam, every beam, in
+    the order given (the kernel's summation order)."""
     k, m = ox.shape
     wp = padded.shape[1]
     flat = padded.reshape(-1)
@@ -34,7 +39,8 @@ def corr_field_build(padded: torch.Tensor, ox: torch.Tensor,
                      oy: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """(K, h, w) float32 field.  ``padded`` (Hp, Wp) f32; ``ox``/``oy``
     (K, M) int32 slice starts with ``max(oy) + h <= Hp`` and
-    ``max(ox) + w <= Wp`` (invalid beams point at an all-zero band).
+    ``max(ox) + w <= Wp``; the last ``h`` rows of ``padded`` are zero, and
+    invalid beams point there (``oy = Hp - h``).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if padded.device.type == "cpu":

@@ -1,12 +1,18 @@
 """Sorted-rank resampling expansion: ``rank_in_sorted`` and ``expand_sorted``.
 
-Port of ``mcmh_localization_tpu/ops/rank_pallas.py``; the CUDA kernels are
-``csrc/rank.cu``.  Output slot ``m`` belongs to the particle whose segment
-``[bound[j-1], bound[j])`` covers it, i.e. ``#{j : bound[j] <= m}`` clipped
-to ``[0, R-1]``; with ``count`` given, slots at or past ``count`` repeat
-slot ``count - 1`` (the TPU kernel's tail rule).  The TPU kernel's windowed
-merge, its DMA windows and its ``lax.cond`` scatter fallback are TPU
-mechanics: a binary search per slot is exact for any weights.
+Port of ``mcmh_localization_tpu/ops/rank_pallas.py`` together with the
+running max that the JAX package's ``_segment_bounds`` applies first; the
+CUDA kernels are ``csrc/rank.cu``.  ``bound`` is the raw int32 segment
+bound, which may dip where a parallel cumsum lost an ulp: both functions
+rank against its running max ``M``.  Output slot ``m`` belongs to the
+particle whose segment ``[M[j-1], M[j])`` covers it, i.e.
+``#{j : M[j] <= m}`` clipped to ``[0, R-1]``; with ``count`` given, slots at
+or past ``count`` repeat slot ``count - 1`` (the TPU kernel's tail rule).
+That rank is the index of the first raw ``bound[j] > m``, so the result is
+bitwise the JAX function's on ``jax.lax.cummax(bound)``.  The TPU kernel's
+windowed merge, its DMA windows and its ``lax.cond`` scatter fallback are
+TPU mechanics: the CUDA version scans the bound once and expands tiles of
+output slots, exact for any weights.
 """
 
 from __future__ import annotations
@@ -14,6 +20,11 @@ from __future__ import annotations
 import torch
 
 from mcmh_localization_tpu_torch.ops import _cuda
+
+MAX_COLS = 4  # csrc/rank.cu's kMaxCols: particle columns staged per slot
+# each call launches the scan and the expansion (after a memset of the
+# look-back words); the launch count counts both kernels
+_KERNELS_PER_CALL = 2
 
 
 def _slot_values(num_out: int, count, device) -> torch.Tensor:
@@ -26,8 +37,10 @@ def _slot_values(num_out: int, count, device) -> torch.Tensor:
 
 def rank_in_sorted_plain(bound: torch.Tensor, num_out: int,
                          count=None) -> torch.Tensor:
+    """Plain version: ``torch.cummax`` of the bound, then a search."""
+    mono = torch.cummax(bound.to(torch.int64), dim=0).values
     v = _slot_values(num_out, count, bound.device)
-    idx = torch.searchsorted(bound.to(torch.int64), v, right=True)
+    idx = torch.searchsorted(mono, v, right=True)
     return idx.clamp(max=bound.shape[0] - 1).to(torch.int32)
 
 
@@ -42,48 +55,65 @@ def _count_arg(count, device) -> torch.Tensor | None:
     return torch.as_tensor(count, device=device).to(torch.int32).reshape(())
 
 
+def _scan_buffers(bound: torch.Tensor):
+    """The running max (R,) int32 and the look-back status words the scan
+    kernel writes (it zeroes them itself, on the stream)."""
+    r = bound.shape[0]
+    words = _cuda.library().mcmh_rank_scratch_words(r)
+    return (torch.empty(r, dtype=torch.int32, device=bound.device),
+            torch.empty(words, dtype=torch.int64, device=bound.device))
+
+
+def _check_bound(name: str, bound: torch.Tensor) -> None:
+    if bound.dtype != torch.int32 or bound.dim() != 1 or bound.shape[0] == 0:
+        raise ValueError(f"{name}: bound must be 1-D int32, not empty")
+
+
 def rank_in_sorted(bound: torch.Tensor, num_out: int,
                    count=None) -> torch.Tensor:
-    """(num_out,) int32 ranks of the output slots in the nondecreasing
-    int32 ``bound`` (R,).  ``count``: optional int or 0-d tensor."""
+    """(num_out,) int32 ranks of the output slots in the running max of
+    the int32 ``bound`` (R,).  ``count``: optional int or 0-d tensor."""
     if bound.device.type == "cpu":
         return rank_in_sorted_plain(bound, num_out, count)
     cnt = _count_arg(count, bound.device)
     _cuda.require_cuda("rank_in_sorted", bound,
                        *(() if cnt is None else (cnt,)))
-    if bound.dtype != torch.int32 or bound.dim() != 1:
-        raise ValueError("rank_in_sorted: bound must be 1-D int32")
+    _check_bound("rank_in_sorted", bound)
+    mono, scratch = _scan_buffers(bound)
     out = torch.empty(num_out, dtype=torch.int32, device=bound.device)
     code = _cuda.library().mcmh_rank_in_sorted(
         bound.data_ptr(), bound.shape[0], num_out,
-        None if cnt is None else cnt.data_ptr(), out.data_ptr(),
-        _cuda.stream_of(bound),
+        None if cnt is None else cnt.data_ptr(), mono.data_ptr(),
+        scratch.data_ptr(), out.data_ptr(), _cuda.stream_of(bound),
     )
-    _cuda.check_launch("rank_in_sorted", code)
+    _cuda.check_launch("rank_in_sorted", code, kernels=_KERNELS_PER_CALL)
     return out
 
 
 def expand_sorted(bound: torch.Tensor, particles: torch.Tensor, num_out: int,
                   count=None) -> torch.Tensor:
     """(num_out, C) ``particles[rank_in_sorted(bound, num_out, count)]`` in
-    one pass, bitwise equal to the two-step form."""
+    one call (the scan and the expansion), bitwise equal to the two-step
+    form."""
     if bound.device.type == "cpu":
         return expand_sorted_plain(bound, particles, num_out, count)
     cnt = _count_arg(count, bound.device)
     _cuda.require_cuda("expand_sorted", bound, particles,
                        *(() if cnt is None else (cnt,)))
-    if bound.dtype != torch.int32 or bound.dim() != 1:
-        raise ValueError("expand_sorted: bound must be 1-D int32")
+    _check_bound("expand_sorted", bound)
     if particles.dtype != torch.float32 or particles.dim() != 2:
         raise ValueError("expand_sorted: particles must be 2-D float32")
     if particles.shape[0] != bound.shape[0]:
         raise ValueError("expand_sorted: one bound per particle row")
     c = particles.shape[1]
+    if not 1 <= c <= MAX_COLS:
+        raise ValueError(f"expand_sorted: 1 to {MAX_COLS} columns, got {c}")
+    mono, scratch = _scan_buffers(bound)
     out = torch.empty((num_out, c), dtype=torch.float32, device=bound.device)
     code = _cuda.library().mcmh_expand_sorted(
         bound.data_ptr(), bound.shape[0], particles.data_ptr(), c, num_out,
-        None if cnt is None else cnt.data_ptr(), out.data_ptr(),
-        _cuda.stream_of(bound),
+        None if cnt is None else cnt.data_ptr(), mono.data_ptr(),
+        scratch.data_ptr(), out.data_ptr(), _cuda.stream_of(bound),
     )
-    _cuda.check_launch("expand_sorted", code)
+    _cuda.check_launch("expand_sorted", code, kernels=_KERNELS_PER_CALL)
     return out

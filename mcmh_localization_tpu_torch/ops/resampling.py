@@ -2,7 +2,8 @@
 
 Static shapes as in the JAX package: a padded (N_max, ...) set with a
 ``count`` scalar.  The systematic draw is cumsum -> segment bounds -> the
-sorted-rank expansion (``ops/rank.py``, a CUDA kernel on the card).  KLD
+sorted-rank expansion (``ops/rank.py``, CUDA kernels on the card, which
+take the running max of the bounds themselves).  KLD
 bins are counted exactly with a stable sort; the JAX package's hash count
 and its debias are TPU approximations and are not ported.
 
@@ -52,16 +53,17 @@ def _uniform_offset(r, device, generator) -> torch.Tensor:
 def _segment_bounds(weights: torch.Tensor, num_out: int, count=None,
                     r=None) -> torch.Tensor:
     """(N,) int32 segment ends: input i covers output slots
-    [bound[i-1], bound[i]).  The cummax restores the monotonicity a
-    reassociated cumsum can lose by an ulp (JAX resampling.py:106-120)."""
+    [bound[i-1], bound[i]).  A reassociated cumsum can dip by an ulp, and
+    the bound with it; JAX takes the running max here (resampling.py:
+    106-120), the port's rank kernels take it as they rank (ops/rank.py),
+    so the bound stops at the clamp."""
     if count is None:
         denom = float(num_out)
     else:
         denom = torch.as_tensor(count, device=weights.device).to(torch.float32)
     c = torch.cumsum(weights, dim=0)
     c = c / torch.clamp(c[-1], min=1e-30)
-    bound = torch.clamp(torch.ceil(c * denom - r), 0, num_out).to(torch.int32)
-    return torch.cummax(bound, dim=0).values
+    return torch.clamp(torch.ceil(c * denom - r), 0, num_out).to(torch.int32)
 
 
 def systematic_resample_indices(weights: torch.Tensor, num_out: int,
@@ -175,6 +177,10 @@ def kld_resample(
     noise_std = torch.tensor(KLD_NOISE_STD, dtype=particles.dtype).to(
         dev, non_blocking=True)
     stride = count if count is not None else max_samples
+    # one bound serves every draw: for slot values v < num_out <=
+    # max_samples, min(b, num_out) <= v exactly when b <= v, so the
+    # bound at max_samples ranks like the bound at num_out
+    bound = _segment_bounds(weights, max_samples, stride, r)
 
     def normals(rows, given):
         if given is None:
@@ -183,7 +189,6 @@ def kld_resample(
         return given
 
     def draw(num_out, nz):
-        bound = _segment_bounds(weights, num_out, stride, r)
         d = expand_sorted(bound, particles, num_out, count=stride)
         return d + normals(num_out, nz) * noise_std
 
@@ -219,7 +224,6 @@ def kld_resample(
             pad = torch.zeros((max_samples - w1, 3), dtype=samples1.dtype,
                               device=dev)
             return torch.cat([samples1, pad]), f1.to(torch.int32)
-        bound = _segment_bounds(weights, max_samples, stride, r)
         drawn = expand_sorted(bound, particles, max_samples, count=stride)
         tail = normals(max_samples - w1, noise_tail) * noise_std
         samples = torch.cat([samples1, drawn[w1:] + tail])

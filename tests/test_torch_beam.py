@@ -91,8 +91,8 @@ def test_one_scan_beam_matches_jax_on_shared_draws(house_map, torch_map,
     tm = make_model(tcfg, torch_map)
     assert isinstance(tm.log_field, BeamTables) == (kw["beam_impl"] == "field")
     draws = scan_draws(js.key, jcfg, house_map.free_xy.shape[0])
-    ts2, tinfo = tm.step(state_from_numpy(before), _t(scans[1]), _t(angles),
-                         _t(deltas[1]), draws)
+    ts2, tinfo = tm.step(state_from_numpy(before, device="cpu"), _t(scans[1]),
+                         _t(angles), _t(deltas[1]), draws)
 
     count = int(jinfo.count)
     assert int(tinfo.count) == count

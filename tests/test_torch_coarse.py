@@ -38,7 +38,8 @@ N_THETA = 48
 def torch_map(house_map):
     return grid_map_from_numpy(
         np.asarray(house_map.occupancy), float(house_map.resolution),
-        np.asarray(house_map.origin), distance=np.asarray(house_map.distance))
+        np.asarray(house_map.origin), distance=np.asarray(house_map.distance),
+        device="cpu")
 
 
 def _fused_case(flags):
@@ -186,8 +187,10 @@ def test_coarse_field_matches_jax(house_map, torch_map, validity):
         assert (want < -100.0).any()      # blocks without a free cell
     f = tcfg.corr_coarse_factor
     pad_c = int(-(-5.0 // (f * res))) + 2
-    ox_t, oy_t = tcf._bin_offsets(t[0], t[1], t[2], 1.0 / (f * res), 36,
-                                  pad_c, 48 + 2 * pad_c)
+    # in beam order, as JAX computes them (the build's order is tested in
+    # tests/test_torch_corr_order.py)
+    ox_t, oy_t = tcf._beam_offsets(t[0], t[1], t[2], 1.0 / (f * res), 36,
+                                   pad_c, 48 + 2 * pad_c)
     for g_, w_ in ((ox_t.numpy(), np.asarray(ox)), (oy_t.numpy(), np.asarray(oy))):
         diff = np.abs(g_.astype(np.int64) - w_)
         assert diff.max() <= 1 and (diff > 0).mean() <= 0.005

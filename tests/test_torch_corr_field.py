@@ -31,7 +31,8 @@ N_THETA = 48
 def torch_map(house_map):
     return grid_map_from_numpy(
         np.asarray(house_map.occupancy), float(house_map.resolution),
-        np.asarray(house_map.origin), distance=np.asarray(house_map.distance))
+        np.asarray(house_map.origin), distance=np.asarray(house_map.distance),
+        device="cpu")
 
 
 def _scan(house_map, pose, m=90):
@@ -72,15 +73,20 @@ def _jax_offsets(house_map, cfg, ranges, angles, n_theta, kstart, nbins):
 def test_bin_offsets_match_jax_up_to_trig_ulps(house_map, torch_map):
     """cos/sin differ by an ulp between XLA and torch, which can move a
     truncated offset by one cell: at most 0.5% of (k, j) offsets may
-    differ, and none by more than one cell."""
+    differ, and none by more than one cell.  Compared in beam order
+    (``_beam_offsets``); ``_bin_offsets`` is the same offsets ordered for
+    the field build."""
     cfg = JConfig(max_range=5.0)
     ranges, angles = _scan(house_map, (1.0, 1.0, 0.4), m=360)
     (ox_j, oy_j), (u, v, valid, pad, zrow) = _jax_offsets(
         house_map, cfg, jnp.asarray(ranges), jnp.asarray(angles), 120, 0, 120)
-    ox_t, oy_t = tcf._bin_offsets(
-        torch.from_numpy(np.array(u)), torch.from_numpy(np.array(v)),
-        torch.from_numpy(np.array(valid)), torch_map.inv_res, 120, pad,
-        zrow)
+    args = (torch.from_numpy(np.array(u)), torch.from_numpy(np.array(v)),
+            torch.from_numpy(np.array(valid)), torch_map.inv_res, 120, pad,
+            zrow)
+    ox_t, oy_t = tcf._beam_offsets(*args)
+    for got, ordered in zip(tcf._order_beams(ox_t, oy_t, pad),
+                            tcf._bin_offsets(*args)):
+        assert torch.equal(got, ordered)
     for got, want in ((ox_t.numpy(), np.asarray(ox_j)),
                       (oy_t.numpy(), np.asarray(oy_j))):
         diff = np.abs(got.astype(np.int64) - want)

@@ -31,7 +31,8 @@ def _t(x):
 def torch_map(house_map):
     return grid_map_from_numpy(
         np.asarray(house_map.occupancy), float(house_map.resolution),
-        np.asarray(house_map.origin), distance=np.asarray(house_map.distance))
+        np.asarray(house_map.origin), distance=np.asarray(house_map.distance),
+        device="cpu")
 
 
 def _jax_cells(house_map, particles, ranges, angles, cfg, form):

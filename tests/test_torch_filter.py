@@ -44,7 +44,8 @@ def _t(x):
 def torch_map(house_map):
     return grid_map_from_numpy(
         np.asarray(house_map.occupancy), float(house_map.resolution),
-        np.asarray(house_map.origin), distance=np.asarray(house_map.distance))
+        np.asarray(house_map.origin), distance=np.asarray(house_map.distance),
+        device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -190,7 +191,7 @@ def test_one_scan_matches_jax_on_shared_draws(house_map, torch_map,
     tm.log_field = torch.from_numpy(np.array(jm.log_field))
     w1 = max(1024, 600 + 600 // 4)
     draws = _scan_draws(js.key, n_max, w1, house_map.free_xy.shape[0])
-    ts = state_from_numpy(before)
+    ts = state_from_numpy(before, device="cpu")
     ts2, tinfo = tm.step(ts, _t(scans[1]), _t(angles), _t(deltas[1]), draws)
 
     count = int(jinfo.count)

@@ -38,7 +38,7 @@ def _t(x):
 
 @pytest.fixture(scope="module")
 def torch_map(house_occupancy):
-    return build_grid_map(house_occupancy, 0.05, (-4.8, -4.8))
+    return build_grid_map(house_occupancy, 0.05, (-4.8, -4.8), device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -46,7 +46,8 @@ def torch_map(house_occupancy):
 # ---------------------------------------------------------------------------
 
 def test_config_is_the_jax_source():
-    """One source: the port's FilterConfig is the JAX file's dataclass."""
+    """The port's own FilterConfig keeps the JAX file's fields and defaults
+    (tests/test_torch_config.py compares them one by one)."""
     jf = [(f.name, f.default) for f in dataclasses.fields(jconfig.FilterConfig)]
     tf = [(f.name, f.default) for f in dataclasses.fields(tconfig.FilterConfig)]
     assert jf == tf
@@ -108,7 +109,7 @@ def test_pgm_map_roundtrip(tmp_path, house_occupancy):
     occ_j, meta_j = j_load(str(tmp_path / "m.yaml"))
     np.testing.assert_array_equal(occ, occ_j)
     np.testing.assert_array_equal(occ, house_occupancy)
-    gm = load_map(str(tmp_path / "m.yaml"))
+    gm = load_map(str(tmp_path / "m.yaml"), device="cpu")
     assert gm.origin_xy == (np.float32(-4.8), np.float32(-4.8))
 
 
@@ -136,7 +137,7 @@ def test_grid_map_matches_jax(house_map, torch_map):
         torch_map.is_free_world(_t(x), _t(y)).numpy(),
         np.asarray(house_map.is_free_world(jnp.asarray(x), jnp.asarray(y))))
     gm2 = grid_map_from_numpy(np.asarray(house_map.occupancy), 0.05,
-                              np.asarray(house_map.origin))
+                              np.asarray(house_map.origin), device="cpu")
     np.testing.assert_array_equal(gm2.distance.numpy(),
                                   torch_map.distance.numpy())
 

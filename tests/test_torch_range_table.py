@@ -57,14 +57,15 @@ def box_maps():
     occ = _box_occupancy()
     return (j_build_grid_map(occ, resolution=0.05, origin=(-1.6, -1.6),
                              edt_impl="scipy"),
-            build_grid_map(occ, 0.05, (-1.6, -1.6)))
+            build_grid_map(occ, 0.05, (-1.6, -1.6), device="cpu"))
 
 
 @pytest.fixture(scope="module")
 def torch_house(house_map):
     return grid_map_from_numpy(
         np.asarray(house_map.occupancy), float(house_map.resolution),
-        np.asarray(house_map.origin), distance=np.asarray(house_map.distance))
+        np.asarray(house_map.origin), distance=np.asarray(house_map.distance),
+        device="cpu")
 
 
 def _angles(m):
@@ -257,7 +258,7 @@ def test_beam_field_scores_match_jax_dense(box_maps, coarse, aggregation,
     jcfg, tcfg = JConfig(**kw), FilterConfig(**kw)
     jtab = jrt.make_beam_tables(jm, jcfg)
     ttab = beam_tables_from_numpy(*(None if a is None else np.asarray(a)
-                                    for a in jtab))
+                                    for a in jtab), device="cpu")
     m = 60
     ranges, angles = _scan(jm, (0.3, -0.4, 0.7), m, 2.0)
     rng = np.random.default_rng(k_bins)
@@ -384,7 +385,8 @@ def test_window_indices_at_the_beam_bench_geometry():
     24 bins; bitwise equal to the numpy spec of the TPU kernel."""
     from tests.test_fused_lookup import _spec_rows_lanes
 
-    gm = build_grid_map(np.zeros((384, 384), np.int8), 0.05, (-9.6, -9.6))
+    gm = build_grid_map(np.zeros((384, 384), np.int8), 0.05, (-9.6, -9.6),
+                        device="cpu")
     geo = trt._beam_geometry(gm, 96, 24, 90, 64, (150, 140), (4, 24, 96, 96))
     rng = np.random.default_rng(1)
     n = 20000

@@ -38,7 +38,8 @@ def torch_map(house_occupancy, house_map):
     # built from the python resolution, as the JAX map is: its free-cell
     # centers then equal the JAX map's bitwise
     return build_grid_map(house_occupancy, 0.05, (-4.8, -4.8),
-                          distance=np.asarray(house_map.distance))
+                          distance=np.asarray(house_map.distance),
+                          device="cpu")
 
 
 def uniform_draws(key, n, free_cells):
@@ -175,7 +176,8 @@ def test_step_resamplers_match_jax(house_map, torch_map, case):
     else:
         js2, p_j = jstep._resample_systematic(key, js, jcfg)
         t_fn = tstep._resample_systematic
-    ts = state_from_numpy({f: np.asarray(getattr(js, f)) for f in STATE_FIELDS})
+    ts = state_from_numpy({f: np.asarray(getattr(js, f)) for f in STATE_FIELDS},
+                          device="cpu")
     d = tstep.Draws(**resample_draws(key, jcfg, n_max,
                                      house_map.free_xy.shape[0]))
     ts2, p_t = t_fn(ts, torch_map, tcfg, d)

@@ -41,7 +41,8 @@ def torch_map(house_occupancy, house_map):
     # built from the python resolution, as the JAX map is (bitwise equal
     # free-cell centers, so injected particles agree)
     return build_grid_map(house_occupancy, 0.05, (-4.8, -4.8),
-                          distance=np.asarray(house_map.distance))
+                          distance=np.asarray(house_map.distance),
+                          device="cpu")
 
 
 def scan_draws(key, cfg, free_cells):
@@ -121,8 +122,8 @@ def test_one_scan_matches_jax_on_shared_draws(house_map, torch_map,
     tm = make_model(tcfg, torch_map)
     tm.log_field = torch.from_numpy(np.array(jm.log_field))
     draws = scan_draws(js.key, jcfg, house_map.free_xy.shape[0])
-    ts2, tinfo = tm.step(state_from_numpy(before), _t(scans[1]), _t(angles),
-                         _t(deltas[1]), draws)
+    ts2, tinfo = tm.step(state_from_numpy(before, device="cpu"), _t(scans[1]),
+                         _t(angles), _t(deltas[1]), draws)
 
     count = int(jinfo.count)
     assert int(tinfo.count) == count

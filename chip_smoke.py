@@ -11,10 +11,14 @@
    the card at the main paths' shapes and times both (``device_ms``):
    BIG field K=120 384^2 M=360, SMALL/window field K=32 128^2, coarse field
    K=36 96^2 (bitwise, beside a ``conv2d`` yardstick), lookups of 2x1M and
-   2x130048 poses, the window-score lookup of 2x1M poses, the exact scorer
-   at 2x1500 and 2x100k poses, the 1M resampling expansion (bitwise on the
-   path's raw bound and on one with injected dips, beside ``torch.cummax``
-   of that bound) and take, and the beam LUT field at the beam path's fine
+   2x130048 poses, the window-score lookup of 2x1M poses (also on a
+   misaligned view of 200 003 of them, in the beam op forms at the beam
+   path's geometry and 2x100k poses, and its escapee count at 2x1M), the
+   exact scorer at 2x1500 and 2x100k poses in both cell forms (bitwise,
+   with the lanes a pose it ran with), the 1M resampling expansion
+   (bitwise on the path's raw bound and on one with injected dips, beside
+   ``torch.cummax`` of that bound) and take, and the beam LUT field at the
+   beam path's fine
    (B=24, K=96, 64^2) and coarse (B=24, 96^2) builds.  Each row gives its
    bound (the larger of its operations over the f32 rate and its bytes
    over the HBM rate, from this run's inputs), its share of it, the time
@@ -108,6 +112,29 @@ def circle_poses(delta):
     return np.asarray(poses, dtype=np.float32)
 
 
+def start_window(gm, n_theta: int, win: int, tw: int) -> tuple[int, int, int]:
+    """(ox0, oy0, kstart): a ``win``-cell window and ``tw`` of ``n_theta``
+    theta bins centred on the START pose."""
+    oy0 = int((START[1] - gm.origin_xy[1]) / RES) - win // 2
+    ox0 = int((START[0] - gm.origin_xy[0]) / RES) - win // 2
+    kstart = (int((START[2] + math.pi) * n_theta / (2 * math.pi))
+              - tw // 2) % n_theta
+    return ox0, oy0, kstart
+
+
+def mixed_cloud(n: int, gm, cov, gen) -> torch.Tensor:
+    """(n, 3) poses for the window score: three quarters tracked around
+    START (window reads), the rest spread over the map (coarse reads) but
+    n // 64 off the map (fills)."""
+    from mcmh_localization_tpu_torch.filter.init import init_gaussian, init_uniform
+
+    tracked = init_gaussian(START, cov, n - n // 4, gm, generator=gen)
+    spread = init_uniform(n // 4 - n // 64, gm, generator=gen)
+    off_map = (torch.rand((n // 64, 3), generator=gen, device=gen.device)
+               - 0.5) * 60.0
+    return torch.cat([tracked, spread, off_map]).contiguous()
+
+
 def check(cond, msg: str) -> None:
     """A phase check that fails the run (kept under ``python -O`` too)."""
     if not cond:
@@ -180,8 +207,10 @@ def kernel_row(name, source, replaces, shape, *, ms, plain_ms, err, ops,
     bound (from the operation and byte counts given), the plain version's
     and, where one PyTorch call computes the same function, that call's."""
     b, by = bound_ms(ops, nbytes)
+    if not replaces.startswith("mcmh_localization_tpu/"):
+        replaces = TPU + replaces
     row = dict(name=name, route="cuda", source=SRC + source,
-               replaces=TPU + replaces, shape=shape, max_abs_err=err, ms=ms,
+               replaces=replaces, shape=shape, max_abs_err=err, ms=ms,
                plain_ms=plain_ms, bound_ms=b, bound_by=by,
                pct_of_bound=100.0 * b / ms, library_ms=library_ms,
                ops=ops, bytes=nbytes, **extra)
@@ -259,6 +288,38 @@ def field_build_row(tag, padded, ox, oy, fh, fw, m, lmax):
         library_ms=lms, library=f"conv2d, err {cerr:.3g}"), out
 
 
+def window_score_row(fine_t, coarse_t, parts, geo, denom, n_valid,
+                     forms: str) -> dict:
+    """Kernel 5 on one cloud: bitwise against its plain version, timed
+    beside its bound (each pose read once and its score written, one fine
+    or one coarse value read a pose on the map)."""
+    from mcmh_localization_tpu_torch.ops.fused_score import (
+        window_indices,
+        window_score,
+        window_score_plain,
+    )
+
+    args = (fine_t, coarse_t, parts, geo, denom, -100.0)
+    out = window_score(*args, count=n_valid)
+    ref = window_score_plain(*args, count=n_valid)
+    covered, _, _, in_map = window_indices(parts, geo)
+    torch.cuda.synchronize()
+    check(torch.equal(out, ref), f"window_score ({forms}): kernel != plain")
+    n = parts.shape[0]
+    n_esc = int((in_map & ~covered).sum())
+    n_off = int((~in_map).sum())
+    ms = device_ms(lambda: window_score(*args, count=n_valid))
+    pms = device_ms(lambda: window_score_plain(*args, count=n_valid))
+    print(f"[kernel] window_score ({forms}): N={n} fine "
+          f"{tuple(fine_t.shape)} coarse {tuple(coarse_t.shape)} "
+          f"escapees={n_esc} off_map={n_off} bitwise=True")
+    return kernel_row(
+        "window_score", "fused_score.cu", "fused_score_pallas.py:170",
+        f"{forms} N={n}", ms=ms, plain_ms=pms, err=0.0, ops=n,
+        nbytes=n * (12 + 4) + gathered_bytes(fine_t, n - n_esc - n_off)
+        + gathered_bytes(coarse_t, n_esc), shapes=[])
+
+
 def compare_kernels(gm, cfg, small_cfg, log_field, ranges, angles, rows):
     """Phase 3: each kernel vs its plain version at main-path shapes."""
     from mcmh_localization_tpu_torch.filter.init import init_gaussian
@@ -305,10 +366,7 @@ def compare_kernels(gm, cfg, small_cfg, log_field, ranges, angles, rows):
                                            m, lmax)
     # SMALL: 128-cell window at the start pose, 32 theta bins
     win, tw = small_cfg.corr_window_cells, small_cfg.corr_theta_window_bins
-    oy0 = int((START[1] - gm.origin_xy[1]) / RES) - win // 2
-    ox0 = int((START[0] - gm.origin_xy[0]) / RES) - win // 2
-    kstart = (int((START[2] + math.pi) * cfg.corr_n_theta / (2 * math.pi))
-              - tw // 2) % cfg.corr_n_theta
+    ox0, oy0, kstart = start_window(gm, cfg.corr_n_theta, win, tw)
     oxs, oys = _bin_offsets(u, v, valid, gm.inv_res, cfg.corr_n_theta, pad, zb,
                             bin_start=kstart, nbins=tw)
     side = win + 2 * pad
@@ -439,7 +497,7 @@ def compare_slice2_kernels(gm, single_cfg, log_field, ranges, angles,
                            field_small, window, u, v, valid, wts, rows):
     """Phase 3 for the kernels of the single-program and exact paths:
     window score (with the coarse field build), exact scorer, monotone take."""
-    from mcmh_localization_tpu_torch.filter.init import init_gaussian, init_uniform
+    from mcmh_localization_tpu_torch.filter.init import init_gaussian
     from mcmh_localization_tpu_torch.models.corr_field import (
         _coarse_field,
         coarse_build_inputs,
@@ -448,11 +506,12 @@ def compare_slice2_kernels(gm, single_cfg, log_field, ranges, angles,
     )
     from mcmh_localization_tpu_torch.ops.fused_score import (
         window_escapees,
-        window_indices,
+        window_escapees_plain,
         window_score,
         window_score_plain,
     )
     from mcmh_localization_tpu_torch.ops.likelihood import (
+        lanes_per_particle,
         likelihood_scores,
         likelihood_scores_plain,
     )
@@ -488,36 +547,50 @@ def compare_slice2_kernels(gm, single_cfg, log_field, ranges, angles,
     fine_t = field_small.transpose(0, 1).reshape(fh * nbins, fw).contiguous()
     cfield = _coarse_field(u, v, valid, log_field, gm, single_cfg)
     coarse_t = cfield.transpose(0, 1).reshape(hc * kc, wc).contiguous()
-    tracked = init_gaussian(START, cov, n - n // 4, gm, generator=gen)
-    spread = init_uniform(n // 4 - n // 64, gm, generator=gen)
-    off_map = (torch.rand((n // 64, 3), generator=gen, device=dev) - 0.5) * 60.0
-    parts = torch.cat([tracked, spread, off_map]).contiguous()
+    parts = mixed_cloud(n, gm, cov, gen)
     n_valid = valid.sum().to(torch.int32)
     denom = n_valid.clamp(min=1).to(torch.float32)
-    args = (fine_t, coarse_t, parts, geo, denom, -100.0)
-    out = window_score(*args, count=n_valid)
-    ref = window_score_plain(*args, count=n_valid)
+    window_row = window_score_row(fine_t, coarse_t, parts, geo, denom,
+                                  n_valid, "corr op forms")
+    # a view whose base is 12 bytes past an aligned one, N mod 4 = 3 (one
+    # pose a thread at this N), timed
+    rag = parts[1:2 * 100_000 + 4]
+    check(rag.data_ptr() % 16 != 0 and rag.shape[0] % 4 != 0,
+          "the ragged view is aligned")
+    window_row["shapes"].append(window_score_row(
+        fine_t, coarse_t, rag, geo, denom, n_valid,
+        "corr op forms, misaligned base"))
+    # the gate's count at 2x1M: the kernel vs the plain count
     esc = window_escapees(parts, geo)
-    covered, _, _, in_map = window_indices(parts, geo)
+    n_esc = int(window_escapees_plain(parts, geo))
     torch.cuda.synchronize()
-    check(torch.equal(out, ref), "window_score: kernel != plain")
-    n_esc = int((in_map & ~covered).sum())
     check(int(esc) == n_esc, f"window_escapees {int(esc)} != plain {n_esc}")
-    ms5 = device_ms(lambda: window_score(*args, count=n_valid))
-    pms5 = device_ms(lambda: window_score_plain(*args, count=n_valid))
+    check(int(window_escapees(rag, geo)) == int(window_escapees_plain(rag, geo)),
+          "window_escapees (misaligned base) != plain")
+    # and the whole mixed cloud less its first pose: four poses a thread,
+    # misaligned (4-byte pose loads), N mod 4 = 3 (a ragged last thread)
+    tail = parts[1:]
+    check(torch.equal(window_score(fine_t, coarse_t, tail, geo, denom, -100.0,
+                                   count=n_valid),
+                      window_score_plain(fine_t, coarse_t, tail, geo, denom,
+                                         -100.0, count=n_valid)),
+          "window_score (parts[1:]): kernel != plain")
+    check(int(window_escapees(tail, geo)) == int(window_escapees_plain(tail, geo)),
+          "window_escapees (parts[1:]) != plain")
     ms_e = device_ms(lambda: window_escapees(parts, geo))
-    n_off = int((~in_map).sum())
-    print(f"[kernel] window_score: fine {tuple(fine_t.shape)} coarse "
-          f"{tuple(coarse_t.shape)} escapees={n_esc} off_map={n_off}; "
-          f"window_escapees ms={ms_e:.4f}")
-    # each pose reads one fine or one coarse value (none off the map)
-    window_row = kernel_row(
-        "window_score", "fused_score.cu", "fused_score_pallas.py:170",
-        f"N=2x{n // 2}", ms=ms5, plain_ms=pms5, err=0.0, ops=n,
-        nbytes=n * (12 + 4) + gathered_bytes(fine_t, n - n_esc - n_off)
-        + gathered_bytes(coarse_t, n_esc), ms_escapees=ms_e)
+    pms_e = device_ms(lambda: window_escapees_plain(parts, geo))
+    print(f"[kernel] window_escapees N=2x{n // 2}: {n_esc} escapees, "
+          "bitwise (the same count as the plain version, also on the "
+          "misaligned view)")
+    # each pose read once, one count written
+    esc_row = kernel_row(
+        "window_escapees", "fused_score.cu",
+        "mcmh_localization_tpu/models/corr_field.py:553",
+        f"N=2x{n // 2}", ms=ms_e, plain_ms=pms_e, err=0.0, ops=n,
+        nbytes=12 * n + 4)
     # the beam score field's op forms (divide by res, divide by the bin
-    # width, clip before the window), which the beam slice reuses
+    # width, clip before the window) on these tables: bitwise; timed at the
+    # beam path's own geometry in compare_beam_kernel
     geo_b = geo._replace(
         fine_scale=gm.res, theta_div=True, fine_div=True,
         theta_scale=float(np.float32(2.0 * math.pi / geo.n_theta)),
@@ -530,18 +603,17 @@ def compare_slice2_kernels(gm, single_cfg, log_field, ranges, angles,
     check(torch.equal(out, ref), "window_score (beam op forms): kernel != plain")
     print(f"[kernel] window_score, beam op forms (fine_div, theta_div, "
           f"clip_before_window): N=2x{n // 2} bitwise=True")
-    rows.append(window_row)
+    rows += [window_row, esc_row]
 
     # kernel 6: the exact scorer at 2x1500 and 2x100k poses, 360 beams, on
     # the 384^2 log field; the [exact] path's multiply form and the "jnp"
-    # divide form.  The beam sum runs in another order: |err| <= 1e-5 *
-    # max|L| after the "mean" divide
+    # divide form; G lanes a pose, bitwise equal to the plain version
     cnt = valid.sum().to(torch.int32)
     m_valid = int(cnt)
-    tol6 = 1e-5 * lmax
     rows6 = []
     for n6 in (100_000, 1500):
         p6 = init_gaussian(START, cov, 2 * n6, gm, generator=gen).contiguous()
+        g6 = lanes_per_particle(2 * n6)
         for div in (False, True):
             scale = gm.res if div else gm.inv_res
             a6 = (p6, u, v, valid, log_field, gm.origin_xy[0], gm.origin_xy[1],
@@ -550,8 +622,10 @@ def compare_slice2_kernels(gm, single_cfg, log_field, ranges, angles,
             want = likelihood_scores_plain(*a6)
             torch.cuda.synchronize()
             e = float((got - want).abs().max())
-            check(e <= tol6, f"likelihood_scores n=2x{n6} div={div}: "
-                  f"max abs err {e} > {tol6}")
+            check(torch.equal(got, want), f"likelihood_scores n=2x{n6} "
+                  f"div={div} G={g6}: kernel != plain (max abs err {e})")
+            print(f"[kernel] likelihood_scores N=2x{n6} form="
+                  f"{'div' if div else 'mul'}: G={g6} lanes a pose, bitwise")
             ms6 = device_ms(lambda: likelihood_scores(*a6))
             pms6 = device_ms(lambda: likelihood_scores_plain(*a6))
             # per pose and valid beam: 8 flops for the endpoint, 4 for its
@@ -560,8 +634,8 @@ def compare_slice2_kernels(gm, single_cfg, log_field, ranges, angles,
             rows6.append(kernel_row(
                 "likelihood_scores", "likelihood.cu", "likelihood_pallas.py:113",
                 f"N=2x{n6} M={m} ({m_valid} valid) form="
-                f"{'div' if div else 'mul'}", ms=ms6, plain_ms=pms6, err=e,
-                ops=13.0 * pairs, nbytes=2 * n6 * 16 + m * 12
+                f"{'div' if div else 'mul'} G={g6}", ms=ms6, plain_ms=pms6,
+                err=e, ops=13.0 * pairs, nbytes=2 * n6 * 16 + m * 12
                 + gathered_bytes(log_field, pairs)))
     rows.append({**rows6[0], "shapes": rows6[1:]})
 
@@ -588,6 +662,7 @@ def compare_beam_kernel(gm, beam_model, ranges, angles, rows):
     """Phase 3 for kernel 7: the LUT field at the beam path's fine and
     coarse builds, on the path's own quantized table and per-scan LUT."""
     from mcmh_localization_tpu_torch.models.range_table import (
+        _beam_geometry,
         _beam_lut,
         coarse_lut_inputs,
         fine_lut_inputs,
@@ -603,10 +678,8 @@ def compare_beam_kernel(gm, beam_model, ranges, angles, rows):
     valid = torch.isfinite(ranges) & (ranges < cfg.max_range)
     lp = _beam_lut(torch.where(valid, ranges, 0.0), valid, tables.dvals, cfg)
     win, tw = cfg.corr_window_cells, cfg.corr_theta_window_bins
-    oy0 = int((START[1] - gm.origin_xy[1]) / RES) - win // 2
-    ox0 = int((START[0] - gm.origin_xy[0]) / RES) - win // 2
-    kstart = (int((START[2] + math.pi) * k / (2 * math.pi)) - tw // 2) % k
-    lut_rows = []
+    ox0, oy0, kstart = start_window(gm, k, win, tw)
+    lut_rows, fields = [], []
     for tag, (qt, s) in (
             ("fine", fine_lut_inputs(tables, lp, angles, k, (oy0, ox0, kstart),
                                      win, tw, True)),
@@ -615,6 +688,7 @@ def compare_beam_kernel(gm, beam_model, ranges, angles, rows):
         ref = lut_field_plain(qt, s)
         torch.cuda.synchronize()
         check(torch.equal(out, ref), f"lut_field {tag}: kernel != plain")
+        fields.append(out)
         ms = device_ms(lambda: lut_field(qt, s))
         pms = device_ms(lambda: lut_field_plain(qt, s))
         b, kk, nq = s.shape
@@ -625,6 +699,25 @@ def compare_beam_kernel(gm, beam_model, ranges, angles, rows):
             f"{tag} B={b} K={kk} nq={nq} C={c}", ms=ms, plain_ms=pms,
             err=0.0, ops=b * kk * c, nbytes=kk * c + 4 * (b * kk * nq + b * c)))
     rows.append({**lut_rows[0], "shapes": lut_rows[1:]})
+
+    # kernel 5 in the beam op forms at the beam path's geometry and 2x100k
+    # poses, on the two fields just built
+    kc = cfg.corr_coarse_n_theta
+    _, hc, wc = tables.qtc.shape
+    fine_t = fields[0].reshape(tw, win, win).transpose(0, 1).reshape(
+        win * tw, win).contiguous()
+    coarse_t = fields[1].reshape(kc, hc, wc).transpose(0, 1).reshape(
+        hc * kc, wc).contiguous()
+    geo = _beam_geometry(gm, k, tw, kstart, win, (ox0, oy0),
+                         (cfg.corr_coarse_factor, kc, hc, wc))
+    gen = torch.Generator(device=ranges.device).manual_seed(13)
+    parts = mixed_cloud(2 * 100_000, gm, torch.diag(torch.tensor(cfg.initial_cov)),
+                        gen)
+    n_valid = valid.sum().to(torch.int32)
+    row = window_score_row(fine_t, coarse_t, parts, geo,
+                           n_valid.clamp(min=1).to(torch.float32), n_valid,
+                           "beam op forms")
+    next(r for r in rows if r["name"] == "window_score")["shapes"].append(row)
 
 
 def main(argv=None) -> int:

@@ -21,12 +21,44 @@
 // call site in f32 with round-to-nearest intrinsics (built with
 // --fmad=false), so the kernel is bitwise equal to the plain version.
 //
-// Bound: one dependent 4-byte read per particle from the two tables (2 MB
-// fine + 1.3 MB coarse at the single-program flagship's shapes), which stay
-// in L2, plus 12 bytes of pose in and 4 bytes out: ~16 bytes of DRAM
-// traffic per particle.  One thread per particle.  mcmh_window_escapees
-// counts the in-map particles the window does not cover (the coarse-build
-// gate) with one atomic add per block.
+// Bound: 12 bytes of pose in and 4 bytes out per particle from DRAM, and
+// one 4-byte read from the two tables (2 MB fine + 1.3 MB coarse at the
+// single-program flagship's shapes), which stay in L2: 0.0106 ms at 2 x 1M
+// particles on an H100 SXM at 700 W.  The first kernel took one particle a
+// thread behind a chain of dependent round trips (the count, then the
+// pose, then the table, then the denominator, then the store) with 12
+// bytes in flight a thread, and its wrapper launched two more kernels a
+// call to stack the denominator and the fill.
+// The layout:
+//  - each thread takes P consecutive particles: P = 4 where N gives the
+//    card a thread for every slot it holds even so (the 48 bytes of four
+//    poses are three 16-byte loads, issued together, then the four table
+//    reads, then one 16-byte store), else 2 or 1, so a cloud of 2 x 100k
+//    still spreads over the card;
+//  - the count, denominator and fill are read once a thread after the pose
+//    loads were issued, or come by value; the blind case is a select at
+//    the end;
+//  - the bin indices wrap without an integer division (wrap_mod);
+//  - a pose array whose base is not 16-byte aligned (a view such as
+//    parts[1:]) takes the same kernel with 4-byte pose loads, and the last
+//    thread of a ragged N reads and writes its 1-3 particles one by one;
+//    the output is the wrapper's own allocation and always aligned.
+// mcmh_window_escapees counts the in-map particles the window does not
+// cover (the coarse-build gate) in the same layout, with one atomic add
+// per block.
+// Tried and dropped (chip_kernel_ab.py, the kernels alone at 2 x 1M,
+// NVIDIA H100 80GB HBM3 at 700 W): the first kernel's one particle a thread,
+// 0.0181-0.0183 ms (0.0225-0.0231 as its wrapper called it) where this
+// layout takes 0.0165 (0.0164-0.0166 through its wrapper); 8 particles a
+// thread, 0.0205 (one wave: the loads, the index math and the stores of
+// all threads no longer overlap); a grid-stride loop over the card's
+// resident blocks that loads the next run's poses before it scores the
+// current one, 0.0164-0.0165 (the escapee count 0.0115 against 0.0106);
+// at most 32 registers a thread for 8 blocks an SM, 0.0182; 4 particles a
+// thread at 2 x 100k, 0.0061 where 1 takes 0.0041; evict-first pose loads
+// and score stores (__ldcs, __stcs), 0.0158 alone but 0.0172-0.0174
+// against 0.0165-0.0168 through the wrapper in chip_smoke.py, in turns,
+// and the escapee count 0.0138 against 0.0109-0.0110 there.
 
 #include <cuda_runtime.h>
 
@@ -53,16 +85,21 @@ __device__ __forceinline__ int floor_mod(int a, int b) {
   return (r != 0 && ((r < 0) != (b < 0))) ? r + b : r;
 }
 
+// floor_mod for b > 0 without the integer division where a lies in
+// [-b, 2b), as every bin index of a heading in [-pi, pi] does.
+__device__ __forceinline__ int wrap_mod(int a, int b) {
+  if (a >= b) a -= b;
+  if (a < 0) a += b;
+  return (a >= 0 && a < b) ? a : floor_mod(a, b);
+}
+
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return min(max(v, lo), hi);
 }
 
-__device__ __forceinline__ WindowIndex window_index(const float* particles,
-                                                    int i,
+__device__ __forceinline__ WindowIndex window_index(float px, float py,
+                                                    float pth,
                                                     const WindowArgs& a) {
-  const float px = particles[3LL * i];
-  const float py = particles[3LL * i + 1];
-  const float pth = particles[3LL * i + 2];
   const float dx = __fsub_rn(px, a.origin_x);
   const float dy = __fsub_rn(py, a.origin_y);
   const float fx = a.fine_div ? __fdiv_rn(dx, a.fine_scale)
@@ -74,8 +111,8 @@ __device__ __forceinline__ WindowIndex window_index(const float* particles,
   const float tpi = __fadd_rn(pth, a.pi_f);
   const float tb = a.theta_div ? __fdiv_rn(tpi, a.theta_scale)
                                : __fmul_rn(tpi, a.theta_scale);
-  const int tbin = floor_mod(__float2int_rz(tb), a.n_theta);
-  const int k_rel = floor_mod(tbin - a.kstart, a.n_theta);
+  const int tbin = wrap_mod(__float2int_rz(tb), a.n_theta);
+  const int k_rel = wrap_mod(tbin - a.kstart, a.n_theta);
   const bool in_theta = k_rel < a.nbins;
   const int tbin_w = in_theta ? k_rel : 0;
 
@@ -90,65 +127,216 @@ __device__ __forceinline__ WindowIndex window_index(const float* particles,
   } else {
     const int cx = clampi(__float2int_rz(__fdiv_rn(dx, a.res_c)), 0, a.wc - 1);
     const int cy = clampi(__float2int_rz(__fdiv_rn(dy, a.res_c)), 0, a.hc - 1);
-    const int ck =
-        floor_mod(__float2int_rz(__fmul_rn(tpi, a.kc_scale)), a.kc);
+    const int ck = wrap_mod(__float2int_rz(__fmul_rn(tpi, a.kc_scale)), a.kc);
     r.row = cy * a.kc + ck;
     r.lane = cx;
   }
   return r;
 }
 
-__global__ void window_score_kernel(const float* __restrict__ fine,
-                                    const float* __restrict__ coarse,
-                                    const float* __restrict__ particles, int n,
-                                    const float* __restrict__ denom_fill,
-                                    const int* __restrict__ count,
-                                    WindowArgs a, float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  if (count != nullptr && *count <= 0) {
-    out[i] = a.blind_score;
-    return;
+// The poses of particles i0 .. i0 + P - 1 into p (x, y, theta each):
+// 16-byte loads where P is a multiple of 4, the base is aligned and the
+// run lies inside N, else one 4-byte load a value (nothing past N).
+template <int P>
+__device__ __forceinline__ void load_poses(const float* __restrict__ particles,
+                                           long long i0, int n, bool vec,
+                                           float (&p)[3 * P]) {
+  if constexpr (P % 4 == 0) {
+    if (vec && i0 + P <= n) {
+      const float4* q = reinterpret_cast<const float4*>(particles + 3 * i0);
+#pragma unroll
+      for (int k = 0; k < 3 * P / 4; ++k) {
+        const float4 t = __ldg(q + k);
+        p[4 * k] = t.x;
+        p[4 * k + 1] = t.y;
+        p[4 * k + 2] = t.z;
+        p[4 * k + 3] = t.w;
+      }
+      return;
+    }
   }
-  const WindowIndex r = window_index(particles, i, a);
-  const float v =
-      r.covered ? __ldg(fine + static_cast<long long>(r.row) * a.fw + r.lane)
-                : __ldg(coarse + static_cast<long long>(r.row) * a.wc + r.lane);
-  out[i] = r.in_map ? __fdiv_rn(v, denom_fill[0]) : denom_fill[1];
+  const long long end = 3LL * n - 3 * i0;
+#pragma unroll
+  for (int k = 0; k < 3 * P; ++k) {
+    p[k] = k < end ? __ldg(particles + 3 * i0 + k) : 0.0f;
+  }
 }
 
-__global__ void window_escapees_kernel(const float* __restrict__ particles,
-                                       int n, WindowArgs a,
-                                       int* __restrict__ n_escaped) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  bool escaped = false;
-  if (i < n) {
-    const WindowIndex r = window_index(particles, i, a);
-    escaped = r.in_map && !r.covered;
+// out[i0 .. i0 + P - 1] = v, one vector store where the run is whole (the
+// output is the wrapper's allocation: aligned).
+template <int P>
+__device__ __forceinline__ void store_run(float* __restrict__ out,
+                                          long long i0, int n,
+                                          const float (&v)[P]) {
+  if (i0 + P <= n) {
+    if constexpr (P % 4 == 0) {
+#pragma unroll
+      for (int k = 0; k < P; k += 4) {
+        *reinterpret_cast<float4*>(out + i0 + k) =
+            make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]);
+      }
+      return;
+    } else if constexpr (P == 2) {
+      *reinterpret_cast<float2*>(out + i0) = make_float2(v[0], v[1]);
+      return;
+    }
   }
-  const int block_count = __syncthreads_count(escaped);
-  if (threadIdx.x == 0 && block_count > 0) atomicAdd(n_escaped, block_count);
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    if (i0 + k < n) out[i0 + k] = v[k];
+  }
+}
+
+template <int P>
+__global__ void __launch_bounds__(kThreads) window_score_kernel(
+    const float* __restrict__ fine, const float* __restrict__ coarse,
+    const float* __restrict__ particles, int n, bool vec,
+    const float* __restrict__ denom_ptr, float denom,
+    const float* __restrict__ fill_ptr, float fill,
+    const int* __restrict__ count, WindowArgs a, float* __restrict__ out) {
+  const long long i0 =
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) * P;
+  if (i0 >= n) return;
+  float p[3 * P];
+  load_poses<P>(particles, i0, n, vec, p);
+  const bool seen = count == nullptr || __ldg(count) > 0;
+  if (denom_ptr != nullptr) denom = __ldg(denom_ptr);
+  if (fill_ptr != nullptr) fill = __ldg(fill_ptr);
+  const float* src[P];
+  bool in_map[P];
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    const WindowIndex r = window_index(p[3 * k], p[3 * k + 1], p[3 * k + 2], a);
+    src[k] = r.covered ? fine + static_cast<long long>(r.row) * a.fw + r.lane
+                       : coarse + static_cast<long long>(r.row) * a.wc + r.lane;
+    in_map[k] = r.in_map;
+  }
+  float v[P];
+#pragma unroll
+  for (int k = 0; k < P; ++k) v[k] = __ldg(src[k]);
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    v[k] = seen ? (in_map[k] ? __fdiv_rn(v[k], denom) : fill) : a.blind_score;
+  }
+  store_run<P>(out, i0, n, v);
+}
+
+template <int P>
+__global__ void __launch_bounds__(kThreads) window_escapees_kernel(
+    const float* __restrict__ particles, int n, bool vec, WindowArgs a,
+    int* __restrict__ n_escaped) {
+  __shared__ int s_warp[kThreads / 32];
+  const long long i0 =
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) * P;
+  int escaped = 0;
+  if (i0 < n) {
+    float p[3 * P];
+    load_poses<P>(particles, i0, n, vec, p);
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      const WindowIndex r =
+          window_index(p[3 * k], p[3 * k + 1], p[3 * k + 2], a);
+      escaped += (i0 + k < n && r.in_map && !r.covered) ? 1 : 0;
+    }
+  }
+  escaped = __reduce_add_sync(0xffffffffu, escaped);
+  if ((threadIdx.x & 31) == 0) s_warp[threadIdx.x >> 5] = escaped;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int block_count = 0;
+#pragma unroll
+    for (int k = 0; k < kThreads / 32; ++k) block_count += s_warp[k];
+    if (block_count > 0) atomicAdd(n_escaped, block_count);
+  }
+}
+
+bool aligned16(const void* ptr) {
+  return (reinterpret_cast<unsigned long long>(ptr) & 15ULL) == 0;
+}
+
+int blocks_for(int n, int p) {
+  const long long threads = (static_cast<long long>(n) + p - 1) / p;
+  return static_cast<int>((threads + kThreads - 1) / kThreads);
+}
+
+// P: 4 where the card still gets a thread for every slot it holds, else 2
+// or 1 (a smaller cloud spreads over more threads).
+int poses_for(int n) {
+#ifdef MCMH_WINDOW_POSES
+  return MCMH_WINDOW_POSES;  // a build that fixes P, to time it
+#else
+  int dev = 0, sms = 0, per_sm_threads = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&per_sm_threads, cudaDevAttrMaxThreadsPerMultiProcessor,
+                         dev);
+  const long long slots = static_cast<long long>(sms) * per_sm_threads;
+  return n >= 4 * slots ? 4 : n >= 2 * slots ? 2 : 1;
+#endif
+}
+
+template <int P>
+cudaError_t launch_score(const float* fine, const float* coarse,
+                         const float* particles, int n,
+                         const float* denom_ptr, float denom,
+                         const float* fill_ptr, float fill, const int* count,
+                         const WindowArgs& a, float* out,
+                         cudaStream_t stream) {
+  window_score_kernel<P><<<blocks_for(n, P), kThreads, 0, stream>>>(
+      fine, coarse, particles, n, aligned16(particles), denom_ptr, denom,
+      fill_ptr, fill, count, a, out);
+  return cudaGetLastError();
+}
+
+template <int P>
+cudaError_t launch_escapees(const float* particles, int n,
+                            const WindowArgs& a, int* n_escaped,
+                            cudaStream_t stream) {
+  window_escapees_kernel<P><<<blocks_for(n, P), kThreads, 0, stream>>>(
+      particles, n, aligned16(particles), a, n_escaped);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// denom and fill: read from the device where the pointer is not null,
+// else the value given; count may be null (no blind case).
 extern "C" int mcmh_window_score(const float* fine, const float* coarse,
                                  const float* particles, int n,
-                                 const float* denom_fill, const int* count,
-                                 WindowArgs a, float* out, void* stream) {
+                                 const float* denom_ptr, float denom,
+                                 const float* fill_ptr, float fill,
+                                 const int* count, WindowArgs a, float* out,
+                                 void* stream) {
   if (n <= 0) return 0;
-  window_score_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      fine, coarse, particles, n, denom_fill, count, a, out);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (poses_for(n)) {
+    case 4:
+      return launch_score<4>(fine, coarse, particles, n, denom_ptr, denom,
+                             fill_ptr, fill, count, a, out, st);
+    case 2:
+      return launch_score<2>(fine, coarse, particles, n, denom_ptr, denom,
+                             fill_ptr, fill, count, a, out, st);
+    case 1:
+      return launch_score<1>(fine, coarse, particles, n, denom_ptr, denom,
+                             fill_ptr, fill, count, a, out, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" int mcmh_window_escapees(const float* particles, int n,
                                     WindowArgs a, int* n_escaped,
                                     void* stream) {
   if (n <= 0) return 0;
-  window_escapees_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      particles, n, a, n_escaped);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (poses_for(n)) {
+    case 4:
+      return launch_escapees<4>(particles, n, a, n_escaped, st);
+    case 2:
+      return launch_escapees<2>(particles, n, a, n_escaped, st);
+    case 1:
+      return launch_escapees<1>(particles, n, a, n_escaped, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -13,78 +13,192 @@
 //
 // Off-map beams count in the denominator and add 0.  The two JAX scorers
 // compute the cell in the two OP forms, which differ by an ulp at cell
-// edges, so the form is an argument.  c, s = cosf, sinf(theta) and the
-// endpoint math round like the plain PyTorch version (round-to-nearest
-// intrinsics, --fmad=false); only the order of the beam sum differs.
+// edges, so the form is a template argument.  c, s = cosf, sinf(theta)
+// and the endpoint math round like the plain PyTorch version
+// (round-to-nearest intrinsics, --fmad=false).
 //
-// Bound: M dependent 4-byte reads per particle (72M per scan at 2 x 100k
-// particles, 360 beams) from the log field (576 KB at 384^2), which stays
-// in L2 and, for a converged cloud, largely in L1.  One warp per particle:
-// the lanes take the beams (lane-strided), then a shuffle reduction.  The
-// block stages the scan's u, v and validity in shared memory once and its
-// warps walk many particles.
+// The sum order is fixed, and ops/likelihood.py::likelihood_scores_plain
+// follows it, so the two are bitwise equal: G lanes share a pose (G a
+// power of two in [1, 32], ops/likelihood.py::lanes_per_particle); lane g
+// adds the compacted valid beams g, g + G, g + 2G, ... in ascending order
+// from +0.0 (an off-map beam adds +0.0, which changes no bit of such a
+// sum), then an xor butterfly over the group, offsets G/2 down to 1.
+//
+// Bound: one 4-byte field read and ~13 f32 operations per particle and
+// valid beam (2 x 100k particles x 114 valid beams of 360: 0.0044 ms of
+// operations on an H100 SXM at 700 W), from a 576 KB log field that stays
+// in L2.  What holds it back is instruction issue and L1 wavefronts, not
+// DRAM.  The layout:
+//  - the block stages only the valid beams, as float2 (u, v) in shared
+//    memory, compacted with a warp ballot and a block prefix in ascending
+//    beam order; the loop runs over those (114 of 360 in a scan of the
+//    smoke run's house map), with no branch on validity;
+//  - G lanes a pose, G chosen from N so the grid fills the card: with
+//    G = 1 a warp's 32 reads of one beam come from 32 neighbouring poses
+//    of the cloud (a few cache lines), where one warp a pose read 32
+//    beams along the scan contour (up to 32 lines); G = 32 where one
+//    thread a pose would leave most SMs idle (2 x 1500 poses);
+//  - the group's first lane loads the pose and computes cosf / sinf once;
+//    the other lanes take them by shuffle.
+// Tried and dropped (chip_kernel_ab.py, the kernels alone, multiply form,
+// NVIDIA H100 80GB HBM3 at 700 W): the first kernel, one warp a pose striding
+// over all M beams and skipping the invalid ones, 0.1611-0.1624 ms at
+// 2 x 100k and 0.0070-0.0071 at 2 x 1500; the compacted beams at G = 32
+// for 2 x 100k, 0.0918-0.0924 (a warp's reads follow the scan contour);
+// G = 1 for 2 x 1500, 0.0128 (94 warps for 132 SMs).  The rule's G = 2 at
+// 2 x 100k takes 0.0321-0.0324 ms (divide form 0.0503-0.0506), its G = 32
+// at 2 x 1500 0.0055 (0.0062); PERF.md has the table over G.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kMaxBlocks = 2048;
-constexpr int kMaxBeams = 2048;  // shared staging: 3 * 4 * 2048 = 24 KB
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxBeams = 2048;  // staged as float2: 16 KB of shared memory
+constexpr int kMaxBlocks = 4096;
 
-__global__ void likelihood_scores_kernel(
+// Stages the valid beams' (u, v) in s_uv in ascending beam order; returns
+// their number.  Every thread of the block calls it.
+__device__ int stage_valid_beams(const float* __restrict__ u,
+                                 const float* __restrict__ v,
+                                 const unsigned char* __restrict__ valid,
+                                 int m, float2* s_uv) {
+  __shared__ int s_warp[kWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int base = 0;
+  for (int j0 = 0; j0 < m; j0 += kThreads) {
+    const int j = j0 + threadIdx.x;
+    bool live = false;
+    float2 uv = make_float2(0.0f, 0.0f);
+    if (j < m) {
+      live = valid[j] != 0;
+      uv = make_float2(u[j], v[j]);
+    }
+    const unsigned int mask = __ballot_sync(0xffffffffu, live);
+    if (lane == 0) s_warp[warp] = __popc(mask);
+    __syncthreads();
+    int before = base;
+    int total = base;
+#pragma unroll
+    for (int k = 0; k < kWarps; ++k) {
+      const int c = s_warp[k];
+      before += k < warp ? c : 0;
+      total += c;
+    }
+    if (live) s_uv[before + __popc(mask & ((1u << lane) - 1u))] = uv;
+    base = total;
+    __syncthreads();  // s_warp is rewritten by the next pass
+  }
+  return base;
+}
+
+template <int G, bool kDiv>
+__global__ void __launch_bounds__(kThreads) likelihood_scores_kernel(
     const float* __restrict__ particles, int n, const float* __restrict__ u,
     const float* __restrict__ v, const unsigned char* __restrict__ valid,
     int m, const float* __restrict__ field, int h, int w, float origin_x,
-    float origin_y, float scale, int cell_div, const int* __restrict__ count,
+    float origin_y, float scale, const int* __restrict__ count,
     int sum_aggregation, float blind_score, float* __restrict__ out) {
-  __shared__ float s_u[kMaxBeams];
-  __shared__ float s_v[kMaxBeams];
-  __shared__ unsigned char s_valid[kMaxBeams];
-  for (int j = threadIdx.x; j < m; j += blockDim.x) {
-    s_u[j] = u[j];
-    s_v[j] = v[j];
-    s_valid[j] = valid[j];
-  }
-  __syncthreads();
-  const int n_valid = *count;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int i = blockIdx.x * kWarps + warp; i < n; i += gridDim.x * kWarps) {
-    const float x = particles[3LL * i];
-    const float y = particles[3LL * i + 1];
-    const float theta = particles[3LL * i + 2];
-    const float c = cosf(theta);
-    const float s = sinf(theta);
+  extern __shared__ float2 s_uv[];
+  const int m_valid = stage_valid_beams(u, v, valid, m, s_uv);
+  const int n_valid = __ldg(count);
+  constexpr int kGroups = kThreads / G;  // poses a block takes at a time
+  const int g = threadIdx.x & (G - 1);
+  // block-uniform loop: every lane reaches the butterfly's shuffles
+  for (long long i0 = static_cast<long long>(blockIdx.x) * kGroups; i0 < n;
+       i0 += static_cast<long long>(gridDim.x) * kGroups) {
+    const long long i = i0 + threadIdx.x / G;
+    const bool active = i < n;
+    float x = 0.0f, y = 0.0f, c = 1.0f, s = 0.0f;
+    if (active && g == 0) {
+      x = particles[3 * i];
+      y = particles[3 * i + 1];
+      const float theta = particles[3 * i + 2];
+      c = cosf(theta);
+      s = sinf(theta);
+    }
+    if (G > 1) {
+      x = __shfl_sync(0xffffffffu, x, 0, G);
+      y = __shfl_sync(0xffffffffu, y, 0, G);
+      c = __shfl_sync(0xffffffffu, c, 0, G);
+      s = __shfl_sync(0xffffffffu, s, 0, G);
+    }
     float acc = 0.0f;
-    for (int j = lane; j < m; j += 32) {
-      if (!s_valid[j]) continue;
+    const int j_end = active ? m_valid : 0;
+#pragma unroll 4
+    for (int j = g; j < j_end; j += G) {
+      const float2 b = s_uv[j];
       // JAX order: (x + c*u) - s*v and (y + s*u) + c*v
-      const float lx = __fsub_rn(__fadd_rn(x, __fmul_rn(c, s_u[j])),
-                                 __fmul_rn(s, s_v[j]));
-      const float ly = __fadd_rn(__fadd_rn(y, __fmul_rn(s, s_u[j])),
-                                 __fmul_rn(c, s_v[j]));
+      const float lx =
+          __fsub_rn(__fadd_rn(x, __fmul_rn(c, b.x)), __fmul_rn(s, b.y));
+      const float ly =
+          __fadd_rn(__fadd_rn(y, __fmul_rn(s, b.x)), __fmul_rn(c, b.y));
       const float dx = __fsub_rn(lx, origin_x);
       const float dy = __fsub_rn(ly, origin_y);
-      const int mx = __float2int_rz(cell_div ? __fdiv_rn(dx, scale)
-                                             : __fmul_rn(dx, scale));
-      const int my = __float2int_rz(cell_div ? __fdiv_rn(dy, scale)
-                                             : __fmul_rn(dy, scale));
+      const int mx = __float2int_rz(kDiv ? __fdiv_rn(dx, scale)
+                                         : __fmul_rn(dx, scale));
+      const int my = __float2int_rz(kDiv ? __fdiv_rn(dy, scale)
+                                         : __fmul_rn(dy, scale));
       if (mx >= 0 && mx < w && my >= 0 && my < h) {
-        acc = __fadd_rn(acc, __ldg(field + static_cast<long long>(my) * w + mx));
+        acc = __fadd_rn(acc, __ldg(field + my * w + mx));
       }
     }
-    for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1) {
       acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, off));
     }
-    if (lane == 0) {
-      float score = sum_aggregation
-                        ? acc
-                        : __fdiv_rn(acc, static_cast<float>(max(n_valid, 1)));
+    if (active && g == 0) {
+      const float score =
+          sum_aggregation ? acc
+                          : __fdiv_rn(acc, static_cast<float>(max(n_valid, 1)));
       out[i] = n_valid > 0 ? score : blind_score;
     }
   }
+}
+
+template <int G, bool kDiv>
+cudaError_t launch(const float* particles, int n, const float* u,
+                   const float* v, const unsigned char* valid, int m,
+                   const float* field, int h, int w, float origin_x,
+                   float origin_y, float scale, const int* count,
+                   int sum_aggregation, float blind_score, float* out,
+                   cudaStream_t stream) {
+  constexpr int kGroups = kThreads / G;
+  long long blocks = (static_cast<long long>(n) + kGroups - 1) / kGroups;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  likelihood_scores_kernel<G, kDiv>
+      <<<static_cast<int>(blocks), kThreads, m * sizeof(float2), stream>>>(
+          particles, n, u, v, valid, m, field, h, w, origin_x, origin_y,
+          scale, count, sum_aggregation, blind_score, out);
+  return cudaGetLastError();
+}
+
+template <bool kDiv>
+cudaError_t launch_lanes(int lanes, const float* particles, int n,
+                         const float* u, const float* v,
+                         const unsigned char* valid, int m,
+                         const float* field, int h, int w, float origin_x,
+                         float origin_y, float scale, const int* count,
+                         int sum_aggregation, float blind_score, float* out,
+                         cudaStream_t stream) {
+#define MCMH_LANES_CASE(G)                                                  \
+  case G:                                                                   \
+    return launch<G, kDiv>(particles, n, u, v, valid, m, field, h, w,       \
+                           origin_x, origin_y, scale, count,                \
+                           sum_aggregation, blind_score, out, stream);
+  switch (lanes) {
+    MCMH_LANES_CASE(1)
+    MCMH_LANES_CASE(2)
+    MCMH_LANES_CASE(4)
+    MCMH_LANES_CASE(8)
+    MCMH_LANES_CASE(16)
+    MCMH_LANES_CASE(32)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef MCMH_LANES_CASE
 }
 
 }  // namespace
@@ -96,15 +210,19 @@ extern "C" int mcmh_likelihood_scores(const float* particles, int n,
                                       float origin_x, float origin_y,
                                       float scale, int cell_div,
                                       const int* count, int sum_aggregation,
-                                      float blind_score, float* out,
-                                      void* stream) {
+                                      float blind_score, int lanes,
+                                      float* out, void* stream) {
   if (n <= 0) return 0;
   if (m > kMaxBeams) return static_cast<int>(cudaErrorInvalidValue);
-  int blocks = (n + kWarps - 1) / kWarps;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  likelihood_scores_kernel<<<blocks, kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      particles, n, u, v, valid, m, field, h, w, origin_x, origin_y, scale,
-      cell_div, count, sum_aggregation, blind_score, out);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      cell_div ? launch_lanes<true>(lanes, particles, n, u, v, valid, m,
+                                    field, h, w, origin_x, origin_y, scale,
+                                    count, sum_aggregation, blind_score, out,
+                                    st)
+               : launch_lanes<false>(lanes, particles, n, u, v, valid, m,
+                                     field, h, w, origin_x, origin_y, scale,
+                                     count, sum_aggregation, blind_score, out,
+                                     st);
+  return static_cast<int>(err);
 }

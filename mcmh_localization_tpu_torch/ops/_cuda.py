@@ -62,11 +62,13 @@ _SIGNATURES = {
     "mcmh_rank_scratch_words": (_I,),
     "mcmh_rank_in_sorted": (_P, _I, _I, _P, _P, _P, _P, _P),
     "mcmh_expand_sorted": (_P, _I, _P, _I, _I, _P, _P, _P, _P, _P),
-    "mcmh_window_score": (_P, _P, _P, _I, _P, _P, WindowArgs, _P, _P),
+    "mcmh_window_score": (
+        _P, _P, _P, _I, _P, _F, _P, _F, _P, WindowArgs, _P, _P,
+    ),
     "mcmh_window_escapees": (_P, _I, WindowArgs, _P, _P),
     "mcmh_likelihood_scores": (
-        _P, _I, _P, _P, _P, _I, _P, _I, _I, _F, _F, _F, _I, _P, _I, _F, _P,
-        _P,
+        _P, _I, _P, _P, _P, _I, _P, _I, _I, _F, _F, _F, _I, _P, _I, _F, _I,
+        _P, _P,
     ),
     "mcmh_take_rows": (_P, _I, _I, _P, _I, _P, _P),
     "mcmh_lut_field": (_P, _P, _I, _I, _I, _I, _P, _P),

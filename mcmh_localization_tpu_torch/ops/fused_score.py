@@ -8,7 +8,10 @@ spatial and theta windows, else its coarse (row, lane); one read; then
 ``theta_div``, ``clip_before_window``) select the forms of the two callers
 (the corr scorer: all False; the beam score field: all True).  The TPU
 kernel's one-hot MXU reads over bf16 planes are TPU mechanics: the read
-here is exact, so the plain version and the kernel agree bitwise.
+here is exact, so the plain version and the kernel agree bitwise.  The
+kernels take any contiguous (N, 3) pose array and any N: a view whose base
+is not 16-byte aligned (``parts[1:]``) and an N that is not a multiple of
+their poses a thread (4, 2 or 1, from N) are handled inside them.
 """
 
 from __future__ import annotations
@@ -133,11 +136,14 @@ def window_score(fine: torch.Tensor, coarse: torch.Tensor,
         return window_score_plain(fine, coarse, particles, g, denom, fill,
                                   count)
     dev = particles.device
-    denom_fill = torch.stack([_as_scalar(denom, dev), _as_scalar(fill, dev)])
     cnt = None if count is None else torch.as_tensor(
         count, device=dev).to(torch.int32).reshape(())
-    _cuda.require_cuda("window_score", fine, coarse, particles, denom_fill,
-                       *(() if cnt is None else (cnt,)))
+    # a 0-d tensor goes to the kernel by pointer, a python number by value
+    denom, fill = (_as_scalar(x, dev) if isinstance(x, torch.Tensor)
+                   else float(x) for x in (denom, fill))
+    _cuda.require_cuda("window_score", fine, coarse, particles,
+                       *(x for x in (denom, fill, cnt)
+                         if isinstance(x, torch.Tensor)))
     if (fine.dtype != torch.float32 or coarse.dtype != torch.float32
             or particles.dtype != torch.float32):
         raise ValueError("window_score: tables and particles must be float32")
@@ -148,21 +154,30 @@ def window_score(fine: torch.Tensor, coarse: torch.Tensor,
                          "the geometry")
     n = particles.shape[0]
     out = torch.empty(n, dtype=torch.float32, device=dev)
+    (denom_p, denom_v), (fill_p, fill_v) = (
+        (x.data_ptr(), 0.0) if isinstance(x, torch.Tensor) else (None, x)
+        for x in (denom, fill))
     code = _cuda.library().mcmh_window_score(
         fine.data_ptr(), coarse.data_ptr(), particles.data_ptr(), n,
-        denom_fill.data_ptr(), None if cnt is None else cnt.data_ptr(),
-        _args(g), out.data_ptr(), _cuda.stream_of(particles),
+        denom_p, denom_v, fill_p, fill_v,
+        None if cnt is None else cnt.data_ptr(), _args(g), out.data_ptr(),
+        _cuda.stream_of(particles),
     )
     _cuda.check_launch("window_score", code)
     return out
+
+
+def window_escapees_plain(particles: torch.Tensor,
+                          g: WindowGeometry) -> torch.Tensor:
+    covered, _, _, in_map = window_indices(particles, g)
+    return (in_map & ~covered).sum().to(torch.int32)
 
 
 def window_escapees(particles: torch.Tensor, g: WindowGeometry) -> torch.Tensor:
     """0-d int32 count of in-map particles the window does not cover: the
     coarse-build gate's count (JAX corr_field.py:553)."""
     if particles.device.type == "cpu":
-        covered, _, _, in_map = window_indices(particles, g)
-        return (in_map & ~covered).sum().to(torch.int32)
+        return window_escapees_plain(particles, g)
     _cuda.require_cuda("window_escapees", particles)
     if particles.dtype != torch.float32 or particles.shape[1:] != (3,):
         raise ValueError("window_escapees: particles must be (N, 3) float32")

@@ -6,18 +6,22 @@ scorer (``models/sensor.py::likelihood_field_scores``) finds a beam's cell
 by dividing by the resolution (``GridMap.world_to_grid``), the "pallas"
 scorer by multiplying by ``f32(1 / resolution)``; the two differ by an ulp
 at cell edges, so ``cell_div`` picks the form.  The TPU kernel's VMEM table
-and lane-group partial sums are TPU mechanics.
+and lane-group partial sums are TPU mechanics.  The beam sum runs in the
+kernel's fixed order (``lane_sum``), so the kernel and the plain version
+agree bitwise.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from mcmh_localization_tpu_torch.models.sensor import BLIND_SCORE
 from mcmh_localization_tpu_torch.ops import _cuda
 from mcmh_localization_tpu_torch.utils.f32 import divide
 
 MAX_BEAMS = 2048  # the kernel stages the scan in shared memory
+FILL_THREADS = 1 << 18  # lanes_per_particle's target: about one wave
 
 
 def scan_endpoints_uv(particles: torch.Tensor, u: torch.Tensor,
@@ -44,15 +48,46 @@ def endpoint_cells(particles: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     return (dx * scale).to(torch.int32), (dy * scale).to(torch.int32)
 
 
+def lanes_per_particle(n: int) -> int:
+    """G, the lanes of the kernel that share one pose: the smallest power
+    of two in [1, 32] that gives ``n * G`` at least ``FILL_THREADS``
+    threads (the card's 132 SMs hold 2048 threads each), so a small cloud
+    still spreads over the card and a large one reads each beam from
+    neighbouring poses.  Nonincreasing in ``n``."""
+    g = 1
+    while g < 32 and n * g < FILL_THREADS:
+        g *= 2
+    return g
+
+
+def lane_sum(contrib: torch.Tensor, lanes: int) -> torch.Tensor:
+    """(N,) row sums of ``contrib`` (N, K) in the kernel's order: lane g
+    of a group of ``lanes`` adds columns g, g + lanes, ... in ascending
+    order from +0.0 (the padding adds +0.0, which changes no bit), then an
+    xor butterfly over the group, offsets lanes/2 down to 1."""
+    n, k = contrib.shape
+    steps = -(-k // lanes)
+    part = F.pad(contrib, (0, steps * lanes - k)).reshape(n, steps, lanes)
+    acc = torch.zeros((n, lanes), dtype=contrib.dtype, device=contrib.device)
+    for t in range(steps):
+        acc = acc + part[:, t]
+    while lanes > 1:
+        lanes //= 2
+        acc = acc[:, :lanes] + acc[:, lanes:]
+    return acc[:, 0]
+
+
 def likelihood_scores_plain(particles, u, v, valid, field, origin_x, origin_y,
-                            scale, cell_div, count, aggregation):
+                            scale, cell_div, count, aggregation, lanes=None):
     h, w = field.shape
-    mx, my = endpoint_cells(particles, u, v, origin_x, origin_y, scale,
-                            cell_div)
+    if lanes is None:
+        lanes = lanes_per_particle(particles.shape[0])
+    mx, my = endpoint_cells(particles, u[valid], v[valid], origin_x, origin_y,
+                            scale, cell_div)
     in_map = (mx >= 0) & (mx < w) & (my >= 0) & (my < h)
     flat = my.clamp(0, h - 1).to(torch.int64) * w + mx.clamp(0, w - 1)
-    contrib = torch.where(valid[None, :] & in_map, field.reshape(-1)[flat], 0.0)
-    total = contrib.sum(dim=1)
+    contrib = torch.where(in_map, field.reshape(-1)[flat], 0.0)
+    total = lane_sum(contrib, lanes)
     score = (total if aggregation == "sum"
              else total / count.clamp(min=1).to(torch.float32))
     return torch.where(count > 0, score, BLIND_SCORE).to(torch.float32)
@@ -67,7 +102,9 @@ def likelihood_scores(particles: torch.Tensor, u: torch.Tensor,
     endpoints ``u``, ``v`` (M,) f32 and ``valid`` (M,) bool; the (H, W)
     f32 log field; ``scale`` the resolution (``cell_div``) or its inverse;
     ``count`` the 0-d int valid-beam count: the "mean" divisor, and the
-    blind penalty when it is 0.  CPU tensors take the plain version."""
+    blind penalty when it is 0.  The beam sums run in the order of
+    ``lanes_per_particle(N)`` lanes a pose.  CPU tensors take the plain
+    version."""
     if particles.device.type == "cpu":
         return likelihood_scores_plain(particles, u, v, valid, field,
                                        origin_x, origin_y, scale, cell_div,
@@ -92,6 +129,7 @@ def likelihood_scores(particles: torch.Tensor, u: torch.Tensor,
         particles.data_ptr(), n, u.data_ptr(), v.data_ptr(), valid.data_ptr(),
         m, field.data_ptr(), h, w, origin_x, origin_y, scale, int(cell_div),
         cnt.data_ptr(), int(aggregation == "sum"), BLIND_SCORE,
+        lanes_per_particle(n),
         out.data_ptr(), _cuda.stream_of(particles),
     )
     _cuda.check_launch("likelihood_scores", code)

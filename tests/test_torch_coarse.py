@@ -123,6 +123,35 @@ def test_window_score_bitwise_vs_index_spec(flags):
 
 
 @pytest.mark.parametrize("flags", FLAG_SETS, ids=["corr_forms", "beam_forms"])
+def test_window_score_ragged_view_vs_index_spec(flags):
+    """A view of the poses that starts one pose in (its base 12 bytes past
+    the array's) with N mod 4 = 1, the case the kernel's 4-byte loads and
+    ragged last thread take: values and the escapee count bitwise equal to
+    the index spec on those poses, and to the whole array's scores at
+    their positions."""
+    field_t, cfield_t, parts, spec, geo = _fused_case(flags)
+    full = torch.from_numpy(parts)
+    view = full[1:-2]
+    assert view.shape[0] % 4 == 1 and view.storage_offset() == 3
+    rows, lanes, in_map = _spec_rows_lanes(parts[1:-2, 0], parts[1:-2, 1],
+                                           parts[1:-2, 2], **spec)
+    cb = spec["coarse_base"]
+    covered = rows < cb
+    read = np.where(covered,
+                    field_t[np.where(covered, rows, 0), np.where(covered, lanes, 0)],
+                    cfield_t[np.where(covered, 0, rows - cb),
+                             np.where(covered, 0, lanes)])
+    denom, fill = np.float32(37.0), np.float32(-123.0)
+    want = np.where(in_map, read / denom, fill).astype(np.float32)
+    tables = torch.from_numpy(field_t), torch.from_numpy(cfield_t)
+    got = window_score(*tables, view, geo, float(denom), float(fill)).numpy()
+    np.testing.assert_array_equal(got, want)
+    whole = window_score(*tables, full, geo, float(denom), float(fill)).numpy()
+    np.testing.assert_array_equal(got, whole[1:-2])
+    assert int(window_escapees(view, geo)) == int((~covered & in_map).sum())
+
+
+@pytest.mark.parametrize("flags", FLAG_SETS, ids=["corr_forms", "beam_forms"])
 def test_window_score_vs_tpu_kernel_interpret(flags):
     """The TPU kernel reads through split bf16 hi/lo planes, a TPU
     approximation of about |v| * 2^-16 (hi keeps 8 bits, lo the next 8):

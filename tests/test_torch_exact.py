@@ -18,6 +18,7 @@ from mcmh_localization_tpu.ops.likelihood_pallas import (  # noqa: E402
 from mcmh_localization_tpu_torch.convert import grid_map_from_numpy  # noqa: E402
 from mcmh_localization_tpu_torch.models import motion as tmotion  # noqa: E402
 from mcmh_localization_tpu_torch.models import sensor as tsensor  # noqa: E402
+from mcmh_localization_tpu_torch.ops import likelihood as tlik  # noqa: E402
 from mcmh_localization_tpu_torch.ops.likelihood import endpoint_cells  # noqa: E402
 from tests.test_likelihood_pallas import _case  # noqa: E402
 from tests.test_torch_ops import torch_one_thread  # noqa: E402,F401
@@ -59,27 +60,23 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("form", ["jnp", "pallas"])
-@pytest.mark.parametrize("case", list(CASES))
-def test_exact_scores_match_jax(house_map, torch_map, default_config, case,
-                                form):
-    """Both cell forms vs JAX's "jnp" scorer (form "jnp") or its Pallas
-    kernel in interpret mode (form "pallas").  Endpoint cells agree on at
-    least 99.99% of (particle, beam) pairs (torch's and XLA's cos/sin differ
-    by an ulp on a few percent of headings, which can move an endpoint
-    across a cell edge); scores agree to rtol 1e-5 (f32 sums of M log
-    values in another order) except on particles with a moved cell, which
-    may differ by the field step of those beams over the beam count."""
+_JAX_SCORES = {}
+
+
+def _check_exact_vs_jax(house_map, torch_map, default_config, case, form):
     n, m, seed, over = CASES[case]
     cfg = default_config.replace(**over)
     particles, ranges, angles = _case(house_map, cfg, n=n, m=m, seed=seed)
-    if form == "jnp":
-        want = jsensor.likelihood_field_scores(particles, ranges, angles,
-                                               house_map, cfg)
-    else:
-        want = likelihood_field_scores_pallas(particles, ranges, angles,
-                                              house_map, cfg, interpret=True)
-    want = np.asarray(want)
+    if (case, form) not in _JAX_SCORES:
+        if form == "jnp":
+            want = jsensor.likelihood_field_scores(particles, ranges, angles,
+                                                   house_map, cfg)
+        else:
+            want = likelihood_field_scores_pallas(particles, ranges, angles,
+                                                  house_map, cfg,
+                                                  interpret=True)
+        _JAX_SCORES[case, form] = np.asarray(want)
+    want = _JAX_SCORES[case, form]
     got = tsensor.likelihood_field_scores(
         _t(particles), _t(ranges), _t(angles), torch_map, cfg,
         cell_div=form == "jnp").numpy()
@@ -105,6 +102,114 @@ def test_exact_scores_match_jax(house_map, torch_map, default_config, case,
             + moved * lf_step).all()
 
 
+@pytest.mark.parametrize("form", ["jnp", "pallas"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_exact_scores_match_jax(house_map, torch_map, default_config, case,
+                                form):
+    """Both cell forms vs JAX's "jnp" scorer (form "jnp") or its Pallas
+    kernel in interpret mode (form "pallas").  Endpoint cells agree on at
+    least 99.99% of (particle, beam) pairs (torch's and XLA's cos/sin differ
+    by an ulp on a few percent of headings, which can move an endpoint
+    across a cell edge); scores agree to rtol 1e-5 (f32 sums of M log
+    values in another order) except on particles with a moved cell, which
+    may differ by the field step of those beams over the beam count."""
+    _check_exact_vs_jax(house_map, torch_map, default_config, case, form)
+
+
+LANES = [1, 2, 4, 8, 16, 32]
+
+
+@pytest.mark.parametrize("form", ["jnp", "pallas"])
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("lanes", LANES)
+def test_exact_scores_match_jax_at_every_lane_count(
+        house_map, torch_map, default_config, monkeypatch, lanes, case, form):
+    """test_exact_scores_match_jax's twin with the beam sum in the order of
+    G lanes a pose (``lanes_per_particle`` pinned to G): the same
+    tolerances hold at every G."""
+    monkeypatch.setattr(tlik, "lanes_per_particle", lambda n: lanes)
+    _check_exact_vs_jax(house_map, torch_map, default_config, case, form)
+
+
+def _numpy_lane_scores(parts, u, v, valid, field, origin, scale, div, lanes):
+    """The exact scorer's beam sums as a numpy f32 loop in the kernel's
+    order: the valid beams compacted in ascending order, lane g of G adding
+    beams g, g + G, ... from +0.0 (an off-map beam adds nothing), then the
+    xor butterfly.  cos/sin of the heading are torch's (numpy's may differ
+    by an ulp)."""
+    th = _t(parts[:, 2])
+    c, s = torch.cos(th).numpy(), torch.sin(th).numpy()
+    x, y = parts[:, 0], parts[:, 1]
+    f32 = np.float32
+    h, w = field.shape
+    acc = np.zeros((parts.shape[0], lanes), np.float32)
+    for k, j in enumerate(np.flatnonzero(valid)):
+        lx = (x + c * u[j]) - s * v[j]
+        ly = (y + s * u[j]) + c * v[j]
+        dx, dy = lx - f32(origin[0]), ly - f32(origin[1])
+        if div:
+            mx, my = (dx / f32(scale)).astype(np.int32), (dy / f32(scale)).astype(np.int32)
+        else:
+            mx, my = (dx * f32(scale)).astype(np.int32), (dy * f32(scale)).astype(np.int32)
+        inside = (mx >= 0) & (mx < w) & (my >= 0) & (my < h)
+        val = field[np.clip(my, 0, h - 1), np.clip(mx, 0, w - 1)]
+        acc[:, k % lanes] = np.where(inside, acc[:, k % lanes] + val,
+                                     acc[:, k % lanes])
+    while lanes > 1:
+        lanes //= 2
+        acc = acc[:, :lanes] + acc[:, lanes:]
+    return acc[:, 0]
+
+
+@pytest.mark.parametrize("form", ["jnp", "pallas"])
+@pytest.mark.parametrize("lanes", LANES)
+def test_plain_sum_order_matches_numpy_loop(house_map, torch_map,
+                                            default_config, lanes, form):
+    """The plain version of kernel 6 at G lanes a pose, bitwise equal to a
+    numpy f32 loop in the stated order ("sum"), and that sum over the beam
+    count ("mean"), on a scan with invalid beams, beams off the map and
+    step=4."""
+    cfg = default_config.replace(step=4)
+    particles, ranges, angles = _case(house_map, cfg, n=301, m=360, seed=7)
+    parts = np.asarray(particles)
+    rr, aa = np.asarray(ranges)[::4], np.asarray(angles)[::4]
+    valid = np.isfinite(rr) & (rr < cfg.max_range)
+    safe = _t(np.where(valid, rr, 0.0).astype(np.float32))
+    u = (safe * torch.cos(_t(aa))).numpy()
+    v = (safe * torch.sin(_t(aa))).numpy()
+    div = form == "jnp"
+    scale = torch_map.res if div else torch_map.inv_res
+    field = tsensor.log_likelihood_field(torch_map, cfg)
+    want = _numpy_lane_scores(parts, u, v, valid, field.numpy(),
+                              torch_map.origin_xy, scale, div, lanes)
+    cnt = int(valid.sum())
+    args = (_t(parts), _t(u), _t(v), _t(valid), field, *torch_map.origin_xy,
+            scale, div, torch.tensor(cnt, dtype=torch.int32))
+    got = tlik.likelihood_scores_plain(*args, "sum", lanes=lanes).numpy()
+    np.testing.assert_array_equal(got, want)
+    mean = tlik.likelihood_scores_plain(*args, "mean", lanes=lanes).numpy()
+    np.testing.assert_array_equal(mean, want / np.float32(cnt))
+    # the case holds invalid beams and valid beams that leave the map
+    mx, my = endpoint_cells(_t(parts), _t(u[valid]), _t(v[valid]),
+                            *torch_map.origin_xy, scale, div)
+    h, w = field.shape
+    off = (mx < 0) | (mx >= w) | (my < 0) | (my >= h)
+    assert (~valid).any() and off.any() and (~off).any()
+
+
+def test_lanes_per_particle_rule():
+    """G is a power of two in [1, 32], nonincreasing in N, and takes the
+    values PERF.md records at the exact path's two shapes."""
+    prev = 32
+    for n in [1, 2, 100, 1500, 3000, 8192, 8193, 65536, 131072, 200_000,
+              262_144, 1_000_000, 2_000_000]:
+        g = tlik.lanes_per_particle(n)
+        assert g in (1, 2, 4, 8, 16, 32) and g <= prev, (n, g)
+        prev = g
+    assert tlik.lanes_per_particle(2 * 1500) == 32
+    assert tlik.lanes_per_particle(2 * 100_000) == 2
+
+
 def test_scan_endpoints_match_jax(house_map, default_config):
     """World beam endpoints: the same op order on both sides; cos/sin of
     the heading and the angles differ by an ulp on 5% of inputs, which
@@ -127,6 +232,19 @@ def test_exact_blind_scan(torch_map, default_config, form):
         torch.linspace(-np.pi, np.pi, 64), torch_map, default_config,
         cell_div=form == "jnp").numpy()
     np.testing.assert_array_equal(got, np.full(4, -50.0, np.float32))
+
+
+@pytest.mark.parametrize("form", ["jnp", "pallas"])
+@pytest.mark.parametrize("lanes", LANES)
+def test_exact_blind_scan_at_every_lane_count(torch_map, default_config,
+                                              monkeypatch, lanes, form):
+    """No valid beam gives the blind penalty at every G."""
+    monkeypatch.setattr(tlik, "lanes_per_particle", lambda n: lanes)
+    got = tsensor.likelihood_field_scores(
+        torch.zeros((37, 3)), torch.full((64,), float("inf")),
+        torch.linspace(-np.pi, np.pi, 64), torch_map, default_config,
+        cell_div=form == "jnp").numpy()
+    np.testing.assert_array_equal(got, np.full(37, -50.0, np.float32))
 
 
 @pytest.mark.parametrize("aggregation", ["mean", "sum"])

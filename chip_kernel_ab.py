@@ -1,46 +1,47 @@
 #!/usr/bin/env python3
-"""Kernels 5 and 6 of the PyTorch/CUDA port against an earlier tree's, on
-one NVIDIA GPU, in turns.
+"""Kernels 5 and 6 of the PyTorch/CUDA port against their first Hopper
+versions, on one NVIDIA GPU, in turns.
 
-    python3 chip_kernel_ab.py --old DIR [--check]
+    git archive 31a30c8 mcmh_localization_tpu_torch/csrc | tar -x -C build/parent
+    python3 chip_kernel_ab.py --old build/parent
 
-``DIR`` holds an earlier tree's ``mcmh_localization_tpu_torch/csrc`` (for
-example ``git archive <commit> mcmh_localization_tpu_torch/csrc | tar -x -C
-build/parent``).  Its ``likelihood.cu`` and ``fused_score.cu`` are built
-into a library of their own, and so is this tree's ``fused_score.cu`` at
-each fixed number of poses a thread (``-DMCMH_WINDOW_POSES``; the
-library's own build picks it from N), all with ``nvcc`` in parallel beside
-this tree's kernels.  On the inputs of ``chip_smoke.py``
-(its house map, scan and clouds), every kernel is called through its C
-entry point on the same precomputed arguments, so the readings hold the
-kernels alone:
+``--old DIR`` holds the ``likelihood.cu`` and ``fused_score.cu`` of commit
+31a30c8, the kernels' first Hopper versions.  The script binds their C
+interface (the window score's denominator and fill as one (2,) device
+array; the exact scorer without a lane count), which no other tree has, so
+it checks both files' sha256 first and refuses any other tree before it
+builds.  They are built into a library of their own with ``nvcc``.  On the
+inputs of ``chip_smoke.py`` (its house map, scan and clouds), every kernel
+is called through its C entry point on the same precomputed arguments, so
+the readings hold the kernels alone:
 
 - kernel 6 (the exact scorer) at 2x100k and 2x1500 poses, both cell forms:
   the earlier kernel and this one at every lane count G in {1, 2, 4, 8,
   16, 32}, each G bitwise against the plain version at that G;
 - kernel 5 (the window score) in the corr op forms at 2x1M poses, on a
   misaligned view of 2x100k + 3, in the beam op forms at the beam path's
-  geometry and 2x100k, and its escapee count at 2x1M: the earlier kernel,
-  this one and the builds at a fixed number of poses a thread, each bitwise
-  against the plain version (the count: equal); at 2x1M also the call as
-  the earlier wrapper made it (a fill tensor and a stack of the two
-  scalars on the device, then the kernel) beside this wrapper's call.
+  geometry and 2x100k, and its escapee count at 2x1M: the earlier kernel
+  and this one at every number of poses a thread P in {1, 2, 4}, each
+  bitwise against the plain version (the count: equal); at 2x1M also the
+  call as the earlier wrapper made it (a fill tensor and a stack of the
+  two scalars on the device, then the kernel; a zeroed counter, then the
+  count) beside this tree's wrappers.
 
 Each case is timed in turns, the earlier kernel first and last (old, new
 ..., ... new, old), with ``chip_smoke.device_ms`` (median of 20 runs).  The
 lines print the two readings of each kernel; the last line is a JSON
-object of them.  ``--check`` builds and checks, and times nothing.
+object of them.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
 import math
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 import torch
@@ -62,53 +63,48 @@ from chip_smoke import (  # noqa: E402
 )
 
 LANES = (1, 2, 4, 8, 16, 32)
-POSES = (1, 2, 4)  # builds that fix the poses a thread
+POSES = (1, 2, 4)
+# sha256 of commit 31a30c8's sources, the only ones whose C interface the
+# bindings below match
+OLD_SOURCES = {
+    "likelihood.cu":
+        "ba5ec1d8bffd6855b3917648eba45acb6c5bc7fc4f8c31ec0254d0d2c46cc534",
+    "fused_score.cu":
+        "3c357316a7fbaab0e8bb5c98dbb127d65ff0580bb791b7546d4ff3f08ad99178",
+}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def build_libraries(old_csrc: Path, variants: dict) -> dict:
-    """The earlier tree's kernels 5 and 6, and this tree's kernel 5 at each
-    fixed number of poses a thread, one library each, built in parallel."""
+def old_library(csrc: Path) -> ctypes.CDLL:
+    """Commit 31a30c8's kernels 5 and 6, built and bound; any other
+    sources raise before the build."""
     from mcmh_localization_tpu_torch.ops import _cuda
 
-    out_dir = _cuda.BUILD_DIR.parent / "torch_kernels_ab"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    jobs = {"old": ([], [old_csrc / "likelihood.cu",
-                         old_csrc / "fused_score.cu"])}
-    for p in POSES:
-        jobs[f"P={p}"] = ([f"-DMCMH_WINDOW_POSES={p}"],
-                          [_cuda.CSRC / "fused_score.cu"])
-    for name, path in variants.items():
-        jobs[name] = ([], [path])
-    procs = {}
-    for name, (defs, srcs) in jobs.items():
-        so = out_dir / f"lib_{name.replace('=', '')}.so"
-        procs[name] = (so, subprocess.Popen(
-            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, *defs, "-shared", "-o", str(so),
-             *map(str, srcs)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (so, proc) in procs.items():
-        log = proc.communicate()[0]
-        check(proc.returncode == 0, f"nvcc {name} failed:\n{log}")
-        lib = ctypes.CDLL(str(so))
-        lib.mcmh_window_score.restype = ctypes.c_int
-        lib.mcmh_window_escapees.restype = ctypes.c_int
-        lib.mcmh_window_escapees.argtypes = [_P, _I, _cuda.WindowArgs, _P, _P]
-        if name == "old":
-            # the earlier C interface: denominator and fill as one (2,) array
-            lib.mcmh_window_score.argtypes = [_P, _P, _P, _I, _P, _P,
-                                              _cuda.WindowArgs, _P, _P]
-            lib.mcmh_likelihood_scores.restype = ctypes.c_int
-            lib.mcmh_likelihood_scores.argtypes = [
-                _P, _I, _P, _P, _P, _I, _P, _I, _I, _F, _F, _F, _I, _P, _I,
-                _F, _P, _P]
-        else:
-            lib.mcmh_window_score.argtypes = list(
-                _cuda._SIGNATURES["mcmh_window_score"])
-        libs[name] = lib
-    return libs
+    for name, digest in OLD_SOURCES.items():
+        path = csrc / name
+        got = hashlib.sha256(path.read_bytes()).hexdigest() if path.exists() \
+            else "missing"
+        if got != digest:
+            raise SystemExit(f"chip_kernel_ab: {path} is not commit 31a30c8's "
+                             f"(sha256 {got}); --old must hold that tree")
+    so = _cuda.BUILD_DIR.parent / "torch_kernels_ab" / "libmcmh_old.so"
+    so.parent.mkdir(parents=True, exist_ok=True)
+    res = subprocess.run(
+        [_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, "-shared", "-o", str(so),
+         *(str(csrc / name) for name in OLD_SOURCES)],
+        capture_output=True, text=True)
+    check(res.returncode == 0, f"nvcc failed:\n{res.stdout}{res.stderr}")
+    lib = ctypes.CDLL(str(so))
+    for fn, args in (
+            ("mcmh_window_score", [_P, _P, _P, _I, _P, _P, _cuda.WindowArgs,
+                                   _P, _P]),
+            ("mcmh_window_escapees", [_P, _I, _cuda.WindowArgs, _P, _P]),
+            ("mcmh_likelihood_scores", [_P, _I, _P, _P, _P, _I, _P, _I, _I,
+                                        _F, _F, _F, _I, _P, _I, _F, _P, _P])):
+        getattr(lib, fn).argtypes = args
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
 
 
 def in_turns(calls: dict) -> dict:
@@ -134,13 +130,8 @@ def report(tag: str, times: dict, results: list) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old", required=True, type=Path,
-                    help="an earlier tree holding mcmh_localization_tpu_torch/csrc")
-    ap.add_argument("--check", action="store_true",
-                    help="build and check only")
-    ap.add_argument("--variant", action="append", default=[],
-                    metavar="NAME=FILE",
-                    help="also time FILE, a fused_score.cu with this "
-                         "tree's C interface, as NAME")
+                    help="a tree holding commit 31a30c8's "
+                         "mcmh_localization_tpu_torch/csrc")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_kernel_ab: no CUDA device", file=sys.stderr)
@@ -163,7 +154,8 @@ def main(argv=None) -> int:
     )
     from mcmh_localization_tpu_torch.ops import _cuda
     from mcmh_localization_tpu_torch.ops.fused_score import (
-        _args,
+        poses_per_thread,
+        window_args,
         window_escapees,
         window_escapees_plain,
         window_score,
@@ -174,16 +166,8 @@ def main(argv=None) -> int:
         likelihood_scores_plain,
     )
 
-    t0 = time.perf_counter()
+    old = old_library(args.old / "mcmh_localization_tpu_torch" / "csrc")
     new = _cuda.library()
-    variants = dict(v.split("=", 1) for v in args.variant)
-    libs = build_libraries(args.old / "mcmh_localization_tpu_torch" / "csrc",
-                           variants)
-    extra = [f"P={p}" for p in POSES] + list(variants)
-    print(f"[build] {len(libs) + 1} libraries in {time.perf_counter() - t0:.2f} s")
-    for line in _cuda.build_log.splitlines():  # ptxas -v: registers, spills
-        if "entry function" in line or "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
     dev = torch.device("cuda")
     half = MAP_CELLS * RES / 2
     gm = build_grid_map(house_occupancy(), RES, (-half, -half), device=dev)
@@ -228,7 +212,7 @@ def main(argv=None) -> int:
             scale = gm.res if div else gm.inv_res
             a6 = (parts, u, v, valid, log_field, gm.origin_xy[0],
                   gm.origin_xy[1], scale, div, cnt, "mean")
-            calls = {"old": exact_call(libs["old"], parts, scale, div)}
+            calls = {"old": exact_call(old, parts, scale, div)}
             ref = likelihood_scores_plain(*a6)
             err_old = float((calls["old"]().clone() - ref).abs().max())
             for g in LANES:
@@ -240,51 +224,48 @@ def main(argv=None) -> int:
                    f" (rule: G={lanes_per_particle(2 * n6)})")
             print(f"[ab] {tag}: every G bitwise; the earlier kernel within "
                   f"{err_old:.3g} of the plain version")
-            if not args.check:
-                report(tag, in_turns(calls), results)
+            report(tag, in_turns(calls), results)
 
     # kernel 5
     def window_calls(parts, geo, fine_t, coarse_t):
         out = torch.empty(parts.shape[0], device=dev)
         denom_fill = torch.stack([denom, torch.full((), -100.0, device=dev)])
-        wa = _args(geo)
+        wa = window_args(geo)
         ptrs = (fine_t.data_ptr(), coarse_t.data_ptr(), parts.data_ptr(),
                 parts.shape[0])
 
-        def old():
-            check(libs["old"].mcmh_window_score(
+        def call_old():
+            check(old.mcmh_window_score(
                 *ptrs, denom_fill.data_ptr(), cnt.data_ptr(), wa,
                 out.data_ptr(), stream) == 0, "launch failed")
             return out
 
-        def new_lib(lib):
+        def call_new(p):
             def call():
-                check(lib.mcmh_window_score(
+                check(new.mcmh_window_score(
                     *ptrs, denom.data_ptr(), 0.0, None, -100.0, cnt.data_ptr(),
-                    wa, out.data_ptr(), stream) == 0, "launch failed")
+                    wa, p, out.data_ptr(), stream) == 0, "launch failed")
                 return out
             return call
 
-        calls = {"old": old, "new": new_lib(new)}
-        calls.update({name: new_lib(libs[name]) for name in extra})
-        return calls
+        return {"old": call_old, **{f"P={p}": call_new(p) for p in POSES}}
 
     def escapee_calls(parts, geo):
         out = torch.zeros(1, dtype=torch.int32, device=dev)
-        wa = _args(geo)
+        wa = window_args(geo)
+        ptrs = (parts.data_ptr(), parts.shape[0], wa)
 
-        def call_of(lib):
+        def call_of(p):
             def call():
                 out.zero_()
-                check(lib.mcmh_window_escapees(parts.data_ptr(), parts.shape[0],
-                                               wa, out.data_ptr(), stream) == 0,
-                      "launch failed")
+                code = (old.mcmh_window_escapees(*ptrs, out.data_ptr(), stream)
+                        if p is None else new.mcmh_window_escapees(
+                            *ptrs, p, out.data_ptr(), stream))
+                check(code == 0, "launch failed")
                 return out
             return call
 
-        calls = {"old": call_of(libs["old"]), "new": call_of(new)}
-        calls.update({name: call_of(libs[name]) for name in extra})
-        return calls
+        return {"old": call_of(None), **{f"P={p}": call_of(p) for p in POSES}}
 
     win, tw = cfg.corr_window_cells, cfg.corr_theta_window_bins
     ox0, oy0, kstart = start_window(gm, cfg.corr_n_theta, win, tw)
@@ -311,57 +292,46 @@ def main(argv=None) -> int:
         ref = window_score_plain(ft, ct, parts, g, denom, -100.0, count=cnt)
         for name, call in calls.items():
             check(torch.equal(call(), ref), f"window_score {tag} {name} != plain")
-        print(f"[ab] window_score {tag}: every build bitwise")
-        if not args.check:
-            report(f"window_score {tag}", in_turns(calls), results)
-    # the calls as the wrappers make them at 2x1M: the earlier wrapper's
-    # device work (a fill tensor and a stack of the two scalars, then its
-    # kernel), and this wrapper on this library and on every other build
-    def through(lib, fn):
-        def call():
-            saved, _cuda._lib = _cuda._lib, lib
-            try:
-                return fn()
-            finally:
-                _cuda._lib = saved
-        return call
-
-    old_kernel = window_calls(big, geo, fine_t, coarse_t)["old"]
-    builds = {"new": new, **{name: libs[name] for name in extra}}
-    score = {"old": lambda: (torch.stack([denom, torch.full((), -100.0,
-                                                            device=dev)]),
-                             old_kernel())}
-    score.update({name: through(lib, lambda: window_score(
-        fine_t, coarse_t, big, geo, denom, -100.0, count=cnt))
-        for name, lib in builds.items()})
-    escape = {"old": escapee_calls(big, geo)["old"]}
-    escape.update({name: through(lib, lambda: window_escapees(big, geo))
-                   for name, lib in builds.items()})
-    ref = window_score_plain(fine_t, coarse_t, big, geo, denom, -100.0,
-                             count=cnt)
-    want = int(window_escapees_plain(big, geo))
-    for name in builds:
-        check(torch.equal(score[name](), ref), f"window_score wrapper {name}")
-        check(int(escape[name]()) == want, f"window_escapees wrapper {name}")
-    if not args.check:
-        report("window_score corr op forms N=2x1000000, through the wrappers",
-               in_turns(score), results)
-        report("window_escapees N=2x1000000, through the wrappers",
-               in_turns(escape), results)
-        # yardsticks of the card's streaming rate on the same 24 MB of poses:
-        # a read (sum) and a read and write (clone)
-        report("yardsticks on the 2x1M poses",
-               in_turns({"sum": lambda: big.sum(), "clone": big.clone}),
-               results)
+        tag = f"window_score {tag} (rule: P={poses_per_thread(parts.shape[0])})"
+        print(f"[ab] {tag}: every P bitwise")
+        report(tag, in_turns(calls), results)
     for tag, parts in (("N=2x1000000", big),
                        ("misaligned base N=200003", big[1:200_004])):
         calls = escapee_calls(parts, geo)
         want = int(window_escapees_plain(parts, geo))
         for name, call in calls.items():
             check(int(call()) == want, f"window_escapees {tag} {name} != plain")
-        print(f"[ab] window_escapees {tag}: {want} escapees in every build")
-        if not args.check and not tag.startswith("misaligned"):
-            report(f"window_escapees {tag}", in_turns(calls), results)
+        print(f"[ab] window_escapees {tag}: {want} escapees at every P")
+        if not tag.startswith("misaligned"):
+            report(f"window_escapees {tag} (rule: P="
+                   f"{poses_per_thread(parts.shape[0])})", in_turns(calls),
+                   results)
+
+    # the calls as the wrappers make them at 2x1M: the earlier wrapper's
+    # device work (a stack of the two scalars, then its kernel; a zeroed
+    # counter, then its count) beside this tree's wrappers
+    old_score = window_calls(big, geo, fine_t, coarse_t)["old"]
+    old_count = escapee_calls(big, geo)["old"]
+    score = {
+        "old": lambda: (torch.stack([denom, torch.full((), -100.0,
+                                                       device=dev)]),
+                        old_score())[1],
+        "new": lambda: window_score(fine_t, coarse_t, big, geo, denom, -100.0,
+                                    count=cnt)}
+    escape = {"old": old_count, "new": lambda: window_escapees(big, geo)}
+    check(torch.equal(score["new"](), window_score_plain(
+        fine_t, coarse_t, big, geo, denom, -100.0, count=cnt)),
+        "window_score wrapper != plain")
+    check(int(escape["new"]()) == int(window_escapees_plain(big, geo)),
+          "window_escapees wrapper != plain")
+    report("window_score corr op forms N=2x1000000, through the wrappers",
+           in_turns(score), results)
+    report("window_escapees N=2x1000000, through the wrappers",
+           in_turns(escape), results)
+    # yardsticks of the card's streaming rate on the same 24 MB of poses:
+    # a read (sum) and a read and write (clone)
+    report("yardsticks on the 2x1M poses",
+           in_turns({"sum": lambda: big.sum(), "clone": big.clone}), results)
 
     print(f"[ab] on {smi}")
     print(json.dumps({"device": smi, "results": results}))

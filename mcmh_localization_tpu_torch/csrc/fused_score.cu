@@ -30,11 +30,12 @@
 // bytes in flight a thread, and its wrapper launched two more kernels a
 // call to stack the denominator and the fill.
 // The layout:
-//  - each thread takes P consecutive particles: P = 4 where N gives the
-//    card a thread for every slot it holds even so (the 48 bytes of four
-//    poses are three 16-byte loads, issued together, then the four table
-//    reads, then one 16-byte store), else 2 or 1, so a cloud of 2 x 100k
-//    still spreads over the card;
+//  - each thread takes P consecutive particles, P from N by the caller
+//    (ops/fused_score.py::poses_per_thread): 4 where N still gives the
+//    card about a wave of threads (the 48 bytes of four poses are three
+//    16-byte loads, issued together, then the four table reads, then one
+//    16-byte store), else 2 or 1, so a cloud of 2 x 100k still spreads
+//    over the card;
 //  - the count, denominator and fill are read once a thread after the pose
 //    loads were issued, or come by value; the blind case is a select at
 //    the end;
@@ -46,23 +47,25 @@
 // mcmh_window_escapees counts the in-map particles the window does not
 // cover (the coarse-build gate) in the same layout, with one atomic add
 // per block.
-// Tried and dropped (chip_kernel_ab.py, the kernels alone at 2 x 1M,
-// NVIDIA H100 80GB HBM3 at 700 W): the first kernel's one particle a thread,
-// 0.0181-0.0183 ms (0.0225-0.0231 as its wrapper called it) where this
-// layout takes 0.0165 (0.0164-0.0166 through its wrapper); 8 particles a
-// thread, 0.0205 (one wave: the loads, the index math and the stores of
-// all threads no longer overlap); a grid-stride loop over the card's
-// resident blocks that loads the next run's poses before it scores the
-// current one, 0.0164-0.0165 (the escapee count 0.0115 against 0.0106);
-// at most 32 registers a thread for 8 blocks an SM, 0.0182; 4 particles a
-// thread at 2 x 100k, 0.0061 where 1 takes 0.0041; evict-first pose loads
-// and score stores (__ldcs, __stcs), 0.0158 alone but 0.0172-0.0174
-// against 0.0165-0.0168 through the wrapper in chip_smoke.py, in turns,
-// and the escapee count 0.0138 against 0.0109-0.0110 there.
+// Tried and dropped (chip_kernel_ab.py, the kernels alone at 2 x 1M, in
+// turns, NVIDIA H100 80GB HBM3 at 700 W): the first kernel's one particle a
+// thread, 0.0181-0.0183 ms (0.0225-0.0232 as its wrapper called it) where
+// this layout takes 0.0165-0.0166 (0.0164-0.0167 through its wrapper);
+// P = 4 at 2 x 100k, 0.0061-0.0062 where P = 1 takes 0.0041-0.0043 (the
+// P argument; the rest were edited copies of this file, timed the same
+// way): 8 particles a thread, 0.0205 (one wave: the loads, the index math
+// and the stores of all threads no longer overlap); a grid-stride loop
+// over the card's resident blocks that loads the next run's poses before
+// it scores the current one, 0.0164-0.0165 (the escapee count 0.0115
+// against 0.0106); at most 32 registers a thread for 8 blocks an SM,
+// 0.0182; evict-first pose loads and score stores (__ldcs, __stcs), 0.0158
+// alone but 0.0172-0.0174 against 0.0165-0.0168 through the wrapper in
+// chip_smoke.py, in turns, and the escapee count 0.0138 against
+// 0.0109-0.0110 there.
 
 #include <cuda_runtime.h>
 
-// Passed by value from ctypes (ops/fused_score.py::WindowArgs): 4-byte
+// Passed by value from ctypes (ops/_cuda.py::WindowArgs): 4-byte
 // fields only, in this order.
 struct WindowArgs {
   float origin_x, origin_y, fine_scale, theta_scale, pi_f, res_c, kc_scale;
@@ -259,22 +262,6 @@ int blocks_for(int n, int p) {
   return static_cast<int>((threads + kThreads - 1) / kThreads);
 }
 
-// P: 4 where the card still gets a thread for every slot it holds, else 2
-// or 1 (a smaller cloud spreads over more threads).
-int poses_for(int n) {
-#ifdef MCMH_WINDOW_POSES
-  return MCMH_WINDOW_POSES;  // a build that fixes P, to time it
-#else
-  int dev = 0, sms = 0, per_sm_threads = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&per_sm_threads, cudaDevAttrMaxThreadsPerMultiProcessor,
-                         dev);
-  const long long slots = static_cast<long long>(sms) * per_sm_threads;
-  return n >= 4 * slots ? 4 : n >= 2 * slots ? 2 : 1;
-#endif
-}
-
 template <int P>
 cudaError_t launch_score(const float* fine, const float* coarse,
                          const float* particles, int n,
@@ -300,16 +287,17 @@ cudaError_t launch_escapees(const float* particles, int n,
 }  // namespace
 
 // denom and fill: read from the device where the pointer is not null,
-// else the value given; count may be null (no blind case).
+// else the value given; count may be null (no blind case).  poses: the
+// particles a thread, 1, 2 or 4 (ops/fused_score.py::poses_per_thread).
 extern "C" int mcmh_window_score(const float* fine, const float* coarse,
                                  const float* particles, int n,
                                  const float* denom_ptr, float denom,
                                  const float* fill_ptr, float fill,
-                                 const int* count, WindowArgs a, float* out,
-                                 void* stream) {
+                                 const int* count, WindowArgs a, int poses,
+                                 float* out, void* stream) {
   if (n <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (poses_for(n)) {
+  switch (poses) {
     case 4:
       return launch_score<4>(fine, coarse, particles, n, denom_ptr, denom,
                              fill_ptr, fill, count, a, out, st);
@@ -325,11 +313,11 @@ extern "C" int mcmh_window_score(const float* fine, const float* coarse,
 }
 
 extern "C" int mcmh_window_escapees(const float* particles, int n,
-                                    WindowArgs a, int* n_escaped,
+                                    WindowArgs a, int poses, int* n_escaped,
                                     void* stream) {
   if (n <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (poses_for(n)) {
+  switch (poses) {
     case 4:
       return launch_escapees<4>(particles, n, a, n_escaped, st);
     case 2:

@@ -37,6 +37,11 @@ NVCC_FLAGS = (
     "--fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC",
 )
 
+# The threads a launch aims for, about one wave of the card's (an H100 SXM:
+# 132 SMs of 2048): the rule behind likelihood.py::lanes_per_particle and
+# fused_score.py::poses_per_thread.
+FILL_THREADS = 1 << 18
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -63,9 +68,9 @@ _SIGNATURES = {
     "mcmh_rank_in_sorted": (_P, _I, _I, _P, _P, _P, _P, _P),
     "mcmh_expand_sorted": (_P, _I, _P, _I, _I, _P, _P, _P, _P, _P),
     "mcmh_window_score": (
-        _P, _P, _P, _I, _P, _F, _P, _F, _P, WindowArgs, _P, _P,
+        _P, _P, _P, _I, _P, _F, _P, _F, _P, WindowArgs, _I, _P, _P,
     ),
-    "mcmh_window_escapees": (_P, _I, WindowArgs, _P, _P),
+    "mcmh_window_escapees": (_P, _I, WindowArgs, _I, _P, _P),
     "mcmh_likelihood_scores": (
         _P, _I, _P, _P, _P, _I, _P, _I, _I, _F, _F, _F, _I, _P, _I, _F, _I,
         _P, _P,
@@ -80,7 +85,7 @@ build_seconds = 0.0     # wall time of the last build; 0.0 when it was cached
 _launches: dict[str, int] = {}
 
 
-def _nvcc() -> str:
+def nvcc_path() -> str:
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     cand = Path(home) / "bin" / "nvcc"
     if cand.exists():
@@ -116,7 +121,7 @@ def build() -> Path:
         build_seconds = 0.0
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    nvcc = nvcc_path()
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
     objs = [tmp.with_suffix(f".{Path(src).stem}.o") for src in SOURCES]
     t0 = time.perf_counter()

@@ -11,7 +11,7 @@ kernel's one-hot MXU reads over bf16 planes are TPU mechanics: the read
 here is exact, so the plain version and the kernel agree bitwise.  The
 kernels take any contiguous (N, 3) pose array and any N: a view whose base
 is not 16-byte aligned (``parts[1:]``) and an N that is not a multiple of
-their poses a thread (4, 2 or 1, from N) are handled inside them.
+their poses a thread (``poses_per_thread``) are handled inside them.
 """
 
 from __future__ import annotations
@@ -116,12 +116,24 @@ def window_score_plain(fine: torch.Tensor, coarse: torch.Tensor,
     return out.to(torch.float32)
 
 
-def _args(g: WindowGeometry) -> _cuda.WindowArgs:
+def window_args(g: WindowGeometry) -> _cuda.WindowArgs:
+    """The geometry as the kernels' by-value C struct."""
     return _cuda.WindowArgs(
         g.origin_x, g.origin_y, g.fine_scale, g.theta_scale, PI_F32, g.res_c,
         g.kc_scale, BLIND_SCORE, g.n_theta, g.nbins, g.kstart, g.fh, g.fw, g.h, g.w,
         g.ox0, g.oy0, g.kc, g.hc, g.wc, int(g.fine_div), int(g.theta_div),
         int(g.clip_before_window))
+
+
+def poses_per_thread(n: int) -> int:
+    """P, the consecutive poses one thread of the kernels takes: the
+    largest of 4, 2 and 1 that still gives ``n / P`` at least
+    ``_cuda.FILL_THREADS`` threads (more bytes in flight a thread where the
+    cloud fills the card even so).  Nonincreasing as ``n`` falls."""
+    for p in (4, 2):
+        if n >= p * _cuda.FILL_THREADS:
+            return p
+    return 1
 
 
 def window_score(fine: torch.Tensor, coarse: torch.Tensor,
@@ -160,8 +172,8 @@ def window_score(fine: torch.Tensor, coarse: torch.Tensor,
     code = _cuda.library().mcmh_window_score(
         fine.data_ptr(), coarse.data_ptr(), particles.data_ptr(), n,
         denom_p, denom_v, fill_p, fill_v,
-        None if cnt is None else cnt.data_ptr(), _args(g), out.data_ptr(),
-        _cuda.stream_of(particles),
+        None if cnt is None else cnt.data_ptr(), window_args(g),
+        poses_per_thread(n), out.data_ptr(), _cuda.stream_of(particles),
     )
     _cuda.check_launch("window_score", code)
     return out
@@ -183,8 +195,9 @@ def window_escapees(particles: torch.Tensor, g: WindowGeometry) -> torch.Tensor:
         raise ValueError("window_escapees: particles must be (N, 3) float32")
     out = torch.zeros(1, dtype=torch.int32, device=particles.device)
     code = _cuda.library().mcmh_window_escapees(
-        particles.data_ptr(), particles.shape[0], _args(g),
-        out.data_ptr(), _cuda.stream_of(particles),
+        particles.data_ptr(), particles.shape[0], window_args(g),
+        poses_per_thread(particles.shape[0]), out.data_ptr(),
+        _cuda.stream_of(particles),
     )
     _cuda.check_launch("window_escapees", code)
     return out.reshape(())

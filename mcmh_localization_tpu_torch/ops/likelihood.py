@@ -21,7 +21,6 @@ from mcmh_localization_tpu_torch.ops import _cuda
 from mcmh_localization_tpu_torch.utils.f32 import divide
 
 MAX_BEAMS = 2048  # the kernel stages the scan in shared memory
-FILL_THREADS = 1 << 18  # lanes_per_particle's target: about one wave
 
 
 def scan_endpoints_uv(particles: torch.Tensor, u: torch.Tensor,
@@ -50,12 +49,12 @@ def endpoint_cells(particles: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
 
 def lanes_per_particle(n: int) -> int:
     """G, the lanes of the kernel that share one pose: the smallest power
-    of two in [1, 32] that gives ``n * G`` at least ``FILL_THREADS``
-    threads (the card's 132 SMs hold 2048 threads each), so a small cloud
+    of two in [1, 32] that gives ``n * G`` at least ``_cuda.FILL_THREADS``
+    threads, so a small cloud
     still spreads over the card and a large one reads each beam from
     neighbouring poses.  Nonincreasing in ``n``."""
     g = 1
-    while g < 32 and n * g < FILL_THREADS:
+    while g < 32 and n * g < _cuda.FILL_THREADS:
         g *= 2
     return g
 

@@ -23,6 +23,7 @@ from mcmh_localization_tpu_torch.convert import grid_map_from_numpy  # noqa: E40
 from mcmh_localization_tpu_torch.models import corr_field as tcf  # noqa: E402
 from mcmh_localization_tpu_torch.ops.fused_score import (  # noqa: E402
     WindowGeometry,
+    poses_per_thread,
     window_escapees,
     window_indices,
     window_score,
@@ -149,6 +150,19 @@ def test_window_score_ragged_view_vs_index_spec(flags):
     whole = window_score(*tables, full, geo, float(denom), float(fill)).numpy()
     np.testing.assert_array_equal(got, whole[1:-2])
     assert int(window_escapees(view, geo)) == int((~covered & in_map).sum())
+
+
+def test_poses_per_thread_rule():
+    """P is 1, 2 or 4, nondecreasing in N, and takes the values PERF.md
+    records at the single-program (2x1M) and beam (2x100k) shapes."""
+    prev = 1
+    for n in [1, 3, 4096, 200_003, 262_144, 524_287, 524_288, 1_048_575,
+              1_048_576, 2_000_000, 8_000_000]:
+        p = poses_per_thread(n)
+        assert p in (1, 2, 4) and p >= prev, (n, p)
+        prev = p
+    assert poses_per_thread(2 * 1_000_000) == 4
+    assert poses_per_thread(2 * 100_000) == 1
 
 
 @pytest.mark.parametrize("flags", FLAG_SETS, ids=["corr_forms", "beam_forms"])

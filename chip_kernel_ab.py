@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
-"""Kernels 5 and 6 of the PyTorch/CUDA port against their first Hopper
+"""Kernels 2, 5, 6 and 7 of the PyTorch/CUDA port against their first Hopper
 versions, on one NVIDIA GPU, in turns.
 
     git archive 31a30c8 mcmh_localization_tpu_torch/csrc | tar -x -C build/parent
     python3 chip_kernel_ab.py --old build/parent
 
-``--old DIR`` holds the ``likelihood.cu`` and ``fused_score.cu`` of commit
-31a30c8, the kernels' first Hopper versions.  The script binds their C
-interface (the window score's denominator and fill as one (2,) device
-array; the exact scorer without a lane count), which no other tree has, so
-it checks both files' sha256 first and refuses any other tree before it
-builds.  They are built into a library of their own with ``nvcc``.  On the
-inputs of ``chip_smoke.py`` (its house map, scan and clouds), every kernel
-is called through its C entry point on the same precomputed arguments, so
-the readings hold the kernels alone:
+``--old DIR`` holds the ``likelihood.cu``, ``fused_score.cu``, ``gather.cu``
+and ``beam_field.cu`` of commit 31a30c8, the kernels' first Hopper
+versions (its gather.cu and beam_field.cu are those of PRs 1 and 3).  The
+script binds their C interface (the window score's denominator and fill
+as one (2,) device array; the exact scorer without a lane count; the
+lookups without a poses-a-thread count; the LUT field without its tile),
+which no other tree has, so it checks the four files' sha256 first and
+refuses any other tree before it builds.  They are built into a library of
+their own with ``nvcc``.  On the inputs of ``chip_smoke.py`` (its house
+map, scan, clouds and beam model), every kernel is called through its C
+entry point on the same precomputed arguments, so the readings hold the
+kernels alone:
 
 - kernel 6 (the exact scorer) at 2x100k and 2x1500 poses, both cell forms:
   the earlier kernel and this one at every lane count G in {1, 2, 4, 8,
@@ -25,12 +28,24 @@ the readings hold the kernels alone:
   bitwise against the plain version (the count: equal); at 2x1M also the
   call as the earlier wrapper made it (a fill tensor and a stack of the
   two scalars on the device, then the kernel; a zeroed counter, then the
-  count) beside this tree's wrappers.
+  count) beside this tree's wrappers;
+- kernel 7 (the beam LUT field) at the beam path's fine (B=24, K=96,
+  nq=51, C=64^2) and coarse (C=96^2) builds: the earlier kernel and this
+  one at the rule's layout (``ops/beam_field.py::lut_tiles``) and at every
+  cells a block in {64, 128, 256} (one a thread) and b a block in {2, 4},
+  each bitwise against the plain version;
+- kernel 2: the corr lookup at the staged SMALL (2x130 048 poses, the
+  windowed 32x128x128 field) and BIG (2x1M, the 120x384x384 field)
+  shapes, and ``gather_2d`` at the SMALL window table (2x130 048 pairs),
+  the free mask of the "reject" retries (4x5000 and 4x100k pairs) and the
+  range-table scorer's cell-major table (2x1500x360 pairs): the earlier
+  kernel and this one at every P in {1, 2, 4}, each bitwise against the
+  plain version.
 
 Each case is timed in turns, the earlier kernel first and last (old, new
 ..., ... new, old), with ``chip_smoke.device_ms`` (median of 20 runs).  The
-lines print the two readings of each kernel; the last line is a JSON
-object of them.
+lines print the two readings of each kernel with the card's name and
+power limit; the last line is a JSON object of them.
 """
 
 from __future__ import annotations
@@ -54,16 +69,22 @@ from chip_smoke import (  # noqa: E402
     N_BEAMS,
     RES,
     START,
+    beam_point_config,
     check,
     device_ms,
+    free_mask_indices,
     house_occupancy,
+    lut_inputs,
     mixed_cloud,
     nvidia_smi_line,
     start_window,
+    table_scorer_indices,
 )
 
 LANES = (1, 2, 4, 8, 16, 32)
 POSES = (1, 2, 4)
+# kernel 7's layouts timed: (cells a block, b a block)
+LUT_LAYOUTS = [(t, bp) for t in (64, 128, 256) for bp in (2, 4)]
 # sha256 of commit 31a30c8's sources, the only ones whose C interface the
 # bindings below match
 OLD_SOURCES = {
@@ -71,13 +92,17 @@ OLD_SOURCES = {
         "ba5ec1d8bffd6855b3917648eba45acb6c5bc7fc4f8c31ec0254d0d2c46cc534",
     "fused_score.cu":
         "3c357316a7fbaab0e8bb5c98dbb127d65ff0580bb791b7546d4ff3f08ad99178",
+    "gather.cu":
+        "5bd2ab6a417d6b9b90f9b48306d4cf943caecf87bd8fa0f3b50e9c208a6ffbef",
+    "beam_field.cu":
+        "f6819c434cacf1e441333c5c88c12cc08aa66ed108b8c0639c4167418b14f6ce",
 }
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def old_library(csrc: Path) -> ctypes.CDLL:
-    """Commit 31a30c8's kernels 5 and 6, built and bound; any other
+    """Commit 31a30c8's kernels 2, 5, 6 and 7, built and bound; any other
     sources raise before the build."""
     from mcmh_localization_tpu_torch.ops import _cuda
 
@@ -101,7 +126,11 @@ def old_library(csrc: Path) -> ctypes.CDLL:
                                    _P, _P]),
             ("mcmh_window_escapees", [_P, _I, _cuda.WindowArgs, _P, _P]),
             ("mcmh_likelihood_scores", [_P, _I, _P, _P, _P, _I, _P, _I, _I,
-                                        _F, _F, _F, _I, _P, _I, _F, _P, _P])):
+                                        _F, _F, _F, _I, _P, _I, _F, _P, _P]),
+            ("mcmh_gather_2d", [_P, _I, _I, _P, _P, _I, _P, _P]),
+            ("mcmh_corr_lookup", [_P, _I, _I, _I, _P, _I, _P, _F, _F, _F, _F,
+                                  _F, *[_I] * 10, _F, _F, _P, _P]),
+            ("mcmh_lut_field", [_P, _P, _I, _I, _I, _I, _P, _P])):
         getattr(lib, fn).argtypes = args
         getattr(lib, fn).restype = ctypes.c_int
     return lib
@@ -123,8 +152,15 @@ def report(tag: str, times: dict, results: list) -> None:
     for name, (a, b) in times.items():
         mean = (a + b) / 2
         print(f"[ab] {tag} {name}: {a:.4f} / {b:.4f} ms "
-              f"({old / mean:.2f}x the {first})")
+              f"({old / mean:.2f}x the {first}) on {nvidia_smi_line()}")
     results.append({"case": tag, "ms": times})
+
+
+def bitwise_calls(tag: str, calls: dict, want: torch.Tensor) -> None:
+    """Each call's output equal to ``want`` (the plain version's)."""
+    for name, call in calls.items():
+        check(torch.equal(call(), want), f"{tag} {name} != plain")
+    print(f"[ab] {tag}: every variant bitwise")
 
 
 def main(argv=None) -> int:
@@ -141,25 +177,40 @@ def main(argv=None) -> int:
 
     from mcmh_localization_tpu_torch.config import FilterConfig
     from mcmh_localization_tpu_torch.filter.init import init_gaussian
+    from mcmh_localization_tpu_torch.filter.step import make_model, state_size
     from mcmh_localization_tpu_torch.maps.grid_map import build_grid_map
     from mcmh_localization_tpu_torch.models.corr_field import (
         coarse_shape,
         window_geometry,
     )
-    from mcmh_localization_tpu_torch.models.range_table import _beam_geometry
+    from mcmh_localization_tpu_torch.models.range_table import (
+        _beam_geometry,
+        table_cell_major,
+    )
     from mcmh_localization_tpu_torch.models.sensor import (
         BLIND_SCORE,
         log_likelihood_field,
         raycast,
     )
     from mcmh_localization_tpu_torch.ops import _cuda
+    from mcmh_localization_tpu_torch.ops._cuda import poses_per_thread
+    from mcmh_localization_tpu_torch.ops.beam_field import (
+        lut_field_plain,
+        lut_tiles,
+    )
     from mcmh_localization_tpu_torch.ops.fused_score import (
-        poses_per_thread,
         window_args,
         window_escapees,
         window_escapees_plain,
         window_score,
         window_score_plain,
+    )
+    from mcmh_localization_tpu_torch.ops.gather import (
+        LookupGeometry,
+        corr_lookup_indices,
+        corr_lookup_plain,
+        gather_2d_plain,
+        lookup_args,
     )
     from mcmh_localization_tpu_torch.ops.likelihood import (
         lanes_per_particle,
@@ -332,6 +383,107 @@ def main(argv=None) -> int:
     # a read (sum) and a read and write (clone)
     report("yardsticks on the 2x1M poses",
            in_turns({"sum": lambda: big.sum(), "clone": big.clone}), results)
+
+    # kernel 7: the beam LUT field at the beam path's fine and coarse builds
+    beam = make_model(beam_point_config(), gm)
+    for tag, qt, s_lut in lut_inputs(gm, beam, ranges, angles):
+        b, k, nq = s_lut.shape
+        c = qt.shape[1]
+        out = torch.empty((b, c), device=dev)
+
+        def lut_call(lib, tile=None):
+            extra = () if tile is None else tile
+
+            def call():
+                check(lib.mcmh_lut_field(qt.data_ptr(), s_lut.data_ptr(), b, k,
+                                         nq, c, *extra, out.data_ptr(),
+                                         stream) == 0, "launch failed")
+                return out
+            return call
+
+        rule = lut_tiles(b, c)
+        calls = {"old": lut_call(old), f"rule {tuple(rule)}": lut_call(new, rule)}
+        calls.update({f"threads={t} bpar={bp}": lut_call(new, (t, bp))
+                      for t, bp in LUT_LAYOUTS})
+        tag = f"lut_field {tag} B={b} K={k} nq={nq} C={c}"
+        bitwise_calls(tag, calls, lut_field_plain(qt, s_lut))
+        report(tag, in_turns(calls), results)
+
+    # kernel 2: the corr lookup at the staged SMALL and BIG shapes
+    def lookup_calls(field, parts, geo, agg):
+        out = torch.empty(parts.shape[0], device=dev)
+        args = lookup_args(field, parts, cnt, geo, agg, True)
+
+        def call_of(p):
+            def call():
+                tail = () if p is None else (p,)
+                code = (old if p is None else new).mcmh_corr_lookup(
+                    *args, *tail, out.data_ptr(), stream)
+                check(code == 0, "launch failed")
+                return out
+            return call
+
+        return {"old": call_of(None), **{f"P={p}": call_of(p) for p in POSES}}
+
+    n_small = 130_048
+    geo_small = LookupGeometry(gm.origin_xy[0], gm.origin_xy[1], gm.inv_res,
+                               cfg.corr_n_theta, tw, win, win, h, w,
+                               kstart=kstart, window=(ox0, oy0))
+    geo_big = LookupGeometry(gm.origin_xy[0], gm.origin_xy[1], gm.inv_res,
+                             cfg.corr_n_theta, cfg.corr_n_theta, h, w, h, w)
+    field_small = torch.randn((tw, win, win), generator=gen, device=dev)
+    small = init_gaussian(START, cov, 2 * n_small, gm, generator=gen)
+    for tag, field, parts, geo, agg in (
+            ("SMALL", field_small, small, geo_small, "mean"),
+            ("BIG", torch.randn((cfg.corr_n_theta, h, w), generator=gen,
+                                device=dev),
+             init_gaussian(START, cov, 2_000_000, gm, generator=gen), geo_big,
+             "sum")):
+        calls = lookup_calls(field, parts, geo, agg)
+        tag = (f"corr_lookup {tag} N={parts.shape[0]} (rule: "
+               f"P={_cuda.poses_per_thread(parts.shape[0])})")
+        bitwise_calls(tag, calls,
+                      corr_lookup_plain(field, parts, cnt, geo, agg, True))
+        report(tag, in_turns(calls), results)
+
+    # kernel 2: gather_2d at the paths' shapes
+    def gather_calls(table, y, x):
+        out = torch.empty(y.numel(), device=dev)
+        args = (table.data_ptr(), *table.shape, y.data_ptr(), x.data_ptr(),
+                y.numel())
+
+        def call_of(p):
+            def call():
+                tail = () if p is None else (p,)
+                code = (old if p is None else new).mcmh_gather_2d(
+                    *args, *tail, out.data_ptr(), stream)
+                check(code == 0, "launch failed")
+                return out
+            return call
+
+        return {"old": call_of(None), **{f"P={p}": call_of(p) for p in POSES}}
+
+    tbin, myc, mxc, _, _ = corr_lookup_indices(small, geo_small)
+    gather_cases = [("SMALL window", field_small.reshape(tw * win, win),
+                     (tbin * win + myc).to(torch.int32).contiguous(),
+                     mxc.to(torch.int32).contiguous())]
+    retries = FilterConfig().motion_retries
+    for n_max in (state_size(FilterConfig()), 100_000):
+        gather_cases.append((f"free mask, {retries} retries x {n_max}",
+                             gm.free_mask,
+                             *free_mask_indices(gm, retries * n_max, gen, cov)))
+    gather_cases.append((
+        "table scorer, 2 x 1500 poses x 360 beams",
+        table_cell_major(beam.log_field.table),
+        *table_scorer_indices(gm, 2 * 1500, angles,
+                              beam.config.beam_table_n_theta, gen, cov)))
+    del beam
+    for tag, table, y, x in gather_cases:
+        calls = gather_calls(table, y, x)
+        tag = (f"gather_2d {tag} table {tuple(table.shape)} N={y.numel()} "
+               f"(rule: P={_cuda.poses_per_thread(y.numel())})")
+        bitwise_calls(tag, calls, gather_2d_plain(table, y, x))
+        report(tag, in_turns(calls), results)
 
     print(f"[ab] on {smi}")
     print(json.dumps({"device": smi, "results": results}))

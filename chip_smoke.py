@@ -11,7 +11,11 @@
    the card at the main paths' shapes and times both (``device_ms``):
    BIG field K=120 384^2 M=360, SMALL/window field K=32 128^2, coarse field
    K=36 96^2 (bitwise, beside a ``conv2d`` yardstick), lookups of 2x1M and
-   2x130048 poses, the window-score lookup of 2x1M poses (also on a
+   2x130048 poses (also on the misaligned view ``parts[1:]``),
+   ``gather_2d`` on the SMALL window table, the free mask of the "reject"
+   retries (FilterConfig()'s and the 100k exact run's) and the range-table
+   scorer's cell-major table (each also on a misaligned view of its
+   indices), the window-score lookup of 2x1M poses (also on a
    misaligned view of 200 003 of them, in the beam op forms at the beam
    path's geometry and 2x100k poses, and its escapee count at 2x1M), the
    exact scorer at 2x1500 and 2x100k poses in both cell forms (bitwise,
@@ -19,11 +23,14 @@
    (bitwise on the path's raw bound and on one with injected dips, beside
    ``torch.cummax`` of that bound) and take, and the beam LUT field at the
    beam path's fine
-   (B=24, K=96, 64^2) and coarse (B=24, 96^2) builds.  Each row gives its
-   bound (the larger of its operations over the f32 rate and its bytes
+   (B=24, K=96, 64^2) and coarse (B=24, 96^2) builds (beside their
+   shared-memory floor: B*K*C four-byte reads at 128 bytes a clock on each
+   of the 132 SMs at the top SM clock nvidia-smi reads).  Each row gives
+   its bound (the larger of its operations over the f32 rate and its bytes
    over the HBM rate, from this run's inputs), its share of it, the time
    of one PyTorch call computing the same function where there is one,
-   and, at the end, its launches per scan on each path.
+   and, at the end, its launches per scan on each path.  Every line with a
+   time names the card and its power limit.
 4. ``[main]``: the staged main path: AMHAMCL, KLD-adaptive at 1M capacity /
    100k minimum, 360 beams, the staged two-program runner with a 0.9
    tracking ESS gate and the windowed corr scorer, on a procedural 384x384
@@ -59,6 +66,7 @@ share, and fails if any of them ran a cummax.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import subprocess
@@ -135,12 +143,51 @@ def mixed_cloud(n: int, gm, cov, gen) -> torch.Tensor:
     return torch.cat([tracked, spread, off_map]).contiguous()
 
 
+def beam_point_config():
+    """The bench's beam point (bench.py:391-398) at 100k particles: the
+    windowed beam score field, 96 table bins, a 64-cell window with 24 theta
+    bins, the coarse fallback at 24 bins."""
+    from mcmh_localization_tpu_torch.config import FilterConfig
+
+    return FilterConfig(
+        mode="AMHAMCL", num_particles=100_000, min_particles=100_000,
+        max_particles=100_000, initialized=True, initial_pose=START,
+        sensor_model="beam", beam_impl="field", beam_table_n_theta=96,
+        corr_window_cells=64, corr_theta_window_bins=24,
+        corr_coarse_n_theta=24, motion_validity="score",
+        min_injection_prob=0.02,
+    )
+
+
+def lut_inputs(gm, beam_model, ranges, angles) -> list:
+    """[(tag, qt, s)]: kernel 7's inputs at the beam path's fine build (the
+    window at the START pose) and coarse build, on the path's own quantized
+    table and the per-scan LUT of ``ranges``."""
+    from mcmh_localization_tpu_torch.models.range_table import (
+        _beam_lut,
+        coarse_lut_inputs,
+        fine_lut_inputs,
+    )
+
+    cfg = beam_model.config
+    tables = beam_model.log_field
+    k = cfg.beam_table_n_theta
+    valid = torch.isfinite(ranges) & (ranges < cfg.max_range)
+    lp = _beam_lut(torch.where(valid, ranges, 0.0), valid, tables.dvals, cfg)
+    win, tw = cfg.corr_window_cells, cfg.corr_theta_window_bins
+    ox0, oy0, kstart = start_window(gm, k, win, tw)
+    return [("fine", *fine_lut_inputs(tables, lp, angles, k, (oy0, ox0, kstart),
+                                      win, tw, True)),
+            ("coarse", *coarse_lut_inputs(lp, angles, tables, cfg, k))]
+
+
 def check(cond, msg: str) -> None:
     """A phase check that fails the run (kept under ``python -O`` too)."""
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
+@functools.lru_cache(maxsize=1)
 def nvidia_smi_line() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -201,6 +248,79 @@ def gathered_bytes(table: torch.Tensor, n_reads: int) -> int:
                n_reads * table.element_size())
 
 
+def sm_clock_hz() -> float:
+    """The card's top SM clock, as nvidia-smi reads it."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True)
+    return float(res.stdout.strip().splitlines()[0]) * 1e6
+
+
+# Shared memory serves 128 bytes a clock on each SM (NVIDIA's Hopper
+# tuning guide): kernel 7's floor beside its DRAM bound.
+SMEM_BYTES_PER_CLOCK = 128
+
+
+def free_mask_indices(gm, n: int, gen, cov):
+    """(y, x) int32: the clamped cells of n candidate poses around START,
+    as ``GridMap.is_free_world`` reads them from the free mask."""
+    from mcmh_localization_tpu_torch.filter.init import init_gaussian
+
+    p = init_gaussian(START, cov, n, gm, generator=gen)
+    mx, my = gm.world_to_grid(p[:, 0], p[:, 1])
+    return (my.clamp(0, gm.height - 1).contiguous(),
+            mx.clamp(0, gm.width - 1).contiguous())
+
+
+def table_scorer_indices(gm, n: int, angles, n_theta: int, gen, cov):
+    """(y, x) int32: the (cell, theta bin) pairs ``raycast_table_scores``
+    reads from the cell-major range table for n poses around START and
+    every beam (``models/range_table.py:431-442``)."""
+    from mcmh_localization_tpu_torch.filter.init import init_gaussian
+    from mcmh_localization_tpu_torch.ops.gather import PI_F32
+    from mcmh_localization_tpu_torch.utils.f32 import divide
+
+    p = init_gaussian(START, cov, n, gm, generator=gen)
+    mx, my = gm.world_to_grid(p[:, 0], p[:, 1])
+    cell = my.clamp(0, gm.height - 1) * gm.width + mx.clamp(0, gm.width - 1)
+    k = torch.floor(divide(p[:, 2][:, None] + angles[None, :] + PI_F32,
+                           2.0 * math.pi / n_theta)).to(torch.int32) % n_theta
+    m = angles.shape[0]
+    return (cell[:, None].expand(n, m).reshape(-1).to(torch.int32).contiguous(),
+            k.reshape(-1).contiguous())
+
+
+def gather_2d_row(tag, table, y, x) -> dict:
+    """gather_2d at one shape: bitwise against its plain version and
+    ``table[y, x]`` (also on a view of the indices one past an aligned
+    base, N - 1 of them), timed beside its bound and ``table[y, x]``."""
+    from mcmh_localization_tpu_torch.ops._cuda import poses_per_thread
+    from mcmh_localization_tpu_torch.ops.gather import (
+        gather_2d,
+        gather_2d_plain,
+    )
+
+    g = gather_2d(table, y, x)
+    check(torch.equal(g, gather_2d_plain(table, y, x)),
+          f"gather_2d {tag}: kernel != plain")
+    y64, x64 = y.to(torch.int64), x.to(torch.int64)
+    check(torch.equal(g, table[y64, x64]), f"gather_2d {tag}: != table[y, x]")
+    check(torch.equal(gather_2d(table, y[1:], x[1:]), g[1:]),
+          f"gather_2d {tag}: the misaligned view != the aligned call")
+    n = y.numel()
+    ms = device_ms(lambda: gather_2d(table, y, x))
+    pms = device_ms(lambda: gather_2d_plain(table, y, x))
+    lms = device_ms(lambda: table[y64, x64])
+    print(f"[kernel] gather_2d {tag}: N={n}, P={poses_per_thread(n)} index "
+          "pairs a thread, bitwise (also the misaligned view)")
+    return kernel_row(
+        "gather_2d", "gather.cu", "gather_pallas.py:180",
+        f"{tag} table {tuple(table.shape)} N={n}", ms=ms, plain_ms=pms,
+        err=0.0, ops=n, nbytes=n * 12 + gathered_bytes(table, n),
+        library_ms=lms, library="table[y, x]")
+
+
 def kernel_row(name, source, replaces, shape, *, ms, plain_ms, err, ops,
                nbytes, library_ms=None, library=None, **extra) -> dict:
     """One [kernel] line and its JSON row: the kernel's time beside its
@@ -219,7 +339,7 @@ def kernel_row(name, source, replaces, shape, *, ms, plain_ms, err, ops,
     print(f"[kernel] {name} {shape}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
           f"bound_ms={b:.4f} by {by} ({ops:.4g} ops, {nbytes:.4g} bytes) "
           f"pct_of_bound={row['pct_of_bound']:.1f} library_ms={lib} "
-          f"max_abs_err={err}")
+          f"max_abs_err={err} on {nvidia_smi_line()}")
     return row
 
 
@@ -327,13 +447,14 @@ def compare_kernels(gm, cfg, small_cfg, log_field, ranges, angles, rows):
         _bin_offsets,
         pad_cells_for,
     )
+    from mcmh_localization_tpu_torch.config import FilterConfig
+    from mcmh_localization_tpu_torch.filter.step import state_size
+    from mcmh_localization_tpu_torch.ops._cuda import poses_per_thread
     from mcmh_localization_tpu_torch.ops.gather import (
         LookupGeometry,
         corr_lookup,
         corr_lookup_indices,
         corr_lookup_plain,
-        gather_2d,
-        gather_2d_plain,
     )
     from mcmh_localization_tpu_torch.ops.rank import (
         expand_sorted,
@@ -395,6 +516,14 @@ def compare_kernels(gm, cfg, small_cfg, log_field, ranges, angles, rows):
         ref = corr_lookup_plain(field, parts, n_valid, geo, agg, True)
         torch.cuda.synchronize()
         check(torch.equal(out, ref), f"corr_lookup {tag}: kernel != plain")
+        # a view 12 bytes past an aligned base, N - 1 poses: 4-byte pose
+        # loads and a ragged last thread
+        check(torch.equal(corr_lookup(field, parts[1:], n_valid, geo, agg,
+                                      True), ref[1:]),
+              f"corr_lookup {tag}: the misaligned view != plain")
+        print(f"[kernel] corr_lookup {tag}: N={2 * n}, P="
+              f"{poses_per_thread(2 * n)} poses a thread, bitwise (also "
+              "the misaligned view parts[1:])")
         ms = device_ms(lambda: corr_lookup(field, parts, n_valid, geo, agg, True))
         pms = device_ms(lambda: corr_lookup_plain(field, parts, n_valid, geo, agg, True))
         look.append(kernel_row(
@@ -409,19 +538,16 @@ def compare_kernels(gm, cfg, small_cfg, log_field, ranges, angles, rows):
     table = field_small.reshape(tw * win, win)
     y = (tbin * win + myc).to(torch.int32).contiguous()
     x = mxc.to(torch.int32).contiguous()
-    g = gather_2d(table, y, x)
-    check(torch.equal(g, gather_2d_plain(table, y, x)), "gather_2d != plain")
-    y64, x64 = y.to(torch.int64), x.to(torch.int64)
-    check(torch.equal(g, table[y64, x64]), "gather_2d != table[y, x]")
-    ms_g = device_ms(lambda: gather_2d(table, y, x))
-    pms_g = device_ms(lambda: gather_2d_plain(table, y, x))
-    lms_g = device_ms(lambda: table[y64, x64])
-    n_g = y.numel()
-    gather_row = kernel_row(
-        "gather_2d", "gather.cu", "gather_pallas.py:180",
-        f"table {tuple(table.shape)} N={n_g}", ms=ms_g, plain_ms=pms_g,
-        err=0.0, ops=n_g, nbytes=n_g * 12 + gathered_bytes(table, n_g),
-        library_ms=lms_g, library="table[y, x]")
+    gather_row = {**gather_2d_row("SMALL window", table, y, x), "shapes": []}
+    # the exact paths' free-cell test of the "reject" retries
+    # (GridMap.is_free_world, maps/grid_map.py:90): retries x n_max
+    # candidates, for FilterConfig() and the [exact] 100k "jnp" run
+    for n_max in (state_size(FilterConfig()), 100_000):
+        n = FilterConfig().motion_retries * n_max
+        gy, gx = free_mask_indices(gm, n, gen, cov)
+        gather_row["shapes"].append(gather_2d_row(
+            f"free mask, {FilterConfig().motion_retries} retries x {n_max}",
+            gm.free_mask, gy, gx))
 
     # kernels 3 and 4: one bound of 1M posterior weights at the draw's
     # max_samples serves the KLD stage-1 draw (131072 slots) and the full
@@ -663,27 +789,26 @@ def compare_beam_kernel(gm, beam_model, ranges, angles, rows):
     coarse builds, on the path's own quantized table and per-scan LUT."""
     from mcmh_localization_tpu_torch.models.range_table import (
         _beam_geometry,
-        _beam_lut,
-        coarse_lut_inputs,
-        fine_lut_inputs,
+        table_cell_major,
     )
+    from mcmh_localization_tpu_torch.ops import _cuda
     from mcmh_localization_tpu_torch.ops.beam_field import (
         lut_field,
         lut_field_plain,
+        lut_tiles,
     )
 
     cfg = beam_model.config
+    clock = sm_clock_hz()
+    gen = torch.Generator(device=ranges.device).manual_seed(13)
+    cov = torch.diag(torch.tensor(cfg.initial_cov))
     tables = beam_model.log_field
     k = cfg.beam_table_n_theta
     valid = torch.isfinite(ranges) & (ranges < cfg.max_range)
-    lp = _beam_lut(torch.where(valid, ranges, 0.0), valid, tables.dvals, cfg)
     win, tw = cfg.corr_window_cells, cfg.corr_theta_window_bins
     ox0, oy0, kstart = start_window(gm, k, win, tw)
     lut_rows, fields = [], []
-    for tag, (qt, s) in (
-            ("fine", fine_lut_inputs(tables, lp, angles, k, (oy0, ox0, kstart),
-                                     win, tw, True)),
-            ("coarse", coarse_lut_inputs(lp, angles, tables, cfg, k))):
+    for tag, qt, s in lut_inputs(gm, beam_model, ranges, angles):
         out = lut_field(qt, s)
         ref = lut_field_plain(qt, s)
         torch.cuda.synchronize()
@@ -693,12 +818,31 @@ def compare_beam_kernel(gm, beam_model, ranges, angles, rows):
         pms = device_ms(lambda: lut_field_plain(qt, s))
         b, kk, nq = s.shape
         c = qt.shape[1]
+        # the shared-memory floor: B * K * C four-byte reads at 128 bytes a
+        # clock on each SM
+        smem_ms = (4.0 * b * kk * c / (SMEM_BYTES_PER_CLOCK * _cuda.SM_COUNT
+                                       * clock) * 1e3)
+        tile = lut_tiles(b, c)
+        print(f"[kernel] lut_field {tag}: {tile.threads} cells and "
+              f"{tile.bpar} b a block; shared-memory floor {smem_ms:.5f} ms "
+              f"at "
+              f"{clock / 1e6:.0f} MHz, {smem_ms / ms * 100:.1f}% of the "
+              f"kernel's {ms:.4f} ms on {nvidia_smi_line()}")
         # one add per output and bin; qt, s read once, the field written
         lut_rows.append(kernel_row(
             "lut_field", "beam_field.cu", "beam_field_pallas.py:115",
             f"{tag} B={b} K={kk} nq={nq} C={c}", ms=ms, plain_ms=pms,
-            err=0.0, ops=b * kk * c, nbytes=kk * c + 4 * (b * kk * nq + b * c)))
+            err=0.0, ops=b * kk * c, nbytes=kk * c + 4 * (b * kk * nq + b * c),
+            smem_floor_ms=smem_ms))
     rows.append({**lut_rows[0], "shapes": lut_rows[1:]})
+
+    # gather_2d in the range-table scorer (models/range_table.py:440): a
+    # (cell, bin) pair for each of the MH step's 2 x 1500 poses and each beam
+    tcm = table_cell_major(tables.table)
+    ty, tx = table_scorer_indices(gm, 2 * 1500, angles, k, gen, cov)
+    next(r for r in rows if r["name"] == "gather_2d")["shapes"].append(
+        gather_2d_row("table scorer, 2 x 1500 poses x 360 beams", tcm, ty, tx))
+    del tcm
 
     # kernel 5 in the beam op forms at the beam path's geometry and 2x100k
     # poses, on the two fields just built
@@ -710,9 +854,7 @@ def compare_beam_kernel(gm, beam_model, ranges, angles, rows):
         hc * kc, wc).contiguous()
     geo = _beam_geometry(gm, k, tw, kstart, win, (ox0, oy0),
                          (cfg.corr_coarse_factor, kc, hc, wc))
-    gen = torch.Generator(device=ranges.device).manual_seed(13)
-    parts = mixed_cloud(2 * 100_000, gm, torch.diag(torch.tensor(cfg.initial_cov)),
-                        gen)
+    parts = mixed_cloud(2 * 100_000, gm, cov, gen)
     n_valid = valid.sum().to(torch.int32)
     row = window_score_row(fine_t, coarse_t, parts, geo,
                            n_valid.clamp(min=1).to(torch.float32), n_valid,
@@ -791,15 +933,7 @@ def main(argv=None) -> int:
     compare_slice2_kernels(gm, single_cfg, staged.big.log_field, scans[0],
                            angles, field_small, window, u, v, valid, wts, rows)
     del field_small, wts
-    # the bench's beam point (bench.py:391-398) at 100k particles
-    beam_cfg = FilterConfig(
-        mode="AMHAMCL", num_particles=100_000, min_particles=100_000,
-        max_particles=100_000, initialized=True, initial_pose=START,
-        sensor_model="beam", beam_impl="field", beam_table_n_theta=96,
-        corr_window_cells=64, corr_theta_window_bins=24,
-        corr_coarse_n_theta=24, motion_validity="score",
-        min_injection_prob=0.02,
-    )
+    beam_cfg = beam_point_config()
     t0 = time.perf_counter()
     beam = make_model(beam_cfg, gm)
     torch.cuda.synchronize()
@@ -1066,8 +1200,10 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys},
          **({} if r.get("on_main_path", True) else {"on_main_path": False}),
-         **{k: r[k] for k in ("cummax_ms", "searchsorted_ms") if k in r},
-         **({"shapes": [{k: x[k] for k in shape_keys} for x in r["shapes"]]}
+         **{k: r[k] for k in ("cummax_ms", "searchsorted_ms", "smem_floor_ms")
+            if k in r},
+         **({"shapes": [{k: x[k] for k in shape_keys + ("smem_floor_ms",)
+                         if k in x} for x in r["shapes"]]}
             if r.get("shapes") else {})}
         for r in rows]}))
     print(json.dumps({"ok": True, "device": {

@@ -31,7 +31,7 @@
 // call to stack the denominator and the fill.
 // The layout:
 //  - each thread takes P consecutive particles, P from N by the caller
-//    (ops/fused_score.py::poses_per_thread): 4 where N still gives the
+//    (ops/_cuda.py::poses_per_thread): 4 where N still gives the
 //    card about a wave of threads (the 48 bytes of four poses are three
 //    16-byte loads, issued together, then the four table reads, then one
 //    16-byte store), else 2 or 1, so a cloud of 2 x 100k still spreads
@@ -65,6 +65,8 @@
 
 #include <cuda_runtime.h>
 
+#include "thread_runs.cuh"
+
 // Passed by value from ctypes (ops/_cuda.py::WindowArgs): 4-byte
 // fields only, in this order.
 struct WindowArgs {
@@ -82,23 +84,6 @@ struct WindowIndex {
   int row, lane;
   bool covered, in_map;
 };
-
-__device__ __forceinline__ int floor_mod(int a, int b) {
-  const int r = a % b;
-  return (r != 0 && ((r < 0) != (b < 0))) ? r + b : r;
-}
-
-// floor_mod for b > 0 without the integer division where a lies in
-// [-b, 2b), as every bin index of a heading in [-pi, pi] does.
-__device__ __forceinline__ int wrap_mod(int a, int b) {
-  if (a >= b) a -= b;
-  if (a < 0) a += b;
-  return (a >= 0 && a < b) ? a : floor_mod(a, b);
-}
-
-__device__ __forceinline__ int clampi(int v, int lo, int hi) {
-  return min(max(v, lo), hi);
-}
 
 __device__ __forceinline__ WindowIndex window_index(float px, float py,
                                                     float pth,
@@ -135,59 +120,6 @@ __device__ __forceinline__ WindowIndex window_index(float px, float py,
     r.lane = cx;
   }
   return r;
-}
-
-// The poses of particles i0 .. i0 + P - 1 into p (x, y, theta each):
-// 16-byte loads where P is a multiple of 4, the base is aligned and the
-// run lies inside N, else one 4-byte load a value (nothing past N).
-template <int P>
-__device__ __forceinline__ void load_poses(const float* __restrict__ particles,
-                                           long long i0, int n, bool vec,
-                                           float (&p)[3 * P]) {
-  if constexpr (P % 4 == 0) {
-    if (vec && i0 + P <= n) {
-      const float4* q = reinterpret_cast<const float4*>(particles + 3 * i0);
-#pragma unroll
-      for (int k = 0; k < 3 * P / 4; ++k) {
-        const float4 t = __ldg(q + k);
-        p[4 * k] = t.x;
-        p[4 * k + 1] = t.y;
-        p[4 * k + 2] = t.z;
-        p[4 * k + 3] = t.w;
-      }
-      return;
-    }
-  }
-  const long long end = 3LL * n - 3 * i0;
-#pragma unroll
-  for (int k = 0; k < 3 * P; ++k) {
-    p[k] = k < end ? __ldg(particles + 3 * i0 + k) : 0.0f;
-  }
-}
-
-// out[i0 .. i0 + P - 1] = v, one vector store where the run is whole (the
-// output is the wrapper's allocation: aligned).
-template <int P>
-__device__ __forceinline__ void store_run(float* __restrict__ out,
-                                          long long i0, int n,
-                                          const float (&v)[P]) {
-  if (i0 + P <= n) {
-    if constexpr (P % 4 == 0) {
-#pragma unroll
-      for (int k = 0; k < P; k += 4) {
-        *reinterpret_cast<float4*>(out + i0 + k) =
-            make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]);
-      }
-      return;
-    } else if constexpr (P == 2) {
-      *reinterpret_cast<float2*>(out + i0) = make_float2(v[0], v[1]);
-      return;
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < P; ++k) {
-    if (i0 + k < n) out[i0 + k] = v[k];
-  }
 }
 
 template <int P>
@@ -253,15 +185,6 @@ __global__ void __launch_bounds__(kThreads) window_escapees_kernel(
   }
 }
 
-bool aligned16(const void* ptr) {
-  return (reinterpret_cast<unsigned long long>(ptr) & 15ULL) == 0;
-}
-
-int blocks_for(int n, int p) {
-  const long long threads = (static_cast<long long>(n) + p - 1) / p;
-  return static_cast<int>((threads + kThreads - 1) / kThreads);
-}
-
 template <int P>
 cudaError_t launch_score(const float* fine, const float* coarse,
                          const float* particles, int n,
@@ -269,8 +192,9 @@ cudaError_t launch_score(const float* fine, const float* coarse,
                          const float* fill_ptr, float fill, const int* count,
                          const WindowArgs& a, float* out,
                          cudaStream_t stream) {
-  window_score_kernel<P><<<blocks_for(n, P), kThreads, 0, stream>>>(
-      fine, coarse, particles, n, aligned16(particles), denom_ptr, denom,
+  const int blocks = blocks_for(n, P, kThreads);
+  window_score_kernel<P><<<blocks, kThreads, 0, stream>>>(
+      fine, coarse, particles, n, aligned_to(particles, 16), denom_ptr, denom,
       fill_ptr, fill, count, a, out);
   return cudaGetLastError();
 }
@@ -279,8 +203,9 @@ template <int P>
 cudaError_t launch_escapees(const float* particles, int n,
                             const WindowArgs& a, int* n_escaped,
                             cudaStream_t stream) {
-  window_escapees_kernel<P><<<blocks_for(n, P), kThreads, 0, stream>>>(
-      particles, n, aligned16(particles), a, n_escaped);
+  const int blocks = blocks_for(n, P, kThreads);
+  window_escapees_kernel<P><<<blocks, kThreads, 0, stream>>>(
+      particles, n, aligned_to(particles, 16), a, n_escaped);
   return cudaGetLastError();
 }
 
@@ -288,7 +213,7 @@ cudaError_t launch_escapees(const float* particles, int n,
 
 // denom and fill: read from the device where the pointer is not null,
 // else the value given; count may be null (no blind case).  poses: the
-// particles a thread, 1, 2 or 4 (ops/fused_score.py::poses_per_thread).
+// particles a thread, 1, 2 or 4 (ops/_cuda.py::poses_per_thread).
 extern "C" int mcmh_window_score(const float* fine, const float* coarse,
                                  const float* particles, int n,
                                  const float* denom_ptr, float denom,

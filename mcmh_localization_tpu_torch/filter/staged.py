@@ -54,20 +54,22 @@ def make_staged_model(
     config,
     grid_map,
     tracking_capacity: int | None = None,
+    voxel_map=None,
     global_scoring: str = "full",
     tracking_ess_threshold: float | None = None,
     tracking_theta_bins: int | None = None,
     tracking_window_cells: int | None = None,
     global_score_aggregation: str | None = "sum",
 ) -> StagedModel:
-    """Build the two programs; ``config`` must be adaptive.  The knobs are
-    the JAX ``make_staged_model``'s."""
+    """Build the two programs; ``config`` must be adaptive.  The parameters
+    are the JAX ``make_staged_model``'s, in its order; ``voxel_map`` (3-D
+    lidar) must be None."""
     big_config, small_config = _staged_configs(
         config, tracking_capacity, global_scoring, tracking_ess_threshold,
         tracking_theta_bins, tracking_window_cells, global_score_aggregation,
     )
-    big = make_model(big_config, grid_map)
-    small = make_model(small_config, grid_map)
+    big = make_model(big_config, grid_map, voxel_map=voxel_map)
+    small = make_model(small_config, grid_map, voxel_map=voxel_map)
     return StagedModel(config=big_config, small_config=small_config,
                        grid_map=grid_map, big=big, small=small,
                        init=big.init)

@@ -664,5 +664,10 @@ class FilterModel:
         return as_f32(x, self.device)
 
 
-def make_model(config, grid_map) -> FilterModel:
+def make_model(config, grid_map, voxel_map=None) -> FilterModel:
+    """The JAX ``make_model``'s parameters; ``voxel_map`` (3-D lidar) must
+    be None."""
+    if voxel_map is not None:
+        raise NotImplementedError(
+            "voxel_map: 3-D lidar (maps/voxel_map.py) is ROADMAP item 14")
     return FilterModel(config, grid_map)

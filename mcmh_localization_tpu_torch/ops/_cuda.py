@@ -30,6 +30,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("corr_field_build.cu", "gather.cu", "rank.cu", "fused_score.cu",
            "likelihood.cu", "take.cu", "beam_field.cu")
+HEADERS = ("thread_runs.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # no multiply-add contraction: the index math must round like the
@@ -39,8 +40,23 @@ NVCC_FLAGS = (
 
 # The threads a launch aims for, about one wave of the card's (an H100 SXM:
 # 132 SMs of 2048): the rule behind likelihood.py::lanes_per_particle and
-# fused_score.py::poses_per_thread.
+# poses_per_thread.
 FILL_THREADS = 1 << 18
+# The SMs of an H100 SXM: beam_field.py::lut_tiles spreads its blocks over
+# them.
+SM_COUNT = 132
+
+
+def poses_per_thread(n: int) -> int:
+    """P, the consecutive items (poses, index pairs) one thread of the
+    fused_score.cu and gather.cu kernels takes: the largest of 4, 2 and 1
+    that still gives ``n / P`` at least ``FILL_THREADS`` threads (more
+    bytes in flight a thread where the work fills the card even so).
+    Nonincreasing as ``n`` falls."""
+    for p in (4, 2):
+        if n >= p * FILL_THREADS:
+            return p
+    return 1
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -59,10 +75,10 @@ class WindowArgs(ctypes.Structure):
 
 _SIGNATURES = {
     "mcmh_corr_field_build": (_P, _I, _I, _P, _P, _I, _I, _P, _I, _I, _P),
-    "mcmh_gather_2d": (_P, _I, _I, _P, _P, _I, _P, _P),
+    "mcmh_gather_2d": (_P, _I, _I, _P, _P, _I, _I, _P, _P),
     "mcmh_corr_lookup": (
         _P, _I, _I, _I, _P, _I, _P, _F, _F, _F, _F, _F, _I, _I, _I, _I, _I,
-        _I, _I, _I, _I, _I, _F, _F, _P, _P,
+        _I, _I, _I, _I, _I, _F, _F, _I, _P, _P,
     ),
     "mcmh_rank_scratch_words": (_I,),
     "mcmh_rank_in_sorted": (_P, _I, _I, _P, _P, _P, _P, _P),
@@ -76,7 +92,7 @@ _SIGNATURES = {
         _P, _P,
     ),
     "mcmh_take_rows": (_P, _I, _I, _P, _I, _P, _P),
-    "mcmh_lut_field": (_P, _P, _I, _I, _I, _I, _P, _P),
+    "mcmh_lut_field": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
 }
 
 _lib = None
@@ -103,7 +119,7 @@ def nvcc_path() -> str:
 def library_path() -> Path:
     """The library file for the current sources and flags."""
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

@@ -5,10 +5,13 @@ is ``csrc/beam_field.cu``.  The TPU kernel's one-hot MXU products over int8
 hi/lo planes of ``s`` are TPU mechanics: here each output is a sum of K
 reads from a table in shared memory, in ascending ``g`` from 0.0 with f32
 adds, so the plain version and the kernel agree bitwise and neither
-quantizes ``s``.
+quantizes ``s``.  A block of the kernel owns a tile of cells and a group
+of consecutive ``b``; ``lut_tiles`` picks the layout.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -16,6 +19,33 @@ from mcmh_localization_tpu_torch.ops import _cuda
 
 # the dynamic shared memory one block can hold on Hopper (227 KB)
 MAX_SMEM_BYTES = 232_448
+
+
+class LutTile(NamedTuple):
+    """One launch's layout: a block of ``threads`` threads owns ``threads``
+    cells (one a thread) and ``bpar`` consecutive b, summed in one pass."""
+
+    threads: int
+    bpar: int
+
+
+def lut_tiles(b: int, c: int) -> LutTile:
+    """The kernel's layout for B LUTs over C cells.  A block sums four b
+    over 256 cells where the grid still has 1.5 blocks for each of the
+    card's ``_cuda.SM_COUNT`` SMs (one index read serves four LUTs), else
+    two b over 128 cells: the beam path's coarse and fine builds, each the
+    fastest of the layouts timed there on an H100 (PERF.md §6)."""
+    blocks = -(-c // 256) * -(-b // 4)
+    if 2 * blocks >= 3 * _cuda.SM_COUNT:
+        return LutTile(threads=256, bpar=4)
+    return LutTile(threads=128, bpar=2)
+
+
+def lut_smem_bytes(k: int, nq: int, tile: LutTile) -> int:
+    """A block's shared memory: ``bpar`` LUT slots of K * nq floats, each
+    rounded up to 16 bytes, and its ``qt`` tile (K rows of its cells'
+    bytes)."""
+    return -(-k * nq // 4) * 16 * tile.bpar + k * tile.threads
 
 
 def lut_field_plain(qt: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -41,14 +71,16 @@ def lut_field(qt: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     if s.dtype != torch.float32 or s.dim() != 3 or s.shape[1] != qt.shape[0]:
         raise ValueError("lut_field: s must be (B, K, nq) float32 with qt's K")
     b, k, nq = s.shape
-    if k * nq * 4 > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"lut_field: s[b] takes {k * nq * 4} bytes, above the "
-            f"{MAX_SMEM_BYTES} bytes of shared memory a block can hold")
     c = qt.shape[1]
+    tile = lut_tiles(b, c)
+    smem = lut_smem_bytes(k, nq, tile)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"lut_field: a block needs {smem} bytes of shared memory for "
+            f"K={k}, nq={nq}, above the {MAX_SMEM_BYTES} bytes it can hold")
     out = torch.empty((b, c), dtype=torch.float32, device=qt.device)
     code = _cuda.library().mcmh_lut_field(
-        qt.data_ptr(), s.data_ptr(), b, k, nq, c, out.data_ptr(),
+        qt.data_ptr(), s.data_ptr(), b, k, nq, c, *tile, out.data_ptr(),
         _cuda.stream_of(qt),
     )
     _cuda.check_launch("lut_field", code)

@@ -22,6 +22,7 @@ import torch
 
 from mcmh_localization_tpu_torch.models.sensor import BLIND_SCORE
 from mcmh_localization_tpu_torch.ops import _cuda
+from mcmh_localization_tpu_torch.ops._cuda import poses_per_thread
 from mcmh_localization_tpu_torch.ops.gather import PI_F32
 from mcmh_localization_tpu_torch.utils.f32 import divide, scalar
 
@@ -123,17 +124,6 @@ def window_args(g: WindowGeometry) -> _cuda.WindowArgs:
         g.kc_scale, BLIND_SCORE, g.n_theta, g.nbins, g.kstart, g.fh, g.fw, g.h, g.w,
         g.ox0, g.oy0, g.kc, g.hc, g.wc, int(g.fine_div), int(g.theta_div),
         int(g.clip_before_window))
-
-
-def poses_per_thread(n: int) -> int:
-    """P, the consecutive poses one thread of the kernels takes: the
-    largest of 4, 2 and 1 that still gives ``n / P`` at least
-    ``_cuda.FILL_THREADS`` threads (more bytes in flight a thread where the
-    cloud fills the card even so).  Nonincreasing as ``n`` falls."""
-    for p in (4, 2):
-        if n >= p * _cuda.FILL_THREADS:
-            return p
-    return 1
 
 
 def window_score(fine: torch.Tensor, coarse: torch.Tensor,

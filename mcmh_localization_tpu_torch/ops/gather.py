@@ -41,7 +41,9 @@ def gather_2d_plain(table: torch.Tensor, y: torch.Tensor,
 def gather_2d(table: torch.Tensor, y: torch.Tensor,
               x: torch.Tensor) -> torch.Tensor:
     """``out[i] = table[y[i], x[i]]`` for a (H, W) f32 table and (N,) int32
-    indices, assumed in bounds (clip upstream, as in the JAX package)."""
+    indices, assumed in bounds (clip upstream, as in the JAX package).  The
+    kernel takes ``_cuda.poses_per_thread(N)`` index pairs a thread and any
+    contiguous ``y`` and ``x``, aligned or not."""
     if table.device.type == "cpu":
         return gather_2d_plain(table, y, x)
     _cuda.require_cuda("gather_2d", table, y, x)
@@ -54,7 +56,7 @@ def gather_2d(table: torch.Tensor, y: torch.Tensor,
     h, w = table.shape
     code = _cuda.library().mcmh_gather_2d(
         table.data_ptr(), h, w, y.data_ptr(), x.data_ptr(), n,
-        out.data_ptr(), _cuda.stream_of(table),
+        _cuda.poses_per_thread(n), out.data_ptr(), _cuda.stream_of(table),
     )
     _cuda.check_launch("gather_2d", code)
     return out
@@ -132,7 +134,8 @@ def corr_lookup(field: torch.Tensor, particles: torch.Tensor,
 
     ``n_valid`` is the scan's valid-beam count (0-d int32 tensor): the
     "mean" divisor, the "sum" invalid penalty scale, and the no-beam
-    blind fill."""
+    blind fill.  The kernel takes ``_cuda.poses_per_thread(N)`` poses a
+    thread and any contiguous (N, 3) pose array, aligned or not."""
     if field.device.type == "cpu":
         return corr_lookup_plain(field, particles, n_valid, g, aggregation,
                                  score_validity)
@@ -144,15 +147,27 @@ def corr_lookup(field: torch.Tensor, particles: torch.Tensor,
         raise ValueError("corr_lookup: field/particles shape mismatch")
     n = particles.shape[0]
     out = torch.empty(n, dtype=torch.float32, device=field.device)
-    ox0, oy0 = g.window if g.window is not None else (0, 0)
     code = _cuda.library().mcmh_corr_lookup(
-        field.data_ptr(), g.nbins, g.fh, g.fw, particles.data_ptr(), n,
-        n_valid.data_ptr(), g.origin_x, g.origin_y, g.inv_res, PI_F32,
-        theta_scale(g.n_theta), g.n_theta,
-        g.kstart if g.kstart is not None else 0, int(g.kstart is not None),
-        ox0, oy0, int(g.window is not None), g.map_h, g.map_w,
-        int(aggregation == "sum"), int(score_validity),
-        BLIND_SCORE, INVALID_SCORE, out.data_ptr(), _cuda.stream_of(field),
+        *lookup_args(field, particles, n_valid, g, aggregation,
+                     score_validity),
+        _cuda.poses_per_thread(n), out.data_ptr(), _cuda.stream_of(field),
     )
     _cuda.check_launch("corr_lookup", code)
     return out
+
+
+def lookup_args(field: torch.Tensor, particles: torch.Tensor,
+                n_valid: torch.Tensor, g: LookupGeometry, aggregation: str,
+                score_validity: bool) -> tuple:
+    """``mcmh_corr_lookup``'s arguments up to the poses a thread: the
+    pointers and the geometry as the C call takes them."""
+    ox0, oy0 = g.window if g.window is not None else (0, 0)
+    return (
+        field.data_ptr(), g.nbins, g.fh, g.fw, particles.data_ptr(),
+        particles.shape[0], n_valid.data_ptr(), g.origin_x, g.origin_y,
+        g.inv_res, PI_F32, theta_scale(g.n_theta), g.n_theta,
+        g.kstart if g.kstart is not None else 0, int(g.kstart is not None),
+        ox0, oy0, int(g.window is not None), g.map_h, g.map_w,
+        int(aggregation == "sum"), int(score_validity), BLIND_SCORE,
+        INVALID_SCORE,
+    )

@@ -142,6 +142,8 @@ def test_import_leaves_no_jax_package_module():
         "import mcmh_localization_tpu_torch.io.pgm\n"
         "import mcmh_localization_tpu_torch.convert\n"
         "import mcmh_localization_tpu_torch.filter.staged\n"
+        "from mcmh_localization_tpu_torch import (filter, io, maps, models,\n"
+        "                                         ops, utils)\n"
         "bad = [n for n, m in list(sys.modules.items())\n"
         "       if n.split('.')[0] in ('jax', 'jaxlib', 'flax')\n"
         "       or (n.startswith('mcmh_localization_tpu')\n"

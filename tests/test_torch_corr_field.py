@@ -94,12 +94,11 @@ def test_bin_offsets_match_jax_up_to_trig_ulps(house_map, torch_map):
         assert (diff > 0).mean() <= 0.005
 
 
-@pytest.mark.parametrize("window", [None, (40, 50, 44)],
-                         ids=["full_map", "window_wrapping_theta"])
-def test_lookup_index_triples_bitwise(house_map, torch_map, window):
-    """The fused lookup's (theta bin, row, col) and masks equal the JAX
-    scorer's index math (corr_field.py:466-490) bitwise."""
-    parts = _particles(4000, 5)
+def _jax_lookup_indices(house_map, parts, window):
+    """(tbin, myc, mxc, in_map, covered), in_theta, in_window and the
+    port's LookupGeometry arguments: the JAX scorer's index math
+    (corr_field.py:466-490) for the full map or a 64-cell window at
+    (oy0, ox0) with 16 theta bins from kstart."""
     h, w = house_map.occupancy.shape
     win = 64
     pt = jnp.asarray(parts).T
@@ -126,11 +125,26 @@ def test_lookup_index_triples_bitwise(house_map, torch_map, window):
         in_window = (mxw >= 0) & (mxw < fw) & (myw >= 0) & (myw < fh)
         mxc, myc = jnp.clip(mxw, 0, fw - 1), jnp.clip(myw, 0, fh - 1)
         geo_kw = dict(kstart=kstart, window=(ox0, oy0))
-    geo = LookupGeometry(torch_map.origin_xy[0], torch_map.origin_xy[1],
-                         torch_map.inv_res, N_THETA, nbins, fh, fw, h, w,
-                         **geo_kw)
-    got = corr_lookup_indices(torch.from_numpy(parts), geo)
-    want = (tbin, myc, mxc, in_map, in_window & in_theta)
+    return ((tbin, myc, mxc, in_map, in_window & in_theta), in_theta,
+            in_window, (N_THETA, nbins, fh, fw, h, w), geo_kw)
+
+
+def _geometry(torch_map, geo_args, geo_kw):
+    return LookupGeometry(torch_map.origin_xy[0], torch_map.origin_xy[1],
+                          torch_map.inv_res, *geo_args, **geo_kw)
+
+
+@pytest.mark.parametrize("window", [None, (40, 50, 44)],
+                         ids=["full_map", "window_wrapping_theta"])
+def test_lookup_index_triples_bitwise(house_map, torch_map, window):
+    """The fused lookup's (theta bin, row, col) and masks equal the JAX
+    scorer's index math (corr_field.py:466-490) bitwise."""
+    parts = _particles(4000, 5)
+    want, in_theta, in_window, geo_args, geo_kw = _jax_lookup_indices(
+        house_map, parts, window)
+    in_map = want[3]
+    got = corr_lookup_indices(torch.from_numpy(parts),
+                              _geometry(torch_map, geo_args, geo_kw))
     for name, g, wv in zip(("tbin", "myc", "mxc", "in_map", "covered"),
                            got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(wv), err_msg=name)
@@ -139,6 +153,51 @@ def test_lookup_index_triples_bitwise(house_map, torch_map, window):
     if window is not None:
         assert not np.asarray(in_theta).all()
         assert not np.asarray(in_window)[np.asarray(in_map)].all()
+
+
+@pytest.mark.parametrize("count", [57, 0], ids=["beams", "no_beams"])
+@pytest.mark.parametrize("aggregation", ["mean", "sum"])
+@pytest.mark.parametrize("window", [None, (40, 50, 44)],
+                         ids=["full_map", "window_wrapping_theta"])
+def test_corr_lookup_on_a_misaligned_view_bitwise_vs_jax(
+        house_map, torch_map, window, aggregation, count):
+    """corr_lookup (its plain version on the CPU) on a view of the poses
+    12 bytes past an aligned base, 4001 of them (no multiple of the poses a
+    thread), equals the JAX scorer's lookup (corr_field.py:466-490 and
+    :641-665, XLA gather on the CPU) on the same poses and field bitwise."""
+    from mcmh_localization_tpu.models.sensor import BLIND_SCORE, INVALID_SCORE
+    from mcmh_localization_tpu.ops.gather_pallas import gather_2d as jgather
+    from mcmh_localization_tpu_torch.ops.gather import corr_lookup
+
+    full = _particles(4003, 5)
+    view = torch.from_numpy(full)[1:-1]
+    assert view.storage_offset() == 3 and view.shape[0] == 4001  # 12 bytes
+    (tbin, myc, mxc, in_map, covered), _, _, geo_args, geo_kw = (
+        _jax_lookup_indices(house_map, full[1:-1], window))
+    _, nbins, fh, fw, _, _ = geo_args
+    field = np.random.default_rng(3).normal(
+        -40.0, 20.0, (nbins, fh, fw)).astype(np.float32)
+    # JAX: the theta-minor table, one gather, the fills (:641-665)
+    field_t = jnp.asarray(field).transpose(1, 0, 2).reshape(fh * nbins, fw)
+    totals = jnp.where(in_map & covered,
+                       jgather(field_t, myc * nbins + tbin, mxc), 0.0)
+    cnt = jnp.int32(count)
+    score = (totals if aggregation == "sum"
+             else totals / jnp.maximum(cnt, 1))
+    score = jnp.where(in_map & ~covered, BLIND_SCORE, score)
+    pen = (INVALID_SCORE * jnp.maximum(cnt, 1).astype(jnp.float32)
+           if aggregation == "sum" else jnp.float32(INVALID_SCORE))
+    score = jnp.where(in_map, score, pen)
+    want = np.asarray(jnp.where(cnt > 0, score, BLIND_SCORE)
+                      .astype(jnp.float32))
+    got = corr_lookup(torch.from_numpy(field), view,
+                      torch.tensor(count, dtype=torch.int32),
+                      _geometry(torch_map, geo_args, geo_kw), aggregation,
+                      True).numpy()
+    np.testing.assert_array_equal(got, want)
+    if count:
+        assert (want == INVALID_SCORE * (count if aggregation == "sum" else 1)
+                ).any()
 
 
 @pytest.mark.parametrize("aggregation", ["mean", "sum"])

@@ -113,6 +113,41 @@ def test_gather_2d_bitwise_vs_jax_cpu():
     assert np.array_equal(got, table[y, x])
 
 
+def test_gather_2d_misaligned_ragged_view_bitwise_vs_jax_cpu():
+    """gather_2d on index views one element past an aligned base, N = 4097
+    (no multiple of the pairs a thread), equals the JAX package's gather on
+    the same indices bitwise."""
+    from mcmh_localization_tpu.ops.gather_pallas import gather_2d as jgather
+
+    rng = np.random.default_rng(4)
+    table = rng.normal(0, 300.0, size=(384, 96)).astype(np.float32)
+    y = rng.integers(0, table.shape[0], 4099).astype(np.int32)
+    x = rng.integers(0, table.shape[1], 4099).astype(np.int32)
+    yv, xv = _t(y)[1:-1], _t(x)[1:-1]
+    assert yv.storage_offset() == 1 and yv.numel() == 4097
+    got = gather_2d(_t(table), yv, xv).numpy()
+    want = np.asarray(jgather(jnp.asarray(table), jnp.asarray(y[1:-1]),
+                              jnp.asarray(x[1:-1])))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n,p", [
+    (2 * 130_048, 1),         # the staged SMALL lookup; gather_2d's window
+    (4 * 5000, 1),            # the free mask: FilterConfig()'s retries
+    (4 * 100_000, 1),         # and the exact 100k run's
+    (2 * 1500 * 360, 4),      # the range-table scorer's (cell, bin) pairs
+    (2 * 1_000_000, 4),       # the BIG lookup
+])
+def test_gather_kernels_take_poses_per_thread_at_the_path_shapes(n, p):
+    """gather.cu's kernels take the P of ops/_cuda.py::poses_per_thread:
+    the largest of 4, 2, 1 leaving at least FILL_THREADS threads."""
+    from mcmh_localization_tpu_torch.ops import _cuda
+
+    assert _cuda.poses_per_thread(n) == p
+    assert n // p >= _cuda.FILL_THREADS or p == 1
+    assert p == 4 or n < 4 * _cuda.FILL_THREADS
+
+
 def test_gather_2d_vs_tpu_kernel_interpret():
     """The TPU kernel reads through split bf16 hi/lo planes (~1e-3
     relative error, a TPU approximation): the port agrees within it."""

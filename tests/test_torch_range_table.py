@@ -207,13 +207,17 @@ def test_bin_lut_matrix_adds_beams_in_ascending_order():
     np.testing.assert_array_equal(got, want)
 
 
-def test_lut_field_plain_bitwise_and_vs_jax_int8():
+@pytest.mark.parametrize("b,k,nq,c", [
+    (6, 36, 21, 300),     # a C that is no multiple of 16 (ragged tiles)
+    (6, 24, 51, 16 ** 2),  # fine-like: the beam path's nq, a square window
+    (4, 24, 51, 24 ** 2),  # coarse-like: block centres of a wider grid
+], ids=["ragged", "fine_like", "coarse_like"])
+def test_lut_field_plain_bitwise_and_vs_jax_int8(b, k, nq, c):
     """lut_field_plain (and the CPU wrapper) bitwise equal to a numpy loop
     of f32 adds over g in ascending order from 0; the JAX kernel (interpret
     mode, int8 hi/lo planes of s, exact int32 accumulation) within its
     quantization bound K * amax|s| / (127 * 254)."""
     rng = np.random.default_rng(0)
-    b, k, nq, c = 6, 36, 21, 300
     qt = rng.integers(0, nq, (k, c)).astype(np.int8)
     s = (rng.normal(size=(b, k, nq)) * 8.0).astype(np.float32)
     want = np.zeros((b, c), np.float32)
@@ -226,6 +230,38 @@ def test_lut_field_plain_bitwise_and_vs_jax_int8():
                                  precision="int8", interpret=True))
     bound = k * np.abs(s).max() / (127 * 254)
     assert np.abs(tpu - got).max() <= bound, (np.abs(tpu - got).max(), bound)
+
+
+def test_lut_tiles_rule():
+    """lut_tiles: four b a block over 256 cells where the grid keeps 1.5
+    blocks an SM, else two b over 128 cells: the beam path's coarse build
+    takes the first, its fine build the second.  The b a block never grows
+    as B or C falls; every layout fits the card's shared memory at the beam
+    path's K and nq and tiles whole 16-byte rows of qt."""
+    from mcmh_localization_tpu_torch.ops import _cuda
+    from mcmh_localization_tpu_torch.ops.beam_field import (
+        MAX_SMEM_BYTES,
+        LutTile,
+        lut_smem_bytes,
+        lut_tiles,
+    )
+
+    assert lut_tiles(24, 64 ** 2) == LutTile(threads=128, bpar=2)
+    assert lut_tiles(24, 96 ** 2) == LutTile(threads=256, bpar=4)
+    for b in (1, 2, 24, 96):
+        prev = None
+        for c in (96 ** 2 * 4, 96 ** 2, 64 ** 2, 300, 1):
+            tile = lut_tiles(b, c)
+            assert tile.threads % 16 == 0
+            assert prev is None or tile.bpar <= prev, (b, c, tile)
+            if tile.bpar == 4:
+                blocks = -(-c // 256) * -(-b // 4)
+                assert 2 * blocks >= 3 * _cuda.SM_COUNT
+            assert lut_smem_bytes(96, 51, tile) <= MAX_SMEM_BYTES
+            prev = tile.bpar
+    # a slot rounds K * nq floats up to 16 bytes; a byte of qt a cell and bin
+    assert lut_smem_bytes(96, 51, LutTile(128, 2)) == 2 * 96 * 51 * 4 + 96 * 128
+    assert lut_smem_bytes(3, 5, LutTile(32, 1)) == 16 * 4 + 3 * 32
 
 
 # beam-score cases: the coarse fallback off, on and ungated, on with the

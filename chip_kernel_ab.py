@@ -1,23 +1,30 @@
 #!/usr/bin/env python3
-"""Kernels 2, 5, 6 and 7 of the PyTorch/CUDA port against their first Hopper
-versions, on one NVIDIA GPU, in turns.
+"""Kernels 2, 4, 5, 6 and 7 of the PyTorch/CUDA port against their first
+Hopper versions, on one NVIDIA GPU, in turns.
 
     git archive 31a30c8 mcmh_localization_tpu_torch/csrc | tar -x -C build/parent
-    python3 chip_kernel_ab.py --old build/parent
+    python3 chip_kernel_ab.py --old build/parent [--kernels 2,4,5,6,7]
 
-``--old DIR`` holds the ``likelihood.cu``, ``fused_score.cu``, ``gather.cu``
-and ``beam_field.cu`` of commit 31a30c8, the kernels' first Hopper
-versions (its gather.cu and beam_field.cu are those of PRs 1 and 3).  The
-script binds their C interface (the window score's denominator and fill
-as one (2,) device array; the exact scorer without a lane count; the
-lookups without a poses-a-thread count; the LUT field without its tile),
-which no other tree has, so it checks the four files' sha256 first and
-refuses any other tree before it builds.  They are built into a library of
-their own with ``nvcc``.  On the inputs of ``chip_smoke.py`` (its house
-map, scan, clouds and beam model), every kernel is called through its C
-entry point on the same precomputed arguments, so the readings hold the
-kernels alone:
+``--old DIR`` holds the ``likelihood.cu``, ``fused_score.cu``, ``gather.cu``,
+``beam_field.cu`` and ``rank.cu`` of commit 31a30c8, the kernels' first
+Hopper versions (its rank.cu holds kernel 4 before its one-launch
+redesign).  The script binds their C
+interface (the window score's denominator and fill as one (2,) device
+array; the exact scorer without a lane count; the lookups without a
+poses-a-thread count; the LUT field without its tile; the rank with its
+running max and look-back words as scratch), which no other tree has, so
+it checks the five files' sha256 first and refuses any other tree before
+it builds.  They are built into a library of their own with ``nvcc``, the
+earlier rank.cu inside a file that also exposes its three device
+operations one at a time.  On the inputs of ``chip_smoke.py`` (its house
+map, scan, clouds, beam model and weight patterns), every kernel is called
+through its C entry point on the same precomputed arguments (kernel 4 of
+this tree through its wrapper), so the readings hold the kernels alone:
 
+- kernel 4 (the rank as indices) at R = 1M, num_out = 1M and 131 072,
+  uniform weights and all mass on the middle particle: the earlier
+  kernel's memset, scan and expansion timed apart, then the earlier kernel
+  and this one, each bitwise against the plain version;
 - kernel 6 (the exact scorer) at 2x100k and 2x1500 poses, both cell forms:
   the earlier kernel and this one at every lane count G in {1, 2, 4, 8,
   16, 32}, each G bitwise against the plain version at that G;
@@ -42,6 +49,7 @@ kernels alone:
   kernel and this one at every P in {1, 2, 4}, each bitwise against the
   plain version.
 
+``--kernels`` names the kernels to compare (all by default).
 Each case is timed in turns, the earlier kernel first and last (old, new
 ..., ... new, old), with ``chip_smoke.device_ms`` (median of 20 runs).  The
 lines print the two readings of each kernel with the card's name and
@@ -77,6 +85,7 @@ from chip_smoke import (  # noqa: E402
     lut_inputs,
     mixed_cloud,
     nvidia_smi_line,
+    rank_bound,
     start_window,
     table_scorer_indices,
 )
@@ -96,13 +105,40 @@ OLD_SOURCES = {
         "5bd2ab6a417d6b9b90f9b48306d4cf943caecf87bd8fa0f3b50e9c208a6ffbef",
     "beam_field.cu":
         "f6819c434cacf1e441333c5c88c12cc08aa66ed108b8c0639c4167418b14f6ce",
+    "rank.cu":
+        "b13e5043a7d580947bea32a3c6a9f4cedd0c4901e96aa7377252ee1aa244581f",
 }
+# The earlier rank.cu is compiled inside this file, which also exposes its
+# three device operations one at a time (its look-back words' memset, its
+# running-max scan, its expansion), so kernel 4's time splits into them.
+RANK_SPLIT_SHIM = r"""
+#include "rank.cu"
+extern "C" int ab_rank_memset(unsigned long long* scratch, int r, void* s) {
+  return static_cast<int>(cudaMemsetAsync(
+      scratch, 0, sizeof(unsigned long long) * (scan_tiles(r) + 1),
+      static_cast<cudaStream_t>(s)));
+}
+extern "C" int ab_rank_scan(const int* bound, int r, int* mono,
+                            unsigned long long* scratch, void* s) {
+  const int tiles = scan_tiles(r);
+  running_max_kernel<<<tiles, kScanThreads, 0, static_cast<cudaStream_t>(s)>>>(
+      bound, r, mono, scratch, reinterpret_cast<unsigned int*>(scratch + tiles));
+  return static_cast<int>(cudaGetLastError());
+}
+extern "C" int ab_rank_expand(const int* mono, int r, int num_out,
+                              const int* count, int* out, void* s) {
+  expand_kernel<false><<<(num_out + kExpTile - 1) / kExpTile, kExpThreads, 0,
+                         static_cast<cudaStream_t>(s)>>>(
+      mono, r, nullptr, 0, num_out, count, nullptr, out);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def old_library(csrc: Path) -> ctypes.CDLL:
-    """Commit 31a30c8's kernels 2, 5, 6 and 7, built and bound; any other
+    """Commit 31a30c8's kernels 2, 4, 5, 6 and 7, built and bound; any other
     sources raise before the build."""
     from mcmh_localization_tpu_torch.ops import _cuda
 
@@ -115,9 +151,12 @@ def old_library(csrc: Path) -> ctypes.CDLL:
                              f"(sha256 {got}); --old must hold that tree")
     so = _cuda.BUILD_DIR.parent / "torch_kernels_ab" / "libmcmh_old.so"
     so.parent.mkdir(parents=True, exist_ok=True)
+    shim = so.with_name("rank_split.cu")
+    shim.write_text(RANK_SPLIT_SHIM)
     res = subprocess.run(
-        [_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, "-shared", "-o", str(so),
-         *(str(csrc / name) for name in OLD_SOURCES)],
+        [_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, "-I", str(csrc), "-shared",
+         "-o", str(so), str(shim),
+         *(str(csrc / name) for name in OLD_SOURCES if name != "rank.cu")],
         capture_output=True, text=True)
     check(res.returncode == 0, f"nvcc failed:\n{res.stdout}{res.stderr}")
     lib = ctypes.CDLL(str(so))
@@ -130,7 +169,12 @@ def old_library(csrc: Path) -> ctypes.CDLL:
             ("mcmh_gather_2d", [_P, _I, _I, _P, _P, _I, _P, _P]),
             ("mcmh_corr_lookup", [_P, _I, _I, _I, _P, _I, _P, _F, _F, _F, _F,
                                   _F, *[_I] * 10, _F, _F, _P, _P]),
-            ("mcmh_lut_field", [_P, _P, _I, _I, _I, _I, _P, _P])):
+            ("mcmh_lut_field", [_P, _P, _I, _I, _I, _I, _P, _P]),
+            ("mcmh_rank_scratch_words", [_I]),
+            ("mcmh_rank_in_sorted", [_P, _I, _I, _P, _P, _P, _P, _P]),
+            ("ab_rank_memset", [_P, _I, _P]),
+            ("ab_rank_scan", [_P, _I, _P, _P, _P]),
+            ("ab_rank_expand", [_P, _I, _I, _P, _P, _P])):
         getattr(lib, fn).argtypes = args
         getattr(lib, fn).restype = ctypes.c_int
     return lib
@@ -168,7 +212,10 @@ def main(argv=None) -> int:
     ap.add_argument("--old", required=True, type=Path,
                     help="a tree holding commit 31a30c8's "
                          "mcmh_localization_tpu_torch/csrc")
+    ap.add_argument("--kernels", default="2,4,5,6,7",
+                    help="the kernels to compare, by number (default all)")
     args = ap.parse_args(argv)
+    kernels = {int(k) for k in args.kernels.split(",")}
     if not torch.cuda.is_available():
         print("chip_kernel_ab: no CUDA device", file=sys.stderr)
         return 2
@@ -216,9 +263,12 @@ def main(argv=None) -> int:
         lanes_per_particle,
         likelihood_scores_plain,
     )
+    from mcmh_localization_tpu_torch.ops.rank import (
+        rank_in_sorted,
+        rank_in_sorted_plain,
+    )
 
     old = old_library(args.old / "mcmh_localization_tpu_torch" / "csrc")
-    new = _cuda.library()
     dev = torch.device("cuda")
     half = MAP_CELLS * RES / 2
     gm = build_grid_map(house_occupancy(), RES, (-half, -half), device=dev)
@@ -241,250 +291,309 @@ def main(argv=None) -> int:
     h, w = log_field.shape
     m = u.shape[0]
     print(f"[ab] scan: {int(cnt)} valid beams of {m}")
-
-    # kernel 6
-    def exact_call(lib, parts, scale, div, lanes=None):
-        out = torch.empty(parts.shape[0], device=dev)
-        tail = () if lanes is None else (lanes,)
-
-        def call():
-            code = lib.mcmh_likelihood_scores(
-                parts.data_ptr(), parts.shape[0], u.data_ptr(), v.data_ptr(),
-                valid.data_ptr(), m, log_field.data_ptr(), h, w,
-                gm.origin_xy[0], gm.origin_xy[1], scale, int(div),
-                cnt.data_ptr(), 0, BLIND_SCORE, *tail, out.data_ptr(), stream)
-            check(code == 0, f"launch failed ({code})")
-            return out
-        return call
-
-    for n6 in (100_000, 1500):
-        parts = init_gaussian(START, cov, 2 * n6, gm, generator=gen).contiguous()
-        for div in (False, True):
-            scale = gm.res if div else gm.inv_res
-            a6 = (parts, u, v, valid, log_field, gm.origin_xy[0],
-                  gm.origin_xy[1], scale, div, cnt, "mean")
-            calls = {"old": exact_call(old, parts, scale, div)}
-            ref = likelihood_scores_plain(*a6)
-            err_old = float((calls["old"]().clone() - ref).abs().max())
-            for g in LANES:
-                calls[f"G={g}"] = exact_call(new, parts, scale, div, g)
-                got = calls[f"G={g}"]().clone()
-                check(torch.equal(got, likelihood_scores_plain(*a6, lanes=g)),
-                      f"exact N=2x{n6} div={div} G={g}: kernel != plain")
-            tag = (f"likelihood_scores N=2x{n6} form={'div' if div else 'mul'}"
-                   f" (rule: G={lanes_per_particle(2 * n6)})")
-            print(f"[ab] {tag}: every G bitwise; the earlier kernel within "
-                  f"{err_old:.3g} of the plain version")
-            report(tag, in_turns(calls), results)
-
-    # kernel 5
-    def window_calls(parts, geo, fine_t, coarse_t):
-        out = torch.empty(parts.shape[0], device=dev)
-        denom_fill = torch.stack([denom, torch.full((), -100.0, device=dev)])
-        wa = window_args(geo)
-        ptrs = (fine_t.data_ptr(), coarse_t.data_ptr(), parts.data_ptr(),
-                parts.shape[0])
-
-        def call_old():
-            check(old.mcmh_window_score(
-                *ptrs, denom_fill.data_ptr(), cnt.data_ptr(), wa,
-                out.data_ptr(), stream) == 0, "launch failed")
-            return out
-
-        def call_new(p):
-            def call():
-                check(new.mcmh_window_score(
-                    *ptrs, denom.data_ptr(), 0.0, None, -100.0, cnt.data_ptr(),
-                    wa, p, out.data_ptr(), stream) == 0, "launch failed")
-                return out
-            return call
-
-        return {"old": call_old, **{f"P={p}": call_new(p) for p in POSES}}
-
-    def escapee_calls(parts, geo):
-        out = torch.zeros(1, dtype=torch.int32, device=dev)
-        wa = window_args(geo)
-        ptrs = (parts.data_ptr(), parts.shape[0], wa)
-
-        def call_of(p):
-            def call():
-                out.zero_()
-                code = (old.mcmh_window_escapees(*ptrs, out.data_ptr(), stream)
-                        if p is None else new.mcmh_window_escapees(
-                            *ptrs, p, out.data_ptr(), stream))
-                check(code == 0, "launch failed")
-                return out
-            return call
-
-        return {"old": call_of(None), **{f"P={p}": call_of(p) for p in POSES}}
-
     win, tw = cfg.corr_window_cells, cfg.corr_theta_window_bins
     ox0, oy0, kstart = start_window(gm, cfg.corr_n_theta, win, tw)
     kc, hc, wc = coarse_shape(cfg, h, w)
-    geo = window_geometry(gm, cfg, cfg.corr_n_theta, tw, kstart, win, win,
-                          (ox0, oy0))
-    fine_t = torch.randn((win * tw, win), generator=gen, device=dev)
-    coarse_t = torch.randn((hc * kc, wc), generator=gen, device=dev)
-    big = mixed_cloud(2_000_000, gm, cov, gen)
-    bw, btw, bk, bkc = 64, 24, 96, 24
-    box0, boy0, bkstart = start_window(gm, bk, bw, btw)
-    geo_b = _beam_geometry(gm, bk, btw, bkstart, bw, (box0, boy0),
-                           (4, bkc, hc, wc))
-    cases = [
-        ("corr op forms N=2x1000000", big, geo, fine_t, coarse_t),
-        ("corr op forms, misaligned base N=200003", big[1:200_004], geo,
-         fine_t, coarse_t),
-        ("beam op forms N=2x100000", mixed_cloud(200_000, gm, cov, gen),
-         geo_b, torch.randn((bw * btw, bw), generator=gen, device=dev),
-         torch.randn((hc * bkc, wc), generator=gen, device=dev)),
-    ]
-    for tag, parts, g, ft, ct in cases:
-        calls = window_calls(parts, g, ft, ct)
-        ref = window_score_plain(ft, ct, parts, g, denom, -100.0, count=cnt)
-        for name, call in calls.items():
-            check(torch.equal(call(), ref), f"window_score {tag} {name} != plain")
-        tag = f"window_score {tag} (rule: P={poses_per_thread(parts.shape[0])})"
-        print(f"[ab] {tag}: every P bitwise")
-        report(tag, in_turns(calls), results)
-    for tag, parts in (("N=2x1000000", big),
-                       ("misaligned base N=200003", big[1:200_004])):
-        calls = escapee_calls(parts, geo)
-        want = int(window_escapees_plain(parts, geo))
-        for name, call in calls.items():
-            check(int(call()) == want, f"window_escapees {tag} {name} != plain")
-        print(f"[ab] window_escapees {tag}: {want} escapees at every P")
-        if not tag.startswith("misaligned"):
-            report(f"window_escapees {tag} (rule: P="
-                   f"{poses_per_thread(parts.shape[0])})", in_turns(calls),
-                   results)
 
-    # the calls as the wrappers make them at 2x1M: the earlier wrapper's
-    # device work (a stack of the two scalars, then its kernel; a zeroed
-    # counter, then its count) beside this tree's wrappers
-    old_score = window_calls(big, geo, fine_t, coarse_t)["old"]
-    old_count = escapee_calls(big, geo)["old"]
-    score = {
-        "old": lambda: (torch.stack([denom, torch.full((), -100.0,
-                                                       device=dev)]),
-                        old_score())[1],
-        "new": lambda: window_score(fine_t, coarse_t, big, geo, denom, -100.0,
-                                    count=cnt)}
-    escape = {"old": old_count, "new": lambda: window_escapees(big, geo)}
-    check(torch.equal(score["new"](), window_score_plain(
-        fine_t, coarse_t, big, geo, denom, -100.0, count=cnt)),
-        "window_score wrapper != plain")
-    check(int(escape["new"]()) == int(window_escapees_plain(big, geo)),
-          "window_escapees wrapper != plain")
-    report("window_score corr op forms N=2x1000000, through the wrappers",
-           in_turns(score), results)
-    report("window_escapees N=2x1000000, through the wrappers",
-           in_turns(escape), results)
-    # yardsticks of the card's streaming rate on the same 24 MB of poses:
-    # a read (sum) and a read and write (clone)
-    report("yardsticks on the 2x1M poses",
-           in_turns({"sum": lambda: big.sum(), "clone": big.clone}), results)
+    if 4 in kernels:
+        # kernel 4: the earlier kernel whole and its three device operations
+        # apart, beside this tree's, on the raw bound of a 1M draw
+        n4 = 1_000_000
+        cnt4 = torch.tensor(n4, dtype=torch.int32, device=dev)
+        words = old.mcmh_rank_scratch_words(n4)
+        mono = torch.empty(n4, dtype=torch.int32, device=dev)
+        scratch = torch.empty(words, dtype=torch.int64, device=dev)
+        for kind in ("uniform", "heavy middle"):
+            bound = rank_bound(kind, n4, n4, gen)
+            for num_out in (n4, 131_072):
+                out = torch.empty(num_out, dtype=torch.int32, device=dev)
 
-    # kernel 7: the beam LUT field at the beam path's fine and coarse builds
-    beam = make_model(beam_point_config(), gm)
-    for tag, qt, s_lut in lut_inputs(gm, beam, ranges, angles):
-        b, k, nq = s_lut.shape
-        c = qt.shape[1]
-        out = torch.empty((b, c), device=dev)
+                def old_whole():
+                    check(old.mcmh_rank_in_sorted(
+                        bound.data_ptr(), n4, num_out, cnt4.data_ptr(),
+                        mono.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+                        stream) == 0, "launch failed")
+                    return out
 
-        def lut_call(lib, tile=None):
-            extra = () if tile is None else tile
+                def old_memset():
+                    check(old.ab_rank_memset(scratch.data_ptr(), n4, stream) == 0,
+                          "launch failed")
+
+                def old_scan():
+                    old_memset()
+                    check(old.ab_rank_scan(bound.data_ptr(), n4, mono.data_ptr(),
+                                           scratch.data_ptr(), stream) == 0,
+                          "launch failed")
+
+                def old_expand():
+                    check(old.ab_rank_expand(mono.data_ptr(), n4, num_out,
+                                             cnt4.data_ptr(), out.data_ptr(),
+                                             stream) == 0, "launch failed")
+                    return out
+
+                tag = f"rank_in_sorted {kind} R={n4} num_out={num_out}"
+                want = rank_in_sorted_plain(bound, num_out, cnt4)
+                check(torch.equal(old_whole(), want), f"{tag}: old != plain")
+                old_scan()
+                check(torch.equal(old_expand(), want), f"{tag}: old split != plain")
+                split = {"memset": device_ms(old_memset),
+                         "memset+scan": device_ms(old_scan),
+                         "expansion": device_ms(old_expand)}
+                print(f"[ab] {tag} old split: memset {split['memset']:.4f}, scan "
+                      f"{split['memset+scan'] - split['memset']:.4f} (with the "
+                      f"memset {split['memset+scan']:.4f}), expansion "
+                      f"{split['expansion']:.4f} ms on {smi}")
+                results.append({"case": tag + " old split", "ms": split})
+                calls = {"old": old_whole,
+                         "new": lambda: rank_in_sorted(bound, num_out, cnt4)}
+                bitwise_calls(tag, calls, want)
+                report(tag, in_turns(calls), results)
+
+    new = _cuda.library()
+    beam = make_model(beam_point_config(), gm) if kernels & {2, 7} else None
+    if 6 in kernels:
+        # kernel 6
+        def exact_call(lib, parts, scale, div, lanes=None):
+            out = torch.empty(parts.shape[0], device=dev)
+            tail = () if lanes is None else (lanes,)
 
             def call():
-                check(lib.mcmh_lut_field(qt.data_ptr(), s_lut.data_ptr(), b, k,
-                                         nq, c, *extra, out.data_ptr(),
-                                         stream) == 0, "launch failed")
+                code = lib.mcmh_likelihood_scores(
+                    parts.data_ptr(), parts.shape[0], u.data_ptr(), v.data_ptr(),
+                    valid.data_ptr(), m, log_field.data_ptr(), h, w,
+                    gm.origin_xy[0], gm.origin_xy[1], scale, int(div),
+                    cnt.data_ptr(), 0, BLIND_SCORE, *tail, out.data_ptr(), stream)
+                check(code == 0, f"launch failed ({code})")
                 return out
             return call
 
-        rule = lut_tiles(b, c)
-        calls = {"old": lut_call(old), f"rule {tuple(rule)}": lut_call(new, rule)}
-        calls.update({f"threads={t} bpar={bp}": lut_call(new, (t, bp))
-                      for t, bp in LUT_LAYOUTS})
-        tag = f"lut_field {tag} B={b} K={k} nq={nq} C={c}"
-        bitwise_calls(tag, calls, lut_field_plain(qt, s_lut))
-        report(tag, in_turns(calls), results)
+        for n6 in (100_000, 1500):
+            parts = init_gaussian(START, cov, 2 * n6, gm, generator=gen).contiguous()
+            for div in (False, True):
+                scale = gm.res if div else gm.inv_res
+                a6 = (parts, u, v, valid, log_field, gm.origin_xy[0],
+                      gm.origin_xy[1], scale, div, cnt, "mean")
+                calls = {"old": exact_call(old, parts, scale, div)}
+                ref = likelihood_scores_plain(*a6)
+                err_old = float((calls["old"]().clone() - ref).abs().max())
+                for g in LANES:
+                    calls[f"G={g}"] = exact_call(new, parts, scale, div, g)
+                    got = calls[f"G={g}"]().clone()
+                    check(torch.equal(got, likelihood_scores_plain(*a6, lanes=g)),
+                          f"exact N=2x{n6} div={div} G={g}: kernel != plain")
+                tag = (f"likelihood_scores N=2x{n6} form={'div' if div else 'mul'}"
+                       f" (rule: G={lanes_per_particle(2 * n6)})")
+                print(f"[ab] {tag}: every G bitwise; the earlier kernel within "
+                      f"{err_old:.3g} of the plain version")
+                report(tag, in_turns(calls), results)
 
-    # kernel 2: the corr lookup at the staged SMALL and BIG shapes
-    def lookup_calls(field, parts, geo, agg):
-        out = torch.empty(parts.shape[0], device=dev)
-        args = lookup_args(field, parts, cnt, geo, agg, True)
+    if 5 in kernels:
+        # kernel 5
+        def window_calls(parts, geo, fine_t, coarse_t):
+            out = torch.empty(parts.shape[0], device=dev)
+            denom_fill = torch.stack([denom, torch.full((), -100.0, device=dev)])
+            wa = window_args(geo)
+            ptrs = (fine_t.data_ptr(), coarse_t.data_ptr(), parts.data_ptr(),
+                    parts.shape[0])
 
-        def call_of(p):
-            def call():
-                tail = () if p is None else (p,)
-                code = (old if p is None else new).mcmh_corr_lookup(
-                    *args, *tail, out.data_ptr(), stream)
-                check(code == 0, "launch failed")
+            def call_old():
+                check(old.mcmh_window_score(
+                    *ptrs, denom_fill.data_ptr(), cnt.data_ptr(), wa,
+                    out.data_ptr(), stream) == 0, "launch failed")
                 return out
-            return call
 
-        return {"old": call_of(None), **{f"P={p}": call_of(p) for p in POSES}}
+            def call_new(p):
+                def call():
+                    check(new.mcmh_window_score(
+                        *ptrs, denom.data_ptr(), 0.0, None, -100.0, cnt.data_ptr(),
+                        wa, p, out.data_ptr(), stream) == 0, "launch failed")
+                    return out
+                return call
 
-    n_small = 130_048
-    geo_small = LookupGeometry(gm.origin_xy[0], gm.origin_xy[1], gm.inv_res,
-                               cfg.corr_n_theta, tw, win, win, h, w,
-                               kstart=kstart, window=(ox0, oy0))
-    geo_big = LookupGeometry(gm.origin_xy[0], gm.origin_xy[1], gm.inv_res,
-                             cfg.corr_n_theta, cfg.corr_n_theta, h, w, h, w)
-    field_small = torch.randn((tw, win, win), generator=gen, device=dev)
-    small = init_gaussian(START, cov, 2 * n_small, gm, generator=gen)
-    for tag, field, parts, geo, agg in (
-            ("SMALL", field_small, small, geo_small, "mean"),
-            ("BIG", torch.randn((cfg.corr_n_theta, h, w), generator=gen,
-                                device=dev),
-             init_gaussian(START, cov, 2_000_000, gm, generator=gen), geo_big,
-             "sum")):
-        calls = lookup_calls(field, parts, geo, agg)
-        tag = (f"corr_lookup {tag} N={parts.shape[0]} (rule: "
-               f"P={_cuda.poses_per_thread(parts.shape[0])})")
-        bitwise_calls(tag, calls,
-                      corr_lookup_plain(field, parts, cnt, geo, agg, True))
-        report(tag, in_turns(calls), results)
+            return {"old": call_old, **{f"P={p}": call_new(p) for p in POSES}}
 
-    # kernel 2: gather_2d at the paths' shapes
-    def gather_calls(table, y, x):
-        out = torch.empty(y.numel(), device=dev)
-        args = (table.data_ptr(), *table.shape, y.data_ptr(), x.data_ptr(),
-                y.numel())
+        def escapee_calls(parts, geo):
+            out = torch.zeros(1, dtype=torch.int32, device=dev)
+            wa = window_args(geo)
+            ptrs = (parts.data_ptr(), parts.shape[0], wa)
 
-        def call_of(p):
-            def call():
-                tail = () if p is None else (p,)
-                code = (old if p is None else new).mcmh_gather_2d(
-                    *args, *tail, out.data_ptr(), stream)
-                check(code == 0, "launch failed")
-                return out
-            return call
+            def call_of(p):
+                def call():
+                    out.zero_()
+                    code = (old.mcmh_window_escapees(*ptrs, out.data_ptr(), stream)
+                            if p is None else new.mcmh_window_escapees(
+                                *ptrs, p, out.data_ptr(), stream))
+                    check(code == 0, "launch failed")
+                    return out
+                return call
 
-        return {"old": call_of(None), **{f"P={p}": call_of(p) for p in POSES}}
+            return {"old": call_of(None), **{f"P={p}": call_of(p) for p in POSES}}
 
-    tbin, myc, mxc, _, _ = corr_lookup_indices(small, geo_small)
-    gather_cases = [("SMALL window", field_small.reshape(tw * win, win),
-                     (tbin * win + myc).to(torch.int32).contiguous(),
-                     mxc.to(torch.int32).contiguous())]
-    retries = FilterConfig().motion_retries
-    for n_max in (state_size(FilterConfig()), 100_000):
-        gather_cases.append((f"free mask, {retries} retries x {n_max}",
-                             gm.free_mask,
-                             *free_mask_indices(gm, retries * n_max, gen, cov)))
-    gather_cases.append((
-        "table scorer, 2 x 1500 poses x 360 beams",
-        table_cell_major(beam.log_field.table),
-        *table_scorer_indices(gm, 2 * 1500, angles,
-                              beam.config.beam_table_n_theta, gen, cov)))
+        geo = window_geometry(gm, cfg, cfg.corr_n_theta, tw, kstart, win, win,
+                              (ox0, oy0))
+        fine_t = torch.randn((win * tw, win), generator=gen, device=dev)
+        coarse_t = torch.randn((hc * kc, wc), generator=gen, device=dev)
+        big = mixed_cloud(2_000_000, gm, cov, gen)
+        bw, btw, bk, bkc = 64, 24, 96, 24
+        box0, boy0, bkstart = start_window(gm, bk, bw, btw)
+        geo_b = _beam_geometry(gm, bk, btw, bkstart, bw, (box0, boy0),
+                               (4, bkc, hc, wc))
+        cases = [
+            ("corr op forms N=2x1000000", big, geo, fine_t, coarse_t),
+            ("corr op forms, misaligned base N=200003", big[1:200_004], geo,
+             fine_t, coarse_t),
+            ("beam op forms N=2x100000", mixed_cloud(200_000, gm, cov, gen),
+             geo_b, torch.randn((bw * btw, bw), generator=gen, device=dev),
+             torch.randn((hc * bkc, wc), generator=gen, device=dev)),
+        ]
+        for tag, parts, g, ft, ct in cases:
+            calls = window_calls(parts, g, ft, ct)
+            ref = window_score_plain(ft, ct, parts, g, denom, -100.0, count=cnt)
+            for name, call in calls.items():
+                check(torch.equal(call(), ref), f"window_score {tag} {name} != plain")
+            tag = f"window_score {tag} (rule: P={poses_per_thread(parts.shape[0])})"
+            print(f"[ab] {tag}: every P bitwise")
+            report(tag, in_turns(calls), results)
+        for tag, parts in (("N=2x1000000", big),
+                           ("misaligned base N=200003", big[1:200_004])):
+            calls = escapee_calls(parts, geo)
+            want = int(window_escapees_plain(parts, geo))
+            for name, call in calls.items():
+                check(int(call()) == want, f"window_escapees {tag} {name} != plain")
+            print(f"[ab] window_escapees {tag}: {want} escapees at every P")
+            if not tag.startswith("misaligned"):
+                report(f"window_escapees {tag} (rule: P="
+                       f"{poses_per_thread(parts.shape[0])})", in_turns(calls),
+                       results)
+
+        # the calls as the wrappers make them at 2x1M: the earlier wrapper's
+        # device work (a stack of the two scalars, then its kernel; a zeroed
+        # counter, then its count) beside this tree's wrappers
+        old_score = window_calls(big, geo, fine_t, coarse_t)["old"]
+        old_count = escapee_calls(big, geo)["old"]
+        score = {
+            "old": lambda: (torch.stack([denom, torch.full((), -100.0,
+                                                           device=dev)]),
+                            old_score())[1],
+            "new": lambda: window_score(fine_t, coarse_t, big, geo, denom, -100.0,
+                                        count=cnt)}
+        escape = {"old": old_count, "new": lambda: window_escapees(big, geo)}
+        check(torch.equal(score["new"](), window_score_plain(
+            fine_t, coarse_t, big, geo, denom, -100.0, count=cnt)),
+            "window_score wrapper != plain")
+        check(int(escape["new"]()) == int(window_escapees_plain(big, geo)),
+              "window_escapees wrapper != plain")
+        report("window_score corr op forms N=2x1000000, through the wrappers",
+               in_turns(score), results)
+        report("window_escapees N=2x1000000, through the wrappers",
+               in_turns(escape), results)
+        # yardsticks of the card's streaming rate on the same 24 MB of poses:
+        # a read (sum) and a read and write (clone)
+        report("yardsticks on the 2x1M poses",
+               in_turns({"sum": lambda: big.sum(), "clone": big.clone}), results)
+
+    if 7 in kernels:
+        # kernel 7: the beam LUT field at the beam path's fine and coarse builds
+        for tag, qt, s_lut in lut_inputs(gm, beam, ranges, angles):
+            b, k, nq = s_lut.shape
+            c = qt.shape[1]
+            out = torch.empty((b, c), device=dev)
+
+            def lut_call(lib, tile=None):
+                extra = () if tile is None else tile
+
+                def call():
+                    check(lib.mcmh_lut_field(qt.data_ptr(), s_lut.data_ptr(), b, k,
+                                             nq, c, *extra, out.data_ptr(),
+                                             stream) == 0, "launch failed")
+                    return out
+                return call
+
+            rule = lut_tiles(b, c)
+            calls = {"old": lut_call(old), f"rule {tuple(rule)}": lut_call(new, rule)}
+            calls.update({f"threads={t} bpar={bp}": lut_call(new, (t, bp))
+                          for t, bp in LUT_LAYOUTS})
+            tag = f"lut_field {tag} B={b} K={k} nq={nq} C={c}"
+            bitwise_calls(tag, calls, lut_field_plain(qt, s_lut))
+            report(tag, in_turns(calls), results)
+
+    if 2 in kernels:
+        # kernel 2: the corr lookup at the staged SMALL and BIG shapes
+        def lookup_calls(field, parts, geo, agg):
+            out = torch.empty(parts.shape[0], device=dev)
+            args = lookup_args(field, parts, cnt, geo, agg, True)
+
+            def call_of(p):
+                def call():
+                    tail = () if p is None else (p,)
+                    code = (old if p is None else new).mcmh_corr_lookup(
+                        *args, *tail, out.data_ptr(), stream)
+                    check(code == 0, "launch failed")
+                    return out
+                return call
+
+            return {"old": call_of(None), **{f"P={p}": call_of(p) for p in POSES}}
+
+        n_small = 130_048
+        geo_small = LookupGeometry(gm.origin_xy[0], gm.origin_xy[1], gm.inv_res,
+                                   cfg.corr_n_theta, tw, win, win, h, w,
+                                   kstart=kstart, window=(ox0, oy0))
+        geo_big = LookupGeometry(gm.origin_xy[0], gm.origin_xy[1], gm.inv_res,
+                                 cfg.corr_n_theta, cfg.corr_n_theta, h, w, h, w)
+        field_small = torch.randn((tw, win, win), generator=gen, device=dev)
+        small = init_gaussian(START, cov, 2 * n_small, gm, generator=gen)
+        for tag, field, parts, geo, agg in (
+                ("SMALL", field_small, small, geo_small, "mean"),
+                ("BIG", torch.randn((cfg.corr_n_theta, h, w), generator=gen,
+                                    device=dev),
+                 init_gaussian(START, cov, 2_000_000, gm, generator=gen), geo_big,
+                 "sum")):
+            calls = lookup_calls(field, parts, geo, agg)
+            tag = (f"corr_lookup {tag} N={parts.shape[0]} (rule: "
+                   f"P={_cuda.poses_per_thread(parts.shape[0])})")
+            bitwise_calls(tag, calls,
+                          corr_lookup_plain(field, parts, cnt, geo, agg, True))
+            report(tag, in_turns(calls), results)
+
+        # kernel 2: gather_2d at the paths' shapes
+        def gather_calls(table, y, x):
+            out = torch.empty(y.numel(), device=dev)
+            args = (table.data_ptr(), *table.shape, y.data_ptr(), x.data_ptr(),
+                    y.numel())
+
+            def call_of(p):
+                def call():
+                    tail = () if p is None else (p,)
+                    code = (old if p is None else new).mcmh_gather_2d(
+                        *args, *tail, out.data_ptr(), stream)
+                    check(code == 0, "launch failed")
+                    return out
+                return call
+
+            return {"old": call_of(None), **{f"P={p}": call_of(p) for p in POSES}}
+
+        tbin, myc, mxc, _, _ = corr_lookup_indices(small, geo_small)
+        gather_cases = [("SMALL window", field_small.reshape(tw * win, win),
+                         (tbin * win + myc).to(torch.int32).contiguous(),
+                         mxc.to(torch.int32).contiguous())]
+        retries = FilterConfig().motion_retries
+        for n_max in (state_size(FilterConfig()), 100_000):
+            gather_cases.append((f"free mask, {retries} retries x {n_max}",
+                                 gm.free_mask,
+                                 *free_mask_indices(gm, retries * n_max, gen, cov)))
+        gather_cases.append((
+            "table scorer, 2 x 1500 poses x 360 beams",
+            table_cell_major(beam.log_field.table),
+            *table_scorer_indices(gm, 2 * 1500, angles,
+                                  beam.config.beam_table_n_theta, gen, cov)))
+        for tag, table, y, x in gather_cases:
+            calls = gather_calls(table, y, x)
+            tag = (f"gather_2d {tag} table {tuple(table.shape)} N={y.numel()} "
+                   f"(rule: P={_cuda.poses_per_thread(y.numel())})")
+            bitwise_calls(tag, calls, gather_2d_plain(table, y, x))
+            report(tag, in_turns(calls), results)
+
     del beam
-    for tag, table, y, x in gather_cases:
-        calls = gather_calls(table, y, x)
-        tag = (f"gather_2d {tag} table {tuple(table.shape)} N={y.numel()} "
-               f"(rule: P={_cuda.poses_per_thread(y.numel())})")
-        bitwise_calls(tag, calls, gather_2d_plain(table, y, x))
-        report(tag, in_turns(calls), results)
-
     print(f"[ab] on {smi}")
     print(json.dumps({"device": smi, "results": results}))
     return 0

@@ -21,7 +21,10 @@
    exact scorer at 2x1500 and 2x100k poses in both cell forms (bitwise,
    with the lanes a pose it ran with), the 1M resampling expansion
    (bitwise on the path's raw bound and on one with injected dips, beside
-   ``torch.cummax`` of that bound) and take, and the beam LUT field at the
+   ``torch.cummax`` of that bound), the rank as indices (the same bounds,
+   and seven weight patterns, ``RANK_PATTERNS``, at num_out = 1M, 131 072
+   and a count under num_out, bitwise; uniform weights and one heavy
+   particle timed) and take, and the beam LUT field at the
    beam path's fine
    (B=24, K=96, 64^2) and coarse (B=24, 96^2) builds (beside their
    shared-memory floor: B*K*C four-byte reads at 128 bytes a clock on each
@@ -38,6 +41,13 @@
    SMALL (tracking) and BIG programs.  Checks the run ends in the SMALL
    program, estimates are finite, the final error is under 0.2 m, and the
    field build, lookup and expansion kernels all launched.
+   ``[online]``: the same configuration through the online facade,
+   ``OnlineLocalizer(staged=True)``: ``warmup`` (the generator's state
+   unchanged), then about 48 scans of the circle with three ``on_odom``
+   calls before each ``on_scan``; checks the hand-off to SMALL, an error
+   under 0.2 m, a checkpoint taken in SMALL whose resume replays the next
+   five estimates bitwise, and that the field build, lookup and expansion
+   kernels launched; prints the ms per ``on_scan`` of each program.
 5. ``[single]``: the single-program flagship (``make_model``): AMHAMCL at
    1M particles, the windowed corr scorer with its coarse fallback
    (ungated), 16 settle + 16 timed scans; error under 0.2 m, the window
@@ -179,6 +189,46 @@ def lut_inputs(gm, beam_model, ranges, angles) -> list:
     return [("fine", *fine_lut_inputs(tables, lp, angles, k, (oy0, ox0, kstart),
                                       win, tw, True)),
             ("coarse", *coarse_lut_inputs(lp, angles, tables, cfg, k))]
+
+
+# The weight patterns kernel 4 is held to (tests/test_torch_rank.py has the
+# same ones in numpy): where the slots of a draw go decides how its
+# expansion balances across the card.
+RANK_PATTERNS = ("uniform", "heavy first", "heavy last", "heavy middle",
+                 "1% of particles", "zero runs", "dips injected")
+
+
+def rank_bound(kind: str, r: int, num_out: int, gen, count=None) -> torch.Tensor:
+    """(r,) int32: the raw segment bound of a systematic draw of ``num_out``
+    slots (``count`` the stride, default ``num_out``) over weights of the
+    pattern ``kind``; "dips injected" lowers 4096 segment edges by one or
+    two below their predecessor, as a cumsum that lost an ulp does."""
+    from mcmh_localization_tpu_torch.ops.resampling import _segment_bounds
+
+    dev = gen.device
+    w = torch.zeros(r, device=dev)
+    if kind == "uniform":
+        w.fill_(1.0)
+    elif kind.startswith("heavy"):
+        w[{"heavy first": 0, "heavy last": r - 1, "heavy middle": r // 2}[kind]] = 1.0
+    elif kind == "1% of particles":
+        w[torch.randperm(r, generator=gen, device=dev)[:r // 100]] = 1.0
+    elif kind == "zero runs":
+        w = ((torch.arange(r, device=dev) // 50_000) % 3 == 1).float()
+    elif kind == "dips injected":
+        w = -torch.log(torch.rand(r, generator=gen, device=dev))
+    else:
+        raise ValueError(kind)
+    u = torch.rand((), generator=gen, device=dev)
+    bound = _segment_bounds(w / w.sum(), num_out,
+                            num_out if count is None else count, u)
+    if kind == "dips injected":
+        edges = torch.nonzero(bound[1:] > bound[:-1]).flatten() + 1
+        pick = edges[torch.randperm(edges.numel(), generator=gen,
+                                    device=dev)[:4096]]
+        drop = 1 + (torch.rand(pick.shape, generator=gen, device=dev) < 0.5).int()
+        bound[pick] = (bound[pick - 1] - drop).clamp(min=0).to(torch.int32)
+    return bound.contiguous()
 
 
 def check(cond, msg: str) -> None:
@@ -440,6 +490,41 @@ def window_score_row(fine_t, coarse_t, parts, geo, denom, n_valid,
         + gathered_bytes(coarse_t, n_esc), shapes=[])
 
 
+def rank_pattern_rows(r: int, gen) -> list:
+    """Kernel 4 under every weight pattern (RANK_PATTERNS) at R = r: a full
+    draw, the KLD stage-1 draw (131 072 slots) and one whose count is under
+    num_out, each bitwise against the plain version; then uniform weights
+    and all mass on the middle particle timed at both draw sizes."""
+    from mcmh_localization_tpu_torch.ops.rank import (
+        rank_in_sorted,
+        rank_in_sorted_plain,
+    )
+
+    dev = gen.device
+    timed = {}
+    for kind in RANK_PATTERNS:
+        for num_out, count in ((r, r), (131_072, r), (r, r // 3 + 5)):
+            bound = rank_bound(kind, r, num_out, gen, count=count)
+            cnt = torch.tensor(count, dtype=torch.int32, device=dev)
+            got = rank_in_sorted(bound, num_out, cnt)
+            check(torch.equal(got, rank_in_sorted_plain(bound, num_out, cnt)),
+                  f"rank_in_sorted {kind} num_out={num_out} count={count}: "
+                  "kernel != plain")
+            if kind in ("uniform", "heavy middle") and count == r:
+                timed[(kind, num_out)] = (bound, cnt)
+    print(f"[kernel] rank_in_sorted R={r}: bitwise under {len(RANK_PATTERNS)} "
+          "weight patterns x (num_out = R, num_out = 131072, count < num_out)")
+    rows = []
+    for (kind, num_out), (bound, cnt) in timed.items():
+        ms = device_ms(lambda: rank_in_sorted(bound, num_out, cnt))
+        pms = device_ms(lambda: rank_in_sorted_plain(bound, num_out, cnt))
+        rows.append(kernel_row(
+            "rank_in_sorted", "rank.cu", "rank_pallas.py:212",
+            f"{kind} R={r} num_out={num_out}", ms=ms, plain_ms=pms, err=0.0,
+            ops=r + num_out, nbytes=4 * r + 4 * num_out, on_main_path=False))
+    return rows
+
+
 def compare_kernels(gm, cfg, small_cfg, log_field, ranges, angles, rows):
     """Phase 3: each kernel vs its plain version at main-path shapes."""
     from mcmh_localization_tpu_torch.filter.init import init_gaussian
@@ -569,6 +654,13 @@ def compare_kernels(gm, cfg, small_cfg, log_field, ranges, angles, rows):
     check(injected > 1000, f"only {injected} dips injected")
     print(f"[kernel] segment bound R={n_big}: {natural} natural dips of the "
           f"card's cumsum; {injected} in the injected copy")
+    # the bound replays: its cumsum sums in one order (utils/f32.py), where
+    # the 1-D torch.cumsum on the card may not
+    one_d = {torch.cumsum(wts, 0).cpu().numpy().tobytes() for _ in range(16)}
+    check(all(torch.equal(_segment_bounds(wts, n_big, n_big, r), bound)
+              for _ in range(16)), "the segment bound differs between runs")
+    print(f"[kernel] 16 runs on the same 1M weights: torch.cumsum gave "
+          f"{len(one_d)} distinct results; the segment bound 1")
     # the count as the path holds it, a 0-d int32 on the card: a python int
     # would cost a pageable copy, which waits for the queue, every call
     cnt = torch.tensor(n_big, dtype=torch.int32, device=dev)
@@ -613,6 +705,7 @@ def compare_kernels(gm, cfg, small_cfg, log_field, ranges, angles, rows):
         print(f"[kernel] rank_in_sorted R={n_big} num_out={num_out}: "
               f"searchsorted of the running max {ss_r:.4f} ms, beside "
               f"torch.cummax {ms_cm:.4f} ms")
+    rank_rows += rank_pattern_rows(n_big, gen)
     rows.append({**exp_rows[0], "shapes": exp_rows[1:]})
     rows.append(gather_row)
     rows.append({**rank_rows[0], "shapes": rank_rows[1:]})
@@ -862,6 +955,105 @@ def compare_beam_kernel(gm, beam_model, ranges, angles, rows):
     next(r for r in rows if r["name"] == "window_score")["shapes"].append(row)
 
 
+ONLINE_SCANS = 3 * SCAN_LEN   # about 48 scans, three odometry messages each
+ONLINE_RESUME = 5             # scans replayed after the checkpoint
+
+
+def odom_between(a, b, k: int, n: int):
+    """The odometry pose k/n of the way from pose a to pose b (the heading
+    along the shorter turn)."""
+    turn = (b[2] - a[2] + math.pi) % (2 * math.pi) - math.pi
+    f = k / n
+    return (float(a[0] + f * (b[0] - a[0])), float(a[1] + f * (b[1] - a[1])),
+            float(a[2] + f * turn))
+
+
+def drive_online(cfg, gm, scans, angles, poses, smi) -> int:
+    """``[online]``: ``OnlineLocalizer(staged=True)`` at the main path's
+    configuration over ONLINE_SCANS scans of the circle, three ``on_odom``
+    calls before each ``on_scan``.  Checks that ``warmup`` leaves the
+    generator's state as it was, that the facade hands off to SMALL and
+    ends under 0.2 m, and that a checkpoint taken in SMALL and loaded again
+    replays the next ONLINE_RESUME scans' estimates bitwise.  Prints the ms
+    per ``on_scan`` (host clock; each ends in the estimate's copy to the
+    host) of each program.  Returns the scans it ran."""
+    import tempfile
+
+    from mcmh_localization_tpu_torch.filter.online import OnlineLocalizer
+
+    loc = OnlineLocalizer(cfg, gm, seed=0, staged=True,
+                          tracking_ess_threshold=0.9)
+    gen_before = loc.state.key.get_state().clone()
+    t0 = time.perf_counter()
+    loc.warmup(scans[0], angles)
+    warm_s = time.perf_counter() - t0
+    check(torch.equal(loc.state.key.get_state(), gen_before),
+          "[online] warmup moved the localizer's generator")
+    check(loc.last_info is None and not loc._in_small,
+          "[online] warmup changed the facade's state")
+    print(f"[online] warmup (one BIG and one SMALL throwaway step on copies "
+          f"of the generator) {warm_s:.2f} s; generator state unchanged")
+
+    def scan_step(t):
+        """Odometry from pose t - 1 to pose t in three messages, then scan t;
+        returns (estimate, program of the correct step, on_scan seconds)."""
+        a, b = poses[(t - 1) % SCAN_LEN], poses[t % SCAN_LEN]
+        for k in (1, 2, 3):
+            loc.on_odom(*odom_between(a, b, k, 3))
+        small = loc._in_small
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        est = loc.on_scan(scans[t % SCAN_LEN], angles)
+        return est, small, time.perf_counter() - t1
+
+    loc.on_odom(*map(float, poses[0]))
+    times = {False: [], True: []}
+    modes = []
+    saved_at = None
+    t = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "online.npz")
+        while t < ONLINE_SCANS:
+            t += 1
+            est, small, dt = scan_step(t)
+            times[small].append(dt)
+            modes.append(int(loc._in_small))
+            if (saved_at is None and loc._in_small
+                    and t >= ONLINE_SCANS - 2 * ONLINE_RESUME):
+                saved_at = t
+                loc.save_checkpoint(path)
+                replay = [scan_step(t + i)[0]["pose3"]
+                          for i in range(1, ONLINE_RESUME + 1)]
+                loc.load_checkpoint(path)
+                check(loc._in_small and loc.state.particles.shape[0]
+                      == loc._cap, "[online] the checkpoint did not resume SMALL")
+                loc.on_odom(*map(float, poses[t % SCAN_LEN]))
+                again = []
+                for i in range(1, ONLINE_RESUME + 1):
+                    est = scan_step(t + i)[0]
+                    again.append(est["pose3"])
+                check(replay == again, f"[online] the resumed estimates "
+                      f"{again} != {replay}")
+                print(f"[online] checkpoint at scan {t} in SMALL (capacity "
+                      f"{loc._cap}): the next {ONLINE_RESUME} estimates after "
+                      "load_checkpoint equal those without it, bitwise")
+                t += ONLINE_RESUME
+    truth = poses[t % SCAN_LEN]
+    err = float(np.hypot(est["pose3"][0] - truth[0], est["pose3"][1] - truth[1]))
+    check(saved_at is not None, "[online] never handed off to SMALL")
+    check(np.isfinite(est["pose3"]).all(), "[online] non-finite estimate")
+    check(err < 0.2, f"[online] final error {err:.3f} m >= 0.2 m")
+    print(f"[online] {t} scans, programs {modes} (1 = SMALL, the replayed "
+          f"scans not listed); final error {err:.4f} m")
+    for small, tag in ((False, "BIG"), (True, "SMALL")):
+        ts = times[small]
+        if ts:
+            print(f"[online] {tag} on_scan: {1e3 * float(np.mean(ts)):.4f} ms "
+                  f"mean, {1e3 * float(np.median(ts)):.4f} median over "
+                  f"{len(ts)} scans on {smi}")
+    return t + ONLINE_RESUME
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None,
@@ -891,6 +1083,7 @@ def main(argv=None) -> int:
 
     check("jax" not in sys.modules, "the port must not import jax")
 
+    stamps = [("setup", time.perf_counter())]  # the phases' starts: the build, map, scans
     # -- 2. build
     t0 = time.perf_counter()
     _cuda.library()
@@ -924,6 +1117,7 @@ def main(argv=None) -> int:
 
     staged = make_staged_model(cfg, gm, tracking_ess_threshold=0.9)
 
+    stamps.append(("kernel", time.perf_counter()))
     # -- 3. kernels vs plain versions
     rows: list[dict] = []
     single_cfg = cfg.replace(min_particles=1_000_000)
@@ -969,6 +1163,7 @@ def main(argv=None) -> int:
 
     to_profile = []
 
+    stamps.append(("main", time.perf_counter()))
     # -- 4. the staged main path
     _cuda.reset_launch_counts()
     state = staged.init(0)
@@ -1012,6 +1207,17 @@ def main(argv=None) -> int:
                    ("big", staged.big, big_state, ms_big)]
     del staged, out, big_state
 
+    stamps.append(("online", time.perf_counter()))
+    # -- 4b. the online facade on the main path's configuration
+    _cuda.reset_launch_counts()
+    online = drive_online(cfg, gm, scans, angles, poses, smi)
+    add_counts("online", _cuda.launch_counts(), online)
+    print(f"[online] kernel launches: {path_counts['online']}")
+    for name in ("corr_field_build", "corr_lookup", "expand_sorted"):
+        check(path_counts["online"].get(name, 0) > 0,
+              f"[online] {name} never launched")
+
+    stamps.append(("single", time.perf_counter()))
     # -- 5. the single-program flagship: make_model at 1M, ungated coarse
     # fallback, then its KLD twin and the 100k point with the gate of 8
     _cuda.reset_launch_counts()
@@ -1058,6 +1264,7 @@ def main(argv=None) -> int:
     check(path_counts["single"].get("window_escapees", 0) > 0,
           "[single] the gated run never counted escapees")
 
+    stamps.append(("exact", time.perf_counter()))
     # -- 6. the exact scorer: FilterConfig() in all six modes, then corr vs
     # exact at 1500 and 100k
     for mode in MODES:
@@ -1111,6 +1318,7 @@ def main(argv=None) -> int:
               f"{'corr' if n >= 8192 else 'exact'})")
     print(f"[exact] kernel launches: {path_counts['exact']}")
 
+    stamps.append(("beam", time.perf_counter()))
     # -- 7. the beam model: the score field at 100k and its ESS-gated twin,
     # then the range-table scorer at 1500
     for tag, model in (("field", beam),
@@ -1165,6 +1373,9 @@ def main(argv=None) -> int:
     print(f"[paths] launches per path: {json.dumps(path_counts)} over "
           f"scans {json.dumps(path_scans)}")
 
+    stamps.append(("end", time.perf_counter()))
+    print("[time] seconds by phase: " + ", ".join(
+        f"{a} {t1 - t0:.2f}" for (a, t0), (_, t1) in zip(stamps, stamps[1:])))
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
 

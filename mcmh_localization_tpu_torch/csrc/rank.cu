@@ -14,7 +14,8 @@
 // bound[i]).  The rank of v in M is the index of the first raw bound[j] > v,
 // so the running max never has to leave the card as a separate pass.
 //
-// Two launches on one stream:
+// expand_sorted (kernel 3): a memset of the look-back words and two
+// launches on one stream:
 //  1. running_max_kernel: a single-pass max-scan of the raw bound with
 //     decoupled look-back.  Tiles take their index from a counter in launch
 //     order, publish their aggregate and then their inclusive prefix in one
@@ -30,13 +31,40 @@
 //     forward with a block max-scan.  Rows are gathered in slot order
 //     (monotone, so the reads coalesce), staged in shared memory and
 //     stored as 16-byte vectors.
+//  Bound: bytes.  Each input read once and each output written once is
+//  4 R (bound) + 4 C R (particles) + 4 C num_out (out): 28 MB at R = num_out
+//  = 1M, C = 3; M adds 8 MB of scratch traffic.  The copy is bitwise.
 //
-// Bound: bytes.  Each input read once and each output written once is
-// 4 R (bound) + 4 C R (particles) + 4 C num_out (out): 28 MB at R = num_out
-// = 1M, C = 3; M adds 8 MB of scratch traffic.  The copy is bitwise.
-
+// rank_in_sorted (kernel 4): one launch, no memset, M kept on chip where
+// the weights allow.  Bound: bytes, 4 R + 4 num_out (8 MB at 1M / 1M).
+//  * Each block takes a ticket from a counter that wraps to 0 after the
+//    grid's last block (atomicInc), so it needs no zeroing; so does the
+//    count of finished tiles.  The first `tiles` tickets scan tiles of
+//    kRankTile particles with the decoupled look-back above; their status
+//    words, the piece count and the go word carry the call's epoch (a host
+//    counter), so words of earlier calls read as unset and nothing is
+//    zeroed between calls.
+//  * A scan tile holds its particles' M in registers.  Particle j owns the
+//    output slots of [M[j-1], M[j]) (j = 0 from -inf, j = R-1 to +inf),
+//    clipped to [0, cap], plus the tail past cap for the particle owning
+//    cap: a contiguous slot range, and the tile's particles together own the
+//    contiguous range [L, H).  A "light" tile (H - L <= kWindow slots, every
+//    tile under near-uniform weights) fills it itself: segment starts
+//    marked in shared memory, a block max-scan, coalesced stores.
+//  * A "heavy" tile (one particle, or a few, owning many slots) would write
+//    at one SM's store rate.  It writes its M to global scratch and cuts
+//    [L, H) into kPiece-slot pieces, each listed with its first and last
+//    owner (a search in shared memory), for the helper blocks: the last
+//    kHelpers tickets, which wait for the go word (set by the last tile to
+//    finish), then split the list among them.
+//  What holds it back: the look-back.  A tile's prefix waits on a chain of
+//  predecessors that advances 32 tiles a round trip, eight hops over the
+//  245 tiles of a 1M bound; the kernel reads about a fifth of its bound
+//  (0.0124 ms at 1M / 1M on an H100 80GB HBM3 at 700 W, against 0.0024).  A piece with one owner is a plain fill; any
+//    other is expanded as expand_kernel does, from the tile's M in L2.
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <climits>
 #include <cstdint>
 
@@ -201,16 +229,14 @@ __device__ int warp_rank_of(const int* __restrict__ mono, int r, int v) {
   return min(lo + __popc(le), r - 1);
 }
 
-template <bool kRows>
 __global__ void __launch_bounds__(kExpThreads)
 expand_kernel(const int* __restrict__ mono, int r,
               const float* __restrict__ particles, int c, int num_out,
-              const int* __restrict__ count, float* __restrict__ out_rows,
-              int* __restrict__ out_idx) {
+              const int* __restrict__ count, float* __restrict__ out_rows) {
   __shared__ int s_idx[kExpTile];
   __shared__ int s_warp[32];
   __shared__ int s_j[2];
-  __shared__ __align__(16) float s_rows[kRows ? kExpTile * kMaxCols : 1];
+  __shared__ __align__(16) float s_rows[kExpTile * kMaxCols];
   const int m0 = blockIdx.x * kExpTile;
   const int n = min(kExpTile, num_out - m0);
   int cap = num_out - 1;
@@ -243,12 +269,6 @@ expand_kernel(const int* __restrict__ mono, int r,
 #pragma unroll
   for (int i = 0; i < kExpItems; ++i) s_idx[p0 + i] = max(pre, v[i]);
   __syncthreads();
-  if (!kRows) {
-    for (int p = threadIdx.x; p < n; p += kExpThreads) {
-      out_idx[m0 + p] = s_idx[p];
-    }
-    return;
-  }
   const int nf = n * c;
   for (int q = threadIdx.x; q < nf; q += kExpThreads) {
     const int p = q / c;
@@ -283,24 +303,359 @@ cudaError_t launch_running_max(const int* bound, int r, int* mono,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// kernel 4: rank_in_sorted in one launch (see the header)
+
+constexpr int kRankThreads = 256;
+constexpr int kRankItems = 16;  // consecutive particles per thread
+constexpr int kRankTile = kRankThreads * kRankItems;
+constexpr int kWindow = 8192;   // slots a light tile fills itself
+constexpr int kWindowPadded = kWindow + kWindow / 32;
+constexpr int kPiece = 4096;    // slots a helper expands at a time
+constexpr int kPieceItems = kPiece / kRankThreads;
+constexpr int kHelpers = 264;   // two blocks for each of the card's 132 SMs
+constexpr unsigned int kEpochLimit = 1u << 30;
+
+// workspace words: the ticket counter, the finished-tile counter (both
+// wrap to 0 after the call's last increment), the go word (the epoch once
+// every tile has finished), the piece count, then one status word a tile
+constexpr int kTicket = 0;
+constexpr int kDone = 1;
+constexpr int kGo = 2;
+constexpr int kPieces = 3;
+constexpr int kStatus = 4;
+
+// a status word: epoch << 34 | flag << 32 | value
+__device__ __forceinline__ unsigned long long status_word(
+    unsigned int epoch, unsigned long long flag, int value) {
+  return (static_cast<unsigned long long>(epoch) << 34) | (flag << 32) |
+         static_cast<unsigned int>(value);
+}
+
+__device__ __forceinline__ unsigned long long status_flag(
+    unsigned long long s, unsigned int epoch) {
+  return (s >> 34) == epoch ? (s >> 32) & 3 : 0;
+}
+
+// add k to an epoch-tagged counter (epoch << 32 | count; a word of another
+// epoch counts 0); returns the count before.  Only heavy tiles add, once
+// each: a compare-and-swap loop that many blocks ran at once would queue
+// them all on one L2 line
+__device__ unsigned int bump_counter(unsigned long long* word,
+                                     unsigned int epoch, unsigned int k) {
+  unsigned long long old = *reinterpret_cast<volatile unsigned long long*>(word);
+  while (true) {
+    const unsigned int cnt =
+        (old >> 32) == epoch ? static_cast<unsigned int>(old) : 0u;
+    const unsigned long long want =
+        (static_cast<unsigned long long>(epoch) << 32) | (cnt + k);
+    const unsigned long long seen = atomicCAS(word, old, want);
+    if (seen == old) return cnt;
+    old = seen;
+  }
+}
+
+// the block's min of lo and max of hi, in every thread (s_warp: 32 ints)
+__device__ void block_min_max(int* lo, int* hi, int* s_warp) {
+  int a = *lo;
+  int b = *hi;
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    a = min(a, __shfl_xor_sync(0xffffffffu, a, d));
+    b = max(b, __shfl_xor_sync(0xffffffffu, b, d));
+  }
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    s_warp[warp] = a;
+    s_warp[16 + warp] = b;
+  }
+  __syncthreads();
+  a = INT_MAX;
+  b = INT_MIN;
+  for (int w = 0; w < (kRankThreads >> 5); ++w) {
+    a = min(a, s_warp[w]);
+    b = max(b, s_warp[16 + w]);
+  }
+  __syncthreads();
+  *lo = a;
+  *hi = b;
+}
+
+// slot k of a light tile's window in shared memory, one pad word every 32:
+// a thread's marks (about 16 apart) and its scan reads (32 apart) then
+// fall in distinct banks
+__device__ __forceinline__ int padded(int k) { return k + (k >> 5); }
+
+// the largest local particle whose slot range starts at or before s
+__device__ int owner_of(const int* s_start, int s) {
+  int lo = 0;
+  int hi = kRankTile;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (s_start[mid] <= s) lo = mid; else hi = mid;
+  }
+  return lo;
+}
+
+// one scan tile: its running max, then its slots (light) or its pieces
+// (heavy); returns after the tile counts itself finished
+__device__ void rank_scan_tile(const int* __restrict__ bound, int r,
+                               int num_out, int cap, int tile, int tiles,
+                               unsigned int epoch, unsigned long long* ws,
+                               int* __restrict__ mono, int4* pieces,
+                               int* __restrict__ out, int* s_warp, int* s_buf,
+                               int* s_misc) {
+  unsigned long long* status = ws + kStatus;
+  const int base = tile * kRankTile;
+  const int t0 = base + threadIdx.x * kRankItems;
+  int v[kRankItems];
+  const bool vec = (reinterpret_cast<uintptr_t>(bound) & 15) == 0;
+  if (vec && t0 + kRankItems <= r) {
+    const int4* src = reinterpret_cast<const int4*>(bound + t0);
+#pragma unroll
+    for (int i = 0; i < kRankItems / 4; ++i) {
+      const int4 q = __ldg(src + i);
+      v[4 * i] = q.x;
+      v[4 * i + 1] = q.y;
+      v[4 * i + 2] = q.z;
+      v[4 * i + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kRankItems; ++i) {
+      v[i] = t0 + i < r ? __ldg(bound + t0 + i) : INT_MIN;
+    }
+  }
+#pragma unroll
+  for (int i = 1; i < kRankItems; ++i) v[i] = max(v[i], v[i - 1]);
+  int agg;
+  const int excl = block_exclusive_max(v[kRankItems - 1], s_warp, &agg);
+  // decoupled look-back by one warp, 32 predecessors a round (as
+  // running_max_kernel; a block-wide round of 256 was timed slower: it
+  // waits for every predecessor's aggregate)
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    int prefix = INT_MIN;
+    if (tile == 0) {
+      if (lane == 0) atomicExch(status, status_word(epoch, 2, agg));
+    } else {
+      if (lane == 0) atomicExch(status + tile, status_word(epoch, 1, agg));
+      for (int end = tile - 1;; end -= 32) {
+        const int t = end - lane;
+        unsigned long long s = status_word(epoch, 2, INT_MIN);
+        if (t >= 0) {
+          // plain device-coherent reads: polling with atomics would queue
+          // every waiting warp on the same few L2 lines
+          const volatile unsigned long long* word = status + t;
+          while (status_flag(s = *word, epoch) == 0) __nanosleep(64);
+        }
+        const unsigned int done =
+            __ballot_sync(0xffffffffu, status_flag(s, epoch) == 2);
+        const int first = done ? __ffs(done) - 1 : 32;
+        int val = lane <= first ? static_cast<int>(static_cast<unsigned int>(s))
+                                : INT_MIN;
+#pragma unroll
+        for (int d = 16; d > 0; d >>= 1) {
+          val = max(val, __shfl_xor_sync(0xffffffffu, val, d));
+        }
+        prefix = max(prefix, val);
+        if (done) break;
+      }
+      if (lane == 0) {
+        atomicExch(status + tile, status_word(epoch, 2, max(prefix, agg)));
+      }
+    }
+    if (lane == 0) s_misc[0] = prefix;
+  }
+  __syncthreads();
+  // M of this thread's particles, and each one's slot range [lo, hi) and
+  // start (the lo of a particle with no slots is where the next one's
+  // begin, or INT_MAX past cap: nondecreasing, for owner_of)
+  int prev = max(s_misc[0], excl);
+  int lo[kRankItems];
+  int hi[kRankItems];
+  int tile_lo = INT_MAX;
+  int tile_hi = INT_MIN;
+#pragma unroll
+  for (int i = 0; i < kRankItems; ++i) {
+    v[i] = max(prev, v[i]);
+    const int j = t0 + i;
+    const int a = prev;  // M[j - 1]; INT_MIN for j = 0
+    const int b = j == r - 1 ? INT_MAX : v[i];
+    if (j >= r || a > cap) {
+      lo[i] = INT_MAX;
+      hi[i] = INT_MAX;
+    } else {
+      lo[i] = max(a, 0);
+      hi[i] = b > cap ? num_out : b;
+      if (hi[i] > lo[i]) {
+        tile_lo = min(tile_lo, lo[i]);
+        tile_hi = max(tile_hi, hi[i]);
+      }
+    }
+    prev = v[i];
+  }
+  block_min_max(&tile_lo, &tile_hi, s_warp);
+  if (tile_lo < tile_hi && tile_hi - tile_lo <= kWindow) {
+    // light: mark each particle's first slot, fill forward, store
+    const int n = tile_hi - tile_lo;
+    for (int k = threadIdx.x; k < kWindowPadded; k += kRankThreads) {
+      s_buf[k] = -1;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kRankItems; ++i) {
+      if (hi[i] > lo[i] && lo[i] != INT_MAX) {
+        s_buf[padded(lo[i] - tile_lo)] = threadIdx.x * kRankItems + i;
+      }
+    }
+    __syncthreads();
+    constexpr int kPer = kWindow / kRankThreads;
+    int x[kPer];
+    const int k0 = threadIdx.x * kPer;
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) x[q] = s_buf[padded(k0 + q)];
+#pragma unroll
+    for (int q = 1; q < kPer; ++q) x[q] = max(x[q], x[q - 1]);
+    int total;
+    const int pre = block_exclusive_max(x[kPer - 1], s_warp, &total);
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) s_buf[padded(k0 + q)] = max(pre, x[q]);
+    __syncthreads();
+    for (int k = threadIdx.x; k < n; k += kRankThreads) {
+      out[tile_lo + k] = base + s_buf[padded(k)];
+    }
+  } else if (tile_lo < tile_hi) {
+    // heavy: M to scratch, [L, H) to the piece list
+    if (t0 + kRankItems <= r) {
+      int4* dst = reinterpret_cast<int4*>(mono + t0);
+#pragma unroll
+      for (int i = 0; i < kRankItems / 4; ++i) {
+        dst[i] = make_int4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kRankItems; ++i) {
+        if (t0 + i < r) mono[t0 + i] = v[i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kRankItems; ++i) {
+      s_buf[threadIdx.x * kRankItems + i] = lo[i];
+    }
+    const int n_pieces = (tile_hi - tile_lo + kPiece - 1) / kPiece;
+    if (threadIdx.x == 0) {
+      s_misc[1] = static_cast<int>(bump_counter(ws + kPieces, epoch, n_pieces));
+    }
+    __syncthreads();
+    const int pos = s_misc[1];
+    for (int p = threadIdx.x; p < n_pieces; p += kRankThreads) {
+      const int s0 = tile_lo + p * kPiece;
+      const int s1 = min(tile_hi, s0 + kPiece);
+      pieces[pos + p] = make_int4(s0, s1, base + owner_of(s_buf, s0),
+                                  base + owner_of(s_buf, s1 - 1));
+    }
+  }
+  // the tile's slots, M and pieces are written: count it finished; the
+  // last tile to finish (its increment wraps the counter to 0) lets the
+  // helpers go
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned int before = atomicInc(
+        reinterpret_cast<unsigned int*>(ws + kDone), tiles - 1);
+    if (before == static_cast<unsigned int>(tiles - 1)) {
+      __threadfence();
+      atomicExch(ws + kGo, static_cast<unsigned long long>(epoch));
+    }
+  }
+}
+
+// one helper block: wait for every tile, then expand its share of pieces
+__device__ void rank_helper(int helper, int helpers,
+                            unsigned int epoch, unsigned long long* ws,
+                            const int* mono, const int4* pieces,
+                            int* __restrict__ out, int* s_warp, int* s_idx,
+                            int* s_misc) {
+  if (threadIdx.x == 0) {
+    const volatile unsigned long long* go = ws + kGo;
+    while (*go != epoch) __nanosleep(128);
+    __threadfence();
+    const unsigned long long n =
+        *reinterpret_cast<volatile unsigned long long*>(ws + kPieces);
+    s_misc[0] = (n >> 32) == epoch ? static_cast<int>(static_cast<unsigned int>(n)) : 0;
+  }
+  __syncthreads();
+  const int n_pieces = s_misc[0];
+  for (int p = helper; p < n_pieces; p += helpers) {
+    const int4 e = __ldcg(pieces + p);  // (s0, s1, first owner, last owner)
+    const int m0 = e.x;
+    const int n = e.y - e.x;
+    if (e.z == e.w) {  // one owner: a fill
+      for (int k = threadIdx.x; k < n; k += kRankThreads) out[m0 + k] = e.z;
+      continue;
+    }
+    // as expand_kernel: particle j in (first, last] starts at slot M[j - 1]
+    for (int k = threadIdx.x; k < kPiece; k += kRankThreads) s_idx[k] = INT_MIN;
+    __syncthreads();
+    if (threadIdx.x == 0) s_idx[0] = e.z;
+    for (int j = e.z + 1 + threadIdx.x; j <= e.w; j += kRankThreads) {
+      atomicMax(&s_idx[__ldcg(mono + j - 1) - m0], j);
+    }
+    __syncthreads();
+    int x[kPieceItems];
+    const int k0 = threadIdx.x * kPieceItems;
+#pragma unroll
+    for (int q = 0; q < kPieceItems; ++q) x[q] = s_idx[k0 + q];
+#pragma unroll
+    for (int q = 1; q < kPieceItems; ++q) x[q] = max(x[q], x[q - 1]);
+    int total;
+    const int pre = block_exclusive_max(x[kPieceItems - 1], s_warp, &total);
+#pragma unroll
+    for (int q = 0; q < kPieceItems; ++q) s_idx[k0 + q] = max(pre, x[q]);
+    __syncthreads();
+    for (int k = threadIdx.x; k < n; k += kRankThreads) out[m0 + k] = s_idx[k];
+    __syncthreads();  // s_idx is reused by the next piece
+  }
+}
+
+// two blocks an SM at least (at most 128 registers a thread): every tile
+// of a 1M bound, and the first helpers, resident at once
+__global__ void __launch_bounds__(kRankThreads, 2)
+rank_kernel(const int* __restrict__ bound, int r, int num_out,
+            const int* __restrict__ count, int tiles, int helpers,
+            unsigned int epoch, unsigned long long* ws, int* mono,
+            int4* pieces, int* __restrict__ out) {
+  __shared__ int s_warp[32];
+  __shared__ int s_misc[2];
+  __shared__ int s_ticket;
+  __shared__ int s_buf[kWindowPadded];
+  if (threadIdx.x == 0) {
+    s_ticket = static_cast<int>(atomicInc(
+        reinterpret_cast<unsigned int*>(ws + kTicket), tiles + helpers - 1));
+  }
+  __syncthreads();
+  const int ticket = s_ticket;
+  int cap = num_out - 1;
+  if (count != nullptr) cap = min(*count - 1, cap);
+  if (ticket < tiles) {
+    rank_scan_tile(bound, r, num_out, cap, ticket, tiles, epoch, ws, mono,
+                   pieces, out, s_warp, s_buf, s_misc);
+  } else {
+    rank_helper(ticket - tiles, helpers, epoch, ws, mono, pieces,
+                out, s_warp, s_buf, s_misc);
+  }
+}
+
+int rank_tiles(int r) { return (r + kRankTile - 1) / kRankTile; }
+
+int rank_piece_capacity(int r, int num_out) {
+  return (num_out + kPiece - 1) / kPiece + rank_tiles(r);
+}
+
 }  // namespace
 
 extern "C" int mcmh_rank_scratch_words(int r) { return scan_tiles(r) + 1; }
-
-extern "C" int mcmh_rank_in_sorted(const int* bound, int r, int num_out,
-                                   const int* count, int* mono,
-                                   unsigned long long* scratch, int* out,
-                                   void* stream) {
-  if (num_out <= 0) return 0;
-  if (r <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_running_max(bound, r, mono, scratch, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  expand_kernel<false><<<(num_out + kExpTile - 1) / kExpTile, kExpThreads, 0,
-                         s>>>(mono, r, nullptr, 0, num_out, count, nullptr,
-                              out);
-  return static_cast<int>(cudaGetLastError());
-}
 
 extern "C" int mcmh_expand_sorted(const int* bound, int r,
                                   const float* particles, int c, int num_out,
@@ -314,8 +669,39 @@ extern "C" int mcmh_expand_sorted(const int* bound, int r,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = launch_running_max(bound, r, mono, scratch, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  expand_kernel<true><<<(num_out + kExpTile - 1) / kExpTile, kExpThreads, 0,
-                        s>>>(mono, r, particles, c, num_out, count, out,
-                             nullptr);
+  expand_kernel<<<(num_out + kExpTile - 1) / kExpTile, kExpThreads, 0, s>>>(
+      mono, r, particles, c, num_out, count, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int mcmh_rank_workspace_words(int r) {
+  return kStatus + rank_tiles(r);
+}
+
+extern "C" int mcmh_rank_piece_capacity(int r, int num_out) {
+  return rank_piece_capacity(r, num_out);
+}
+
+extern "C" unsigned int mcmh_rank_epoch_limit() { return kEpochLimit; }
+
+// ``ws``: mcmh_rank_workspace_words(r) 64-bit words, zeroed once when
+// allocated and kept across calls on one stream; ``epoch``: in
+// [1, mcmh_rank_epoch_limit()), one more than the previous call's on this
+// workspace; ``mono``: R ints and ``pieces``: mcmh_rank_piece_capacity
+// int4s of scratch, uninitialized.
+extern "C" int mcmh_rank_in_sorted(const int* bound, int r, int num_out,
+                                   const int* count, unsigned int epoch,
+                                   unsigned long long* ws, int* mono,
+                                   int* pieces, int* out, void* stream) {
+  if (num_out <= 0) return 0;
+  if (r <= 0 || epoch == 0 || epoch >= kEpochLimit) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int tiles = rank_tiles(r);
+  const int helpers = std::min(kHelpers, rank_piece_capacity(r, num_out));
+  rank_kernel<<<tiles + helpers, kRankThreads, 0,
+                static_cast<cudaStream_t>(stream)>>>(
+      bound, r, num_out, count, tiles, helpers, epoch, ws, mono,
+      reinterpret_cast<int4*>(pieces), out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,10 +6,12 @@ from mcmh_localization_tpu_torch.filter.step import (
     FilterModel,
     StepInfo,
     make_model,
+    make_run,
+    make_step,
     state_size,
 )
 
-# the JAX package's filter exports, less make_step and make_run (not ported)
+# the JAX package's filter exports
 __all__ = [
     "FilterState",
     "symmetric_mh",
@@ -18,6 +20,8 @@ __all__ = [
     "init_gaussian",
     "estimate_pose",
     "PoseEstimate",
+    "make_step",
+    "make_run",
     "make_model",
     "FilterModel",
     "StepInfo",

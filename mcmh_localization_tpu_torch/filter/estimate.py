@@ -72,3 +72,14 @@ def cluster_mass(particles: torch.Tensor, weights: torch.Tensor,
     w = torch.where(mask, weights, 0.0) if mask is not None else weights
     near = _near(particles, pose, radius_xy, radius_theta)
     return torch.where(near, w, 0.0).sum()
+
+
+COV6_SLOTS = (0, 1, 5, 6, 7, 11, 30, 31, 35)
+
+
+def covariance_6x6(cov3: torch.Tensor) -> torch.Tensor:
+    """Pack a 3x3 (x, y, theta) covariance into the ROS flat 6x6 layout
+    (x, y, z, rot_x, rot_y, rot_z) used at amcmh_localizer.py:606-620."""
+    flat = torch.zeros(36, dtype=cov3.dtype, device=cov3.device)
+    idx = torch.tensor(COV6_SLOTS, device=cov3.device)
+    return flat.index_copy(0, idx, cov3.reshape(9))

@@ -671,3 +671,26 @@ def make_model(config, grid_map, voxel_map=None) -> FilterModel:
         raise NotImplementedError(
             "voxel_map: 3-D lidar (maps/voxel_map.py) is ROADMAP item 14")
     return FilterModel(config, grid_map)
+
+
+def make_step(config, grid_map, voxel_map=None):
+    """(predict, correct, step, log_field) for a config and map: the JAX
+    ``make_step``'s four results, as plain closures over one
+    ``FilterModel`` (PyTorch runs eagerly: there is nothing to jit)."""
+    model = make_model(config, grid_map, voxel_map)
+
+    def predict(state, delta, draws: Draws | None = None):
+        return model.predict(state, delta, draws)
+
+    def correct(state, ranges, angles, draws: Draws | None = None):
+        return model.correct(state, ranges, angles, draws)
+
+    def step(state, ranges, angles, delta, draws: Draws | None = None):
+        return model.step(state, ranges, angles, delta, draws)
+
+    return predict, correct, step, model.log_field
+
+
+def make_run(config, grid_map):
+    """The trajectory runner of ``make_model(config, grid_map)``."""
+    return make_model(config, grid_map).run

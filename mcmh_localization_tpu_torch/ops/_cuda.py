@@ -81,7 +81,10 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _F, _F, _I, _P, _P,
     ),
     "mcmh_rank_scratch_words": (_I,),
-    "mcmh_rank_in_sorted": (_P, _I, _I, _P, _P, _P, _P, _P),
+    "mcmh_rank_workspace_words": (_I,),
+    "mcmh_rank_piece_capacity": (_I, _I),
+    "mcmh_rank_epoch_limit": (),
+    "mcmh_rank_in_sorted": (_P, _I, _I, _P, ctypes.c_uint, _P, _P, _P, _P, _P),
     "mcmh_expand_sorted": (_P, _I, _P, _I, _I, _P, _P, _P, _P, _P),
     "mcmh_window_score": (
         _P, _P, _P, _I, _P, _F, _P, _F, _P, WindowArgs, _I, _P, _P,
@@ -173,6 +176,7 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = list(args)
             fn.restype = ctypes.c_int
+        lib.mcmh_rank_epoch_limit.restype = ctypes.c_uint
         lib.mcmh_error_string.argtypes = [ctypes.c_int]
         lib.mcmh_error_string.restype = ctypes.c_char_p
         _lib = lib

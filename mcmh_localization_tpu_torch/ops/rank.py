@@ -11,8 +11,10 @@ or past ``count`` repeat slot ``count - 1`` (the TPU kernel's tail rule).
 That rank is the index of the first raw ``bound[j] > m``, so the result is
 bitwise the JAX function's on ``jax.lax.cummax(bound)``.  The TPU kernel's
 windowed merge, its DMA windows and its ``lax.cond`` scatter fallback are
-TPU mechanics: the CUDA version scans the bound once and expands tiles of
-output slots, exact for any weights.
+TPU mechanics: the CUDA versions scan the bound once and expand, exact for
+any weights.  ``rank_in_sorted`` is one launch that keeps a small
+workspace across calls (``_Workspace``); ``expand_sorted`` launches the
+scan and the expansion after a memset.
 """
 
 from __future__ import annotations
@@ -22,9 +24,9 @@ import torch
 from mcmh_localization_tpu_torch.ops import _cuda
 
 MAX_COLS = 4  # csrc/rank.cu's kMaxCols: particle columns staged per slot
-# each call launches the scan and the expansion (after a memset of the
+# expand_sorted launches the scan and the expansion (after a memset of the
 # look-back words); the launch count counts both kernels
-_KERNELS_PER_CALL = 2
+_EXPAND_KERNELS = 2
 
 
 def _slot_values(num_out: int, count, device) -> torch.Tensor:
@@ -69,6 +71,35 @@ def _check_bound(name: str, bound: torch.Tensor) -> None:
         raise ValueError(f"{name}: bound must be 1-D int32, not empty")
 
 
+class _Workspace:
+    """csrc/rank.cu's kernel-4 workspace on one stream: the ticket and
+    finished-tile counters (each call leaves them at 0), the go word, the
+    piece count and the look-back status words (tagged with the call's
+    epoch), zeroed once when made, so no call zeroes them.  Calls on one
+    stream run in order; each stream has its own workspace."""
+
+    _by_stream: dict = {}
+
+    def __init__(self, words: int, device):
+        self.words = torch.zeros(words, dtype=torch.int64, device=device)
+        self.epoch = 0
+
+    @classmethod
+    def next_epoch(cls, bound: torch.Tensor):
+        """(words tensor, epoch) for the next call on ``bound``'s stream."""
+        lib = _cuda.library()
+        need = lib.mcmh_rank_workspace_words(bound.shape[0])
+        key = (bound.device, _cuda.stream_of(bound))
+        ws = cls._by_stream.get(key)
+        if ws is None or ws.words.numel() < need:
+            ws = cls._by_stream[key] = cls(need, bound.device)
+        ws.epoch += 1
+        if ws.epoch >= lib.mcmh_rank_epoch_limit():
+            ws.words.zero_()
+            ws.epoch = 1
+        return ws.words, ws.epoch
+
+
 def rank_in_sorted(bound: torch.Tensor, num_out: int,
                    count=None) -> torch.Tensor:
     """(num_out,) int32 ranks of the output slots in the running max of
@@ -79,14 +110,21 @@ def rank_in_sorted(bound: torch.Tensor, num_out: int,
     _cuda.require_cuda("rank_in_sorted", bound,
                        *(() if cnt is None else (cnt,)))
     _check_bound("rank_in_sorted", bound)
-    mono, scratch = _scan_buffers(bound)
+    lib = _cuda.library()
+    r = bound.shape[0]
+    words, epoch = _Workspace.next_epoch(bound)
+    # scratch for heavy tiles only: their running max and their pieces
+    mono = torch.empty(r, dtype=torch.int32, device=bound.device)
+    pieces = torch.empty((lib.mcmh_rank_piece_capacity(r, num_out), 4),
+                         dtype=torch.int32, device=bound.device)
     out = torch.empty(num_out, dtype=torch.int32, device=bound.device)
-    code = _cuda.library().mcmh_rank_in_sorted(
-        bound.data_ptr(), bound.shape[0], num_out,
-        None if cnt is None else cnt.data_ptr(), mono.data_ptr(),
-        scratch.data_ptr(), out.data_ptr(), _cuda.stream_of(bound),
+    code = lib.mcmh_rank_in_sorted(
+        bound.data_ptr(), r, num_out,
+        None if cnt is None else cnt.data_ptr(), epoch, words.data_ptr(),
+        mono.data_ptr(), pieces.data_ptr(), out.data_ptr(),
+        _cuda.stream_of(bound),
     )
-    _cuda.check_launch("rank_in_sorted", code, kernels=_KERNELS_PER_CALL)
+    _cuda.check_launch("rank_in_sorted", code)
     return out
 
 
@@ -115,5 +153,5 @@ def expand_sorted(bound: torch.Tensor, particles: torch.Tensor, num_out: int,
         None if cnt is None else cnt.data_ptr(), mono.data_ptr(),
         scratch.data_ptr(), out.data_ptr(), _cuda.stream_of(bound),
     )
-    _cuda.check_launch("expand_sorted", code, kernels=_KERNELS_PER_CALL)
+    _cuda.check_launch("expand_sorted", code, kernels=_EXPAND_KERNELS)
     return out

@@ -20,7 +20,7 @@ import torch
 
 from mcmh_localization_tpu_torch.ops.rank import expand_sorted, rank_in_sorted
 from mcmh_localization_tpu_torch.ops.take import take_rows_monotone
-from mcmh_localization_tpu_torch.utils.f32 import divide, scalar
+from mcmh_localization_tpu_torch.utils.f32 import cumsum, divide, scalar
 
 # Per-sample jitter applied by KLD sampling (parallel_utils.py:552)
 KLD_NOISE_STD = (0.001, 0.001, 0.02)
@@ -61,7 +61,7 @@ def _segment_bounds(weights: torch.Tensor, num_out: int, count=None,
         denom = float(num_out)
     else:
         denom = torch.as_tensor(count, device=weights.device).to(torch.float32)
-    c = torch.cumsum(weights, dim=0)
+    c = cumsum(weights)  # one association on every run: a resume replays
     c = c / torch.clamp(c[-1], min=1e-30)
     return torch.clamp(torch.ceil(c * denom - r), 0, num_out).to(torch.int32)
 
@@ -109,7 +109,7 @@ def multinomial_resample_indices(weights: torch.Tensor, num_out: int,
     None), clipped to the last index (JAX resampling.py:188-193)."""
     if u is None:
         u = torch.rand((num_out,), generator=generator, device=weights.device)
-    c = torch.cumsum(weights, dim=0)
+    c = cumsum(weights)
     c = c / torch.clamp(c[-1], min=1e-30)
     idx = torch.searchsorted(c, u.to(c.dtype), right=False)
     return idx.clamp(max=weights.shape[0] - 1).to(torch.int32)

@@ -22,7 +22,7 @@ from tests.test_torch_ops import torch_one_thread  # noqa: E402,F401
 # JAX exports the port does not have yet, each with the ROADMAP item that
 # ports it ("Not ported": the port keeps another form on purpose)
 UNPORTED = {
-    "filter": {"make_step": "item 10", "make_run": "item 10"},
+    "filter": {},
     "models": {},
     "ops": {},
     "maps": {
@@ -31,8 +31,7 @@ UNPORTED = {
         "VoxelMap": "item 14", "build_voxel_map": "item 14",
         "nav_slice": "item 14", "raycast3d": "item 14",
         "save_voxel_map": "item 14", "load_voxel_map": "item 14"},
-    "utils": {"yaw_from_quaternion": "item 10",
-              "quaternion_from_yaw": "item 10"},
+    "utils": {},
     "io": {"read_rosbag": "item 12", "write_rosbag": "item 12",
            "read_rosbag2": "item 12", "write_rosbag2": "item 12"},
 }

@@ -141,3 +141,122 @@ def test_kld_one_bound_matches_two_bound_form(monkeypatch, case):
         assert int(k_one) > 1024
     if case == "stage1_stop":
         assert min_p <= int(k_one) <= 1024
+
+
+# ---------------------------------------------------------------------------
+# kernel 4 under the weight patterns that stress its load balance
+# ---------------------------------------------------------------------------
+
+PATTERNS = ["uniform", "heavy first", "heavy last", "heavy middle",
+            "1% of particles", "zero runs", "dips injected"]
+# (num_out, count, the bound's stride): a full draw; count < num_out (the
+# tail repeats slot count - 1); num_out < R, the KLD stage-1 shape scaled
+# down (a bound at stride R clamped at num_out)
+SHAPES = {"full": (N, None, N), "count_lt_out": (N, N // 3 + 5, N // 3 + 5),
+          "out_lt_r": (N // 8, N, N)}
+
+
+def _pattern_bound(kind, rng, num_out, stride):
+    """The raw bound of a systematic draw over weights of ``kind`` (the
+    patterns of chip_smoke.py::rank_bound, at this size)."""
+    w = np.zeros(N)
+    if kind == "uniform":
+        w[:] = 1.0
+    elif kind.startswith("heavy"):
+        w[{"heavy first": 0, "heavy last": N - 1, "heavy middle": N // 2}[kind]] = 1.0
+    elif kind == "1% of particles":
+        w[rng.choice(N, N // 100, replace=False)] = 1.0
+    elif kind == "zero runs":
+        w = ((np.arange(N) // (N // 20)) % 3 == 1).astype(np.float64)
+    else:
+        w = rng.exponential(size=N)
+    w = torch.from_numpy((w / w.sum()).astype(np.float32))
+    r = torch.tensor(np.float32(rng.random()))
+    b = tres._segment_bounds(w, num_out, stride, r).numpy().copy()
+    if kind == "dips injected":
+        edges = np.flatnonzero(np.diff(b) > 0) + 1
+        for i in rng.choice(edges, size=min(256, edges.size), replace=False):
+            b[i] = max(b[i - 1] - rng.integers(1, 3), 0)
+        assert (np.diff(b) < 0).sum() > 10
+    return b.astype(np.int32)
+
+
+def _kernel4_model(bound, num_out, count, tile, window, piece):
+    """csrc/rank.cu's kernel 4 in numpy, one tile at a time: each particle's
+    slot range from the running max, a light tile's marks and max-scan, a
+    heavy tile's pieces with their first and last owner, each piece a fill
+    or an expansion from M.  -1 where no block wrote."""
+    r = bound.size
+    big = np.iinfo(np.int64).max
+    mono = np.maximum.accumulate(bound.astype(np.int64))
+    cap = num_out - 1 if count is None else min(count - 1, num_out - 1)
+    prev = np.concatenate([[np.iinfo(np.int64).min], mono[:-1]])
+    b = mono.copy()
+    b[-1] = big
+    past = prev > cap
+    lo = np.where(past, big, np.maximum(prev, 0))
+    hi = np.where(past, big, np.where(b > cap, num_out, b))
+    live = hi > lo
+    out = np.full(num_out, -1, np.int64)
+    pieces = []
+    for t0 in range(0, r, tile):
+        s = slice(t0, min(t0 + tile, r))
+        if not live[s].any():
+            continue
+        lo_t, hi_t, live_t = lo[s], hi[s], live[s]
+        first, last = lo_t[live_t].min(), hi_t[live_t].max()
+        if last - first <= window:
+            marks = np.full(last - first, -1, np.int64)
+            marks[lo_t[live_t] - first] = np.flatnonzero(live_t)
+            out[first:last] = t0 + np.maximum.accumulate(marks)
+            continue
+        start = np.full(tile, big)
+        start[:lo_t.size] = lo_t
+        for s0 in range(first, last, piece):
+            s1 = min(last, s0 + piece)
+            j0, j1 = (t0 + np.searchsorted(start, x, side="right") - 1
+                      for x in (s0, s1 - 1))
+            pieces.append((s0, s1, j0, j1))
+    for s0, s1, j0, j1 in pieces:
+        idx = np.full(piece, np.iinfo(np.int64).min)
+        idx[0] = j0
+        for j in range(j0 + 1, j1 + 1):
+            idx[mono[j - 1] - s0] = max(idx[mono[j - 1] - s0], j)
+        out[s0:s1] = np.maximum.accumulate(idx)[:s1 - s0]
+    return out, len(pieces)
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+@pytest.mark.parametrize("kind", PATTERNS)
+def test_rank_patterns_bitwise_vs_jax_interpret(kind, shape):
+    """Kernel 4's contract under each pattern: the port (the plain version
+    on the CPU) and JAX's kernel in interpret mode on jax.lax.cummax of the
+    same raw bound, bitwise, tail included."""
+    num_out, count, stride = SHAPES[shape]
+    rng = np.random.default_rng(PATTERNS.index(kind))
+    raw = _pattern_bound(kind, rng, num_out, stride)
+    got = rank_in_sorted(torch.from_numpy(raw), num_out, count=count).numpy()
+    want = np.asarray(j_rank(jax.lax.cummax(jnp.asarray(raw)), num_out,
+                             count=None if count is None else jnp.int32(count),
+                             interpret=True))
+    np.testing.assert_array_equal(got, want)
+    if count is not None and count < num_out:
+        assert (got[count:] == got[count - 1]).all()
+
+
+@pytest.mark.parametrize("layout", [(256, 512, 64), (4096, 8192, 4096)],
+                         ids=["scaled", "kernel"])
+@pytest.mark.parametrize("shape", list(SHAPES))
+@pytest.mark.parametrize("kind", PATTERNS)
+def test_kernel4_partition_model_matches_plain(kind, shape, layout):
+    """The kernel's reasoning, in numpy at its own tile, window and piece
+    sizes and at a scaled-down set that makes more tiles heavy: every slot
+    written once, equal to the plain version."""
+    num_out, count, stride = SHAPES[shape]
+    rng = np.random.default_rng(PATTERNS.index(kind))
+    raw = _pattern_bound(kind, rng, num_out, stride)
+    got, n_pieces = _kernel4_model(raw, num_out, count, *layout)
+    want = rank_in_sorted(torch.from_numpy(raw), num_out, count=count).numpy()
+    np.testing.assert_array_equal(got, want)
+    if kind.startswith("heavy") and num_out > layout[1]:
+        assert n_pieces > 0  # the heavy path ran

@@ -142,3 +142,28 @@ def test_kld_resample_matches_jax_on_shared_draws(monkeypatch, case):
         assert n_kept > 1024               # the full draw decided the stop
     if case in ("stage1_stop", "monolithic"):
         assert min_p <= n_kept < count     # the stop fired
+
+
+@pytest.mark.parametrize("n", [1, 7, 1024, 1025, 70_000, 1_100_000])
+def test_resampling_cdf_has_one_fixed_association(n):
+    """The resampling CDF's cumsum (utils/f32.py::cumsum) sums in one order
+    on every device and run: on the card the 1-D torch.cumsum does not (two
+    runs differed by an ulp, so a checkpoint resume did not replay its
+    estimates bitwise; ROADMAP §3).  At every length around its row of
+    1024 it is the exact sum within f32 rounding, it repeats bitwise, and
+    the segment bound is built on it."""
+    from mcmh_localization_tpu_torch.utils import f32
+
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.exponential(size=n).astype(np.float32))
+    got = f32.cumsum(x)
+    assert got.shape == (n,) and got.dtype == torch.float32
+    assert torch.equal(got, f32.cumsum(x.clone()))
+    exact = np.cumsum(x.numpy().astype(np.float64))
+    assert np.abs(got.numpy() - exact).max() <= 1e-6 * exact[-1]
+    w = x / x.sum()
+    r = torch.tensor(np.float32(0.37))
+    c = f32.cumsum(w)
+    c = c / torch.clamp(c[-1], min=1e-30)
+    want = torch.clamp(torch.ceil(c * float(n) - r), 0, n).to(torch.int32)
+    assert torch.equal(tres._segment_bounds(w, n, None, r), want)

@@ -65,7 +65,17 @@
    timed scans, error under 0.2 m, the LUT field and the window score
    launched every scan; then its ESS-gated twin (0.9), and the range-table
    scorer at 1500 particles (error under 0.25 m, ``gather_2d`` launched).
-8. Prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` as
+8. ``[eval]``: the experiment runner (``eval/runner.py``) through its CLI
+   on the card: the house map written as PGM + YAML and the ``[main]``
+   configuration as a params YAML; a simulated ``square`` bag (30 s at
+   5 Hz, 360 beams, 0.01 m range noise), round-tripped through npz
+   (bitwise), ROS1 and ROS2 bag files; ``single --staged`` at 1M / 100k
+   (RMSE under 0.2 m, a hand-off, the results file and 178 metrics lines,
+   kernels 1-3 launched) and ``FilterConfig()`` at 1500 particles (RMSE
+   under 0.25 m, the exact scorer, ``gather_2d`` and the expansion
+   launched), each with its ms/scan by the host clock; ``warmup_staged``
+   timed, the generator's state unchanged.
+9. Prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` as
    the last line.
 
 ``--profile DIR`` also writes torch.profiler tables and traces of the
@@ -1054,6 +1064,222 @@ def drive_online(cfg, gm, scans, angles, poses, smi) -> int:
     return t + ONLINE_RESUME
 
 
+EVAL_SECONDS = 30.0   # the runner's default --duration; whole squares: 178 scans
+# the [main] configuration as a reference-format params YAML (field names
+# pass through FilterConfig.from_yaml; the pose comes from --initialized)
+EVAL_PARAMS = """\
+localization_mode: AMHAMCL
+init_particles: 1000000
+min_particles: 100000
+max_particles: 1000000
+kld_eval_window: 0
+coarse_gate_escapees: 0
+corr_window_cells: 128
+corr_theta_window_bins: 32
+likelihood_impl: corr
+motion_validity: score
+min_injection_prob: 0.02
+"""
+
+
+def write_map_yaml(d: Path, occ: np.ndarray, origin) -> str:
+    """The map as a map_server PGM + YAML pair (free 254, occupied 0,
+    unknown 205; PGM row 0 is the map's top), written with the port's
+    ``io/pgm.py``."""
+    from mcmh_localization_tpu_torch.io.pgm import write_pgm
+
+    img = np.where(occ == 0, 254, np.where(occ > 0, 0, 205)).astype(np.uint8)
+    write_pgm(str(d / "house.pgm"), img[::-1])
+    (d / "house.yaml").write_text(
+        f"image: house.pgm\nresolution: {RES}\n"
+        f"origin: [{origin[0]}, {origin[1]}, 0.0]\nnegate: 0\n"
+        "occupied_thresh: 0.65\nfree_thresh: 0.196\n")
+    return str(d / "house.yaml")
+
+
+def run_cli(argv: list) -> tuple:
+    """``eval/runner.py::main(argv)``; returns (EvalResult, its stdout,
+    ms/scan as the runner printed it), the stdout echoed."""
+    import contextlib
+    import io
+    import re
+
+    from mcmh_localization_tpu_torch.eval.runner import main as runner_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = runner_main(argv)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        print(f"[eval] runner: {line}")
+    ms = re.search(r"\(([0-9.]+) ms/scan\)", out)
+    check(ms is not None, "[eval] the runner printed no ms/scan")
+    return res, out, float(ms.group(1))
+
+
+def drive_eval(cfg, gm, smi, reset, counts) -> list:
+    """``[eval]``: the experiment runner's CLI on the card.  Writes the
+    house map as PGM + YAML and the [main] configuration as a params YAML,
+    simulates the ``square`` scenario fitted to the map (EVAL_SECONDS at
+    5 Hz, 360 beams, 0.01 m range noise) on the card, round-trips the bag
+    through npz (bitwise), ROS1 and ROS2 bag files, then runs ``single
+    --staged`` at 1M / 100k with the 0.9 tracking ESS gate and
+    ``FilterConfig()`` at 1500 particles on it through ``main``, and times
+    ``warmup_staged``.  Returns [(path tag, launch counts, scans)] of the
+    two runs, "eval" (staged, its warmup's scans counted) and "eval_exact"
+    (``reset()`` zeroes the launch counts, ``counts()`` reads them)."""
+    import re
+    import tempfile
+
+    from mcmh_localization_tpu_torch.config import FilterConfig
+    from mcmh_localization_tpu_torch.eval.evaluator import (
+        parse_poses_file,
+        parse_results_file,
+    )
+    from mcmh_localization_tpu_torch.filter.staged import (
+        make_staged_model,
+        warmup_staged,
+    )
+    from mcmh_localization_tpu_torch.io.rosbag import read_rosbag, write_rosbag
+    from mcmh_localization_tpu_torch.io.rosbag2 import read_rosbag2, write_rosbag2
+    from mcmh_localization_tpu_torch.maps.grid_map import load_map
+    from mcmh_localization_tpu_torch.sim import (
+        SCENARIOS,
+        fit_trajectory_to_map,
+        load_bag,
+        save_bag,
+        simulate_bag,
+    )
+    from mcmh_localization_tpu_torch.sim.simulator import odometry_deltas
+    from mcmh_localization_tpu_torch.utils.metrics import read_metrics
+
+    launches = []
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        yaml = write_map_yaml(d, house_occupancy(), gm.origin_xy)
+        (d / "main.yaml").write_text(EVAL_PARAMS)
+        (d / "defaults.yaml").write_text("# FilterConfig() as it ships\n")
+        from_yaml = FilterConfig.from_yaml(str(d / "main.yaml"))
+        check(from_yaml.replace(initialized=True, initial_pose=START) == cfg,
+              "[eval] the params YAML does not give the [main] configuration")
+        gm_eval = load_map(yaml)
+        check(gm_eval.device == gm.device
+              and torch.equal(gm_eval.occupancy, gm.occupancy)
+              and torch.equal(gm_eval.distance, gm.distance),
+              "[eval] the map read back from PGM + YAML differs")
+
+        gt = fit_trajectory_to_map(
+            gm_eval, SCENARIOS["square"](duration=EVAL_SECONDS, rate=5.0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bag = simulate_bag(0, gm_eval, gt, n_beams=N_BEAMS,
+                           max_range=cfg.max_range, rate=5.0,
+                           range_noise=0.01, name="square")
+        sim_s = time.perf_counter() - t0
+        n = len(bag.times)
+        check(bag.ranges.shape == (n, N_BEAMS) and n == len(gt)
+              and np.isfinite(bag.ranges).all()
+              and (bag.ranges > 0).all() and (bag.ranges <= cfg.max_range).all(),
+              "[eval] simulated scans out of range")
+        print(f"[eval] simulate_bag: {n} scans x {N_BEAMS} beams of the "
+              f"square scenario fitted to the map in {sim_s:.3f} s on {smi}")
+
+        npz = str(d / "square.npz")
+        save_bag(npz, bag)
+        back = load_bag(npz)
+        for f in ("ranges", "angles", "odom", "gt", "times"):
+            check(np.array_equal(getattr(back, f), getattr(bag, f))
+                  and getattr(back, f).dtype == getattr(bag, f).dtype,
+                  f"[eval] npz bag field {f} not bitwise")
+        check(back.max_range == bag.max_range and back.meta == bag.meta,
+              "[eval] npz bag metadata")
+        for tag, write, read, name in (
+                ("rosbag", write_rosbag, read_rosbag, "square.bag"),
+                ("rosbag2", write_rosbag2, read_rosbag2, "square.db3")):
+            write(str(d / name), bag)
+            rb = read(str(d / name))
+            ok = (np.allclose(rb.ranges, bag.ranges, rtol=1e-6, atol=0)
+                  and np.allclose(rb.angles, bag.angles, rtol=0, atol=2e-4)
+                  and np.allclose(rb.odom, bag.odom, rtol=0, atol=1e-6)
+                  and np.allclose(rb.times, bag.times, rtol=0, atol=1e-6)
+                  and rb.max_range == bag.max_range)
+            check(ok, f"[eval] the {tag} round trip is off")
+        print("[eval] bag round trips: npz bitwise; ROS1 and ROS2 bag files "
+              "within the tests' tolerances (ranges rtol 1e-6, angles 2e-4, "
+              "odometry 1e-6)")
+
+        staged = make_staged_model(from_yaml.replace(
+            initialized=True, initial_pose=tuple(map(float, bag.gt[0]))),
+            gm_eval, tracking_ess_threshold=0.9)
+        state = staged.init(0)
+        gen_before = state.key.get_state().clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        warmup_staged(staged, state, bag.ranges, bag.angles,
+                      odometry_deltas(bag.odom))
+        warm_s = time.perf_counter() - t0
+        check(torch.equal(state.key.get_state(), gen_before),
+              "[eval] warmup_staged moved the state's generator")
+        sizes = {min(SCAN_LEN, n)} | ({n % SCAN_LEN} if n % SCAN_LEN else set())
+        warm_scans = 2 * sum(sizes)
+        print(f"[eval] warmup_staged ({warm_scans} throwaway scans: BIG and "
+              f"SMALL at chunk lengths {sorted(sizes)}, and a hand-off) "
+              f"{warm_s:.2f} s on {smi}; generator state unchanged")
+        del staged, state
+
+        reset()
+        res, out, ms = run_cli([
+            "single", "--staged", "--initialized", "--map", yaml,
+            "--params", str(d / "main.yaml"), "--particles", "1000000",
+            "--tracking-ess", "0.9", "--bag", npz, "--metrics",
+            "--results-dir", str(d / "results"), "--result-name",
+            "eval_staged", "--seed", "0"])
+        c = counts()
+        launches.append(("eval", c, n + warm_scans))
+        staged_line = re.search(
+            r"staged: (\d+)/(\d+) scans in the tracking program, "
+            r"(\d+) switches", out)
+        check(staged_line is not None, "[eval] no tracking-program report")
+        in_small, total, switches = map(int, staged_line.groups())
+        check(total == n and in_small > 0 and switches >= 1,
+              f"[eval] staged: {in_small}/{total} scans in SMALL, "
+              f"{switches} switches: no hand-off")
+        txt = (d / "results" / "eval_staged.txt").read_text()
+        check("RMSE final:" in txt, "[eval] the results file has no RMSE")
+        _, _, rmse_file = parse_results_file(str(d / "results" / "eval_staged.txt"))
+        _, est, _ = parse_poses_file(str(d / "results" / "poses_eval_staged.txt"))
+        check(np.isfinite(est).all() and est.shape == (n, 3),
+              "[eval] non-finite or missing estimates")
+        check(abs(rmse_file - res.rmse) < 1e-4 and res.rmse < 0.2,
+              f"[eval] staged RMSE {res.rmse:.4f} m >= 0.2 m")
+        recs = read_metrics(str(d / "results" / "eval_staged.jsonl"))
+        check(len(recs) == n, f"[eval] {len(recs)} metrics lines for {n} scans")
+        for name in ("corr_field_build", "corr_lookup", "expand_sorted"):
+            check(c.get(name, 0) > 0, f"[eval] staged: {name} never launched")
+        print(f"[eval] single --staged (1M / 100k, tracking ESS 0.9) on the "
+              f"{n}-scan bag: RMSE {res.rmse:.4f} m, {in_small}/{n} scans in "
+              f"SMALL, {switches} switches, {ms:.2f} ms/scan (host clock) on "
+              f"{smi}; {len(recs)} metrics lines; launches {c}")
+
+        reset()
+        res, out, ms = run_cli([
+            "single", "--initialized", "--map", yaml,
+            "--params", str(d / "defaults.yaml"), "--bag", npz,
+            "--results-dir", str(d / "results"), "--result-name",
+            "eval_default", "--seed", "0"])
+        c = counts()
+        launches.append(("eval_exact", c, n + 1))
+        check(np.isfinite(res.est).all() and res.rmse < 0.25,
+              f"[eval] FilterConfig() RMSE {res.rmse:.4f} m >= 0.25 m")
+        for name in ("likelihood_scores", "gather_2d", "expand_sorted"):
+            check(c.get(name, 0) > 0,
+                  f"[eval] FilterConfig(): {name} never launched")
+        print(f"[eval] single FilterConfig() (1500 particles, 'auto' -> "
+              f"exact, 'reject') on the {n}-scan bag: RMSE {res.rmse:.4f} m, "
+              f"{ms:.2f} ms/scan (host clock) on {smi}; launches {c}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None,
@@ -1359,6 +1585,14 @@ def main(argv=None) -> int:
     check(c.get("gather_2d", 0) > 0, "[beam] table: gather_2d never launched")
     del model, st
     print(f"[beam] kernel launches: {path_counts['beam']}")
+
+    stamps.append(("eval", time.perf_counter()))
+    # -- 8. the experiment runner's CLI on a simulated bag
+    for path, c, n in drive_eval(cfg, gm, smi, _cuda.reset_launch_counts,
+                                 _cuda.launch_counts):
+        add_counts(path, c, n)
+    print(f"[eval] kernel launches: staged {path_counts['eval']}, "
+          f"FilterConfig() {path_counts['eval_exact']}")
 
     for row in rows:
         row["launches"] = sum(c.get(row["name"], 0)

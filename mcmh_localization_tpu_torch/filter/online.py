@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from mcmh_localization_tpu_torch.filter.estimate import COV6_SLOTS
-from mcmh_localization_tpu_torch.filter.state import FilterState
+from mcmh_localization_tpu_torch.filter.state import FilterState, copy_generator
 from mcmh_localization_tpu_torch.filter.step import (
     as_f32,
     make_model,
@@ -33,13 +33,6 @@ from mcmh_localization_tpu_torch.filter.step import (
 from mcmh_localization_tpu_torch.models.motion import compute_motion
 from mcmh_localization_tpu_torch.utils.angles import yaw_from_quaternion
 from mcmh_localization_tpu_torch.viz import TFReanchorer
-
-
-def copy_generator(gen: torch.Generator) -> torch.Generator:
-    """A new generator on ``gen``'s device in ``gen``'s present state."""
-    out = torch.Generator(device=gen.device)
-    out.set_state(gen.get_state())
-    return out
 
 
 class OnlineLocalizer:
@@ -60,17 +53,18 @@ class OnlineLocalizer:
         frame_recorder=None,
     ):
         """The JAX facade's parameters.  ``voxel_map`` (3-D lidar) must be
-        None, and so must ``frame_recorder`` (viz.FrameRecorder is not
-        ported yet).
+        None.
 
         ``staged=True`` runs the two-program execution (filter/staged.py)
         online: global/recovery phases use the full-capacity full-field
         program, converged tracking the small windowed one, switching per
         scan on the same count/injection/mode-dominance policy as
-        run_staged.  Requires an adaptive mode."""
-        if frame_recorder is not None:
-            raise NotImplementedError(
-                "frame_recorder: viz.FrameRecorder is ROADMAP item 16")
+        run_staged.  Requires an adaptive mode.
+
+        ``frame_recorder``: a ``viz.FrameRecorder`` — every on_scan
+        renders the live cloud + estimate into it (the reference node's
+        per-scan MarkerArray stream into RViz, amcmh_localizer.py:538-581,
+        as a direct hook; settable later via ``.frame_recorder``)."""
         self.config = config
         self.grid_map = grid_map
         self.staged = None
@@ -100,8 +94,8 @@ class OnlineLocalizer:
         # live map->odom re-anchoring (pose_broadcaster node equivalent);
         # fed by on_odom, emits on every on_scan via .reanchor.latest()
         self.reanchor = TFReanchorer()
-        # settable later in the JAX facade; on_scan refuses one here
-        self.frame_recorder = None
+        # per-scan live view (viz.FrameRecorder); None = no rendering
+        self.frame_recorder = frame_recorder
 
     @property
     def device(self) -> torch.device:
@@ -193,9 +187,6 @@ class OnlineLocalizer:
         (lidar_callback, amcmh_localizer.py:294-338).  ``angles`` defaults to
         the reference's linspace(angle_min, angle_max, M) layout
         (get_lidar_angles, :346-348)."""
-        if self.frame_recorder is not None:
-            raise NotImplementedError(
-                "frame_recorder: viz.FrameRecorder is ROADMAP item 16")
         ranges, angles = self._scan_inputs(ranges, angles, angle_min, angle_max)
         if (
             self.config.predict_batching == "per_scan"
@@ -233,6 +224,12 @@ class OnlineLocalizer:
             # the pose_broadcaster loop: one map->odom re-anchor per
             # estimate (pose_broadcaster.py:31-35)
             self.reanchor.on_estimate(est["pose3"])
+        if self.frame_recorder is not None:
+            self.frame_recorder.update(
+                self.state.particles, self.state.weights,
+                estimate=(est["pose3"] if est else None),
+                count=int(self.state.count),
+            )
         return est
 
     # -- outputs -------------------------------------------------------------

@@ -21,9 +21,10 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
 import torch.nn.functional as F
 
-from mcmh_localization_tpu_torch.filter.state import FilterState
+from mcmh_localization_tpu_torch.filter.state import FilterState, copy_generator
 from mcmh_localization_tpu_torch.filter.step import (
     FilterModel,
     StepInfo,
@@ -207,6 +208,34 @@ class StagedRun(NamedTuple):
     infos: StepInfo        # stacked over all T scans
     modes: np.ndarray      # (T,) 0 = big program, 1 = small program
     switches: int
+
+
+def warmup_staged(model: StagedModel, state: FilterState, ranges_seq,
+                  angles, deltas, chunk: int = 16) -> None:
+    """Run one throwaway chunk of each program for every chunk length
+    ``run_staged`` will dispatch (the ``chunk``-scan body and the final
+    remainder), and the shrink-then-grow hand-off, before a timed run: the
+    staged twin of ``eval/runner.py::run_filter_on_bag``'s warmup.  On the
+    card that is the kernels' build and load at first use
+    (``ops/_cuda.py``), cuBLAS's initialization and the allocator's pools;
+    there is no compile cache to fill.  The throwaway runs work on copies
+    of ``state``'s generator, so the state, its random stream and a run
+    after this are as without it."""
+    dev = model.grid_map.device
+    ranges_seq = as_f32(ranges_seq, dev)
+    deltas = as_f32(deltas, dev)
+    t_total = ranges_seq.shape[0]
+    sizes = {min(chunk, t_total)}
+    if t_total % chunk:
+        sizes.add(t_total % chunk)
+    small_state = shrink_state(state, state_size(model.small_config))
+    grow_state(small_state, state_size(model.config))
+    for tc in sorted(sizes):
+        for st, m in ((state, model.big), (small_state, model.small)):
+            m.run(st.replace(key=copy_generator(state.key)),
+                  ranges_seq[:tc], angles, deltas[:tc])
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def run_staged(

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 
@@ -45,6 +46,21 @@ class FilterState:
 
 def make_generator(seed: int, device) -> torch.Generator:
     return torch.Generator(device=torch.device(device)).manual_seed(int(seed))
+
+
+def copy_generator(gen: torch.Generator) -> torch.Generator:
+    """A new generator on ``gen``'s device in ``gen``'s present state."""
+    out = torch.Generator(device=gen.device)
+    out.set_state(gen.get_state())
+    return out
+
+
+def split_seed(seed: int, n: int = 2) -> list[int]:
+    """``n`` independent 64-bit seeds from one integer seed (numpy's
+    ``SeedSequence.spawn``): where the JAX package splits a PRNG key into
+    independent streams, the port splits a seed."""
+    return [int(s.generate_state(1, np.uint64)[0])
+            for s in np.random.SeedSequence(int(seed)).spawn(n)]
 
 
 def make_state(

@@ -158,6 +158,34 @@ def test_import_leaves_no_jax_package_module():
     assert res.returncode == 0, res.stderr
 
 
+def test_harness_imports_without_jax_matplotlib_or_pil():
+    """The evaluation harness (sim, eval, io, metrics, profiling, viz)
+    imports in an interpreter where jax, matplotlib and PIL cannot be
+    imported (the card's machine has none of them): they load inside the
+    functions that draw."""
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'matplotlib', 'PIL'):\n"
+        "            raise ImportError(f'{name} blocked')\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import mcmh_localization_tpu_torch.eval.runner\n"
+        "import mcmh_localization_tpu_torch.eval.plots\n"
+        "import mcmh_localization_tpu_torch.sim, mcmh_localization_tpu_torch.io\n"
+        "import mcmh_localization_tpu_torch.utils.metrics\n"
+        "import mcmh_localization_tpu_torch.utils.profiling\n"
+        "import mcmh_localization_tpu_torch.viz\n"
+        "from mcmh_localization_tpu_torch import eval, sim\n"
+        "assert not [n for n in sys.modules\n"
+        "            if n.split('.')[0] in ('jax', 'matplotlib', 'PIL')]\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
 # ---------------------------------------------------------------------------
 # the entry points run on the card unless told otherwise
 # ---------------------------------------------------------------------------

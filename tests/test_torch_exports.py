@@ -32,8 +32,9 @@ UNPORTED = {
         "nav_slice": "item 14", "raycast3d": "item 14",
         "save_voxel_map": "item 14", "load_voxel_map": "item 14"},
     "utils": {},
-    "io": {"read_rosbag": "item 12", "write_rosbag": "item 12",
-           "read_rosbag2": "item 12", "write_rosbag2": "item 12"},
+    "io": {},
+    "sim": {},
+    "eval": {},
 }
 
 

@@ -1,8 +1,7 @@
 """The port's OnlineLocalizer against the JAX facade's tests
 (tests/test_online.py) at their sizes, on the CPU: the same configurations,
 trajectories and gates, the scans ray-cast by the JAX package and fed to
-both; plus the port's own rules: warmup works on a copy of the generator,
-and a frame recorder (not ported) is refused."""
+both; plus the port's own rule: warmup works on a copy of the generator."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -298,15 +297,29 @@ def test_set_initial_pose(torch_map):
     np.testing.assert_allclose(parts[:, 1].mean(), 1.0, atol=0.2)
 
 
-def test_frame_recorder_is_refused(house_map, torch_map):
-    cfg = FilterConfig(mode="MCL", num_particles=100, initialized=True,
-                       initial_pose=(1.0, -1.0, 0.0), max_range=5.0)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        OnlineLocalizer(cfg, torch_map, frame_recorder=object())
-    loc = OnlineLocalizer(cfg, torch_map)
-    loc.frame_recorder = object()
-    with pytest.raises(NotImplementedError, match="item 16"):
-        loc.on_scan(_scan(house_map, np.array([1.0, -1.0, 0.0])), ANGLES)
+def test_frame_recorder_is_refused(house_map, torch_map, tmp_path):
+    """(The name is kept from when the facade refused a recorder.)  The
+    facade's frame hook, the twin of test_sim_eval.py::
+    test_frame_recorder_staged through the facade: a staged localizer
+    given a viz.FrameRecorder renders every 4th scan and assembles a GIF;
+    one set later through ``.frame_recorder`` renders too."""
+    from mcmh_localization_tpu_torch.viz import FrameRecorder
+
+    rec = FrameRecorder(torch_map, str(tmp_path / "frames"), every=4)
+    loc = OnlineLocalizer(FilterConfig(**STAGED), torch_map, seed=0,
+                          staged=True, tracking_capacity=1024,
+                          tracking_ess_threshold=0.9, frame_recorder=rec)
+    pose, est = _track(loc, house_map, 10, step=0.04)
+    assert loc._in_small, "never handed off to the tracking program"
+    assert np.all(np.isfinite(est["pose3"]))
+    assert len(rec.frames) == -(-10 // 4) and len(rec.trail) == 10
+    assert rec.to_gif() == str(tmp_path / "frames" / "run.gif")
+    assert (tmp_path / "frames" / "run.gif").exists()
+    later = FrameRecorder(torch_map, str(tmp_path / "later"))
+    single = OnlineLocalizer(FilterConfig(**SINGLE), torch_map, seed=0)
+    single.frame_recorder = later
+    _track(single, house_map, 2)
+    assert len(later.frames) == 2
 
 
 def test_facade_parameters_match_jax():

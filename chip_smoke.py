@@ -12,10 +12,15 @@
    BIG field K=120 384^2 M=360, SMALL/window field K=32 128^2, coarse field
    K=36 96^2 (bitwise, beside a ``conv2d`` yardstick), lookups of 2x1M and
    2x130048 poses (also on the misaligned view ``parts[1:]``),
-   ``gather_2d`` on the SMALL window table, the free mask of the "reject"
-   retries (FilterConfig()'s and the 100k exact run's) and the range-table
-   scorer's cell-major table (each also on a misaligned view of its
-   indices), the window-score lookup of 2x1M poses (also on a
+   ``gather_2d`` on the SMALL window table and the free mask of the
+   "reject" retries (FilterConfig()'s and the 100k exact run's; each also
+   on a misaligned view of its indices), kernel 2's two fused forms: (a)
+   the range-table scorer at the staged beam BIG program's 2 x 1M poses
+   (a mixed cloud around START, 360 beams of the house scan, K=96) and the
+   [beam] table run's 2 x 1500, and (b) the 3-D lidar scorer at 2 x 100k
+   poses and 5760 beams on the building's log-mixture volume (each
+   ``torch.equal`` to its plain version, with the lanes a pose it ran
+   with), the window-score lookup of 2x1M poses (also on a
    misaligned view of 200 003 of them, in the beam op forms at the beam
    path's geometry and 2x100k poses, and its escapee count at 2x1M), the
    exact scorer at 2x1500 and 2x100k poses in both cell forms (bitwise,
@@ -64,7 +69,24 @@
    coarse fallback at 24 bins behind the build gate of 8), 16 settle + 16
    timed scans, error under 0.2 m, the LUT field and the window score
    launched every scan; then its ESS-gated twin (0.9), and the range-table
-   scorer at 1500 particles (error under 0.25 m, ``gather_2d`` launched).
+   scorer at 1500 particles (error under 0.25 m, kernel 2's fused form (a)
+   launched every scan).
+   ``[beam_staged]``: the same beam point at the main path's capacity
+   (KLD, 1M max / 100k min, ``make_staged_model`` with a 0.9 tracking ESS
+   gate): BIG is the range-table scorer at 1M with "sum" and the
+   injection refill, SMALL the windowed field without the coarse fallback;
+   the [main] circle and protocol.  Checks a first 16-scan chunk in BIG,
+   a hand-off to SMALL, a final error under 0.2 m, form (a) launched on
+   every BIG scan, and the peak device memory over the BIG scans under
+   the 2.88 GB of one whole (2N, M) f32 tensor; prints BIG and SMALL
+   ms/scan.
+   ``[lidar3d]``: the 3-D lidar on a procedural 20 x 20 x 3 m building at
+   0.05 m (400 x 400 x 60 voxels: a floor, walls with doors, tables below
+   1 m, hanging shelves), a VLP-16-class scanner (16 rings from -15 to +15
+   degrees x 360 azimuths = 5760 beams, 10 m range, 0.5 m above the pose
+   plane, scans from ``simulate_scan3d`` with 0.01 m noise), the
+   navigation slice at 0.1 m; AMHAMCL at 100k, "score", 16 settle + 16
+   timed scans; error under 0.2 m, form (b) launched every scan.
 8. ``[eval]``: the experiment runner (``eval/runner.py``) through its CLI
    on the card: the house map written as PGM + YAML and the ``[main]``
    configuration as a params YAML; a simulated ``square`` bag (30 s at
@@ -138,6 +160,60 @@ def circle_poses(delta):
         y = y + tr * math.sin(th)
         th = th + r2
     return np.asarray(poses, dtype=np.float32)
+
+
+# The 3-D lidar's building: 20 x 20 x 3 m at RES, START at its centre
+BUILDING_CELLS = 400
+BUILDING_LAYERS = 60
+LIDAR_SENSOR_Z = 0.5
+
+
+def building_occupancy() -> np.ndarray:
+    """Procedural (D, H, W) = (60, 400, 400) trinary building at RES
+    (9.6M voxels): a floor, outer walls, inner walls with doors, table
+    blocks below 1 m and hanging shelves at 1.8-2.3 m, structure a 2-D
+    scan at one height does not see (as the JAX tests' ``room3d``).  The
+    START pose lies in a free room; there is no ceiling."""
+    n, d = BUILDING_CELLS, BUILDING_LAYERS
+    occ = np.zeros((d, n, n), dtype=np.int8)
+    occ[0] = 100                                  # floor, 0-0.05 m
+    occ[:, :4, :] = occ[:, n - 4:, :] = 100       # outer walls, 0.2 m
+    occ[:, :, :4] = occ[:, :, n - 4:] = 100
+    occ[:, 4:300, 300] = 100                      # inner walls with doors
+    occ[:, 120:150, 300] = 0
+    occ[:, 100, 4:260] = 100
+    occ[:, 100, 60:90] = 0
+    occ[:, 290, 100:n - 4] = 100
+    occ[:, 290, 220:250] = 0
+    occ[:20, 230:250, 150:175] = 100              # tables, below 1 m
+    occ[:18, 160:175, 240:270] = 100
+    occ[:15, 320:350, 60:100] = 100
+    occ[36:44, 180:200, 120:160] = 100            # hanging shelves
+    occ[36:46, 220:260, 260:280] = 100
+    occ[40:46, 110:130, 320:360] = 100
+    occ[:, 260:270, 210:220] = 100                # a pillar
+    return occ
+
+
+def lidar_directions(dev) -> torch.Tensor:
+    """(5760, 2) [azimuth, elevation]: a VLP-16-class scanner, 16 rings from
+    -15 to +15 degrees at 2 degrees, 360 azimuths."""
+    az = np.linspace(-np.pi, np.pi, 360, endpoint=False)
+    el = np.deg2rad(np.arange(-15.0, 16.0, 2.0))
+    return torch.tensor(np.stack([np.repeat(az, el.size), np.tile(el, az.size)],
+                                 1), dtype=torch.float32, device=dev)
+
+
+def lidar3d_config():
+    """The [lidar3d] point: AMHAMCL at 100k (num = min = max), 10 m range,
+    the sensor 0.5 m above the pose plane, "score" validity."""
+    from mcmh_localization_tpu_torch.config import FilterConfig
+
+    return FilterConfig(
+        mode="AMHAMCL", num_particles=100_000, min_particles=100_000,
+        max_particles=100_000, initialized=True, initial_pose=START,
+        sensor_model="lidar3d", lidar3d_sensor_z=LIDAR_SENSOR_Z,
+        max_range=10.0, motion_validity="score")
 
 
 def start_window(gm, n_theta: int, win: int, tw: int) -> tuple[int, int, int]:
@@ -331,24 +407,6 @@ def free_mask_indices(gm, n: int, gen, cov):
     mx, my = gm.world_to_grid(p[:, 0], p[:, 1])
     return (my.clamp(0, gm.height - 1).contiguous(),
             mx.clamp(0, gm.width - 1).contiguous())
-
-
-def table_scorer_indices(gm, n: int, angles, n_theta: int, gen, cov):
-    """(y, x) int32: the (cell, theta bin) pairs ``raycast_table_scores``
-    reads from the cell-major range table for n poses around START and
-    every beam (``models/range_table.py:431-442``)."""
-    from mcmh_localization_tpu_torch.filter.init import init_gaussian
-    from mcmh_localization_tpu_torch.ops.gather import PI_F32
-    from mcmh_localization_tpu_torch.utils.f32 import divide
-
-    p = init_gaussian(START, cov, n, gm, generator=gen)
-    mx, my = gm.world_to_grid(p[:, 0], p[:, 1])
-    cell = my.clamp(0, gm.height - 1) * gm.width + mx.clamp(0, gm.width - 1)
-    k = torch.floor(divide(p[:, 2][:, None] + angles[None, :] + PI_F32,
-                           2.0 * math.pi / n_theta)).to(torch.int32) % n_theta
-    m = angles.shape[0]
-    return (cell[:, None].expand(n, m).reshape(-1).to(torch.int32).contiguous(),
-            k.reshape(-1).contiguous())
 
 
 def gather_2d_row(tag, table, y, x) -> dict:
@@ -887,6 +945,92 @@ def compare_slice2_kernels(gm, single_cfg, log_field, ranges, angles,
         library_ms=lms8, library="index_select", on_main_path=False))
 
 
+def table_scores_row(gm, cfg, tcm, parts, ranges, angles) -> dict:
+    """Kernel 2's fused form (a) on one cloud: ``torch.equal`` to its plain
+    version, timed beside its bound (14 operations a pose and valid beam:
+    the bin's two adds, division and floor, the read's subtraction and
+    division, the mixture's four multiplies and add, exp, max, log, the
+    sum; the poses and the scan read once, the table counted as the values
+    read, the scores written)."""
+    from mcmh_localization_tpu_torch.models.range_table import beam_mixture
+    from mcmh_localization_tpu_torch.ops.likelihood import lanes_per_particle
+    from mcmh_localization_tpu_torch.ops.scan_scores import (
+        TableGeometry,
+        table_scores,
+        table_scores_plain,
+    )
+
+    k = cfg.beam_table_n_theta
+    valid = torch.isfinite(ranges) & (ranges < cfg.max_range)
+    geo = TableGeometry(gm.origin_xy[0], gm.origin_xy[1], gm.res, gm.height,
+                        gm.width, k)
+    args = (parts, ranges, angles, valid, tcm, geo, beam_mixture(cfg),
+            valid.sum(), "sum")
+    got = table_scores(*args)
+    want = table_scores_plain(*args)
+    torch.cuda.synchronize()
+    n = parts.shape[0]
+    g = lanes_per_particle(n)
+    err = float((got - want).abs().max())
+    check(torch.equal(got, want), f"table_scores N={n} G={g}: kernel != plain "
+          f"(max abs err {err})")
+    m_valid = int(valid.sum())
+    print(f"[kernel] table_scores N={n} M={ranges.shape[0]} ({m_valid} valid) "
+          f"K={k}: G={g} lanes a pose, bitwise")
+    ms = device_ms(lambda: table_scores(*args))
+    pms = device_ms(lambda: table_scores_plain(*args), runs=5)
+    pairs = n * m_valid
+    return kernel_row(
+        "table_scores", "scan_scores.cu", "gather_pallas.py:180",
+        f"N={n} M={ranges.shape[0]} ({m_valid} valid) K={k} G={g}", ms=ms,
+        plain_ms=pms, err=err, ops=14.0 * pairs,
+        nbytes=n * 16 + ranges.shape[0] * 9 + gathered_bytes(tcm, pairs))
+
+
+def compare_lidar_kernel(vm, nav, cfg, log_volume, ranges, directions, rows):
+    """Kernel 2's fused form (b), the 3-D lidar scorer, at the [lidar3d]
+    path's shape: 2 x 100k poses (a mixed cloud on the navigation slice)
+    and 5760 beams on the building's log-mixture volume; ``torch.equal`` to
+    its plain version, timed beside its bound (13 operations a pose and
+    live beam, as kernel 6; the volume counted as the values read)."""
+    from mcmh_localization_tpu_torch.models.sensor3d import (
+        scan_beams,
+        voxel_geometry,
+    )
+    from mcmh_localization_tpu_torch.ops import scan_scores
+    from mcmh_localization_tpu_torch.ops.likelihood import lanes_per_particle
+
+    gen = torch.Generator(device=ranges.device).manual_seed(17)
+    cov = torch.diag(torch.tensor(cfg.initial_cov))
+    parts = mixed_cloud(2 * 100_000, nav, cov, gen)
+    # the wrapper's inputs as models/sensor3d.py::lidar3d_scores makes them
+    u, v, zrow, live, count = scan_beams(ranges, directions, vm, cfg,
+                                         cfg.lidar3d_sensor_z)
+    args = (parts, u, v, zrow, live, log_volume, voxel_geometry(vm), count,
+            cfg.score_aggregation)
+    got = scan_scores.voxel_scores(*args)
+    want = scan_scores.voxel_scores_plain(*args)
+    torch.cuda.synchronize()
+    n = parts.shape[0]
+    g = lanes_per_particle(n)
+    err = float((got - want).abs().max())
+    check(torch.equal(got, want), f"voxel_scores N={n} G={g}: kernel != plain "
+          f"(max abs err {err})")
+    m = ranges.shape[0]
+    m_live = int(live.sum())
+    print(f"[kernel] voxel_scores N={n} M={m} ({m_live} live, "
+          f"{int(count)} valid) volume {tuple(log_volume.shape)}: G={g} "
+          "lanes a pose, bitwise")
+    ms = device_ms(lambda: scan_scores.voxel_scores(*args))
+    pms = device_ms(lambda: scan_scores.voxel_scores_plain(*args), runs=3)
+    pairs = n * m_live
+    rows.append(kernel_row(
+        "voxel_scores", "scan_scores.cu", "gather_pallas.py:180",
+        f"N={n} M={m} ({m_live} live) volume {tuple(log_volume.shape)} G={g}",
+        ms=ms, plain_ms=pms, err=err, ops=13.0 * pairs,
+        nbytes=n * 16 + m * 13 + gathered_bytes(log_volume, pairs)))
+
+
 def compare_beam_kernel(gm, beam_model, ranges, angles, rows):
     """Phase 3 for kernel 7: the LUT field at the beam path's fine and
     coarse builds, on the path's own quantized table and per-scan LUT."""
@@ -939,12 +1083,14 @@ def compare_beam_kernel(gm, beam_model, ranges, angles, rows):
             smem_floor_ms=smem_ms))
     rows.append({**lut_rows[0], "shapes": lut_rows[1:]})
 
-    # gather_2d in the range-table scorer (models/range_table.py:440): a
-    # (cell, bin) pair for each of the MH step's 2 x 1500 poses and each beam
+    # kernel 2's fused form (a), the range-table scorer: the staged BIG
+    # program's 2 x 1M poses and the [beam] table run's 2 x 1500, on the
+    # path's cell-major table (the BIG table: the same 96 bins and range)
     tcm = table_cell_major(tables.table)
-    ty, tx = table_scorer_indices(gm, 2 * 1500, angles, k, gen, cov)
-    next(r for r in rows if r["name"] == "gather_2d")["shapes"].append(
-        gather_2d_row("table scorer, 2 x 1500 poses x 360 beams", tcm, ty, tx))
+    table_rows = [table_scores_row(gm, cfg, tcm, mixed_cloud(2 * n, gm, cov, gen),
+                                   ranges, angles)
+                  for n in (1_000_000, 1500)]
+    rows.append({**table_rows[0], "shapes": table_rows[1:]})
     del tcm
 
     # kernel 5 in the beam op forms at the beam path's geometry and 2x100k
@@ -1304,7 +1450,12 @@ def main(argv=None) -> int:
     )
     from mcmh_localization_tpu_torch.filter.step import make_model, state_size
     from mcmh_localization_tpu_torch.maps.grid_map import build_grid_map
+    from mcmh_localization_tpu_torch.maps.voxel_map import (
+        build_voxel_map,
+        nav_slice,
+    )
     from mcmh_localization_tpu_torch.models.sensor import raycast
+    from mcmh_localization_tpu_torch.models.sensor3d import simulate_scan3d
     from mcmh_localization_tpu_torch.ops import _cuda
 
     check("jax" not in sys.modules, "the port must not import jax")
@@ -1343,6 +1494,27 @@ def main(argv=None) -> int:
 
     staged = make_staged_model(cfg, gm, tracking_ess_threshold=0.9)
 
+    # the 3-D lidar's building (the EDT on the host), its navigation slice
+    # and a scan of each circle pose from the port's simulator
+    t0 = time.perf_counter()
+    vm = build_voxel_map(building_occupancy(), RES,
+                         (-BUILDING_CELLS * RES / 2, -BUILDING_CELLS * RES / 2,
+                          0.0), device=dev)
+    nav = nav_slice(vm, z=0.1)
+    lidar_cfg = lidar3d_config()
+    lidar = make_model(lidar_cfg, nav, voxel_map=vm)
+    directions = lidar_directions(dev)
+    lgen = torch.Generator(device=dev).manual_seed(3)
+    lscans = torch.stack([
+        simulate_scan3d(lgen, p, directions, vm, lidar_cfg.max_range,
+                        sensor_z=lidar_cfg.lidar3d_sensor_z, noise=0.01)
+        for p in poses])
+    torch.cuda.synchronize()
+    print(f"[lidar3d] building {tuple(vm.occupancy.shape)} voxels at {RES} m "
+          f"({vm.occupancy.numel() / 1e6:.1f}M), its EDT, log-mixture volume "
+          f"and {SCAN_LEN} scans of {directions.shape[0]} beams in "
+          f"{time.perf_counter() - t0:.2f} s")
+
     stamps.append(("kernel", time.perf_counter()))
     # -- 3. kernels vs plain versions
     rows: list[dict] = []
@@ -1360,6 +1532,8 @@ def main(argv=None) -> int:
     print(f"[beam] range table (96, {MAP_CELLS}, {MAP_CELLS}) and its int8 "
           f"forms built in {time.perf_counter() - t0:.2f} s")
     compare_beam_kernel(gm, beam, scans[0], angles, rows)
+    compare_lidar_kernel(vm, nav, lidar_cfg, lidar.log_field.log_volume,
+                         lscans[0], directions, rows)
     path_counts: dict[str, dict[str, int]] = {}
     path_scans: dict[str, int] = {}
 
@@ -1370,14 +1544,17 @@ def main(argv=None) -> int:
         for k, n in counts.items():
             tot[k] = tot.get(k, 0) + n
 
-    def timed(model, st, reps):
-        seq = scans.repeat(reps, 1)
+    def timed(model, st, reps, seq=None, ang=None):
+        """``reps`` laps of the circle (the house scans, or ``seq``, ``ang``)
+        through ``model.run``: (state, infos, ms/scan by CUDA events)."""
+        seq = (scans if seq is None else seq).repeat(reps, 1)
+        ang = angles if ang is None else ang
         dls = deltas.repeat(reps, 1)
         torch.cuda.synchronize()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        st, infos = model.run(st, seq, angles, dls)
+        st, infos = model.run(st, seq, ang, dls)
         e1.record()
         torch.cuda.synchronize()
         return st, infos, e0.elapsed_time(e1) / seq.shape[0]
@@ -1582,9 +1759,95 @@ def main(argv=None) -> int:
     print(f"[beam] table (n=1500, 96 table bins): {ms_x:.4f} ms/scan on {smi}; "
           f"final error {err_x:.4f} m; launches {c}")
     check(err_x < 0.25, f"[beam] table: final error {err_x:.3f} m >= 0.25 m")
-    check(c.get("gather_2d", 0) > 0, "[beam] table: gather_2d never launched")
+    check(c.get("table_scores", 0) >= 2 * SCAN_LEN,
+          "[beam] table: table_scores not launched every scan")
     del model, st
     print(f"[beam] kernel launches: {path_counts['beam']}")
+
+    stamps.append(("beam_staged", time.perf_counter()))
+    # -- 7b. the staged beam model at the main path's capacity: BIG is the
+    # range-table scorer (kernel 2's fused form (a)) at 1M with "sum" and
+    # the injection refill, SMALL the windowed field without the coarse
+    # fallback
+    _cuda.reset_launch_counts()
+    bs_cfg = beam_cfg.replace(num_particles=1_000_000, min_particles=100_000,
+                              max_particles=1_000_000)
+    staged_b = make_staged_model(bs_cfg, gm, tracking_ess_threshold=0.9)
+    check(staged_b.config.beam_impl == "table"
+          and staged_b.config.score_aggregation == "sum"
+          and staged_b.config.injection_refill,
+          "[beam_staged] BIG is not the table scorer with sum and refill")
+    t0 = time.perf_counter()
+    out = run_staged(staged_b, staged_b.init(0), scans.repeat(4, 1), angles,
+                     deltas.repeat(4, 1), chunk=SCAN_LEN)
+    torch.cuda.synchronize()
+    settle_s = time.perf_counter() - t0
+    est = out.infos.estimate.mean.cpu().numpy()
+    errs = np.hypot(est[:, 0] - truth[:, 0], est[:, 1] - truth[:, 1])
+    n_big = int((out.modes == 0).sum())
+    c_run = _cuda.launch_counts()
+    print(f"[beam_staged] settle: {len(est)} scans in {settle_s:.2f} s, "
+          f"modes={out.modes.tolist()} switches={out.switches}; counts "
+          f"first/last chunk {out.infos.count[:SCAN_LEN].tolist()} / "
+          f"{out.infos.count[-SCAN_LEN:].tolist()}; error (m) last 8 "
+          f"{np.round(errs[-8:], 4).tolist()}; launches {c_run}")
+    check((out.modes[:SCAN_LEN] == 0).all(),
+          "[beam_staged] the run did not start with a 16-scan chunk in BIG")
+    check(out.switches >= 1 and out.modes[-1] == 1,
+          "[beam_staged] no hand-off to SMALL")
+    check(np.isfinite(est).all(), "[beam_staged] non-finite estimate")
+    check(errs[-1] < 0.2, f"[beam_staged] final error {errs[-1]:.3f} m >= 0.2 m")
+    check(c_run.get("table_scores", 0) >= n_big,
+          f"[beam_staged] table_scores launched {c_run.get('table_scores', 0)} "
+          f"times in {n_big} BIG scans")
+    small_state, s_infos, ms_bsmall = timed(staged_b.small, out.state, 1)
+    s_err = final_error(s_infos)
+    check(s_err < 0.2, f"[beam_staged] SMALL final error {s_err:.3f} m")
+    big_state = grow_state(small_state, state_size(staged_b.config))
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    c0 = _cuda.launch_counts().get("table_scores", 0)
+    _, b_infos, ms_bbig = timed(staged_b.big, big_state, 1)
+    peak = torch.cuda.max_memory_allocated()
+    final_error(b_infos)
+    check(_cuda.launch_counts().get("table_scores", 0) - c0 >= SCAN_LEN,
+          "[beam_staged] table_scores not launched every BIG scan")
+    # one (2N, M) f32 tensor at 2 x 1M poses and 360 beams: 2.88 GB
+    whole = 2 * state_size(staged_b.config) * N_BEAMS * 4
+    print(f"[beam_staged] SMALL (n_max={state_size(staged_b.small_config)}, "
+          f"window 64, 24 theta bins, no coarse fallback): {ms_bsmall:.4f} "
+          f"ms/scan; BIG (n_max={state_size(staged_b.config)}, range table, "
+          f"sum, refill): {ms_bbig:.4f} ms/scan, over {SCAN_LEN} scans each "
+          f"on {smi}; peak device memory over the BIG scans "
+          f"{peak / 1e9:.4f} GB ({(peak - mem0) / 1e9:.4f} GB above the "
+          f"{mem0 / 1e9:.4f} GB held before them) against {whole / 1e9:.2f} "
+          "GB for one whole (2N, M) f32 tensor")
+    check(peak < whole, f"[beam_staged] peak {peak / 1e9:.3f} GB over a BIG "
+          f"scan >= {whole / 1e9:.2f} GB")
+    add_counts("beam_staged", _cuda.launch_counts(), 6 * SCAN_LEN)
+    print(f"[beam_staged] kernel launches: {path_counts['beam_staged']}")
+    to_profile += [("beam_small", staged_b.small, small_state, ms_bsmall),
+                   ("beam_big", staged_b.big, big_state, ms_bbig)]
+    del staged_b, out, big_state
+
+    stamps.append(("lidar3d", time.perf_counter()))
+    # -- 7c. the 3-D lidar: AMHAMCL at 100k, 5760 beams, on the building
+    _cuda.reset_launch_counts()
+    st, _, ms_settle = timed(lidar, lidar.init(0), 1, lscans, directions)
+    st, l_infos, ms_lidar = timed(lidar, st, 1, lscans, directions)
+    err_l = final_error(l_infos)
+    c = _cuda.launch_counts()
+    add_counts("lidar3d", c, 2 * SCAN_LEN)
+    print(f"[lidar3d] AMHAMCL n={state_size(lidar_cfg)}, {directions.shape[0]} "
+          f"beams (16 rings x 360), volume {tuple(vm.occupancy.shape)}: "
+          f"{ms_lidar:.4f} ms/scan over {SCAN_LEN} timed scans (settle "
+          f"{ms_settle:.4f}) on {smi}; final error {err_l:.4f} m; launches {c}")
+    check(err_l < 0.2, f"[lidar3d] final error {err_l:.3f} m >= 0.2 m")
+    check(c.get("voxel_scores", 0) >= 2 * SCAN_LEN,
+          "[lidar3d] voxel_scores not launched every scan")
+    to_profile.append(("lidar3d", lidar, st, ms_lidar, lscans, directions))
+    del lidar, st
 
     stamps.append(("eval", time.perf_counter()))
     # -- 8. the experiment runner's CLI on a simulated bag
@@ -1615,10 +1878,10 @@ def main(argv=None) -> int:
 
         pdir = Path(args.profile)
         pdir.mkdir(parents=True, exist_ok=True)
-        for tag, model, st, ms in to_profile:
+        for tag, model, st, ms, *inputs in to_profile:
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
-                timed(model, st, 1)
+                timed(model, st, 1, *inputs)
             averages = prof.key_averages()
             (pdir / f"{tag}_profile.txt").write_text(averages.table(
                 sort_by="self_device_time_total", row_limit=80))

@@ -5,8 +5,7 @@
 keep the JAX file's fields, defaults and parsing one for one (the tests
 compare the two field by field), so one params file configures both
 packages.  The port does not load the JAX package's file: it imports
-nothing of that package.  ``check_supported`` refuses the configuration
-values this port does not run yet, naming the ROADMAP item that adds each.
+nothing of that package.
 
 The reference stores all parameters on the ROS parameter server, loaded from
 ``app/params/amhmcl.yaml`` and read via ~25 ``rospy.get_param`` calls
@@ -603,9 +602,3 @@ def _coerce(val: str):
         except ValueError:
             return val
 
-
-def check_supported(config) -> None:
-    """Raise NotImplementedError for a value outside the ported slices."""
-    if config.sensor_model == "lidar3d":
-        raise NotImplementedError(
-            "sensor_model='lidar3d': 3-D lidar is ROADMAP item 14")

@@ -1,7 +1,8 @@
-"""Carry a map, a filter state and beam tables across from numpy arrays.
+"""Carry a map, a voxel map, a filter state and beam tables across from
+numpy arrays.
 
 Both packages then compute on the same inputs: a JAX ``GridMap``,
-``FilterState`` or ``BeamTables`` flattened to numpy arrays (``np.asarray``
+``VoxelMap``, ``FilterState`` or ``BeamTables`` flattened to numpy arrays (``np.asarray``
 of each field) rebuilds here.  The PRNG key is the one field that cannot
 transfer: the port's state takes a fresh ``torch.Generator``.  Each
 function puts its tensors on the card unless ``device`` names another
@@ -15,6 +16,7 @@ import torch
 
 from mcmh_localization_tpu_torch.filter.state import FilterState, make_generator
 from mcmh_localization_tpu_torch.maps.grid_map import GridMap, build_grid_map
+from mcmh_localization_tpu_torch.maps.voxel_map import VoxelMap
 from mcmh_localization_tpu_torch.models.range_table import BeamTables
 from mcmh_localization_tpu_torch.utils.device import (
     DEFAULT_DEVICE,
@@ -33,6 +35,23 @@ def grid_map_from_numpy(occupancy, resolution, origin, distance=None,
     return build_grid_map(np.asarray(occupancy), float(resolution),
                           tuple(float(o) for o in np.asarray(origin)[:2]),
                           distance=distance, device=device)
+
+
+def voxel_map_from_numpy(occupancy, distance, resolution, origin,
+                         max_distance=None, device=DEFAULT_DEVICE) -> VoxelMap:
+    """A VoxelMap from a JAX VoxelMap's arrays and metadata as they are: the
+    int8 occupancy, the f32 distance volume (no EDT is recomputed), the
+    resolution, the (x, y, z) origin and the EDT cap."""
+    dev = resolve_device(device)
+    return VoxelMap(
+        occupancy=torch.as_tensor(np.array(occupancy), dtype=torch.int8,
+                                  device=dev),
+        distance=torch.as_tensor(np.array(distance), dtype=torch.float32,
+                                 device=dev),
+        resolution=float(resolution),
+        origin=tuple(float(o) for o in origin),
+        max_distance=None if max_distance is None else float(max_distance),
+    )
 
 
 def beam_tables_from_numpy(table, qt, dvals, qtc=None,

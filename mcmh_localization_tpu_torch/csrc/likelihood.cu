@@ -51,48 +51,13 @@
 
 #include <cuda_runtime.h>
 
+#include "stage_beams.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxBeams = 2048;  // staged as float2: 16 KB of shared memory
 constexpr int kMaxBlocks = 4096;
-
-// Stages the valid beams' (u, v) in s_uv in ascending beam order; returns
-// their number.  Every thread of the block calls it.
-__device__ int stage_valid_beams(const float* __restrict__ u,
-                                 const float* __restrict__ v,
-                                 const unsigned char* __restrict__ valid,
-                                 int m, float2* s_uv) {
-  __shared__ int s_warp[kWarps];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int base = 0;
-  for (int j0 = 0; j0 < m; j0 += kThreads) {
-    const int j = j0 + threadIdx.x;
-    bool live = false;
-    float2 uv = make_float2(0.0f, 0.0f);
-    if (j < m) {
-      live = valid[j] != 0;
-      uv = make_float2(u[j], v[j]);
-    }
-    const unsigned int mask = __ballot_sync(0xffffffffu, live);
-    if (lane == 0) s_warp[warp] = __popc(mask);
-    __syncthreads();
-    int before = base;
-    int total = base;
-#pragma unroll
-    for (int k = 0; k < kWarps; ++k) {
-      const int c = s_warp[k];
-      before += k < warp ? c : 0;
-      total += c;
-    }
-    if (live) s_uv[before + __popc(mask & ((1u << lane) - 1u))] = uv;
-    base = total;
-    __syncthreads();  // s_warp is rewritten by the next pass
-  }
-  return base;
-}
 
 template <int G, bool kDiv>
 __global__ void __launch_bounds__(kThreads) likelihood_scores_kernel(
@@ -102,7 +67,8 @@ __global__ void __launch_bounds__(kThreads) likelihood_scores_kernel(
     float origin_y, float scale, const int* __restrict__ count,
     int sum_aggregation, float blind_score, float* __restrict__ out) {
   extern __shared__ float2 s_uv[];
-  const int m_valid = stage_valid_beams(u, v, valid, m, s_uv);
+  const int m_valid = mcmh::stage_valid_beams<kThreads>(
+      valid, m, s_uv, [=](int j) { return make_float2(u[j], v[j]); });
   const int n_valid = __ldg(count);
   constexpr int kGroups = kThreads / G;  // poses a block takes at a time
   const int g = threadIdx.x & (G - 1);

@@ -337,7 +337,8 @@ def build_parser():
         sp.add_argument(
             "--sensor-model", dest="sensor_model", default=None,
             choices=["likelihood_field", "beam"],
-            help="override the sensor model (lidar3d is not ported)",
+            help="override the sensor model (lidar3d needs the python API "
+                 "with a VoxelMap)",
         )
         sp.add_argument("--repeats", type=int, default=1)
         # staged two-program execution works for every command (the

@@ -52,8 +52,9 @@ class OnlineLocalizer:
         tracking_window_cells: int | None = None,
         frame_recorder=None,
     ):
-        """The JAX facade's parameters.  ``voxel_map`` (3-D lidar) must be
-        None.
+        """The JAX facade's parameters.  ``voxel_map``: the VoxelMap of
+        sensor_model="lidar3d" (``grid_map`` then its navigation slice;
+        ``on_scan`` takes the (M, 2) azimuth and elevation as ``angles``).
 
         ``staged=True`` runs the two-program execution (filter/staged.py)
         online: global/recovery phases use the full-capacity full-field

@@ -63,8 +63,9 @@ def make_staged_model(
     global_score_aggregation: str | None = "sum",
 ) -> StagedModel:
     """Build the two programs; ``config`` must be adaptive.  The parameters
-    are the JAX ``make_staged_model``'s, in its order; ``voxel_map`` (3-D
-    lidar) must be None."""
+    are the JAX ``make_staged_model``'s, in its order; ``voxel_map`` is the
+    3-D lidar's VoxelMap (``grid_map`` then its navigation slice), passed to
+    both programs."""
     big_config, small_config = _staged_configs(
         config, tracking_capacity, global_scoring, tracking_ess_threshold,
         tracking_theta_bins, tracking_window_cells, global_score_aggregation,

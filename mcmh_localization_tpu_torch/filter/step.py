@@ -1,7 +1,8 @@
 """The filter step (port of ``mcmh_localization_tpu/filter/step.py``): all
 six modes with the likelihood-field scorers (corr, and the exact "jnp" and
-"pallas" scorers) and the ray-cast beam model (its score field, range-table
-and ray-march scorers).
+"pallas" scorers), the ray-cast beam model (its score field, range-table
+and ray-march scorers) and the 3-D lidar (a voxel map's distance volume,
+the planar pose on its 2-D navigation slice).
 
 One scan is ``_predict`` (odometry proposal, with rejection retries under
 motion_validity="reject") then ``_correct`` (score the proposed and
@@ -28,7 +29,6 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from mcmh_localization_tpu_torch.config import check_supported
 from mcmh_localization_tpu_torch.filter.estimate import (
     PoseEstimate,
     cluster_mass,
@@ -54,6 +54,11 @@ from mcmh_localization_tpu_torch.models.range_table import (
     make_beam_tables,
     raycast_table_scores,
     table_cell_major,
+)
+from mcmh_localization_tpu_torch.models.sensor3d import (
+    Lidar3dTable,
+    lidar3d_log_volume,
+    lidar3d_scores,
 )
 from mcmh_localization_tpu_torch.models.sensor import (
     likelihood_field_scores,
@@ -223,13 +228,30 @@ def _resolved_beam_impl(config, device) -> str:
     return impl
 
 
+def _resolved_impl(config, device) -> str:
+    """The scorer a config runs on ``device``: "lidar3d", the resolved beam
+    impl or the resolved likelihood-field impl."""
+    if config.sensor_model == "lidar3d":
+        return "lidar3d"
+    if config.sensor_model == "beam":
+        return _resolved_beam_impl(config, device)
+    return _resolved_likelihood_impl(config, device)
+
+
 def _make_scorer(ranges, angles, grid_map, table, config, impl,
                  window_origin):
     """The scorer for the resolved ``impl`` on the sensor ``table``
-    (``_sensor_table``): the beam score field (with the window origin), the
+    (``_sensor_table``): the 3-D lidar's (``angles`` (M, 2): azimuth and
+    elevation); the beam score field (with the window origin), the
     range-table or ray-march beam scorer; corr (with the window origin,
     when windowed) or the exact scorer in the "jnp" (divide) or "pallas"
     (multiply) cell form."""
+    if impl == "lidar3d":
+        def score(p):
+            return lidar3d_scores(p, ranges, angles, table.voxel_map, config,
+                                  sensor_z=config.lidar3d_sensor_z,
+                                  log_volume=table.log_volume)
+        return score
     if impl == "field":
         def score(p):
             return beam_field_scores(p, ranges, angles, grid_map, config,
@@ -474,9 +496,7 @@ def _correct(state: FilterState, ranges: torch.Tensor, angles: torch.Tensor,
     """Measurement update (lidar_callback, amcmh_localizer.py:294-338)."""
     d = draws if draws is not None else Draws()
     mask = state.active_mask
-    impl = (_resolved_beam_impl(config, state.device)
-            if config.sensor_model == "beam"
-            else _resolved_likelihood_impl(config, state.device))
+    impl = _resolved_impl(config, state.device)
     field = impl in ("corr", "field")
     wo = (_window_origin(state, grid_map, config,
                          n_theta=(config.beam_table_n_theta
@@ -485,7 +505,8 @@ def _correct(state: FilterState, ranges: torch.Tensor, angles: torch.Tensor,
     score = _make_scorer(ranges, angles, grid_map, log_field, config, impl, wo)
     if config.motion_validity == "score" and not field:
         # the corr and beam fields fold the penalty into their builds; the
-        # other scorers take the explicit wrap (JAX step.py:581-593)
+        # other scorers (exact, beam table and dense, lidar3d) take the
+        # explicit wrap (JAX step.py:581-593)
         score = wrap_score_with_validity(score, grid_map, config, ranges)
 
     # inactive slots collapse onto slot 0 (always active) before scoring
@@ -586,10 +607,18 @@ def _correct(state: FilterState, ranges: torch.Tensor, angles: torch.Tensor,
 # public factory
 # ---------------------------------------------------------------------------
 
-def _sensor_table(grid_map, config):
+def _sensor_table(grid_map, config, voxel_map=None):
     """The per-(map, config) sensor precompute (JAX step.py:786-816): the
-    BeamTables of the beam score field, the cell-major range table of the
-    beam "table" scorer, or the log-likelihood field."""
+    voxel map and its log-mixture volume (3-D lidar), the BeamTables of the
+    beam score field, the cell-major range table of the beam "table"
+    scorer, or the log-likelihood field."""
+    if config.sensor_model == "lidar3d":
+        if voxel_map is None:
+            raise ValueError(
+                "sensor_model='lidar3d' requires make_step/make_model("
+                "..., voxel_map=VoxelMap); grid_map stays the 2-D "
+                "navigation slice (maps/voxel_map.py::nav_slice)")
+        return Lidar3dTable(voxel_map, lidar3d_log_volume(voxel_map, config))
     if config.sensor_model == "beam":
         impl = _resolved_beam_impl(config, grid_map.device)
         if impl == "field":
@@ -604,13 +633,15 @@ class FilterModel:
     """A config + map bound into init / predict / correct / step / run.
 
     ``log_field`` is the per-(map, config) sensor table (``_sensor_table``),
-    built once on the map's device."""
+    built once on the map's device.  ``voxel_map`` is the 3-D lidar's map
+    (None for the 2-D sensors); ``grid_map`` is then its navigation slice,
+    which motion validity and injection use."""
 
-    def __init__(self, config, grid_map):
-        check_supported(config)
+    def __init__(self, config, grid_map, voxel_map=None):
         self.config = config
         self.grid_map = grid_map
-        self.log_field = _sensor_table(grid_map, config)
+        self.voxel_map = voxel_map
+        self.log_field = _sensor_table(grid_map, config, voxel_map)
 
     @property
     def device(self) -> torch.device:
@@ -649,8 +680,9 @@ class FilterModel:
                             angles, draws)
 
     def run(self, state, ranges_seq, angles, deltas):
-        """A trajectory, one step per scan: (T, M) ranges, (M,) angles,
-        (T, 3) deltas -> (final state, stacked StepInfo)."""
+        """A trajectory, one step per scan: (T, M) ranges, (M,) angles (or
+        the 3-D lidar's (M, 2) directions), (T, 3) deltas -> (final state,
+        stacked StepInfo)."""
         ranges_seq = self._on_device(ranges_seq)
         angles = self._on_device(angles)
         deltas = self._on_device(deltas)
@@ -665,18 +697,17 @@ class FilterModel:
 
 
 def make_model(config, grid_map, voxel_map=None) -> FilterModel:
-    """The JAX ``make_model``'s parameters; ``voxel_map`` (3-D lidar) must
-    be None."""
-    if voxel_map is not None:
-        raise NotImplementedError(
-            "voxel_map: 3-D lidar (maps/voxel_map.py) is ROADMAP item 14")
-    return FilterModel(config, grid_map)
+    """The JAX ``make_model``'s parameters: ``voxel_map`` is the VoxelMap of
+    sensor_model="lidar3d" (``grid_map`` then its 2-D navigation slice,
+    ``maps/voxel_map.py::nav_slice``)."""
+    return FilterModel(config, grid_map, voxel_map)
 
 
 def make_step(config, grid_map, voxel_map=None):
-    """(predict, correct, step, log_field) for a config and map: the JAX
-    ``make_step``'s four results, as plain closures over one
-    ``FilterModel`` (PyTorch runs eagerly: there is nothing to jit)."""
+    """(predict, correct, step, log_field) for a config and map (and the
+    3-D lidar's ``voxel_map``): the JAX ``make_step``'s four results, as
+    plain closures over one ``FilterModel`` (PyTorch runs eagerly: there is
+    nothing to jit)."""
     model = make_model(config, grid_map, voxel_map)
 
     def predict(state, delta, draws: Draws | None = None):

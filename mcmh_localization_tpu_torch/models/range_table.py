@@ -18,8 +18,10 @@ windowed lookup is ``ops/fused_score.py::window_score`` in the beam op
 forms (divide by the resolution and the bin width, clip before the window).
 
 ``raycast_table_scores`` reads the cell-major table once per (particle,
-beam) through ``ops/gather.py::gather_2d``: exact f32 reads, where the TPU
-read bf16.
+beam), with the bin math, the mixture and the beam sum fused around the
+read (``ops/scan_scores.py::table_scores``, a CUDA kernel on the card; its
+plain version takes a chunk of particles at a time): exact f32 reads,
+where the TPU read bf16.
 """
 
 from __future__ import annotations
@@ -46,6 +48,11 @@ from mcmh_localization_tpu_torch.ops.fused_score import (
     window_score,
 )
 from mcmh_localization_tpu_torch.ops.gather import PI_F32, gather_2d, theta_scale
+from mcmh_localization_tpu_torch.ops.scan_scores import (
+    Mixture,
+    TableGeometry,
+    table_scores,
+)
 from mcmh_localization_tpu_torch.utils.f32 import divide, scalar
 
 
@@ -421,30 +428,25 @@ def raycast_table_scores(
     beam) (JAX :753-826): the mixture and aggregation of
     ``sensor.raycast_beam_scores`` on the heading quantized to the table
     bin and the origin to the particle's cell; ``config.step`` subsamples
-    the beams; out-of-map particles score 0 (before the validity wrap)."""
+    the beams; out-of-map particles score 0 (before the validity wrap).
+    The reads, the mixture and the beam sum are one fused kernel on the
+    card (``ops/scan_scores.py::table_scores``)."""
     if config.step > 1:
         ranges = ranges[:: config.step]
         angles = angles[:: config.step]
     valid = torch.isfinite(ranges) & (ranges < config.max_range)
-    count = valid.sum()
-    safe_r = torch.where(valid, ranges, 0.0)
-    n, m = particles.shape[0], ranges.shape[0]
-    mx, my = grid_map.world_to_grid(particles[:, 0], particles[:, 1])
-    in_map = grid_map.in_bounds(mx, my)
-    cell = (my.clamp(0, grid_map.height - 1) * grid_map.width
-            + mx.clamp(0, grid_map.width - 1))
-    # floor, not truncation: theta + a spans [-2 pi, 2 pi]
-    k_nj = torch.floor(divide(particles[:, 2][:, None] + angles[None, :]
-                              + PI_F32, 2.0 * math.pi / n_theta)
-                       ).to(torch.int32) % n_theta
-    r_pred = gather_2d(
-        table_cm, cell[:, None].expand(n, m).reshape(-1).to(torch.int32),
-        k_nj.reshape(-1).contiguous()).reshape(n, m)
-    z = divide(safe_r[None, :] - r_pred, config.sigma_hit)
-    prob = (config.z_hit * (hit_norm(config.sigma_hit) * torch.exp(-0.5 * z ** 2))
-            + config.z_rand / config.max_range)
-    logp = torch.log(torch.clamp(prob, min=LOG_FLOOR))
-    totals = torch.where(valid[None, :] & in_map[:, None], logp, 0.0).sum(dim=1)
-    if config.score_aggregation == "mean":
-        totals = totals / count.clamp(min=1).to(torch.float32)
-    return torch.where(count > 0, totals, BLIND_SCORE).to(torch.float32)
+    geo = TableGeometry(
+        origin_x=grid_map.origin_xy[0], origin_y=grid_map.origin_xy[1],
+        res=grid_map.res, h=grid_map.height, w=grid_map.width,
+        n_theta=n_theta)
+    return table_scores(
+        particles.contiguous(), ranges.contiguous(), angles.contiguous(),
+        valid.contiguous(), table_cm, geo, beam_mixture(config),
+        valid.sum(), config.score_aggregation)
+
+
+def beam_mixture(config) -> Mixture:
+    """The beam model's mixture constants of ``config``."""
+    return Mixture(sigma=config.sigma_hit, z_hit=config.z_hit,
+                   hit_norm=hit_norm(config.sigma_hit),
+                   z_floor=config.z_rand / config.max_range)

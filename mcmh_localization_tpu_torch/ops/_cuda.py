@@ -29,8 +29,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("corr_field_build.cu", "gather.cu", "rank.cu", "fused_score.cu",
-           "likelihood.cu", "take.cu", "beam_field.cu")
-HEADERS = ("thread_runs.cuh",)
+           "likelihood.cu", "take.cu", "beam_field.cu", "scan_scores.cu")
+HEADERS = ("thread_runs.cuh", "stage_beams.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # no multiply-add contraction: the index math must round like the
@@ -43,7 +43,8 @@ NVCC_FLAGS = (
 # poses_per_thread.
 FILL_THREADS = 1 << 18
 # The SMs of an H100 SXM: beam_field.py::lut_tiles spreads its blocks over
-# them.
+# them, and scan_scores.py::voxel_scores caps its grid at the blocks they
+# hold at once.
 SM_COUNT = 132
 
 
@@ -73,6 +74,23 @@ class WindowArgs(ctypes.Structure):
             "kc", "hc", "wc", "fine_div", "theta_div", "clip_before_window")]
 
 
+class TableArgs(ctypes.Structure):
+    """csrc/scan_scores.cu's ``TableArgs``, passed by value."""
+
+    _fields_ = [(name, _F) for name in (
+        "origin_x", "origin_y", "res", "pi_f", "dtheta", "sigma", "hit_norm",
+        "z_hit", "z_floor", "log_floor", "blind_score")] + [
+            (name, _I) for name in ("h", "w", "n_theta", "sum_aggregation")]
+
+
+class VoxelArgs(ctypes.Structure):
+    """csrc/scan_scores.cu's ``VoxelArgs``, passed by value."""
+
+    _fields_ = [(name, _F) for name in (
+        "origin_x", "origin_y", "inv", "blind_score")] + [
+            (name, _I) for name in ("h", "w", "sum_aggregation")]
+
+
 _SIGNATURES = {
     "mcmh_corr_field_build": (_P, _I, _I, _P, _P, _I, _I, _P, _I, _I, _P),
     "mcmh_gather_2d": (_P, _I, _I, _P, _P, _I, _I, _P, _P),
@@ -96,6 +114,10 @@ _SIGNATURES = {
     ),
     "mcmh_take_rows": (_P, _I, _I, _P, _I, _P, _P),
     "mcmh_lut_field": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
+    "mcmh_table_scores": (_P, _I, _P, _P, _P, _I, _P, _P, TableArgs, _I, _P,
+                          _P),
+    "mcmh_voxel_scores": (_P, _I, _P, _P, _P, _P, _I, _P, _P, VoxelArgs, _I,
+                          _I, _P, _P),
 }
 
 _lib = None

@@ -27,10 +27,7 @@ UNPORTED = {
     "ops": {},
     "maps": {
         "distance_transform_edt_device":
-            "Not ported: the port's EDT is scipy's exact one on the host",
-        "VoxelMap": "item 14", "build_voxel_map": "item 14",
-        "nav_slice": "item 14", "raycast3d": "item 14",
-        "save_voxel_map": "item 14", "load_voxel_map": "item 14"},
+            "Not ported: the port's EDT is scipy's exact one on the host"},
     "utils": {},
     "io": {},
     "sim": {},
@@ -93,10 +90,29 @@ def test_jax_style_positional_staged_call_builds_a_windowed_model(
     assert tst.big.grid_map is torch_map and tst.small.config == tst.small_config
 
 
-def test_factories_refuse_a_voxel_map(torch_map):
-    cfg = FilterConfig(**_KW)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        step.make_model(cfg, torch_map, object())
-    with pytest.raises(NotImplementedError, match="item 14"):
-        staged.make_staged_model(cfg, torch_map, 2048, object())
-    assert isinstance(step.make_model(cfg, torch_map, None), step.FilterModel)
+def test_factories_refuse_a_voxel_map(house_occupancy):
+    """Both factories took ``voxel_map`` at JAX's position and refused any
+    but None until the 3-D lidar was ported; now both build a lidar3d model
+    from a voxel map passed there positionally, as a JAX call passes it,
+    and a lidar3d config without one raises JAX's ValueError."""
+    from mcmh_localization_tpu_torch.maps.voxel_map import (
+        build_voxel_map,
+        nav_slice,
+    )
+
+    occ = np.stack([np.full_like(house_occupancy, 100)]
+                   + [house_occupancy] * 3)
+    vm = build_voxel_map(occ, 0.05, (-4.8, -4.8, 0.0), device="cpu")
+    nav = nav_slice(vm, z=0.1)
+    cfg = FilterConfig(**{**_KW, "num_particles": 4096, "max_particles": 4096,
+                          "sensor_model": "lidar3d"})
+    model = step.make_model(cfg, nav, vm)
+    assert isinstance(model, step.FilterModel) and model.voxel_map is vm
+    assert model.log_field.log_volume.shape == occ.shape
+    st = staged.make_staged_model(cfg, nav, 2048, vm)
+    assert st.big.voxel_map is vm and st.small.voxel_map is vm
+    assert step.state_size(st.small_config) == 2048
+    with pytest.raises(ValueError, match="voxel_map"):
+        step.make_model(cfg, nav)
+    assert isinstance(step.make_model(FilterConfig(**_KW), nav, None),
+                      step.FilterModel)

@@ -23,6 +23,7 @@ from mcmh_localization_tpu.models import sensor as jsensor  # noqa: E402
 from mcmh_localization_tpu_torch import config as tconfig  # noqa: E402
 from mcmh_localization_tpu_torch.convert import grid_map_from_numpy  # noqa: E402
 from mcmh_localization_tpu_torch.filter import init as tinit  # noqa: E402
+from mcmh_localization_tpu_torch.filter.step import make_model  # noqa: E402
 from mcmh_localization_tpu_torch.maps.grid_map import build_grid_map  # noqa: E402
 from mcmh_localization_tpu_torch.models import motion as tmotion  # noqa: E402
 from mcmh_localization_tpu_torch.models import sensor as tsensor  # noqa: E402
@@ -61,20 +62,23 @@ def test_config_is_the_jax_source():
     (dict(sensor_model="beam"), "item 13"),
     (dict(sensor_model="lidar3d"), "item 14"),
 ])
-def test_out_of_slice_config_raises(kw, item):
-    """check_supported refuses a configuration of a ROADMAP item not yet
-    ported, naming the item, and accepts the items ported since (item 13,
-    the beam model)."""
+def test_out_of_slice_config_raises(kw, item, torch_map, house_occupancy):
+    """A configuration of a ROADMAP item was refused until the item was
+    ported; items 13 (the beam model) and 14 (the 3-D lidar, with its voxel
+    map) are, and make_model builds each.  ``config.check_supported``,
+    which refused them, is gone with the last refusal."""
     base = dict(mode="AMHAMCL", motion_validity="score", corr_coarse_factor=0,
                 likelihood_impl="auto")
     base.update(kw)
-    if item in ("item 13",):
-        tconfig.check_supported(tconfig.FilterConfig(**base))
-    else:
-        with pytest.raises(NotImplementedError, match=item):
-            tconfig.check_supported(tconfig.FilterConfig(**base))
-    tconfig.check_supported(tconfig.FilterConfig(
-        mode="AMHAMCL", motion_validity="score", likelihood_impl="auto"))
+    voxel = None
+    if item == "item 14":
+        from mcmh_localization_tpu_torch.maps.voxel_map import build_voxel_map
+
+        voxel = build_voxel_map(np.stack([house_occupancy] * 2), 0.05,
+                                (-4.8, -4.8, 0.0), device="cpu")
+    model = make_model(tconfig.FilterConfig(**base), torch_map, voxel)
+    assert model.voxel_map is voxel
+    assert not hasattr(tconfig, "check_supported")
 
 
 @pytest.mark.parametrize("kw", [
@@ -84,14 +88,15 @@ def test_out_of_slice_config_raises(kw, item):
     dict(mode="MHMCL"),
     dict(adaptive_resampler="lvr"),
 ], ids=["jnp", "coarse", "reject", "MHMCL", "lvr"])
-def test_formerly_refused_config_accepted(kw):
+def test_formerly_refused_config_accepted(kw, torch_map):
     """The exact scorer, the coarse fallback, "reject", the non-adaptive
     modes and the simple/lvr resamplers were refused before they were
-    ported; check_supported accepts them now."""
+    ported; make_model builds each now."""
     base = dict(mode="AMHAMCL", motion_validity="score", corr_coarse_factor=0,
                 likelihood_impl="auto")
     base.update(kw)
-    tconfig.check_supported(tconfig.FilterConfig(**base))
+    model = make_model(tconfig.FilterConfig(**base), torch_map)
+    assert model.config == tconfig.FilterConfig(**base)
 
 
 def test_pgm_map_roundtrip(tmp_path, house_occupancy):

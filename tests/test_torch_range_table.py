@@ -1,6 +1,8 @@
 """The port's range table, per-scan LUT matrices, LUT field (kernel 7's
-plain version), beam score field and beam scorers against the JAX package
-on the same inputs (models/range_table.py, ops/beam_field.py)."""
+plain version), beam score field and beam scorers (the range-table
+scorer's fused form of kernel 2 among them) against the JAX package on the
+same inputs (models/range_table.py, ops/beam_field.py,
+ops/scan_scores.py)."""
 
 import numpy as np
 import pytest
@@ -31,6 +33,10 @@ from mcmh_localization_tpu_torch.ops.beam_field import (  # noqa: E402
     lut_field_plain,
 )
 from mcmh_localization_tpu_torch.ops.fused_score import window_indices  # noqa: E402
+from mcmh_localization_tpu_torch.ops.scan_scores import (  # noqa: E402
+    TableGeometry,
+    table_scores_plain,
+)
 from tests.test_torch_ops import torch_one_thread  # noqa: E402,F401
 
 LOG_FLOOR_ABS = 13.82  # |log(1e-6)|: no per-beam term is larger
@@ -382,6 +388,83 @@ def test_raycast_table_scores_match_jax(box_maps):
         _t(parts), _t(np.full(60, np.inf, np.float32)), _t(angles), tm,
         FilterConfig(**cfg), _t(table_cm), k_bins).numpy()
     assert (blind == -50.0).all()
+
+
+@pytest.fixture(scope="module")
+def table_case(box_maps):
+    """The box map's 36-bin cell-major table, a 60-beam scan with invalid
+    beams and 300 poses, some of them off the map (the map spans +-1.6 m)."""
+    jm, _ = box_maps
+    table_cm = np.asarray(jrt.table_cell_major(jrt.build_range_table(jm, 36,
+                                                                     2.0)))
+    ranges, angles = _scan(jm, (0.3, -0.4, 0.7), 60, 2.0)
+    rng = np.random.default_rng(5)
+    parts = np.stack([rng.uniform(-2.0, 2.0, 300), rng.uniform(-2.0, 2.0, 300),
+                      rng.uniform(-np.pi, np.pi, 300)], 1).astype(np.float32)
+    return table_cm, ranges, angles, parts
+
+
+def _table_plain(tm, cfg, table_cm, parts, ranges, angles, lanes=None,
+                 chunk=None):
+    """Form (a)'s plain version on the beams ``raycast_table_scores``
+    passes it (``config.step`` subsampled, valid = finite and in range)."""
+    r, a = _t(ranges[::cfg.step]), _t(angles[::cfg.step])
+    valid = torch.isfinite(r) & (r < cfg.max_range)
+    geo = TableGeometry(tm.origin_xy[0], tm.origin_xy[1], tm.res, tm.height,
+                        tm.width, cfg.beam_table_n_theta)
+    return table_scores_plain(_t(parts), r, a, valid, _t(table_cm), geo,
+                              trt.beam_mixture(cfg), valid.sum(),
+                              cfg.score_aggregation, lanes=lanes, chunk=chunk)
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("aggregation,step", [
+    ("mean", 1), ("sum", 1), ("mean", 4), ("sum", 4)])
+def test_table_scores_plain_matches_jax(box_maps, table_case, aggregation,
+                                        step, lanes):
+    """Kernel 2's fused form (a), the range-table scorer's plain version, at
+    every G against JAX's ``raycast_table_scores``: the same f32 cell and
+    bin arithmetic; exp and log round an ulp apart and the beam sum runs in
+    another order (rtol 1e-5, atol 1e-5 * 13.82).  Off-map poses score 0
+    and a blind scan the penalty in both."""
+    jm, tm = box_maps
+    table_cm, ranges, angles, parts = table_case
+    cfg = dict(max_range=2.0, sigma_hit=0.1, beam_table_n_theta=36,
+               score_aggregation=aggregation, step=step)
+    want = np.asarray(jrt.raycast_table_scores(
+        jnp.asarray(parts), jnp.asarray(ranges), jnp.asarray(angles), jm,
+        JConfig(**cfg), jnp.asarray(table_cm), 36))
+    got = _table_plain(tm, FilterConfig(**cfg), table_cm, parts, ranges,
+                       angles, lanes=lanes).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * 13.82)
+    mx = ((parts[:, 0] + np.float32(1.6)) / np.float32(0.05)).astype(np.int32)
+    my = ((parts[:, 1] + np.float32(1.6)) / np.float32(0.05)).astype(np.int32)
+    off = (mx < 0) | (mx >= 64) | (my < 0) | (my >= 64)
+    assert 10 < off.sum() < 290
+    assert (got[off] == 0.0).all() and (want[off] == 0.0).all()
+    blind = _table_plain(tm, FilterConfig(**cfg), table_cm, parts,
+                         np.full(60, np.inf, np.float32), angles,
+                         lanes=lanes).numpy()
+    assert (blind == -50.0).all()
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 300])
+def test_table_scores_chunked_equals_unchunked(box_maps, table_case, chunk):
+    """The plain version takes a chunk of poses at a time (no whole (N, M)
+    array); any chunk gives the unchunked scores bitwise, and the public
+    scorer is the plain version on the CPU."""
+    jm, tm = box_maps
+    table_cm, ranges, angles, parts = table_case
+    cfg = FilterConfig(max_range=2.0, sigma_hit=0.1, beam_table_n_theta=36,
+                       score_aggregation="sum")
+    whole = _table_plain(tm, cfg, table_cm, parts, ranges, angles,
+                         chunk=len(parts))
+    np.testing.assert_array_equal(
+        _table_plain(tm, cfg, table_cm, parts, ranges, angles,
+                     chunk=chunk).numpy(), whole.numpy())
+    np.testing.assert_array_equal(
+        trt.raycast_table_scores(_t(parts), _t(ranges), _t(angles), tm, cfg,
+                                 _t(table_cm), 36).numpy(), whole.numpy())
 
 
 def test_raycast_beam_scores_match_jax(house_map, torch_house):

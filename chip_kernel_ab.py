@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Kernels 2, 4, 5, 6 and 7 of the PyTorch/CUDA port against their first
-Hopper versions, on one NVIDIA GPU, in turns.
+Hopper versions, and kernel 2's fused forms (a) and (b) against their
+first versions, on one NVIDIA GPU, in turns.
 
     git archive 31a30c8 mcmh_localization_tpu_torch/csrc | tar -x -C build/parent
-    python3 chip_kernel_ab.py --old build/parent [--kernels 2,4,5,6,7]
+    git archive 4c0386c mcmh_localization_tpu_torch/csrc | tar -x -C build/parent_scan
+    python3 chip_kernel_ab.py --old build/parent --old-scan build/parent_scan \
+        [--kernels 2,4,5,6,7,a,b]
 
 ``--old DIR`` holds the ``likelihood.cu``, ``fused_score.cu``, ``gather.cu``,
 ``beam_field.cu`` and ``rank.cu`` of commit 31a30c8, the kernels' first
@@ -49,7 +52,20 @@ this tree through its wrapper), so the readings hold the kernels alone:
   kernel and this one at every P in {1, 2, 4}, each bitwise against the
   plain version.
 
-``--kernels`` names the kernels to compare (all by default).
+- form (a) (the range-table scorer) at 2 x 1M and 2 x 1500 poses, and
+  form (b) (the 3-D lidar scorer) at 2 x 100k poses x 5760 beams on the
+  mixed cloud, every pose at START and the cloud ``[lidar3d]`` scores on a
+  tracked scan (``chip_smoke.scored_cloud``), at G = 1, 2 and 4: commit
+  4c0386c's ``scan_scores.cu`` (``--old-scan``: it and its
+  ``stage_beams.cuh`` checked by sha256 like the sources above, built
+  twice: as it is and with ``SCAN_ABLATION``'s throwaway edits) and this
+  tree's, the earlier kernel and this one each bitwise against the plain
+  version at the same G; beside (b), the distinct sectors and lines a
+  warp load touches in each candidate layout of the volume
+  (``voxel_sectors``).
+
+``--kernels`` names the kernels to compare (all by default); ``--old`` is
+needed for kernels 2 and 4-7, ``--old-scan`` for forms a and b.
 Each case is timed in turns, the earlier kernel first and last (old, new
 ..., ... new, old), with ``chip_smoke.device_ms`` (median of 20 runs).  The
 lines print the two readings of each kernel with the card's name and
@@ -76,18 +92,21 @@ from chip_smoke import (  # noqa: E402
     MAP_CELLS,
     N_BEAMS,
     RES,
+    SCAN_LEN,
     START,
     beam_point_config,
     check,
+    circle_poses,
     device_ms,
     free_mask_indices,
     house_occupancy,
+    lidar_scene,
     lut_inputs,
     mixed_cloud,
     nvidia_smi_line,
     rank_bound,
+    scored_cloud,
     start_window,
-    table_scorer_indices,
 )
 
 LANES = (1, 2, 4, 8, 16, 32)
@@ -136,6 +155,31 @@ extern "C" int ab_rank_expand(const int* mono, int r, int num_out,
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
+# sha256 of commit 4c0386c's kernel 2 fused forms (a) and (b) before their
+# redesign: scan_scores.cu and the stage_beams.cuh it includes
+OLD_SCAN_SOURCES = {
+    "scan_scores.cu":
+        "d252384b8add405e8f2ad4c00683f5d5e0f9c4248bc9510a0f993933335d6254",
+    "stage_beams.cuh":
+        "59e155fac0a33effa1f95d034367bdf333625a1b533db7caa5802568ee992bde",
+}
+# Throwaway ablations of those two forms, as edits of that scan_scores.cu
+# (each pattern occurs once there): form (a) without the mixture's exp and
+# log and with its second division a multiply (what the mixture costs);
+# form (b) with the volume read replaced by a value made from its address
+# (the index math kept: the issue floor).
+SCAN_ABLATION = (
+    ("const float z = __fdiv_rn(__fsub_rn(b.x, __ldg(row + k)), a.sigma);",
+     "const float z = __fmul_rn(__fsub_rn(b.x, __ldg(row + k)), a.sigma);"),
+    ("const float e = expf(__fmul_rn(-0.5f, __fmul_rn(z, z)));",
+     "const float e = __fmul_rn(-0.5f, __fmul_rn(z, z));"),
+    ("acc = __fadd_rn(acc, logf(fmaxf(prob, a.log_floor)));",
+     "acc = __fadd_rn(acc, fmaxf(prob, a.log_floor));"),
+    ("acc = __fadd_rn(acc, __ldg(volume + row * a.w + vx));",
+     "acc = __fadd_rn(acc, __int2float_rn(static_cast<int>(row * a.w + vx)"
+     " & 1));"),
+)
+
 
 def old_library(csrc: Path) -> ctypes.CDLL:
     """Commit 31a30c8's kernels 2, 4, 5, 6 and 7, built and bound; any other
@@ -180,6 +224,121 @@ def old_library(csrc: Path) -> ctypes.CDLL:
     return lib
 
 
+def old_scan_libraries(csrc: Path) -> tuple:
+    """Commit 4c0386c's forms (a) and (b), built and bound twice: as they
+    are, and with ``SCAN_ABLATION``'s edits; any other sources raise before
+    the build."""
+    from mcmh_localization_tpu_torch.ops import _cuda
+
+    for name, digest in OLD_SCAN_SOURCES.items():
+        path = csrc / name
+        got = hashlib.sha256(path.read_bytes()).hexdigest() if path.exists() \
+            else "missing"
+        if got != digest:
+            raise SystemExit(f"chip_kernel_ab: {path} is not commit 4c0386c's "
+                             f"(sha256 {got}); --old-scan must hold that tree")
+    out = _cuda.BUILD_DIR.parent / "torch_kernels_ab"
+    out.mkdir(parents=True, exist_ok=True)
+    src = (csrc / "scan_scores.cu").read_text()
+    for pattern, repl in SCAN_ABLATION:
+        check(src.count(pattern) == 1, f"ablation pattern not found once: "
+              f"{pattern}")
+        src = src.replace(pattern, repl)
+    ablated = out / "scan_scores_ablated.cu"
+    ablated.write_text(src)
+    jobs = [(out / "libmcmh_scan_old.so", csrc / "scan_scores.cu"),
+            (out / "libmcmh_scan_ablated.so", ablated)]
+    procs = [subprocess.Popen(
+        [_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, "-I", str(csrc), "-shared",
+         "-o", str(so), str(cu)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for so, cu in jobs]
+    libs = []
+    for (so, _), proc in zip(jobs, procs):
+        log = proc.communicate()[0]
+        check(proc.returncode == 0, f"nvcc failed:\n{log}")
+        lib = ctypes.CDLL(str(so))
+        lib.mcmh_table_scores.argtypes = [
+            _P, _I, _P, _P, _P, _I, _P, _P, _cuda.TableArgs, _I, _P, _P]
+        lib.mcmh_voxel_scores.argtypes = [
+            _P, _I, _P, _P, _P, _P, _I, _P, _P, _cuda.VoxelArgs, _I, _I, _P,
+            _P]
+        for fn in (lib.mcmh_table_scores, lib.mcmh_voxel_scores):
+            fn.restype = ctypes.c_int
+        libs.append(lib)
+    return tuple(libs)
+
+
+def table_scorer_indices(gm, n: int, angles, n_theta: int, gen, cov):
+    """(y, x) int32: the (cell, theta bin) pairs ``raycast_table_scores``
+    reads from the cell-major range table for n poses around START and
+    every beam (``models/range_table.py::raycast_table_scores``)."""
+    from mcmh_localization_tpu_torch.filter.init import init_gaussian
+    from mcmh_localization_tpu_torch.ops.gather import PI_F32
+    from mcmh_localization_tpu_torch.utils.f32 import divide
+
+    p = init_gaussian(START, cov, n, gm, generator=gen)
+    mx, my = gm.world_to_grid(p[:, 0], p[:, 1])
+    cell = my.clamp(0, gm.height - 1) * gm.width + mx.clamp(0, gm.width - 1)
+    k = torch.floor(divide(p[:, 2][:, None] + angles[None, :] + PI_F32,
+                           2.0 * math.pi / n_theta)).to(torch.int32) % n_theta
+    m = angles.shape[0]
+    return (cell[:, None].expand(n, m).reshape(-1).to(torch.int32).contiguous(),
+            k.reshape(-1).contiguous())
+
+
+def voxel_sectors(parts, u, v, zrow, live, geo, lanes: int,
+                  n_poses: int = 4096) -> dict:
+    """{layout: (sectors, lines)}: the mean distinct 32-byte sectors and
+    128-byte lines a warp load of form (b) touches, over the reads of the
+    first ``n_poses`` poses at ``lanes`` lanes a pose (a warp's 32 lanes
+    read 32 / G poses x G consecutive live beams at once; a load with no
+    read in the volume is left out), in each candidate layout of the
+    volume: f32 and 16-bit row-major planes, and 16-bit planes of 4 x 4
+    quads (a sector each), a line four of them as an 8 x 8 tile or as four
+    bricks in a row (the level form's layout)."""
+    p = parts[:n_poses]
+    ul, vl = u[live], v[live]
+    plane = (zrow[live] // geo.h).long()
+    c, s = torch.cos(p[:, 2])[:, None], torch.sin(p[:, 2])[:, None]
+    lx = p[:, 0][:, None] + c * ul[None, :] - s * vl[None, :]
+    ly = p[:, 1][:, None] + s * ul[None, :] + c * vl[None, :]
+    vx = torch.floor((lx - geo.origin_x) * geo.inv).long()
+    vy = torch.floor((ly - geo.origin_y) * geo.inv).long()
+    inb = (vx >= 0) & (vx < geo.w) & (vy >= 0) & (vy < geo.h)
+    m = ul.numel()
+    steps = -(-m // lanes)
+    pad = steps * lanes - m
+    hp, wp = -(-geo.h // 8) * 8, -(-geo.w // 8) * 8
+    z = plane[None, :].expand_as(vx)
+    # the 4 x 4 quads' sectors: a line is four of them, as an 8 x 8 tile
+    # or as four bricks in a row
+    quads = ((z * (hp // 4) + (vy >> 2)) * (wp // 4) + (vx >> 2)) * 32
+    layouts = {
+        "f32 row-major": (((z * geo.h + vy) * geo.w + vx) * 4, None),
+        "u16 row-major": (((z * geo.h + vy) * geo.w + vx) * 2, None),
+        "u16 8x8 tiles of 4x4 sectors": (
+            quads, (z * (hp // 8) + (vy >> 3)) * (wp // 8) + (vx >> 3)),
+        "u16 4x4 bricks, row-major": (quads, quads // 128),
+    }
+    out = {}
+    for name, (addr, lines) in layouts.items():
+        per = []
+        for ids in (addr // 32, addr // 128 if lines is None else lines):
+            ids = torch.where(inb, ids, -1)
+            ids = torch.nn.functional.pad(ids, (0, pad), value=-1)
+            # (warps, 32 / G poses, steps, G) -> (warps, steps, 32)
+            ids = ids.reshape(-1, 32 // lanes, steps, lanes).permute(
+                0, 2, 1, 3).reshape(-1, 32)
+            srt = ids.sort(dim=1).values
+            first = torch.ones_like(srt[:, :1], dtype=torch.bool)
+            new = torch.cat([first, srt[:, 1:] != srt[:, :-1]], dim=1)
+            distinct = (new & (srt >= 0)).sum(dim=1)
+            used = distinct > 0
+            per.append(float(distinct[used].double().mean()))
+        out[name] = tuple(per)
+    return out
+
+
 def in_turns(calls: dict) -> dict:
     """{name: [first, second]} device ms: the calls in order, then in
     reverse order."""
@@ -207,15 +366,174 @@ def bitwise_calls(tag: str, calls: dict, want: torch.Tensor) -> None:
     print(f"[ab] {tag}: every variant bitwise")
 
 
+def compare_form_a(libs, gm, beam, ranges, angles, cov, gen,
+                   results) -> None:
+    """Form (a), the range-table scorer, at the staged beam BIG program's 2 x
+    1M poses and the [beam] table run's 2 x 1500 (mixed clouds, the house
+    scan at START, the beam point's 96-bin table, "sum"): commit 4c0386c's
+    kernel, its ablation without the mixture's exp, log and second
+    division, and this tree's (the table in its uint8 level form), at the
+    lanes the rule gives; the earlier kernel and this one bitwise against
+    the plain version (whose level form is bitwise its per-pair form)."""
+    from mcmh_localization_tpu_torch.models.range_table import (
+        beam_mixture,
+        table_cell_major,
+    )
+    from mcmh_localization_tpu_torch.ops import _cuda, scan_scores
+    from mcmh_localization_tpu_torch.ops.likelihood import lanes_per_particle
+
+    old, ablated = libs
+    cfg = beam.config
+    dev = ranges.device
+    stream = torch.cuda.current_stream().cuda_stream
+    tcm = table_cell_major(beam.log_field.table)
+    table = scan_scores.table_levels(tcm)
+    per_pair = scan_scores.TableLevels(None, None, tcm)
+    valid = torch.isfinite(ranges) & (ranges < cfg.max_range)
+    cnt = valid.sum().to(torch.int32)
+    geo = scan_scores.TableGeometry(gm.origin_xy[0], gm.origin_xy[1], gm.res,
+                                    gm.height, gm.width,
+                                    cfg.beam_table_n_theta)
+    mix = beam_mixture(cfg)
+    targs = scan_scores.table_args(geo, mix, "sum")
+    for n in (1_000_000, 1500):
+        parts = mixed_cloud(2 * n, gm, cov, gen)
+        g = lanes_per_particle(2 * n)
+        out = torch.empty(2 * n, device=dev)
+
+        def old_call(lib, lanes=g):
+            def call():
+                check(lib.mcmh_table_scores(
+                    parts.data_ptr(), 2 * n, ranges.data_ptr(),
+                    angles.data_ptr(), valid.data_ptr(), ranges.shape[0],
+                    tcm.data_ptr(), cnt.data_ptr(), targs, lanes,
+                    out.data_ptr(), stream) == 0, "launch failed")
+                return out
+            return call
+
+        args = (parts, ranges, angles, valid, table, geo, mix, cnt, "sum")
+        calls = {"old": old_call(old),
+                 "new": lambda: scan_scores.table_scores(*args)}
+        tag = (f"table_scores N=2x{n} M={ranges.shape[0]} "
+               f"({int(cnt)} valid) K={geo.n_theta} G={g}")
+        want = scan_scores.table_scores_plain(*args)
+        check(torch.equal(want, scan_scores.table_scores_plain(
+            parts, ranges, angles, valid, per_pair, geo, mix, cnt, "sum")),
+            f"{tag}: the level form's plain version != the per-pair form's")
+        bitwise_calls(tag, calls, want)
+        calls["ablation: no exp, log or second division"] = old_call(ablated)
+        report(tag, in_turns(calls), results)
+        del parts
+
+
+def compare_form_b(libs, dev, gen, results) -> None:
+    """Form (b), the 3-D lidar scorer, at the [lidar3d] shape (2 x 100k
+    poses, 5760 beams, the building's log-mixture volume) on three clouds:
+    the [kernel] mixed cloud, every pose at START, and the cloud the
+    [lidar3d] filter scores on a tracked scan (captured after two laps, in
+    its slot order).  At G = 1, 2 and 4: commit 4c0386c's kernel (the f32
+    volume), its ablation with the volume read replaced by a value made
+    from the read's address, and this tree's (the level form); the earlier
+    kernel and this one bitwise against the plain version at the same G.  Beside them the distinct
+    sectors and lines a warp load touches in each candidate layout."""
+    from mcmh_localization_tpu_torch.models.sensor3d import (
+        scan_beams,
+        voxel_geometry,
+    )
+    from mcmh_localization_tpu_torch.ops import _cuda, scan_scores
+
+    old, ablated = libs
+    new = _cuda.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    rot = math.pi / SCAN_LEN
+    delta = (rot, 0.05, rot)
+    vm, nav, cfg, lidar, directions, scans = lidar_scene(
+        dev, circle_poses(delta))
+    deltas = torch.tensor([delta] * SCAN_LEN, dtype=torch.float32, device=dev)
+    st = lidar.init(0)
+    for _ in range(2):
+        st, _ = lidar.run(st, scans, directions, deltas)
+    volume = lidar.log_field.log_volume
+    levels = lidar.log_field.levels
+    geo = voxel_geometry(vm)
+    u, v, zrow, live, count = scan_beams(scans[0], directions, vm, cfg,
+                                         cfg.lidar3d_sensor_z)
+    cnt = count.to(torch.int32)
+    vargs = scan_scores.voxel_args(geo, cfg.score_aggregation)
+    n = 2 * 100_000
+    clouds = {
+        "mixed": mixed_cloud(n, nav, torch.diag(torch.tensor(
+            cfg.initial_cov)), torch.Generator(device=dev).manual_seed(17)),
+        "all at START": torch.tensor(START, device=dev).expand(n, 3)
+        .contiguous(),
+        "resampled": scored_cloud(lidar, st, scans[0], directions,
+                                  deltas[0]).contiguous(),
+    }
+    m = u.shape[0]
+    print(f"[ab] voxel_scores: {int(live.sum())} live of {m} beams "
+          f"({int(count)} valid), volume {tuple(volume.shape)} in "
+          f"{levels.levels.numel()} levels")
+    for cname, parts in clouds.items():
+        check(parts.shape == (n, 3), f"{cname} cloud {tuple(parts.shape)}")
+        out = torch.empty(n, device=dev)
+        for g in (1, 2, 4):
+            def old_call(lib, lanes=g):
+                def call():
+                    check(lib.mcmh_voxel_scores(
+                        parts.data_ptr(), n, u.data_ptr(), v.data_ptr(),
+                        zrow.data_ptr(), live.data_ptr(), m,
+                        volume.data_ptr(), cnt.data_ptr(), vargs, lanes,
+                        _cuda.SM_COUNT, out.data_ptr(), stream) == 0,
+                        "launch failed")
+                    return out
+                return call
+
+            def new_call(lanes=g):
+                check(new.mcmh_voxel_scores(
+                    parts.data_ptr(), n, u.data_ptr(), v.data_ptr(),
+                    zrow.data_ptr(), live.data_ptr(), m, None,
+                    levels.index.data_ptr(), levels.levels.data_ptr(),
+                    levels.levels.numel(), cnt.data_ptr(), vargs, lanes,
+                    _cuda.SM_COUNT, out.data_ptr(), stream) == 0,
+                    "launch failed")
+                return out
+
+            args = (parts, u, v, zrow, live, levels, geo, count,
+                    cfg.score_aggregation)
+            calls = {"old": old_call(old), "new": new_call}
+            tag = (f"voxel_scores {cname} cloud N={n} G={g} (rule: "
+                   f"G={scan_scores.voxel_lanes(n)})")
+            bitwise_calls(tag, calls, scan_scores.voxel_scores_plain(
+                *args, lanes=g))
+            calls["ablation: the read a constant"] = old_call(ablated)
+            report(tag, in_turns(calls), results)
+        for g in (1, 2):
+            sectors = voxel_sectors(parts, u, v, zrow, live, geo, g)
+            for layout, (sec, line) in sectors.items():
+                print(f"[ab] voxel_scores {cname} cloud G={g} {layout}: "
+                      f"{sec:.2f} sectors, {line:.2f} lines a warp load")
+            results.append({"case": f"voxel sectors {cname} G={g}",
+                            "sectors_lines": sectors})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--old", required=True, type=Path,
+    ap.add_argument("--old", type=Path,
                     help="a tree holding commit 31a30c8's "
-                         "mcmh_localization_tpu_torch/csrc")
-    ap.add_argument("--kernels", default="2,4,5,6,7",
-                    help="the kernels to compare, by number (default all)")
+                         "mcmh_localization_tpu_torch/csrc (kernels 2, 4-7)")
+    ap.add_argument("--old-scan", type=Path,
+                    help="a tree holding commit 4c0386c's "
+                         "mcmh_localization_tpu_torch/csrc (forms a and b)")
+    ap.add_argument("--kernels", default="2,4,5,6,7,a,b",
+                    help="the kernels to compare: 2, 4-7 by number, kernel "
+                         "2's fused forms as a and b (default all)")
     args = ap.parse_args(argv)
-    kernels = {int(k) for k in args.kernels.split(",")}
+    forms = {k for k in args.kernels.split(",") if k in ("a", "b")}
+    kernels = {int(k) for k in args.kernels.split(",") if k not in forms}
+    if kernels and args.old is None:
+        ap.error("--old is needed for kernels 2 and 4-7")
+    if forms and args.old_scan is None:
+        ap.error("--old-scan is needed for forms a and b")
     if not torch.cuda.is_available():
         print("chip_kernel_ab: no CUDA device", file=sys.stderr)
         return 2
@@ -268,7 +586,10 @@ def main(argv=None) -> int:
         rank_in_sorted_plain,
     )
 
-    old = old_library(args.old / "mcmh_localization_tpu_torch" / "csrc")
+    old = (old_library(args.old / "mcmh_localization_tpu_torch" / "csrc")
+           if kernels else None)
+    old_scan = (old_scan_libraries(args.old_scan / "mcmh_localization_tpu_torch"
+                                   / "csrc") if forms else None)
     dev = torch.device("cuda")
     half = MAP_CELLS * RES / 2
     gm = build_grid_map(house_occupancy(), RES, (-half, -half), device=dev)
@@ -350,7 +671,8 @@ def main(argv=None) -> int:
                 report(tag, in_turns(calls), results)
 
     new = _cuda.library()
-    beam = make_model(beam_point_config(), gm) if kernels & {2, 7} else None
+    beam = (make_model(beam_point_config(), gm)
+            if kernels & {2, 7} or "a" in forms else None)
     if 6 in kernels:
         # kernel 6
         def exact_call(lib, parts, scale, div, lanes=None):
@@ -592,6 +914,11 @@ def main(argv=None) -> int:
                    f"(rule: P={_cuda.poses_per_thread(y.numel())})")
             bitwise_calls(tag, calls, gather_2d_plain(table, y, x))
             report(tag, in_turns(calls), results)
+
+    if "a" in forms:
+        compare_form_a(old_scan, gm, beam, ranges, angles, cov, gen, results)
+    if "b" in forms:
+        compare_form_b(old_scan, dev, gen, results)
 
     del beam
     print(f"[ab] on {smi}")

@@ -16,11 +16,19 @@
    "reject" retries (FilterConfig()'s and the 100k exact run's; each also
    on a misaligned view of its indices), kernel 2's two fused forms: (a)
    the range-table scorer at the staged beam BIG program's 2 x 1M poses
-   (a mixed cloud around START, 360 beams of the house scan, K=96) and the
-   [beam] table run's 2 x 1500, and (b) the 3-D lidar scorer at 2 x 100k
-   poses and 5760 beams on the building's log-mixture volume (each
-   ``torch.equal`` to its plain version, with the lanes a pose it ran
-   with), the window-score lookup of 2x1M poses (also on a
+   (a mixed cloud around START, 360 beams of the house scan, K=96, the
+   table's uint8 level form and its per-scan LUT) and the [beam] table
+   run's 2 x 1500, then on 2 x 20k poses each other form the dispatch can
+   pick: int16 levels (a table of 400 levels; also at 2 x 150k, where the
+   pairs read the index from the table), the per-pair f32 form (a table
+   of noise), the LUT in three tiles (every beam valid); and (b) the
+   3-D lidar scorer at 2 x 100k poses and 5760 beams on the building's
+   log-mixture volume in its level form (16-bit indices in 4 x 4 bricks,
+   the levels in shared memory, the beams in tiles of 512), then on 2 x
+   20k poses the f32 volume, and the beams in one tile (the first 500)
+   in both forms (each ``torch.equal`` to its plain version, with the
+   lanes a pose it ran with; (a)'s variants in both aggregations), the
+   window-score lookup of 2x1M poses (also on a
    misaligned view of 200 003 of them, in the beam op forms at the beam
    path's geometry and 2x100k poses, and its escapee count at 2x1M), the
    exact scorer at 2x1500 and 2x100k poses in both cell forms (bitwise,
@@ -86,7 +94,10 @@
    degrees x 360 azimuths = 5760 beams, 10 m range, 0.5 m above the pose
    plane, scans from ``simulate_scan3d`` with 0.01 m noise), the
    navigation slice at 0.1 m; AMHAMCL at 100k, "score", 16 settle + 16
-   timed scans; error under 0.2 m, form (b) launched every scan.
+   timed scans; error under 0.2 m, form (b) launched every scan; then
+   form (b)'s resampled-cloud row: the 2 x 100k poses the filter scores
+   on the next tracked scan, in its slot order (``scored_cloud``),
+   ``torch.equal`` to the plain version and timed.
 8. ``[eval]``: the experiment runner (``eval/runner.py``) through its CLI
    on the card: the house map written as PGM + YAML and the ``[main]``
    configuration as a params YAML; a simulated ``square`` bag (30 s at
@@ -214,6 +225,54 @@ def lidar3d_config():
         max_particles=100_000, initialized=True, initial_pose=START,
         sensor_model="lidar3d", lidar3d_sensor_z=LIDAR_SENSOR_Z,
         max_range=10.0, motion_validity="score")
+
+
+def lidar_scene(dev, poses):
+    """(voxel map, navigation slice, config, model, directions, scans): the
+    [lidar3d] point on the building (its EDT on the host) and a scan of
+    each of ``poses`` from the port's simulator (0.01 m noise)."""
+    from mcmh_localization_tpu_torch.filter.step import make_model
+    from mcmh_localization_tpu_torch.maps.voxel_map import (
+        build_voxel_map,
+        nav_slice,
+    )
+    from mcmh_localization_tpu_torch.models.sensor3d import simulate_scan3d
+
+    vm = build_voxel_map(building_occupancy(), RES,
+                         (-BUILDING_CELLS * RES / 2, -BUILDING_CELLS * RES / 2,
+                          0.0), device=dev)
+    nav = nav_slice(vm, z=0.1)
+    cfg = lidar3d_config()
+    model = make_model(cfg, nav, voxel_map=vm)
+    directions = lidar_directions(dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    scans = torch.stack([
+        simulate_scan3d(gen, p, directions, vm, cfg.max_range,
+                        sensor_z=cfg.lidar3d_sensor_z, noise=0.01)
+        for p in poses])
+    return vm, nav, cfg, model, directions, scans
+
+
+def scored_cloud(model, state, scan, directions, delta) -> torch.Tensor:
+    """The (2N, 3) poses the 3-D scorer scores on the step after ``state``
+    (the proposed set, then the previous one), in the filter's slot order:
+    one step of ``model`` with ``models.sensor3d.voxel_scores`` wrapped to
+    keep its input."""
+    from mcmh_localization_tpu_torch.models import sensor3d
+
+    real = sensor3d.voxel_scores
+    seen = []
+
+    def keep(particles, *args, **kwargs):
+        seen.append(particles.clone())
+        return real(particles, *args, **kwargs)
+
+    sensor3d.voxel_scores = keep
+    try:
+        model.step(state, scan, directions, delta)
+    finally:
+        sensor3d.voxel_scores = real
+    return seen[-1]
 
 
 def start_window(gm, n_theta: int, win: int, tw: int) -> tuple[int, int, int]:
@@ -945,13 +1004,25 @@ def compare_slice2_kernels(gm, single_cfg, log_field, ranges, angles,
         library_ms=lms8, library="index_select", on_main_path=False))
 
 
-def table_scores_row(gm, cfg, tcm, parts, ranges, angles) -> dict:
-    """Kernel 2's fused form (a) on one cloud: ``torch.equal`` to its plain
-    version, timed beside its bound (14 operations a pose and valid beam:
-    the bin's two adds, division and floor, the read's subtraction and
-    division, the mixture's four multiplies and add, exp, max, log, the
-    sum; the poses and the scan read once, the table counted as the values
-    read, the scores written)."""
+def table_ops(table, pairs: int, m_valid: int) -> float:
+    """Form (a)'s operations on these inputs.  The per-pair form: 14 a
+    pose and valid beam (the bin's two adds, division and floor, the read's
+    subtraction and division, the mixture's four multiplies and add, exp,
+    max, log).  The level form computes the mixture once a valid beam and
+    level (10 an entry of the scan's LUT: the subtraction, division, four
+    multiplies and add, exp, max, log), and 6 a pair (the bin's two adds,
+    division and floor, the wrap, the sum)."""
+    if table.index is None:
+        return 14.0 * pairs
+    return 6.0 * pairs + 10.0 * m_valid * table.levels.numel()
+
+
+def table_scores_row(gm, cfg, table, parts, ranges, angles) -> dict:
+    """Kernel 2's fused form (a) on one cloud and the level form of the
+    table (``table_levels``): ``torch.equal`` to its plain version, timed
+    beside its bound (``table_ops``; the poses and the scan read once, the
+    index table counted as the values read, the levels, the scores
+    written)."""
     from mcmh_localization_tpu_torch.models.range_table import beam_mixture
     from mcmh_localization_tpu_torch.ops.likelihood import lanes_per_particle
     from mcmh_localization_tpu_torch.ops.scan_scores import (
@@ -964,7 +1035,7 @@ def table_scores_row(gm, cfg, tcm, parts, ranges, angles) -> dict:
     valid = torch.isfinite(ranges) & (ranges < cfg.max_range)
     geo = TableGeometry(gm.origin_xy[0], gm.origin_xy[1], gm.res, gm.height,
                         gm.width, k)
-    args = (parts, ranges, angles, valid, tcm, geo, beam_mixture(cfg),
+    args = (parts, ranges, angles, valid, table, geo, beam_mixture(cfg),
             valid.sum(), "sum")
     got = table_scores(*args)
     want = table_scores_plain(*args)
@@ -975,30 +1046,118 @@ def table_scores_row(gm, cfg, tcm, parts, ranges, angles) -> dict:
     check(torch.equal(got, want), f"table_scores N={n} G={g}: kernel != plain "
           f"(max abs err {err})")
     m_valid = int(valid.sum())
+    nq = table.levels.numel()
     print(f"[kernel] table_scores N={n} M={ranges.shape[0]} ({m_valid} valid) "
-          f"K={k}: G={g} lanes a pose, bitwise")
+          f"K={k}: G={g} lanes a pose, {nq} levels ({table.index.dtype} "
+          "index), bitwise")
     ms = device_ms(lambda: table_scores(*args))
     pms = device_ms(lambda: table_scores_plain(*args), runs=5)
     pairs = n * m_valid
     return kernel_row(
         "table_scores", "scan_scores.cu", "gather_pallas.py:180",
         f"N={n} M={ranges.shape[0]} ({m_valid} valid) K={k} G={g}", ms=ms,
-        plain_ms=pms, err=err, ops=14.0 * pairs,
-        nbytes=n * 16 + ranges.shape[0] * 9 + gathered_bytes(tcm, pairs))
+        plain_ms=pms, err=err, ops=table_ops(table, pairs, m_valid),
+        nbytes=(n * 16 + ranges.shape[0] * 9 + nq * 4
+                + gathered_bytes(table.index, pairs)))
 
 
-def compare_lidar_kernel(vm, nav, cfg, log_volume, ranges, directions, rows):
+def table_scores_variants(gm, cfg, tcm, ranges, angles, gen, cov) -> None:
+    """Form (a)'s other variants, each ``torch.equal`` to its plain version
+    on 2 x 20k poses: the int16 level form (the range table plus 0.01 m x
+    (cell mod 8): 400 levels), also at 2 x 150k poses (one lane a pose:
+    its pose rows pass the shared budget, so the pairs read the table),
+    the per-pair form (the range table plus uniform noise: a level a
+    value), and the uint8 form with its LUT in three tiles (every beam of
+    the scan valid: 360 rows of 50 levels, 122 rows a tile)."""
+    from mcmh_localization_tpu_torch.models.range_table import beam_mixture
+    from mcmh_localization_tpu_torch.ops.likelihood import lanes_per_particle
+    from mcmh_localization_tpu_torch.ops.scan_scores import (
+        TableGeometry,
+        table_levels,
+        table_scores,
+        table_scores_plain,
+    )
+
+    geo = TableGeometry(gm.origin_xy[0], gm.origin_xy[1], gm.res, gm.height,
+                        gm.width, cfg.beam_table_n_theta)
+    parts = mixed_cloud(2 * 20_000, gm, cov, gen)
+    cells = torch.arange(tcm.shape[0], device=tcm.device)
+    wide = table_levels(tcm + 0.01 * (cells % 8).to(torch.float32)[:, None])
+    noisy = tcm + 0.01 * torch.rand(tcm.shape, generator=gen,
+                                    device=tcm.device)
+    all_valid = ranges.clamp(max=cfg.max_range - 0.1)
+    for tag, table, r, want_dtype, p in (
+            ("int16 levels", wide, ranges, torch.int16, parts),
+            # one lane a pose: 256 rows of 196 bytes pass the shared
+            # budget, so the pairs read the index from the table
+            ("int16 levels, rows read from the table", wide, ranges,
+             torch.int16, mixed_cloud(2 * 150_000, gm, cov, gen)),
+            ("per-pair f32 table", table_levels(noisy), ranges, None, parts),
+            ("LUT in three tiles", table_levels(tcm), all_valid,
+             torch.uint8, parts)):
+        check((table.index.dtype if table.index is not None else None)
+              == want_dtype, f"table_scores {tag}: the form is not "
+              f"{want_dtype}")
+        valid = torch.isfinite(r) & (r < cfg.max_range)
+        for agg in ("sum", "mean"):
+            args = (p, r, angles, valid, table, geo, beam_mixture(cfg),
+                    valid.sum(), agg)
+            got = table_scores(*args)
+            check(torch.equal(got, table_scores_plain(*args)),
+                  f"table_scores {tag} {agg}: kernel != plain")
+        levels = "f32" if table.index is None else table.levels.numel()
+        print(f"[kernel] table_scores {tag} (levels {levels}, "
+              f"{int(valid.sum())} valid beams), N={p.shape[0]}, G="
+              f"{lanes_per_particle(p.shape[0])}: bitwise, sum and mean")
+
+
+def voxel_scores_row(tag, parts, u, v, zrow, live, table, geo, count, cfg,
+                     plain_runs: int = 3) -> dict:
+    """Kernel 2's fused form (b) on one cloud: ``torch.equal`` to its plain
+    version, timed beside its bound (13 operations a pose and live beam, as
+    kernel 6; the 16-bit index counted as the values read, and the
+    levels)."""
+    from mcmh_localization_tpu_torch.ops import scan_scores
+
+    args = (parts, u, v, zrow, live, table, geo, count,
+            cfg.score_aggregation)
+    got = scan_scores.voxel_scores(*args)
+    want = scan_scores.voxel_scores_plain(*args)
+    torch.cuda.synchronize()
+    n = parts.shape[0]
+    g = scan_scores.voxel_lanes(n)
+    err = float((got - want).abs().max())
+    check(torch.equal(got, want), f"voxel_scores {tag} N={n} G={g}: kernel "
+          f"!= plain (max abs err {err})")
+    m = u.shape[0]
+    m_live = int(live.sum())
+    print(f"[kernel] voxel_scores {tag} N={n} M={m} ({m_live} live, "
+          f"{int(count)} valid) volume {(geo.d, geo.h, geo.w)} in "
+          f"{table.levels.numel()} levels: G={g} lanes a pose, bitwise")
+    ms = device_ms(lambda: scan_scores.voxel_scores(*args))
+    pms = device_ms(lambda: scan_scores.voxel_scores_plain(*args),
+                    runs=plain_runs)
+    pairs = n * m_live
+    return kernel_row(
+        "voxel_scores", "scan_scores.cu", "gather_pallas.py:180",
+        f"{tag} N={n} M={m} ({m_live} live) volume {(geo.d, geo.h, geo.w)} "
+        f"G={g}", ms=ms, plain_ms=pms, err=err, ops=13.0 * pairs,
+        nbytes=(n * 16 + m * 13 + table.levels.numel() * 4
+                + gathered_bytes(table.index, pairs)))
+
+
+def compare_lidar_kernel(vm, nav, cfg, sensor, ranges, directions, rows):
     """Kernel 2's fused form (b), the 3-D lidar scorer, at the [lidar3d]
     path's shape: 2 x 100k poses (a mixed cloud on the navigation slice)
-    and 5760 beams on the building's log-mixture volume; ``torch.equal`` to
-    its plain version, timed beside its bound (13 operations a pose and
-    live beam, as kernel 6; the volume counted as the values read)."""
+    and 5760 beams on the building's log-mixture volume in its level form
+    (the sensor table's); then the other variants, each ``torch.equal`` to
+    its plain version on 2 x 20k poses: the f32 form, and the beams in one
+    tile (the first 500, of 512 a tile)."""
     from mcmh_localization_tpu_torch.models.sensor3d import (
         scan_beams,
         voxel_geometry,
     )
     from mcmh_localization_tpu_torch.ops import scan_scores
-    from mcmh_localization_tpu_torch.ops.likelihood import lanes_per_particle
 
     gen = torch.Generator(device=ranges.device).manual_seed(17)
     cov = torch.diag(torch.tensor(cfg.initial_cov))
@@ -1006,29 +1165,24 @@ def compare_lidar_kernel(vm, nav, cfg, log_volume, ranges, directions, rows):
     # the wrapper's inputs as models/sensor3d.py::lidar3d_scores makes them
     u, v, zrow, live, count = scan_beams(ranges, directions, vm, cfg,
                                          cfg.lidar3d_sensor_z)
-    args = (parts, u, v, zrow, live, log_volume, voxel_geometry(vm), count,
-            cfg.score_aggregation)
-    got = scan_scores.voxel_scores(*args)
-    want = scan_scores.voxel_scores_plain(*args)
-    torch.cuda.synchronize()
-    n = parts.shape[0]
-    g = lanes_per_particle(n)
-    err = float((got - want).abs().max())
-    check(torch.equal(got, want), f"voxel_scores N={n} G={g}: kernel != plain "
-          f"(max abs err {err})")
-    m = ranges.shape[0]
-    m_live = int(live.sum())
-    print(f"[kernel] voxel_scores N={n} M={m} ({m_live} live, "
-          f"{int(count)} valid) volume {tuple(log_volume.shape)}: G={g} "
-          "lanes a pose, bitwise")
-    ms = device_ms(lambda: scan_scores.voxel_scores(*args))
-    pms = device_ms(lambda: scan_scores.voxel_scores_plain(*args), runs=3)
-    pairs = n * m_live
-    rows.append(kernel_row(
-        "voxel_scores", "scan_scores.cu", "gather_pallas.py:180",
-        f"N={n} M={m} ({m_live} live) volume {tuple(log_volume.shape)} G={g}",
-        ms=ms, plain_ms=pms, err=err, ops=13.0 * pairs,
-        nbytes=n * 16 + m * 13 + gathered_bytes(log_volume, pairs)))
+    geo = voxel_geometry(vm)
+    check(sensor.levels.index is not None, "voxel_scores: the building's "
+          "volume did not take the level form")
+    rows.append(voxel_scores_row("mixed cloud", parts, u, v, zrow, live,
+                                 sensor.levels, geo, count, cfg))
+    small = parts[:40_000].contiguous()
+    f32 = scan_scores.VoxelLevels(None, None, sensor.log_volume)
+    for tag, beams, table in (
+            ("f32 volume", slice(None), f32),
+            ("one beam tile", slice(0, 500), sensor.levels),
+            ("one beam tile, f32 volume", slice(0, 500), f32)):
+        b = [x[beams].contiguous() for x in (u, v, zrow, live)]
+        args = (small, *b, table, geo, count, cfg.score_aggregation)
+        check(torch.equal(scan_scores.voxel_scores(*args),
+                          scan_scores.voxel_scores_plain(*args)),
+              f"voxel_scores {tag}: kernel != plain")
+        print(f"[kernel] voxel_scores {tag}: {b[0].shape[0]} beams, "
+              f"N={small.shape[0]}: bitwise")
 
 
 def compare_beam_kernel(gm, beam_model, ranges, angles, rows):
@@ -1044,6 +1198,7 @@ def compare_beam_kernel(gm, beam_model, ranges, angles, rows):
         lut_field_plain,
         lut_tiles,
     )
+    from mcmh_localization_tpu_torch.ops.scan_scores import table_levels
 
     cfg = beam_model.config
     clock = sm_clock_hz()
@@ -1087,11 +1242,16 @@ def compare_beam_kernel(gm, beam_model, ranges, angles, rows):
     # program's 2 x 1M poses and the [beam] table run's 2 x 1500, on the
     # path's cell-major table (the BIG table: the same 96 bins and range)
     tcm = table_cell_major(tables.table)
-    table_rows = [table_scores_row(gm, cfg, tcm, mixed_cloud(2 * n, gm, cov, gen),
+    table = table_levels(tcm)
+    check(table.index is not None and table.index.dtype == torch.uint8,
+          "table_scores: the range table did not take the uint8 level form")
+    table_rows = [table_scores_row(gm, cfg, table,
+                                   mixed_cloud(2 * n, gm, cov, gen),
                                    ranges, angles)
                   for n in (1_000_000, 1500)]
     rows.append({**table_rows[0], "shapes": table_rows[1:]})
-    del tcm
+    table_scores_variants(gm, cfg, tcm, ranges, angles, gen, cov)
+    del tcm, table
 
     # kernel 5 in the beam op forms at the beam path's geometry and 2x100k
     # poses, on the two fields just built
@@ -1450,13 +1610,9 @@ def main(argv=None) -> int:
     )
     from mcmh_localization_tpu_torch.filter.step import make_model, state_size
     from mcmh_localization_tpu_torch.maps.grid_map import build_grid_map
-    from mcmh_localization_tpu_torch.maps.voxel_map import (
-        build_voxel_map,
-        nav_slice,
-    )
     from mcmh_localization_tpu_torch.models.sensor import raycast
-    from mcmh_localization_tpu_torch.models.sensor3d import simulate_scan3d
     from mcmh_localization_tpu_torch.ops import _cuda
+    from mcmh_localization_tpu_torch.ops.scan_scores import table_kernels
 
     check("jax" not in sys.modules, "the port must not import jax")
 
@@ -1497,18 +1653,7 @@ def main(argv=None) -> int:
     # the 3-D lidar's building (the EDT on the host), its navigation slice
     # and a scan of each circle pose from the port's simulator
     t0 = time.perf_counter()
-    vm = build_voxel_map(building_occupancy(), RES,
-                         (-BUILDING_CELLS * RES / 2, -BUILDING_CELLS * RES / 2,
-                          0.0), device=dev)
-    nav = nav_slice(vm, z=0.1)
-    lidar_cfg = lidar3d_config()
-    lidar = make_model(lidar_cfg, nav, voxel_map=vm)
-    directions = lidar_directions(dev)
-    lgen = torch.Generator(device=dev).manual_seed(3)
-    lscans = torch.stack([
-        simulate_scan3d(lgen, p, directions, vm, lidar_cfg.max_range,
-                        sensor_z=lidar_cfg.lidar3d_sensor_z, noise=0.01)
-        for p in poses])
+    vm, nav, lidar_cfg, lidar, directions, lscans = lidar_scene(dev, poses)
     torch.cuda.synchronize()
     print(f"[lidar3d] building {tuple(vm.occupancy.shape)} voxels at {RES} m "
           f"({vm.occupancy.numel() / 1e6:.1f}M), its EDT, log-mixture volume "
@@ -1532,8 +1677,8 @@ def main(argv=None) -> int:
     print(f"[beam] range table (96, {MAP_CELLS}, {MAP_CELLS}) and its int8 "
           f"forms built in {time.perf_counter() - t0:.2f} s")
     compare_beam_kernel(gm, beam, scans[0], angles, rows)
-    compare_lidar_kernel(vm, nav, lidar_cfg, lidar.log_field.log_volume,
-                         lscans[0], directions, rows)
+    compare_lidar_kernel(vm, nav, lidar_cfg, lidar.log_field, lscans[0],
+                         directions, rows)
     path_counts: dict[str, dict[str, int]] = {}
     path_scans: dict[str, int] = {}
 
@@ -1759,7 +1904,9 @@ def main(argv=None) -> int:
     print(f"[beam] table (n=1500, 96 table bins): {ms_x:.4f} ms/scan on {smi}; "
           f"final error {err_x:.4f} m; launches {c}")
     check(err_x < 0.25, f"[beam] table: final error {err_x:.3f} m >= 0.25 m")
-    check(c.get("table_scores", 0) >= 2 * SCAN_LEN,
+    # each call launches table_kernels (2 in the level form) kernels
+    check(c.get("table_scores", 0)
+          >= 2 * SCAN_LEN * table_kernels(model.log_field),
           "[beam] table: table_scores not launched every scan")
     del model, st
     print(f"[beam] kernel launches: {path_counts['beam']}")
@@ -1797,9 +1944,10 @@ def main(argv=None) -> int:
           "[beam_staged] no hand-off to SMALL")
     check(np.isfinite(est).all(), "[beam_staged] non-finite estimate")
     check(errs[-1] < 0.2, f"[beam_staged] final error {errs[-1]:.3f} m >= 0.2 m")
-    check(c_run.get("table_scores", 0) >= n_big,
+    per_scan = table_kernels(staged_b.big.log_field)
+    check(c_run.get("table_scores", 0) >= n_big * per_scan,
           f"[beam_staged] table_scores launched {c_run.get('table_scores', 0)} "
-          f"times in {n_big} BIG scans")
+          f"kernels in {n_big} BIG scans ({per_scan} a call)")
     small_state, s_infos, ms_bsmall = timed(staged_b.small, out.state, 1)
     s_err = final_error(s_infos)
     check(s_err < 0.2, f"[beam_staged] SMALL final error {s_err:.3f} m")
@@ -1811,7 +1959,8 @@ def main(argv=None) -> int:
     _, b_infos, ms_bbig = timed(staged_b.big, big_state, 1)
     peak = torch.cuda.max_memory_allocated()
     final_error(b_infos)
-    check(_cuda.launch_counts().get("table_scores", 0) - c0 >= SCAN_LEN,
+    check(_cuda.launch_counts().get("table_scores", 0) - c0
+          >= SCAN_LEN * per_scan,
           "[beam_staged] table_scores not launched every BIG scan")
     # one (2N, M) f32 tensor at 2 x 1M poses and 360 beams: 2.88 GB
     whole = 2 * state_size(staged_b.config) * N_BEAMS * 4
@@ -1847,7 +1996,22 @@ def main(argv=None) -> int:
     check(c.get("voxel_scores", 0) >= 2 * SCAN_LEN,
           "[lidar3d] voxel_scores not launched every scan")
     to_profile.append(("lidar3d", lidar, st, ms_lidar, lscans, directions))
-    del lidar, st
+    # form (b) on the cloud the filter scores on a tracked scan, in its slot
+    # order (the step after the timed lap: the truth at the circle's start)
+    from mcmh_localization_tpu_torch.models.sensor3d import (
+        scan_beams,
+        voxel_geometry,
+    )
+
+    cloud = scored_cloud(lidar, st, lscans[0], directions, deltas[0])
+    u3, v3, z3, live3, count3 = scan_beams(lscans[0], directions, vm,
+                                           lidar_cfg, lidar_cfg.lidar3d_sensor_z)
+    row = voxel_scores_row("resampled cloud", cloud.contiguous(), u3, v3, z3,
+                           live3, lidar.log_field.levels, voxel_geometry(vm),
+                           count3, lidar_cfg)
+    next(r for r in rows if r["name"] == "voxel_scores").setdefault(
+        "shapes", []).append(row)
+    del lidar, st, cloud
 
     stamps.append(("eval", time.perf_counter()))
     # -- 8. the experiment runner's CLI on a simulated bag

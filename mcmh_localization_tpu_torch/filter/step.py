@@ -56,9 +56,8 @@ from mcmh_localization_tpu_torch.models.range_table import (
     table_cell_major,
 )
 from mcmh_localization_tpu_torch.models.sensor3d import (
-    Lidar3dTable,
-    lidar3d_log_volume,
     lidar3d_scores,
+    lidar3d_table,
 )
 from mcmh_localization_tpu_torch.models.sensor import (
     likelihood_field_scores,
@@ -73,6 +72,7 @@ from mcmh_localization_tpu_torch.ops.resampling import (
     softmax_weights,
     systematic_resample_particles,
 )
+from mcmh_localization_tpu_torch.ops.scan_scores import table_levels
 from mcmh_localization_tpu_torch.utils.angles import (
     normalize_angle,
     normalize_angle_about,
@@ -250,7 +250,7 @@ def _make_scorer(ranges, angles, grid_map, table, config, impl,
         def score(p):
             return lidar3d_scores(p, ranges, angles, table.voxel_map, config,
                                   sensor_z=config.lidar3d_sensor_z,
-                                  log_volume=table.log_volume)
+                                  log_volume=table.levels)
         return score
     if impl == "field":
         def score(p):
@@ -611,21 +611,22 @@ def _sensor_table(grid_map, config, voxel_map=None):
     """The per-(map, config) sensor precompute (JAX step.py:786-816): the
     voxel map and its log-mixture volume (3-D lidar), the BeamTables of the
     beam score field, the cell-major range table of the beam "table"
-    scorer, or the log-likelihood field."""
+    scorer (each of the last two scorers' tables in the level form its
+    kernel reads), or the log-likelihood field."""
     if config.sensor_model == "lidar3d":
         if voxel_map is None:
             raise ValueError(
                 "sensor_model='lidar3d' requires make_step/make_model("
                 "..., voxel_map=VoxelMap); grid_map stays the 2-D "
                 "navigation slice (maps/voxel_map.py::nav_slice)")
-        return Lidar3dTable(voxel_map, lidar3d_log_volume(voxel_map, config))
+        return lidar3d_table(voxel_map, config)
     if config.sensor_model == "beam":
         impl = _resolved_beam_impl(config, grid_map.device)
         if impl == "field":
             return make_beam_tables(grid_map, config)
         if impl == "table":
-            return table_cell_major(build_range_table(
-                grid_map, config.beam_table_n_theta, config.max_range))
+            return table_levels(table_cell_major(build_range_table(
+                grid_map, config.beam_table_n_theta, config.max_range)))
     return log_likelihood_field(grid_map, config)
 
 

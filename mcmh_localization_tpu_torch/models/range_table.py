@@ -20,8 +20,11 @@ forms (divide by the resolution and the bin width, clip before the window).
 ``raycast_table_scores`` reads the cell-major table once per (particle,
 beam), with the bin math, the mixture and the beam sum fused around the
 read (``ops/scan_scores.py::table_scores``, a CUDA kernel on the card; its
-plain version takes a chunk of particles at a time): exact f32 reads,
-where the TPU read bf16.
+plain version takes a chunk of particles at a time): exact f32 values,
+where the TPU read bf16.  The filter's sensor table holds it in its level
+form (``ops/scan_scores.py::table_levels``: a byte a value, indexing the
+table's distinct ranges), so the mixture is a per-scan LUT over the valid
+beams x levels.
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ from mcmh_localization_tpu_torch.ops.gather import PI_F32, gather_2d, theta_scal
 from mcmh_localization_tpu_torch.ops.scan_scores import (
     Mixture,
     TableGeometry,
+    TableLevels,
     table_scores,
 )
 from mcmh_localization_tpu_torch.utils.f32 import divide, scalar
@@ -421,7 +425,7 @@ def raycast_table_scores(
     angles: torch.Tensor,
     grid_map,
     config,
-    table_cm: torch.Tensor,  # (H*W, K) cell-major range table
+    table_cm: torch.Tensor | TableLevels,  # (H*W, K) cell-major range table
     n_theta: int,
 ) -> torch.Tensor:
     """(N,) beam-model scores with one range-table read per (particle,
@@ -430,7 +434,11 @@ def raycast_table_scores(
     bin and the origin to the particle's cell; ``config.step`` subsamples
     the beams; out-of-map particles score 0 (before the validity wrap).
     The reads, the mixture and the beam sum are one fused kernel on the
-    card (``ops/scan_scores.py::table_scores``)."""
+    card (``ops/scan_scores.py::table_scores``).  ``table_cm`` is the f32
+    table, read a value a pair, or its ``table_levels`` form (the sensor
+    table's, built once per (map, config): the same scores)."""
+    if not isinstance(table_cm, TableLevels):
+        table_cm = TableLevels(None, None, table_cm.contiguous())
     if config.step > 1:
         ranges = ranges[:: config.step]
         angles = angles[:: config.step]

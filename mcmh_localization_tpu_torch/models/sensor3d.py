@@ -15,7 +15,9 @@ whose endpoint leaves the volume counts in the "mean" denominator and adds
 
 The per-voxel log mixture is built once per (map, config)
 (``lidar3d_log_volume``, the same ops the JAX scorer applies to each read
-distance), and the scan scores in one fused read per (particle, beam)
+distance) with its level form (``ops/scan_scores.py::voxel_levels``: a
+16-bit index of every voxel into the volume's distinct values), and the
+scan scores in one fused read per (particle, beam)
 (``ops/scan_scores.py::voxel_scores``, a CUDA kernel on the card).
 """
 
@@ -27,16 +29,30 @@ import torch
 
 from mcmh_localization_tpu_torch.maps.voxel_map import VoxelMap, raycast3d
 from mcmh_localization_tpu_torch.models.sensor import LOG_FLOOR, hit_norm
-from mcmh_localization_tpu_torch.ops.scan_scores import VoxelGeometry, voxel_scores
+from mcmh_localization_tpu_torch.ops.scan_scores import (
+    VoxelGeometry,
+    VoxelLevels,
+    voxel_levels,
+    voxel_scores,
+)
 from mcmh_localization_tpu_torch.utils.f32 import divide
 
 
 class Lidar3dTable(NamedTuple):
-    """The 3-D lidar's per-(map, config) sensor table: the voxel map and
-    its log-mixture volume."""
+    """The 3-D lidar's per-(map, config) sensor table: the voxel map, its
+    log-mixture volume and the volume's level form, which the scorer
+    reads."""
 
     voxel_map: VoxelMap
     log_volume: torch.Tensor   # (D, H, W) float32
+    levels: VoxelLevels
+
+
+def lidar3d_table(voxel_map: VoxelMap, config) -> Lidar3dTable:
+    """The sensor table of ``voxel_map`` under ``config``, on the map's
+    device."""
+    log_volume = lidar3d_log_volume(voxel_map, config)
+    return Lidar3dTable(voxel_map, log_volume, voxel_levels(log_volume))
 
 
 def lidar3d_log_volume(voxel_map: VoxelMap, config) -> torch.Tensor:
@@ -93,18 +109,22 @@ def lidar3d_scores(
     voxel_map: VoxelMap,
     config,
     sensor_z: float = 0.0,      # sensor height above the pose plane
-    log_volume: torch.Tensor | None = None,
+    log_volume: torch.Tensor | VoxelLevels | None = None,
 ) -> torch.Tensor:
     """(N,) f32 per-particle log-likelihood scores (JAX sensor3d.py:34-98).
-    ``log_volume`` is ``lidar3d_log_volume(voxel_map, config)``, built here
-    when not given."""
+    ``log_volume`` is ``lidar3d_log_volume(voxel_map, config)`` (built
+    here when not given), read as it is, or its level form
+    (``Lidar3dTable.levels``, built once per (map, config): the same
+    values)."""
     if log_volume is None:
         log_volume = lidar3d_log_volume(voxel_map, config)
+    if isinstance(log_volume, torch.Tensor):
+        log_volume = VoxelLevels(None, None, log_volume.contiguous())
     u, v, zrow, live, count = scan_beams(ranges, directions, voxel_map,
                                          config, sensor_z)
-    return voxel_scores(particles.contiguous(), u, v, zrow, live,
-                        log_volume.contiguous(), voxel_geometry(voxel_map),
-                        count, config.score_aggregation)
+    return voxel_scores(particles.contiguous(), u, v, zrow, live, log_volume,
+                        voxel_geometry(voxel_map), count,
+                        config.score_aggregation)
 
 
 def simulate_scan3d(

@@ -43,7 +43,7 @@ NVCC_FLAGS = (
 # poses_per_thread.
 FILL_THREADS = 1 << 18
 # The SMs of an H100 SXM: beam_field.py::lut_tiles spreads its blocks over
-# them, and scan_scores.py::voxel_scores caps its grid at the blocks they
+# them, and scan_scores.py's two scorers cap their grids at the blocks they
 # hold at once.
 SM_COUNT = 132
 
@@ -114,10 +114,10 @@ _SIGNATURES = {
     ),
     "mcmh_take_rows": (_P, _I, _I, _P, _I, _P, _P),
     "mcmh_lut_field": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
-    "mcmh_table_scores": (_P, _I, _P, _P, _P, _I, _P, _P, TableArgs, _I, _P,
-                          _P),
-    "mcmh_voxel_scores": (_P, _I, _P, _P, _P, _P, _I, _P, _P, VoxelArgs, _I,
-                          _I, _P, _P),
+    "mcmh_table_scores": (_P, _I, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _P,
+                          TableArgs, _I, _I, _P, _P),
+    "mcmh_voxel_scores": (_P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P,
+                          VoxelArgs, _I, _I, _P, _P),
 }
 
 _lib = None

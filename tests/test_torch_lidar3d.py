@@ -40,7 +40,16 @@ from mcmh_localization_tpu_torch.models.sensor3d import (  # noqa: E402
     voxel_geometry,
 )
 from mcmh_localization_tpu_torch.ops import resampling as tres  # noqa: E402
-from mcmh_localization_tpu_torch.ops.scan_scores import voxel_scores_plain  # noqa: E402
+from mcmh_localization_tpu_torch.filter.step import _sensor_table  # noqa: E402
+from mcmh_localization_tpu_torch.ops.scan_scores import (  # noqa: E402
+    MAX_VOXEL_LEVELS,
+    VoxelLevels,
+    tile_planes,
+    tiled_offsets,
+    voxel_lanes,
+    voxel_levels,
+    voxel_scores_plain,
+)
 from mcmh_localization_tpu_torch.sim.simulator import odometry_deltas  # noqa: E402
 from tests.test_torch_filter import _scan_draws  # noqa: E402
 from tests.test_torch_ops import torch_one_thread  # noqa: E402,F401
@@ -327,7 +336,8 @@ def test_voxel_scores_plain_lane_order_bitwise(rooms, lanes):
     vol = lidar3d_log_volume(troom, cfg)
     u, v, zrow, live, count = scan_beams(_t(ranges), _t(dirs), troom, cfg, 1.0)
     geo = voxel_geometry(troom)
-    args = (_t(particles), u, v, zrow, live, vol, geo, count, "mean")
+    args = (_t(particles), u, v, zrow, live, voxel_levels(vol), geo, count,
+            "mean")
     got = voxel_scores_plain(*args, lanes=lanes).numpy()
     want = _numpy_lane_scores(particles, u.numpy(), v.numpy(), zrow.numpy(),
                               live.numpy(), vol.numpy(), geo, int(count),
@@ -336,6 +346,149 @@ def test_voxel_scores_plain_lane_order_bitwise(rooms, lanes):
     np.testing.assert_array_equal(
         voxel_scores_plain(*args, lanes=lanes, chunk=5).numpy(), got)
     assert int(live.sum()) < int(count) <= 70   # some beams leave the volume
+
+
+def _bits(x: torch.Tensor) -> np.ndarray:
+    return x.contiguous().view(torch.int32).numpy()
+
+
+def _small_building():
+    """A 4 x 4 x 1 m building at 0.05 m (80 x 80 x 20 voxels): a floor,
+    walls with a door, a table and a hanging shelf."""
+    occ = np.zeros((20, 80, 80), dtype=np.int8)
+    occ[0] = 100
+    occ[:, :2, :] = occ[:, -2:, :] = occ[:, :, :2] = occ[:, :, -2:] = 100
+    occ[:, 40, 2:50] = 100
+    occ[:, 40, 20:30] = 0
+    occ[:8, 55:65, 50:70] = 100
+    occ[14:17, 10:20, 60:75] = 100
+    return tvm.build_voxel_map(occ, 0.05, (-2.0, -2.0, 0.0), device="cpu")
+
+
+def _voxel_index(vm):
+    d, h, w = vm.depth, vm.height, vm.width
+    z, y, x = torch.meshgrid(torch.arange(d), torch.arange(h), torch.arange(w),
+                             indexing="ij")
+    return tiled_offsets(z, y, x, h, w)
+
+
+@pytest.mark.parametrize("where", ["room3d", "small building"])
+def test_voxel_levels_round_trip_bitwise(rooms, where):
+    """Form (b)'s level form of the log-mixture volume gives every voxel
+    back bit for bit through the bricked 16-bit index (``levels[index]``):
+    beyond about 6.5 sigma from a surface every voxel holds one value, so
+    the levels stay few."""
+    vm = rooms[1] if where == "room3d" else _small_building()
+    vol = lidar3d_log_volume(vm, FilterConfig(max_range=6.0))
+    lv = voxel_levels(vol)
+    assert lv.volume is None and lv.index.dtype == torch.int16
+    assert lv.levels.numel() <= MAX_VOXEL_LEVELS
+    got = lv.levels[lv.index[_voxel_index(vm)].to(torch.int64)]
+    np.testing.assert_array_equal(_bits(got), _bits(vol))
+
+
+@pytest.mark.parametrize("shape", [(3, 13, 21), (2, 8, 8), (1, 17, 9)])
+def test_tile_planes_round_trip(shape):
+    """The brick layout: each plane padded to whole 4 x 4 bricks, a voxel
+    found again at ``tiled_offsets``, each brick's 16 values in one
+    32-byte sector, the bricks of a plane row-major."""
+    d, h, w = shape
+    x = torch.from_numpy(np.random.default_rng(0).integers(
+        -2**15, 2**15, shape).astype(np.int16))
+    t = tile_planes(x)
+    hp, wp = -(-h // 4) * 4, -(-w // 4) * 4
+    assert t.shape == (d * hp * wp,)
+    z, y, xx = torch.meshgrid(torch.arange(d), torch.arange(h),
+                              torch.arange(w), indexing="ij")
+    off = tiled_offsets(z, y, xx, h, w)
+    np.testing.assert_array_equal(t[off].numpy(), x.numpy())
+    assert off.unique().numel() == off.numel()
+    sector = off // 16
+    assert (sector == (z * (hp // 4) + y // 4) * (wp // 4) + xx // 4).all()
+    assert (off % 16 == (y % 4) * 4 + xx % 4).all()
+
+
+def _hall3d():
+    """A 20 x 20 x 2 m hall at 0.1 m holding two single occupied voxels:
+    the distances are the square roots of thousands of sums of squares,
+    and under a sigma of 3 m the log volume keeps nearly each one a level
+    of its own, more than MAX_VOXEL_LEVELS."""
+    occ = np.zeros((20, 200, 200), dtype=np.int8)
+    occ[0, 100, 100] = 100
+    occ[10, 50, 150] = 100
+    return (jvm.build_voxel_map(occ, 0.1, (-10.0, -10.0, 0.0)),
+            tvm.build_voxel_map(occ, 0.1, (-10.0, -10.0, 0.0), device="cpu"))
+
+
+@pytest.mark.parametrize("aggregation", ["mean", "sum"])
+def test_voxel_levels_past_the_cap_keep_the_f32_form(aggregation):
+    """A sigma large against the resolution gives more levels than the
+    kernel stages: the dispatch keeps the f32 volume (no refusal), and the
+    port's scorer still matches JAX's ``lidar3d_scores`` within 2e-5."""
+    jhall, thall = _hall3d()
+    kw = dict(max_range=9.0, sigma_hit=3.0, step=1,
+              score_aggregation=aggregation)
+    lv = voxel_levels(lidar3d_log_volume(thall, FilterConfig(**kw)))
+    assert lv.index is None and lv.levels is None and lv.volume is not None
+    particles, ranges, dirs = _scorer_inputs(n=40, m=50, seed=5)
+    particles[:, :2] *= 2.0
+    ranges *= 1.8
+    want = np.asarray(j_lidar3d_scores(
+        jnp.asarray(particles), jnp.asarray(ranges), jnp.asarray(dirs),
+        jhall, JConfig(**kw), sensor_z=1.0))
+    got = lidar3d_scores(_t(particles), _t(ranges), _t(dirs), thall,
+                         FilterConfig(**kw), sensor_z=1.0).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("lanes", LANES)
+def test_voxel_scores_plain_f32_form_lane_order_bitwise(rooms, lanes):
+    """The f32 form (a volume past MAX_VOXEL_LEVELS takes it) sums in the
+    kernel's lane order too, and equals the level form bitwise."""
+    _, troom = rooms
+    particles, ranges, dirs = _scorer_inputs(n=30, m=70, seed=4)
+    cfg = FilterConfig(max_range=5.0, sigma_hit=0.2)
+    vol = lidar3d_log_volume(troom, cfg)
+    u, v, zrow, live, count = scan_beams(_t(ranges), _t(dirs), troom, cfg, 1.0)
+    geo = voxel_geometry(troom)
+    f32 = voxel_scores_plain(_t(particles), u, v, zrow, live,
+                             VoxelLevels(None, None, vol), geo, count, "sum",
+                             lanes=lanes).numpy()
+    want = _numpy_lane_scores(particles, u.numpy(), v.numpy(), zrow.numpy(),
+                              live.numpy(), vol.numpy(), geo, int(count),
+                              "sum", lanes)
+    np.testing.assert_array_equal(f32, want)
+    np.testing.assert_array_equal(
+        voxel_scores_plain(_t(particles), u, v, zrow, live, voxel_levels(vol),
+                           geo, count, "sum", lanes=lanes).numpy(), f32)
+
+
+def test_voxel_lanes_rule():
+    """Form (b)'s G: one lane a pose from a quarter of FILL_THREADS poses
+    up (the [lidar3d] shape, 2 x 100k, takes G = 1), more lanes below;
+    nonincreasing in N."""
+    assert voxel_lanes(200_000) == 1 and voxel_lanes(1 << 16) == 1
+    assert voxel_lanes((1 << 16) - 1) == 2 and voxel_lanes(800) == 32
+    gs = [voxel_lanes(n) for n in (1, 100, 3000, 20_000, 65_536, 10**6)]
+    assert gs == sorted(gs, reverse=True)
+
+
+def test_lidar3d_sensor_table_is_the_level_form(rooms):
+    """The 3-D lidar's sensor table carries the log volume and its level
+    form, built once per (map, config); the scorer reads the level form."""
+    _, troom = rooms
+    cfg = FilterConfig(sensor_model="lidar3d", max_range=6.0, sigma_hit=0.2)
+    table = _sensor_table(tvm.nav_slice(troom, z=0.1), cfg, troom)
+    assert table.voxel_map is troom
+    assert table.levels.index.dtype == torch.int16
+    np.testing.assert_array_equal(
+        _bits(table.log_volume), _bits(lidar3d_log_volume(troom, cfg)))
+    particles, ranges, dirs = _scorer_inputs(seed=6)
+    args = (_t(particles), _t(ranges), _t(dirs), troom, cfg)
+    np.testing.assert_array_equal(
+        lidar3d_scores(*args, sensor_z=1.0, log_volume=table.levels).numpy(),
+        lidar3d_scores(*args, sensor_z=1.0,
+                       log_volume=table.log_volume).numpy())
 
 
 # ---------------------------------------------------------------------------

@@ -33,8 +33,15 @@ from mcmh_localization_tpu_torch.ops.beam_field import (  # noqa: E402
     lut_field_plain,
 )
 from mcmh_localization_tpu_torch.ops.fused_score import window_indices  # noqa: E402
+from mcmh_localization_tpu_torch.filter.step import (  # noqa: E402
+    _sensor_table,
+    make_model,
+)
 from mcmh_localization_tpu_torch.ops.scan_scores import (  # noqa: E402
+    MAX_TABLE_LEVELS,
     TableGeometry,
+    TableLevels,
+    table_levels,
     table_scores_plain,
 )
 from tests.test_torch_ops import torch_one_thread  # noqa: E402,F401
@@ -407,12 +414,16 @@ def table_case(box_maps):
 def _table_plain(tm, cfg, table_cm, parts, ranges, angles, lanes=None,
                  chunk=None):
     """Form (a)'s plain version on the beams ``raycast_table_scores``
-    passes it (``config.step`` subsampled, valid = finite and in range)."""
+    passes it (``config.step`` subsampled, valid = finite and in range),
+    the table in its level form (``table_levels``) unless given as a
+    ``TableLevels``."""
     r, a = _t(ranges[::cfg.step]), _t(angles[::cfg.step])
     valid = torch.isfinite(r) & (r < cfg.max_range)
     geo = TableGeometry(tm.origin_xy[0], tm.origin_xy[1], tm.res, tm.height,
                         tm.width, cfg.beam_table_n_theta)
-    return table_scores_plain(_t(parts), r, a, valid, _t(table_cm), geo,
+    table = (table_cm if isinstance(table_cm, tuple)
+             else table_levels(_t(table_cm)))
+    return table_scores_plain(_t(parts), r, a, valid, table, geo,
                               trt.beam_mixture(cfg), valid.sum(),
                               cfg.score_aggregation, lanes=lanes, chunk=chunk)
 
@@ -465,6 +476,165 @@ def test_table_scores_chunked_equals_unchunked(box_maps, table_case, chunk):
     np.testing.assert_array_equal(
         trt.raycast_table_scores(_t(parts), _t(ranges), _t(angles), tm, cfg,
                                  _t(table_cm), 36).numpy(), whole.numpy())
+
+
+def _bits(x: torch.Tensor) -> np.ndarray:
+    return x.contiguous().view(torch.int32).numpy()
+
+
+@pytest.mark.parametrize("where", ["box", "house"])
+@pytest.mark.parametrize("k_bins", [96, 360])
+def test_table_levels_round_trip_bitwise(box_maps, torch_house, where,
+                                         k_bins):
+    """Form (a)'s level form of the cell-major range table gives the table
+    back bit for bit (``levels[index]``), as uint8 indices into the ray
+    march's quantized ranges (at most max_range / RAY_STEP + 1 levels)."""
+    tm = box_maps[1] if where == "box" else torch_house
+    max_range = 2.0 if where == "box" else 5.0
+    table_cm = trt.table_cell_major(trt.build_range_table(tm, k_bins,
+                                                          max_range))
+    lv = table_levels(table_cm)
+    assert lv.table is None and lv.index.dtype == torch.uint8
+    assert lv.index.shape == table_cm.shape
+    assert 2 <= lv.levels.numel() <= round(max_range / 0.1) + 1
+    np.testing.assert_array_equal(
+        _bits(lv.levels[lv.index.to(torch.int64)]), _bits(table_cm))
+
+
+def test_table_levels_keep_signed_zeros_apart():
+    """Levels are distinct bit patterns: -0.0 and +0.0 stay two levels, so
+    the round trip is bitwise for any table."""
+    table = torch.tensor([[0.0, -0.0, 1.5], [1.5, -0.0, 2.0]])
+    lv = table_levels(table)
+    assert lv.levels.numel() == 4
+    np.testing.assert_array_equal(
+        _bits(lv.levels[lv.index.to(torch.int64)]), _bits(table))
+
+
+def _open_hall(cells=256, res=0.1):
+    """A 25.6 m hall at 0.1 m with a wall ring and one block: its range
+    table at a 30 m max_range holds more than 256 of the multiples of
+    0.1 m up to 30."""
+    occ = np.zeros((cells, cells), np.int8)
+    occ[0, :] = occ[-1, :] = occ[:, 0] = occ[:, -1] = 100
+    occ[80:88, 140:180] = 100
+    half = cells * res / 2
+    return (j_build_grid_map(occ, resolution=res, origin=(-half, -half),
+                             edt_impl="scipy"),
+            build_grid_map(occ, res, (-half, -half), device="cpu"))
+
+
+def _hall_case():
+    jm, tm = _open_hall()
+    k_bins = 8
+    table_cm = trt.table_cell_major(trt.build_range_table(tm, k_bins, 30.0))
+    rng = np.random.default_rng(9)
+    angles = _angles(40)
+    ranges = rng.uniform(0.5, 35.0, 40).astype(np.float32)
+    ranges[::9] = np.inf
+    parts = np.stack([rng.uniform(-14, 14, 200), rng.uniform(-14, 14, 200),
+                      rng.uniform(-np.pi, np.pi, 200)], 1).astype(np.float32)
+    return jm, tm, k_bins, table_cm, ranges, angles, parts
+
+
+@pytest.mark.parametrize("form", ["int16 levels", "f32 per pair"])
+@pytest.mark.parametrize("aggregation", ["mean", "sum"])
+def test_table_forms_past_the_uint8_cap_match_jax(form, aggregation):
+    """A 30 m max_range gives more than 256 levels (the int16 level form;
+    the JAX package's int8 ``quantize_table`` refuses it, its table scorer
+    does not), and a table of arbitrary f32 values more than
+    ``MAX_TABLE_LEVELS`` (the per-pair form): the dispatch picks each from
+    the table, none raises, and the scores match JAX's
+    ``raycast_table_scores`` (rtol 1e-5, atol 1e-5 * 13.82)."""
+    jm, tm, k_bins, table_cm, ranges, angles, parts = _hall_case()
+    if form == "f32 per pair":
+        noise = np.random.default_rng(2).uniform(0, 0.05, table_cm.shape)
+        table_cm = table_cm + torch.from_numpy(noise.astype(np.float32))
+    lv = table_levels(table_cm)
+    if form == "int16 levels":
+        assert 256 < lv.levels.numel() <= MAX_TABLE_LEVELS
+        assert lv.index.dtype == torch.int16 and lv.table is None
+    else:
+        assert lv.index is None and lv.levels is None
+        assert lv.table is not None
+    cfg = dict(max_range=30.0, sigma_hit=0.2, beam_table_n_theta=k_bins,
+               score_aggregation=aggregation)
+    want = np.asarray(jrt.raycast_table_scores(
+        jnp.asarray(parts), jnp.asarray(ranges), jnp.asarray(angles), jm,
+        JConfig(**cfg), jnp.asarray(table_cm.numpy()), k_bins))
+    for table in (lv, table_cm):   # the level form, or the f32 table as given
+        got = trt.raycast_table_scores(
+            _t(parts), _t(ranges), _t(angles), tm, FilterConfig(**cfg),
+            table, k_bins).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * 13.82)
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("aggregation,step", [
+    ("mean", 1), ("sum", 1), ("mean", 4), ("sum", 4)])
+def test_table_scores_plain_per_pair_form_matches_jax(box_maps, table_case,
+                                                      aggregation, step,
+                                                      lanes):
+    """Form (a)'s per-pair form (the f32 table as it is: what a table past
+    ``MAX_TABLE_LEVELS`` takes) at every G against JAX's
+    ``raycast_table_scores``, as the level form is held in
+    ``test_table_scores_plain_matches_jax``; and equal to the level form
+    within the same tolerance (the CPU's exp and log round by position)."""
+    jm, tm = box_maps
+    table_cm, ranges, angles, parts = table_case
+    cfg = dict(max_range=2.0, sigma_hit=0.1, beam_table_n_theta=36,
+               score_aggregation=aggregation, step=step)
+    want = np.asarray(jrt.raycast_table_scores(
+        jnp.asarray(parts), jnp.asarray(ranges), jnp.asarray(angles), jm,
+        JConfig(**cfg), jnp.asarray(table_cm), 36))
+    per_pair = TableLevels(None, None, _t(table_cm))
+    got = _table_plain(tm, FilterConfig(**cfg), per_pair, parts, ranges,
+                       angles, lanes=lanes).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * 13.82)
+    levels = _table_plain(tm, FilterConfig(**cfg), table_cm, parts, ranges,
+                          angles, lanes=lanes).numpy()
+    np.testing.assert_allclose(got, levels, rtol=1e-5, atol=1e-5 * 13.82)
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 300])
+def test_table_scores_per_pair_chunked_equals_unchunked(box_maps, table_case,
+                                                        chunk):
+    """The per-pair form's plain version pads its beam columns to whole
+    vectors (``_padded_columns``: PyTorch's CPU exp and log round
+    differently in a vector body and a scalar tail), so any chunk of poses
+    gives the unchunked scores bitwise."""
+    _, tm = box_maps
+    table_cm, ranges, angles, parts = table_case
+    cfg = FilterConfig(max_range=2.0, sigma_hit=0.1, beam_table_n_theta=36,
+                       score_aggregation="sum")
+    per_pair = TableLevels(None, None, _t(table_cm))
+    whole = _table_plain(tm, cfg, per_pair, parts, ranges, angles,
+                         chunk=len(parts))
+    np.testing.assert_array_equal(
+        _table_plain(tm, cfg, per_pair, parts, ranges, angles,
+                     chunk=chunk).numpy(), whole.numpy())
+
+
+def test_table_sensor_table_is_the_level_form():
+    """The "table" scorer's sensor table is built once per (map, config) in
+    its level form: uint8 at the default 5 m, int16 at 30 m (no refusal),
+    and a filter step runs on either."""
+    _, tm = _open_hall()
+    for max_range, dtype in ((5.0, torch.uint8), (30.0, torch.int16)):
+        cfg = FilterConfig(sensor_model="beam", beam_impl="table",
+                           beam_table_n_theta=8, max_range=max_range,
+                           num_particles=64, min_particles=64,
+                           max_particles=64, initialized=True,
+                           initial_pose=(0.0, 0.0, 0.0))
+        table = _sensor_table(tm, cfg)
+        assert isinstance(table, TableLevels)
+        assert table.index.dtype == dtype and table.table is None
+        model = make_model(cfg, tm)
+        angles = _t(_angles(24))
+        ranges = torch.full((24,), 4.0)
+        state, info = model.step(model.init(0), ranges, angles,
+                                 torch.tensor([0.0, 0.0, 0.0]))
+        assert torch.isfinite(info.estimate.mean).all()
 
 
 def test_raycast_beam_scores_match_jax(house_map, torch_house):

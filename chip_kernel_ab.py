@@ -64,8 +64,37 @@ this tree through its wrapper), so the readings hold the kernels alone:
   warp load touches in each candidate layout of the volume
   (``voxel_sectors``).
 
-``--kernels`` names the kernels to compare (all by default); ``--old`` is
-needed for kernels 2 and 4-7, ``--old-scan`` for forms a and b.
+This tree's kernels alone, with no earlier tree (``--kernels 7k,an``):
+
+- ``7k``: kernel 7 at the fine and coarse builds of
+  ``FilterConfig(sensor_model="beam", corr_window_cells=128)`` at its
+  defaults (360 table bins, whose LUTs no block holds at once): the
+  plan's chunks of bins (``ops/beam_field.py::lut_plan``) in one launch,
+  other chunk counts and layouts, and the plan's chunks one launch each,
+  each adding onto the partial sums in the output (a throwaway ablation:
+  this tree's ``beam_field.cu`` built with ``LUT_LAUNCH_ABLATION``'s
+  edits, which give the chunked kernel a bin range);
+- ``an``: form (a)'s level form and per-pair f32 form at 2 x N poses, N
+  from 1500 to 100k: the pose count where the level form overtakes
+  (``ops/scan_scores.py::TABLE_LEVEL_MIN_POSES``).  Form a beside commit
+  4c0386c's kernel also times this tree's per-pair form, and at 2 x 1500
+  both with the count as the path passes it (int64, converted to int32 by
+  a launch of its own each call).
+
+Kernel 7 against the tree before its chunked form (``--kernels 7p``):
+
+    git archive fc2823d mcmh_localization_tpu_torch/csrc | tar -x -C build/parent_field
+    python3 chip_kernel_ab.py --old-field build/parent_field --kernels 7p
+
+- ``7p``: kernel 7 at the beam point's fine and coarse builds (96 table
+  bins, one chunk) at the rule's layout: commit fc2823d's
+  ``beam_field.cu`` (sha256-checked, the C interface with the tile and
+  without the chunk) and this tree's, each bitwise against the plain
+  version.
+
+``--kernels`` names the kernels to compare (all of the first list by
+default); ``--old`` is needed for kernels 2 and 4-7, ``--old-scan`` for
+forms a and b, ``--old-field`` for 7p.
 Each case is timed in turns, the earlier kernel first and last (old, new
 ..., ... new, old), with ``chip_smoke.device_ms`` (median of 20 runs).  The
 lines print the two readings of each kernel with the card's name and
@@ -76,6 +105,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import hashlib
 import json
 import math
@@ -179,6 +209,123 @@ SCAN_ABLATION = (
      "acc = __fadd_rn(acc, __int2float_rn(static_cast<int>(row * a.w + vx)"
      " & 1));"),
 )
+
+
+# sha256 of commit fc2823d's kernel 7, the last before its chunked form
+PARENT_FIELD_SOURCES = {
+    "beam_field.cu":
+        "3d2f7fae36522712949b91fcf2ffbb06fe40e0e1571a1715c4ab3d85e3abce95",
+    "thread_runs.cuh":
+        "752b197a88cecdb1584f3c053a85b4dc8340a399d9412ec0ac65f82f0eaf603e",
+}
+# Throwaway ablation of this tree's kernel 7: its chunked instance takes a
+# bin range [g_lo, g_hi) and, past the first chunk, starts each sum from
+# the output, so ``ab_lut_field_chunk`` (appended) runs one chunk a launch.
+LUT_LAUNCH_ABLATION = (
+    ("int c, int kg, bool vec_q, bool vec_s,",
+     "int c, int kg, int g_lo, int g_hi, bool vec_q, bool vec_s,"),
+    ("for (int p = 0; p < BPAR; ++p) acc[p] = 0.0f;",
+     "for (int p = 0; p < BPAR; ++p) {\n"
+     "    const int cl = c0 + static_cast<int>(threadIdx.x);\n"
+     "    acc[p] = g_lo > 0 && cl < c && p < n_b\n"
+     "                 ? out[static_cast<long long>(b0 + p) * c + cl]\n"
+     "                 : 0.0f;\n  }"),
+    ("for (int g0 = 0; g0 < k; g0 += kg) {",
+     "for (int g0 = g_lo; g0 < g_hi; g0 += kg) {"),
+    ("if (g0 > 0) __syncthreads();", "if (g0 > g_lo) __syncthreads();"),
+    ("const int gn = min(kg, k - g0);", "const int gn = min(kg, g_hi - g0);"),
+    ("qt, s, b, k, nq, c, kg, vec_q, vec_s, out);",
+     "qt, s, b, k, nq, c, kg, 0, k, vec_q, vec_s, out);"),
+)
+LUT_LAUNCH_SHIM = r"""
+// one launch of the chunked kernel over bins [g_lo, g_hi)
+template <int BPAR>
+int ab_chunk(const signed char* qt, const float* s, int b, int k, int nq,
+             int c, int threads, int kg, int g_lo, int g_hi, float* out,
+             cudaStream_t st) {
+  const int smem = static_cast<int>(sizeof(float)) * slot_floats(kg, nq) *
+                       BPAR + kg * threads;
+  cudaError_t err = allow_smem<BPAR, true>(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool vec_q = c % 16 == 0 && aligned_to(qt, 16);
+  const bool vec_s = (k * nq) % 4 == 0 && (kg * nq) % 4 == 0 &&
+                     (g_lo * nq) % 4 == 0 && aligned_to(s, 16);
+  dim3 grid((c + threads - 1) / threads, (b + BPAR - 1) / BPAR);
+  lut_field_kernel<BPAR, true><<<grid, threads, smem, st>>>(
+      qt, s, b, k, nq, c, kg, g_lo, g_hi, vec_q, vec_s, out);
+  return static_cast<int>(cudaGetLastError());
+}
+extern "C" int ab_lut_field_chunk(const signed char* qt, const float* s,
+                                  int b, int k, int nq, int c, int threads,
+                                  int bpar, int kg, int g_lo, int g_hi,
+                                  float* out, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bpar == 4 ? ab_chunk<4>(qt, s, b, k, nq, c, threads, kg, g_lo, g_hi,
+                                 out, st)
+                   : ab_chunk<2>(qt, s, b, k, nq, c, threads, kg, g_lo, g_hi,
+                                 out, st);
+}
+"""
+
+
+def checked_sources(csrc: Path, digests: dict, commit: str, flag: str):
+    """Refuses (before any build) a tree whose sources are not ``commit``'s."""
+    for name, digest in digests.items():
+        path = csrc / name
+        got = hashlib.sha256(path.read_bytes()).hexdigest() if path.exists() \
+            else "missing"
+        if got != digest:
+            raise SystemExit(f"chip_kernel_ab: {path} is not commit {commit}'s "
+                             f"(sha256 {got}); {flag} must hold that tree")
+
+
+def build_library(so: Path, sources: list, include: Path) -> ctypes.CDLL:
+    """``sources`` built by nvcc into the shared library ``so``, loaded."""
+    from mcmh_localization_tpu_torch.ops import _cuda
+
+    so.parent.mkdir(parents=True, exist_ok=True)
+    res = subprocess.run(
+        [_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, "-I", str(include), "-shared",
+         "-o", str(so), *(str(x) for x in sources)],
+        capture_output=True, text=True)
+    check(res.returncode == 0, f"nvcc failed:\n{res.stdout}{res.stderr}")
+    return ctypes.CDLL(str(so))
+
+
+def parent_field_library(csrc: Path) -> ctypes.CDLL:
+    """Commit fc2823d's kernel 7, built and bound; any other sources raise
+    before the build."""
+    from mcmh_localization_tpu_torch.ops import _cuda
+
+    checked_sources(csrc, PARENT_FIELD_SOURCES, "fc2823d", "--old-field")
+    lib = build_library(_cuda.BUILD_DIR.parent / "torch_kernels_ab"
+                        / "libmcmh_field_parent.so", [csrc / "beam_field.cu"],
+                        csrc)
+    lib.mcmh_lut_field.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P]
+    lib.mcmh_lut_field.restype = ctypes.c_int
+    return lib
+
+
+def chunk_launch_library() -> ctypes.CDLL:
+    """This tree's kernel 7 with ``LUT_LAUNCH_ABLATION``'s edits and
+    ``ab_lut_field_chunk``, built and bound."""
+    from mcmh_localization_tpu_torch.ops import _cuda
+
+    csrc = ROOT / "mcmh_localization_tpu_torch" / "csrc"
+    src = (csrc / "beam_field.cu").read_text()
+    for pattern, repl in LUT_LAUNCH_ABLATION:
+        check(src.count(pattern) == 1, f"ablation pattern not found once: "
+              f"{pattern}")
+        src = src.replace(pattern, repl)
+    out = _cuda.BUILD_DIR.parent / "torch_kernels_ab"
+    out.mkdir(parents=True, exist_ok=True)
+    ablated = out / "beam_field_chunk_launch.cu"
+    ablated.write_text(src + LUT_LAUNCH_SHIM)
+    lib = build_library(out / "libmcmh_field_chunk_launch.so", [ablated],
+                        csrc)
+    lib.ab_lut_field_chunk.argtypes = [_P, _P, *[_I] * 9, _P, _P]
+    lib.ab_lut_field_chunk.restype = ctypes.c_int
+    return lib
 
 
 def old_library(csrc: Path) -> ctypes.CDLL:
@@ -413,7 +560,10 @@ def compare_form_a(libs, gm, beam, ranges, angles, cov, gen,
 
         args = (parts, ranges, angles, valid, table, geo, mix, cnt, "sum")
         calls = {"old": old_call(old),
-                 "new": lambda: scan_scores.table_scores(*args)}
+                 "new": lambda: scan_scores.table_scores(*args),
+                 "new, per-pair form": functools.partial(
+                     scan_scores.table_scores, parts, ranges, angles, valid,
+                     per_pair, geo, mix, cnt, "sum")}
         tag = (f"table_scores N=2x{n} M={ranges.shape[0]} "
                f"({int(cnt)} valid) K={geo.n_theta} G={g}")
         want = scan_scores.table_scores_plain(*args)
@@ -422,8 +572,159 @@ def compare_form_a(libs, gm, beam, ranges, angles, cov, gen,
             f"{tag}: the level form's plain version != the per-pair form's")
         bitwise_calls(tag, calls, want)
         calls["ablation: no exp, log or second division"] = old_call(ablated)
+        if n == 1500:
+            # the count as raycast_table_scores passes it: int64, which the
+            # wrapper converts with a launch of its own each call
+            cnt64 = valid.sum()
+            calls["old, with the int64 count's conversion"] = (
+                lambda call=old_call(old): (cnt64.to(torch.int32), call())[1])
+            calls["new, per-pair form, int64 count"] = functools.partial(
+                scan_scores.table_scores, parts, ranges, angles, valid,
+                per_pair, geo, mix, cnt64, "sum")
+            check(torch.equal(calls["new, per-pair form, int64 count"](),
+                              want), f"{tag}: int64 count != plain")
         report(tag, in_turns(calls), results)
         del parts
+
+
+def compare_lut_chunks(gm, ranges, angles, results) -> None:
+    """Kernel 7 at the fine (B = K = 360 over 128^2 cells) and coarse (36
+    over 96^2) builds of ``FilterConfig(sensor_model="beam",
+    corr_window_cells=128)`` at its defaults, where a block cannot stage
+    all 360 bins: the plan's layout and chunks (``lut_plan``), the same
+    chunks with one launch a chunk, more and smaller chunks (more blocks an
+    SM), and two b over 128 cells a block, in one chunk where that fits;
+    each bitwise against the plain version.  One launch a chunk runs
+    ``chunk_launch_library``'s ablation."""
+    from mcmh_localization_tpu_torch.config import FilterConfig
+    from mcmh_localization_tpu_torch.filter.step import make_model
+    from mcmh_localization_tpu_torch.ops import _cuda
+    from mcmh_localization_tpu_torch.ops.beam_field import (
+        MAX_SMEM_BYTES,
+        LutTile,
+        lut_chunks,
+        lut_field_plain,
+        lut_plan,
+        lut_smem_bytes,
+    )
+
+    new = _cuda.library()
+    per_launch_lib = chunk_launch_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    model = make_model(FilterConfig(sensor_model="beam", corr_window_cells=128,
+                                    initialized=True, initial_pose=START), gm)
+    for tag, qt, s_lut in lut_inputs(gm, model, ranges, angles):
+        b, k, nq = s_lut.shape
+        c = qt.shape[1]
+        out = torch.empty((b, c), device=ranges.device)
+
+        def call_of(tile, chunk, per_launch=False):
+            def call():
+                if not per_launch:
+                    check(new.mcmh_lut_field(
+                        qt.data_ptr(), s_lut.data_ptr(), b, k, nq, c, *tile,
+                        chunk, out.data_ptr(), stream) == 0, "launch failed")
+                for g0, g1 in lut_chunks(k, chunk) if per_launch else ():
+                    check(per_launch_lib.ab_lut_field_chunk(
+                        qt.data_ptr(), s_lut.data_ptr(), b, k, nq, c, *tile,
+                        chunk, g0, g1, out.data_ptr(), stream) == 0,
+                        "launch failed")
+                return out
+            return call
+
+        plan = lut_plan(b, k, nq, c)
+        calls = {f"plan {tuple(plan.tile)} {len(lut_chunks(k, plan.chunk))} "
+                 f"chunks of {plan.chunk}": call_of(*plan),
+                 "plan, one launch a chunk (ablation)": call_of(
+                     *plan, per_launch=True)}
+        for tile in (plan.tile, LutTile(128, 2)):
+            for n in (1, 2, 3, 4, 6, 8, 12, 16):
+                chunk = -(-(-(-k // n)) // 4) * 4
+                if (lut_smem_bytes(chunk, nq, tile) <= MAX_SMEM_BYTES
+                        and (tile, chunk) != tuple(plan)):
+                    calls[f"{tuple(tile)} {len(lut_chunks(k, chunk))} chunks "
+                          f"of {chunk}"] = call_of(tile, chunk)
+        tag = f"lut_field K=360 {tag} B={b} K={k} nq={nq} C={c}"
+        bitwise_calls(tag, calls, lut_field_plain(qt, s_lut))
+        report(tag, in_turns(calls), results)
+
+
+def compare_lut_parent(lib, gm, beam, ranges, angles, results) -> None:
+    """Kernel 7 at the beam point's fine and coarse builds (96 table bins,
+    all staged at once): commit fc2823d's kernel and this tree's, at the
+    rule's layout, through their C entry points on the same inputs; each
+    bitwise against the plain version."""
+    from mcmh_localization_tpu_torch.ops import _cuda
+    from mcmh_localization_tpu_torch.ops.beam_field import (
+        lut_field_plain,
+        lut_plan,
+    )
+
+    new = _cuda.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    for tag, qt, s_lut in lut_inputs(gm, beam, ranges, angles):
+        b, k, nq = s_lut.shape
+        c = qt.shape[1]
+        out = torch.empty((b, c), device=ranges.device)
+        plan = lut_plan(b, k, nq, c)
+        check(plan.chunk == k, f"lut_field {tag}: the plan chunks 96 bins")
+
+        def parent():
+            check(lib.mcmh_lut_field(qt.data_ptr(), s_lut.data_ptr(), b, k,
+                                     nq, c, *plan.tile, out.data_ptr(),
+                                     stream) == 0, "launch failed")
+            return out
+
+        def this_tree():
+            check(new.mcmh_lut_field(qt.data_ptr(), s_lut.data_ptr(), b, k,
+                                     nq, c, *plan.tile, plan.chunk,
+                                     out.data_ptr(), stream) == 0,
+                  "launch failed")
+            return out
+
+        calls = {"fc2823d": parent, "this tree": this_tree}
+        tag = (f"lut_field {tag} B={b} K={k} nq={nq} C={c} "
+               f"{tuple(plan.tile)}")
+        bitwise_calls(tag, calls, lut_field_plain(qt, s_lut))
+        report(tag, in_turns(calls), results)
+
+
+def compare_form_a_sizes(gm, beam, ranges, angles, cov, gen, results) -> None:
+    """Form (a)'s two forms of this tree, the level form (uint8 index and
+    per-scan LUT) and the per-pair f32 table, in turns at 2 x N poses for N
+    from the [beam] table run's 1500 up to 100k (mixed clouds, the house
+    scan at START, the beam point's 96-bin table, "sum"): where the level
+    form overtakes (``scan_scores.TABLE_LEVEL_MIN_POSES``); each bitwise
+    against the plain version."""
+    from mcmh_localization_tpu_torch.models.range_table import (
+        beam_mixture,
+        table_cell_major,
+    )
+    from mcmh_localization_tpu_torch.ops import scan_scores
+    from mcmh_localization_tpu_torch.ops.likelihood import lanes_per_particle
+
+    cfg = beam.config
+    tcm = table_cell_major(beam.log_field.table)
+    forms = {"level form": scan_scores.table_levels(tcm),
+             "per-pair form": scan_scores.TableLevels(None, None, tcm)}
+    valid = torch.isfinite(ranges) & (ranges < cfg.max_range)
+    cnt = valid.sum().to(torch.int32)
+    geo = scan_scores.TableGeometry(gm.origin_xy[0], gm.origin_xy[1], gm.res,
+                                    gm.height, gm.width,
+                                    cfg.beam_table_n_theta)
+    mix = beam_mixture(cfg)
+    for n in (1500, 5000, 10_000, 20_000, 50_000, 100_000):
+        parts = mixed_cloud(2 * n, gm, cov, gen)
+        calls = {name: functools.partial(
+            scan_scores.table_scores, parts, ranges, angles, valid, table,
+            geo, mix, cnt, "sum") for name, table in forms.items()}
+        tag = (f"table_scores N=2x{n} M={ranges.shape[0]} ({int(cnt)} valid) "
+               f"K={geo.n_theta} G={lanes_per_particle(2 * n)}, this tree's "
+               "two forms")
+        bitwise_calls(tag, calls, scan_scores.table_scores_plain(
+            parts, ranges, angles, valid, forms["per-pair form"], geo, mix,
+            cnt, "sum"))
+        report(tag, in_turns(calls), results)
 
 
 def compare_form_b(libs, dev, gen, results) -> None:
@@ -524,16 +825,27 @@ def main(argv=None) -> int:
     ap.add_argument("--old-scan", type=Path,
                     help="a tree holding commit 4c0386c's "
                          "mcmh_localization_tpu_torch/csrc (forms a and b)")
+    ap.add_argument("--old-field", type=Path,
+                    help="a tree holding commit fc2823d's "
+                         "mcmh_localization_tpu_torch/csrc (kernel 7p)")
     ap.add_argument("--kernels", default="2,4,5,6,7,a,b",
                     help="the kernels to compare: 2, 4-7 by number, kernel "
-                         "2's fused forms as a and b (default all)")
+                         "2's fused forms as a and b (default all); this "
+                         "tree's alone: 7k (kernel 7's chunks at 360 table "
+                         "bins) and an (form (a)'s two forms over N); 7p "
+                         "(kernel 7 against fc2823d's)")
     args = ap.parse_args(argv)
-    forms = {k for k in args.kernels.split(",") if k in ("a", "b")}
-    kernels = {int(k) for k in args.kernels.split(",") if k not in forms}
+    names = set(args.kernels.split(","))
+    alone = names & {"7k", "an"}
+    forms = names & {"a", "b"}
+    parent_field = "7p" in names
+    kernels = {int(k) for k in names - forms - alone - {"7p"}}
     if kernels and args.old is None:
         ap.error("--old is needed for kernels 2 and 4-7")
     if forms and args.old_scan is None:
         ap.error("--old-scan is needed for forms a and b")
+    if parent_field and args.old_field is None:
+        ap.error("--old-field is needed for 7p")
     if not torch.cuda.is_available():
         print("chip_kernel_ab: no CUDA device", file=sys.stderr)
         return 2
@@ -590,6 +902,9 @@ def main(argv=None) -> int:
            if kernels else None)
     old_scan = (old_scan_libraries(args.old_scan / "mcmh_localization_tpu_torch"
                                    / "csrc") if forms else None)
+    field_parent = (parent_field_library(
+        args.old_field / "mcmh_localization_tpu_torch" / "csrc")
+        if parent_field else None)
     dev = torch.device("cuda")
     half = MAP_CELLS * RES / 2
     gm = build_grid_map(house_occupancy(), RES, (-half, -half), device=dev)
@@ -672,7 +987,8 @@ def main(argv=None) -> int:
 
     new = _cuda.library()
     beam = (make_model(beam_point_config(), gm)
-            if kernels & {2, 7} or "a" in forms else None)
+            if kernels & {2, 7} or "a" in forms or "an" in alone
+            or parent_field else None)
     if 6 in kernels:
         # kernel 6
         def exact_call(lib, parts, scale, div, lanes=None):
@@ -832,8 +1148,11 @@ def main(argv=None) -> int:
                 return call
 
             rule = lut_tiles(b, c)
-            calls = {"old": lut_call(old), f"rule {tuple(rule)}": lut_call(new, rule)}
-            calls.update({f"threads={t} bpar={bp}": lut_call(new, (t, bp))
+            whole = (k,)  # every bin in one chunk
+            calls = {"old": lut_call(old),
+                     f"rule {tuple(rule)}": lut_call(new, (*rule, *whole))}
+            calls.update({f"threads={t} bpar={bp}": lut_call(new, (t, bp,
+                                                                   *whole))
                           for t, bp in LUT_LAYOUTS})
             tag = f"lut_field {tag} B={b} K={k} nq={nq} C={c}"
             bitwise_calls(tag, calls, lut_field_plain(qt, s_lut))
@@ -915,6 +1234,12 @@ def main(argv=None) -> int:
             bitwise_calls(tag, calls, gather_2d_plain(table, y, x))
             report(tag, in_turns(calls), results)
 
+    if parent_field:
+        compare_lut_parent(field_parent, gm, beam, ranges, angles, results)
+    if "7k" in alone:
+        compare_lut_chunks(gm, ranges, angles, results)
+    if "an" in alone:
+        compare_form_a_sizes(gm, beam, ranges, angles, cov, gen, results)
     if "a" in forms:
         compare_form_a(old_scan, gm, beam, ranges, angles, cov, gen, results)
     if "b" in forms:

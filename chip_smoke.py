@@ -46,7 +46,14 @@
    over the HBM rate, from this run's inputs), its share of it, the time
    of one PyTorch call computing the same function where there is one,
    and, at the end, its launches per scan on each path.  Every line with a
-   time names the card and its power limit.
+   time names the card and its power limit.  Then the sizes the kernels
+   refused before the size-limit repairs, each ``torch.equal`` to its
+   plain version and timed: kernel 7 at the fine and coarse builds of
+   ``FilterConfig(sensor_model="beam", corr_window_cells=128)`` at its
+   defaults (360 table bins, summed in chunks of bins), kernel 6 at 2 x 100k poses on 2160- and 4096-beam
+   scans in both cell forms, form (a) at 2 x 20k poses on a 2160-beam
+   scan in its level and per-pair forms, and form (b) at 2 x 20k poses on
+   a 32-ring x 1024 = 32 768-beam scan.
 4. ``[main]``: the staged main path: AMHAMCL, KLD-adaptive at 1M capacity /
    100k minimum, 360 beams, the staged two-program runner with a 0.9
    tracking ESS gate and the windowed corr scorer, on a procedural 384x384
@@ -98,6 +105,25 @@
    form (b)'s resampled-cloud row: the 2 x 100k poses the filter scores
    on the next tracked scan, in its slot order (``scored_cloud``),
    ``torch.equal`` to the plain version and timed.
+   ``[beam_default]``: ``FilterConfig(sensor_model="beam",
+   corr_window_cells=128)`` with every other filter field at its default
+   (1500 particles, 360 table bins) on the house, 8 settle + 8 timed
+   scans: error under 0.25 m, ``lut_field`` launched every scan.
+   ``[exact_2160]``: ``FilterConfig()`` on 2160-beam scans of the circle,
+   8 settle + 8 timed: mean error over the last 8 under 0.25 m, the exact
+   scorer launched every scan.
+   ``[batched]``: a fleet of 4 robots (``parallel/batched.py::
+   make_batched_model``) on the house, each at ``[exact]``'s 100k point
+   (AMHAMCL, "jnp", "reject"), robot b starting 4b poses along the circle;
+   16 settle + 16 timed fleet scans: each robot's final error under 0.2 m,
+   robot 0 bitwise its lone ``make_model`` run over 4 scans, kernels 6, 2
+   and 3 launched; the fleet's ms/scan beside one robot's alone.
+   ``[multimap]``: two robots on the house and the house with an extra
+   wall (``make_multimap_model``), MHMCL at 100k, 16 scans: each under
+   0.25 m, each robot bitwise its lone model on its own map over 2 scans,
+   the two fields' checksums printed.  ``[entry]``:
+   ``graft_entry.entry()`` on the card, one step then 16 timed: a finite
+   estimate, 4096 particles, kernels 6 and 3 launched.
 8. ``[eval]``: the experiment runner (``eval/runner.py``) through its CLI
    on the card: the house map written as PGM + YAML and the ``[main]``
    configuration as a params YAML; a simulated ``square`` bag (30 s at
@@ -331,8 +357,10 @@ def lut_inputs(gm, beam_model, ranges, angles) -> list:
     lp = _beam_lut(torch.where(valid, ranges, 0.0), valid, tables.dvals, cfg)
     win, tw = cfg.corr_window_cells, cfg.corr_theta_window_bins
     ox0, oy0, kstart = start_window(gm, k, win, tw)
-    return [("fine", *fine_lut_inputs(tables, lp, angles, k, (oy0, ox0, kstart),
-                                      win, tw, True)),
+    # without a theta window the fine field spans every bin from bin 0
+    window = (oy0, ox0, kstart if tw else 0)
+    return [("fine", *fine_lut_inputs(tables, lp, angles, k, window, win,
+                                      tw or k, bool(tw))),
             ("coarse", *coarse_lut_inputs(lp, angles, tables, cfg, k))]
 
 
@@ -418,6 +446,20 @@ def device_ms(fn, runs: int = 20) -> float:
         e1.synchronize()
         times.append(e0.elapsed_time(e1) / per_run)
     return float(np.median(times))
+
+
+def once_ms(fn) -> tuple:
+    """(result, ms) of one call by CUDA events: a plain version that takes
+    seconds a call (where ``device_ms``' repeated runs would take minutes),
+    or a stretch of scans."""
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    e1.synchronize()
+    return out, e0.elapsed_time(e1)
 
 
 # Published peaks of one H100 SXM at its full 700 W limit (NVIDIA's data
@@ -1018,10 +1060,10 @@ def table_ops(table, pairs: int, m_valid: int) -> float:
 
 
 def table_scores_row(gm, cfg, table, parts, ranges, angles) -> dict:
-    """Kernel 2's fused form (a) on one cloud and the level form of the
-    table (``table_levels``): ``torch.equal`` to its plain version, timed
-    beside its bound (``table_ops``; the poses and the scan read once, the
-    index table counted as the values read, the levels, the scores
+    """Kernel 2's fused form (a) on one cloud and a form of the table
+    (``table_levels``): ``torch.equal`` to its plain version, timed beside
+    its bound (``table_ops``; the poses and the scan read once, the index
+    or f32 table counted as the values read, the levels, the scores
     written)."""
     from mcmh_localization_tpu_torch.models.range_table import beam_mixture
     from mcmh_localization_tpu_torch.ops.likelihood import lanes_per_particle
@@ -1046,19 +1088,23 @@ def table_scores_row(gm, cfg, table, parts, ranges, angles) -> dict:
     check(torch.equal(got, want), f"table_scores N={n} G={g}: kernel != plain "
           f"(max abs err {err})")
     m_valid = int(valid.sum())
-    nq = table.levels.numel()
+    level = table.index is not None
+    nq = table.levels.numel() if level else 0
+    form = (f"{nq} levels ({table.index.dtype} index)" if level
+            else "per-pair f32 table")
     print(f"[kernel] table_scores N={n} M={ranges.shape[0]} ({m_valid} valid) "
-          f"K={k}: G={g} lanes a pose, {nq} levels ({table.index.dtype} "
-          "index), bitwise")
+          f"K={k}: G={g} lanes a pose, {form}, bitwise")
     ms = device_ms(lambda: table_scores(*args))
     pms = device_ms(lambda: table_scores_plain(*args), runs=5)
     pairs = n * m_valid
     return kernel_row(
         "table_scores", "scan_scores.cu", "gather_pallas.py:180",
-        f"N={n} M={ranges.shape[0]} ({m_valid} valid) K={k} G={g}", ms=ms,
+        f"N={n} M={ranges.shape[0]} ({m_valid} valid) K={k} "
+        f"{'level form' if level else 'per-pair form'} G={g}", ms=ms,
         plain_ms=pms, err=err, ops=table_ops(table, pairs, m_valid),
         nbytes=(n * 16 + ranges.shape[0] * 9 + nq * 4
-                + gathered_bytes(table.index, pairs)))
+                + gathered_bytes(table.index if level else table.table,
+                                 pairs)))
 
 
 def table_scores_variants(gm, cfg, tcm, ranges, angles, gen, cov) -> None:
@@ -1111,19 +1157,18 @@ def table_scores_variants(gm, cfg, tcm, ranges, angles, gen, cov) -> None:
               f"{lanes_per_particle(p.shape[0])}: bitwise, sum and mean")
 
 
-def voxel_scores_row(tag, parts, u, v, zrow, live, table, geo, count, cfg,
-                     plain_runs: int = 3) -> dict:
+def voxel_scores_row(tag, parts, u, v, zrow, live, table, geo, count,
+                     cfg) -> dict:
     """Kernel 2's fused form (b) on one cloud: ``torch.equal`` to its plain
     version, timed beside its bound (13 operations a pose and live beam, as
     kernel 6; the 16-bit index counted as the values read, and the
-    levels)."""
+    levels); the plain version, seconds a call, timed on its one call."""
     from mcmh_localization_tpu_torch.ops import scan_scores
 
     args = (parts, u, v, zrow, live, table, geo, count,
             cfg.score_aggregation)
     got = scan_scores.voxel_scores(*args)
-    want = scan_scores.voxel_scores_plain(*args)
-    torch.cuda.synchronize()
+    want, pms = once_ms(lambda: scan_scores.voxel_scores_plain(*args))
     n = parts.shape[0]
     g = scan_scores.voxel_lanes(n)
     err = float((got - want).abs().max())
@@ -1135,8 +1180,6 @@ def voxel_scores_row(tag, parts, u, v, zrow, live, table, geo, count, cfg,
           f"{int(count)} valid) volume {(geo.d, geo.h, geo.w)} in "
           f"{table.levels.numel()} levels: G={g} lanes a pose, bitwise")
     ms = device_ms(lambda: scan_scores.voxel_scores(*args))
-    pms = device_ms(lambda: scan_scores.voxel_scores_plain(*args),
-                    runs=plain_runs)
     pairs = n * m_live
     return kernel_row(
         "voxel_scores", "scan_scores.cu", "gather_pallas.py:180",
@@ -1185,6 +1228,46 @@ def compare_lidar_kernel(vm, nav, cfg, sensor, ranges, directions, rows):
               f"N={small.shape[0]}: bitwise")
 
 
+def lut_field_row(tag, qt, s):
+    """Kernel 7 on one build's inputs: ``torch.equal`` to its plain
+    version, timed beside its bound and its shared-memory floor (B * K * C
+    four-byte reads at 128 bytes a clock on each SM at the top SM clock),
+    with the chunks of bins its plan stages.  Returns (row, field)."""
+    from mcmh_localization_tpu_torch.ops import _cuda
+    from mcmh_localization_tpu_torch.ops.beam_field import (
+        lut_chunks,
+        lut_field,
+        lut_field_plain,
+        lut_plan,
+    )
+
+    out = lut_field(qt, s)
+    ref = lut_field_plain(qt, s)
+    torch.cuda.synchronize()
+    check(torch.equal(out, ref), f"lut_field {tag}: kernel != plain")
+    ms = device_ms(lambda: lut_field(qt, s))
+    pms = device_ms(lambda: lut_field_plain(qt, s))
+    b, kk, nq = s.shape
+    c = qt.shape[1]
+    clock = sm_clock_hz()
+    smem_ms = (4.0 * b * kk * c / (SMEM_BYTES_PER_CLOCK * _cuda.SM_COUNT
+                                   * clock) * 1e3)
+    tile, chunk = lut_plan(b, kk, nq, c)
+    chunks = len(lut_chunks(kk, chunk))
+    print(f"[kernel] lut_field {tag}: {tile.threads} cells and {tile.bpar} b "
+          f"a block, {chunks} chunk(s) of {chunk} bins; shared-memory "
+          f"floor {smem_ms:.5f} ms at {clock / 1e6:.0f} MHz, "
+          f"{smem_ms / ms * 100:.1f}% of the kernel's {ms:.4f} ms on "
+          f"{nvidia_smi_line()}")
+    # one add per output and bin; qt, s read once, the field written
+    return kernel_row(
+        "lut_field", "beam_field.cu", "beam_field_pallas.py:115",
+        f"{tag} B={b} K={kk} nq={nq} C={c} chunks={chunks}", ms=ms,
+        plain_ms=pms, err=0.0, ops=b * kk * c,
+        nbytes=kk * c + 4 * (b * kk * nq + b * c), smem_floor_ms=smem_ms,
+        chunks=chunks), out
+
+
 def compare_beam_kernel(gm, beam_model, ranges, angles, rows):
     """Phase 3 for kernel 7: the LUT field at the beam path's fine and
     coarse builds, on the path's own quantized table and per-scan LUT."""
@@ -1192,16 +1275,9 @@ def compare_beam_kernel(gm, beam_model, ranges, angles, rows):
         _beam_geometry,
         table_cell_major,
     )
-    from mcmh_localization_tpu_torch.ops import _cuda
-    from mcmh_localization_tpu_torch.ops.beam_field import (
-        lut_field,
-        lut_field_plain,
-        lut_tiles,
-    )
     from mcmh_localization_tpu_torch.ops.scan_scores import table_levels
 
     cfg = beam_model.config
-    clock = sm_clock_hz()
     gen = torch.Generator(device=ranges.device).manual_seed(13)
     cov = torch.diag(torch.tensor(cfg.initial_cov))
     tables = beam_model.log_field
@@ -1211,44 +1287,26 @@ def compare_beam_kernel(gm, beam_model, ranges, angles, rows):
     ox0, oy0, kstart = start_window(gm, k, win, tw)
     lut_rows, fields = [], []
     for tag, qt, s in lut_inputs(gm, beam_model, ranges, angles):
-        out = lut_field(qt, s)
-        ref = lut_field_plain(qt, s)
-        torch.cuda.synchronize()
-        check(torch.equal(out, ref), f"lut_field {tag}: kernel != plain")
+        row, out = lut_field_row(tag, qt, s)
+        lut_rows.append(row)
         fields.append(out)
-        ms = device_ms(lambda: lut_field(qt, s))
-        pms = device_ms(lambda: lut_field_plain(qt, s))
-        b, kk, nq = s.shape
-        c = qt.shape[1]
-        # the shared-memory floor: B * K * C four-byte reads at 128 bytes a
-        # clock on each SM
-        smem_ms = (4.0 * b * kk * c / (SMEM_BYTES_PER_CLOCK * _cuda.SM_COUNT
-                                       * clock) * 1e3)
-        tile = lut_tiles(b, c)
-        print(f"[kernel] lut_field {tag}: {tile.threads} cells and "
-              f"{tile.bpar} b a block; shared-memory floor {smem_ms:.5f} ms "
-              f"at "
-              f"{clock / 1e6:.0f} MHz, {smem_ms / ms * 100:.1f}% of the "
-              f"kernel's {ms:.4f} ms on {nvidia_smi_line()}")
-        # one add per output and bin; qt, s read once, the field written
-        lut_rows.append(kernel_row(
-            "lut_field", "beam_field.cu", "beam_field_pallas.py:115",
-            f"{tag} B={b} K={kk} nq={nq} C={c}", ms=ms, plain_ms=pms,
-            err=0.0, ops=b * kk * c, nbytes=kk * c + 4 * (b * kk * nq + b * c),
-            smem_floor_ms=smem_ms))
     rows.append({**lut_rows[0], "shapes": lut_rows[1:]})
 
     # kernel 2's fused form (a), the range-table scorer: the staged BIG
     # program's 2 x 1M poses and the [beam] table run's 2 x 1500, on the
-    # path's cell-major table (the BIG table: the same 96 bins and range)
+    # path's cell-major table (the BIG table: the same 96 bins and range),
+    # each in the form its path takes (the uint8 level form at 2 x 1M, the
+    # per-pair form below TABLE_LEVEL_MIN_POSES)
     tcm = table_cell_major(tables.table)
-    table = table_levels(tcm)
-    check(table.index is not None and table.index.dtype == torch.uint8,
-          "table_scores: the range table did not take the uint8 level form")
-    table_rows = [table_scores_row(gm, cfg, table,
-                                   mixed_cloud(2 * n, gm, cov, gen),
-                                   ranges, angles)
-                  for n in (1_000_000, 1500)]
+    table_rows = []
+    for n, level in ((1_000_000, True), (1500, False)):
+        table = table_levels(tcm, 2 * n)
+        check((table.index is not None) == level
+              and (not level or table.index.dtype == torch.uint8),
+              f"table_scores 2x{n}: the range table did not take the "
+              f"{'uint8 level' if level else 'per-pair'} form")
+        table_rows.append(table_scores_row(
+            gm, cfg, table, mixed_cloud(2 * n, gm, cov, gen), ranges, angles))
     rows.append({**table_rows[0], "shapes": table_rows[1:]})
     table_scores_variants(gm, cfg, tcm, ranges, angles, gen, cov)
     del tcm, table
@@ -1269,6 +1327,362 @@ def compare_beam_kernel(gm, beam_model, ranges, angles, rows):
                            n_valid.clamp(min=1).to(torch.float32), n_valid,
                            "beam op forms")
     next(r for r in rows if r["name"] == "window_score")["shapes"].append(row)
+
+
+def scan_at(gm, pose, m: int, max_range: float):
+    """(ranges, angles): a ray-cast scan of ``m`` beams over [-pi, pi] from
+    ``pose``."""
+    from mcmh_localization_tpu_torch.models.sensor import raycast
+
+    dev = gm.device
+    angles = torch.linspace(-math.pi, math.pi, m, device=dev)
+    ranges = raycast(torch.tensor(pose[:2], device=dev), float(pose[2]) + angles,
+                     gm, max_range, hit_unknown=True)
+    return ranges, angles
+
+
+def lidar32_directions(dev) -> torch.Tensor:
+    """(32768, 2) [azimuth, elevation]: a 32-ring scanner, rings from -15 to
+    +15 degrees, 1024 azimuths."""
+    az = np.linspace(-np.pi, np.pi, 1024, endpoint=False)
+    el = np.deg2rad(np.linspace(-15.0, 15.0, 32))
+    return torch.tensor(np.stack([np.repeat(az, el.size), np.tile(el, az.size)],
+                                 1), dtype=torch.float32, device=dev)
+
+
+def row_of(rows, name) -> dict:
+    return next(r for r in rows if r["name"] == name)
+
+
+# poses a cloud of compare_past_caps: kernel 6's (x 2), the scan scorers'
+# (x 2)
+CAP_POSES_EXACT = 100_000
+CAP_POSES_SCAN = 20_000
+
+
+def compare_past_caps(gm, beam_default, beam, vm, lidar_cfg, lidar, rows):
+    """The kernels at the sizes they refused before this slice's repairs,
+    each ``torch.equal`` to its plain version and timed beside its bound:
+    kernel 7 at the fine (B = K = 360 over 128^2 cells) and coarse (36 over
+    96^2) builds of ``FilterConfig(sensor_model="beam",
+    corr_window_cells=128)`` at its defaults (K = 360 table bins, nq =
+    51), summed in chunks of bins; kernel 6 at 2 x 100k poses on scans of
+    2160 and 4096 beams in both cell forms; form (a) at 2 x 20k poses on a
+    2160-beam scan in its level and per-pair forms (the [beam] point's
+    96-bin table); form (b) at 2 x 20k poses on a 32 x 1024 = 32 768-beam
+    scan of the building."""
+    from mcmh_localization_tpu_torch.filter.init import init_gaussian
+    from mcmh_localization_tpu_torch.models.range_table import (
+        beam_mixture,
+        table_cell_major,
+    )
+    from mcmh_localization_tpu_torch.models.sensor import log_likelihood_field
+    from mcmh_localization_tpu_torch.models.sensor3d import (
+        scan_beams,
+        simulate_scan3d,
+        voxel_geometry,
+    )
+    from mcmh_localization_tpu_torch.ops.likelihood import (
+        lanes_per_particle,
+        likelihood_scores,
+        likelihood_scores_plain,
+    )
+    from mcmh_localization_tpu_torch.ops.scan_scores import (
+        TableGeometry,
+        TableLevels,
+        table_levels,
+        table_scores,
+        table_scores_plain,
+    )
+
+    dev = gm.device
+    gen = torch.Generator(device=dev).manual_seed(19)
+    cfg = beam_default.config
+    cov = torch.diag(torch.tensor(cfg.initial_cov))
+    r360, a360 = scan_at(gm, START, N_BEAMS, cfg.max_range)
+    for tag, qt, s in lut_inputs(gm, beam_default, r360, a360):
+        row_of(rows, "lut_field")["shapes"].append(
+            lut_field_row(f"K=360 {tag}", qt, s)[0])
+
+    # kernel 6 past its 2048 beams: the exact scorer's inputs as
+    # models/sensor.py makes them
+    log_field = log_likelihood_field(gm, cfg)
+    p6 = init_gaussian(START, cov, 2 * CAP_POSES_EXACT, gm,
+                       generator=gen).contiguous()
+    g6 = lanes_per_particle(p6.shape[0])
+    for m in (2160, 4096):
+        ranges, angles = scan_at(gm, START, m, cfg.max_range)
+        valid = torch.isfinite(ranges) & (ranges < cfg.max_range)
+        safe = torch.where(valid, ranges, 0.0)
+        u = (safe * torch.cos(angles)).contiguous()
+        v = (safe * torch.sin(angles)).contiguous()
+        cnt = valid.sum().to(torch.int32)
+        m_valid = int(cnt)
+        for div in (True, False):
+            a6 = (p6, u, v, valid, log_field, gm.origin_xy[0], gm.origin_xy[1],
+                  gm.res if div else gm.inv_res, div, cnt, "mean")
+            got = likelihood_scores(*a6)
+            want = likelihood_scores_plain(*a6)
+            torch.cuda.synchronize()
+            e = float((got - want).abs().max())
+            form = "div" if div else "mul"
+            check(torch.equal(got, want), f"likelihood_scores M={m} {form}: "
+                  f"kernel != plain (max abs err {e})")
+            print(f"[kernel] likelihood_scores N={p6.shape[0]} M={m} ({m_valid} "
+                  f"valid, {-(-m // 2048)} beam tiles) form={form}: G={g6} "
+                  "lanes a pose, bitwise")
+            pairs = p6.shape[0] * m_valid
+            row_of(rows, "likelihood_scores")["shapes"].append(kernel_row(
+                "likelihood_scores", "likelihood.cu",
+                "likelihood_pallas.py:113",
+                f"N={p6.shape[0]} M={m} ({m_valid} valid) form={form} G={g6}",
+                ms=device_ms(lambda: likelihood_scores(*a6)),
+                plain_ms=device_ms(lambda: likelihood_scores_plain(*a6),
+                                   runs=3),
+                err=e, ops=13.0 * pairs,
+                nbytes=p6.shape[0] * 16 + m * 12
+                + gathered_bytes(log_field, pairs)))
+        del u, v
+
+    # form (a) past its 2048 beams, both forms
+    bcfg = beam.config
+    tcm = table_cell_major(beam.log_field.table)
+    ranges, angles = scan_at(gm, START, 2160, bcfg.max_range)
+    valid = torch.isfinite(ranges) & (ranges < bcfg.max_range)
+    parts = mixed_cloud(2 * CAP_POSES_SCAN, gm, cov, gen)
+    geo = TableGeometry(gm.origin_xy[0], gm.origin_xy[1], gm.res, gm.height,
+                        gm.width, bcfg.beam_table_n_theta)
+    g = lanes_per_particle(parts.shape[0])
+    m_valid = int(valid.sum())
+    for tag, table in (("level form", table_levels(tcm)),
+                       ("per-pair form", TableLevels(None, None, tcm))):
+        args = (parts, ranges, angles, valid, table, geo, beam_mixture(bcfg),
+                valid.sum(), "sum")
+        got = table_scores(*args)
+        want = table_scores_plain(*args)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(torch.equal(got, want), f"table_scores M=2160 {tag}: kernel != "
+              f"plain (max abs err {err})")
+        print(f"[kernel] table_scores N={parts.shape[0]} M=2160 ({m_valid} "
+              f"valid) {tag}: G={g} lanes a pose, bitwise")
+        pairs = parts.shape[0] * m_valid
+        stored = table.index if table.index is not None else table.table
+        row_of(rows, "table_scores")["shapes"].append(kernel_row(
+            "table_scores", "scan_scores.cu", "gather_pallas.py:180",
+            f"N={parts.shape[0]} M=2160 ({m_valid} valid) K="
+            f"{geo.n_theta} {tag} G={g}",
+            ms=device_ms(lambda: table_scores(*args)),
+            plain_ms=device_ms(lambda: table_scores_plain(*args), runs=3),
+            err=err, ops=table_ops(table, pairs, m_valid),
+            nbytes=(parts.shape[0] * 16 + 2160 * 9
+                    + (table.levels.numel() * 4 if table.levels is not None
+                       else 0) + gathered_bytes(stored, pairs))))
+    del tcm
+
+    # form (b) past its 14 336 beams: 32 rings x 1024 azimuths
+    dirs = lidar32_directions(dev)
+    scan = simulate_scan3d(gen, START, dirs, vm, lidar_cfg.max_range,
+                           sensor_z=lidar_cfg.lidar3d_sensor_z, noise=0.01)
+    u, v, zrow, live, count = scan_beams(scan, dirs, vm, lidar_cfg,
+                                         lidar_cfg.lidar3d_sensor_z)
+    parts = mixed_cloud(2 * CAP_POSES_SCAN, lidar.grid_map, cov, gen)
+    row_of(rows, "voxel_scores").setdefault("shapes", []).append(
+        voxel_scores_row("32 rings x 1024", parts, u, v, zrow, live,
+                         lidar.log_field.levels, voxel_geometry(vm), count,
+                         lidar_cfg))
+
+
+FLEET = 4          # [batched]'s robots
+FLEET_LEG = 4      # circle poses between two robots' starts
+FLEET_PARTICLES = 100_000  # each robot's, in [batched] and [multimap]
+
+
+def events_run(model, states, seq, angles, dls):
+    """``model.run`` over ``seq`` ((T, M), or a fleet's (T, B, M)): (states,
+    infos, ms a scan by CUDA events)."""
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    states, infos = model.run(states, seq, angles, dls)
+    e1.record()
+    torch.cuda.synchronize()
+    return states, infos, e0.elapsed_time(e1) / seq.shape[0]
+
+
+def fleet_errors(infos, truth) -> np.ndarray:
+    """(B,) each robot's final distance to its true pose ``truth`` (B, 3)."""
+    e = infos.estimate.mean[-1].cpu().numpy()
+    check(np.isfinite(infos.estimate.mean.cpu().numpy()).all(),
+          "non-finite fleet estimate")
+    return np.hypot(e[:, 0] - truth[:, 0], e[:, 1] - truth[:, 1])
+
+
+def check_rows_alone(fleet, models, seq, angles, dls, scans: int,
+                     robots, starts, tag: str) -> None:
+    """Robot b of a fresh fleet, for each b in ``robots``, gives bitwise the
+    estimates its lone ``models[b].step`` gives from the same start on a
+    copy of its generator, over ``scans`` scans."""
+    from mcmh_localization_tpu_torch.filter.state import copy_generator
+    from mcmh_localization_tpu_torch.parallel.batched import state_row
+
+    states = fleet.init(5, initial_poses=starts)
+    lone = {b: state_row(states, b).replace(
+        key=copy_generator(states.key[b])) for b in robots}
+    for t in range(scans):
+        states, info = fleet.step(states, seq[t], angles, dls[t])
+        for b in robots:
+            lone[b], linfo = models[b].step(lone[b], seq[t, b], angles, dls[t, b])
+            check(torch.equal(info.estimate.mean[b], linfo.estimate.mean),
+                  f"[{tag}] robot {b} scan {t}: the fleet's estimate != its "
+                  "lone step's")
+
+
+def drive_fleet(gm, scans, angles, deltas, poses, smi, counts) -> dict:
+    """[batched]: FLEET robots on the house, each at [exact]'s 100k point
+    (AMHAMCL, num = min = max = 100 000, the exact "jnp" scorer, "reject",
+    360 beams), robot b starting FLEET_LEG * b poses along the circle and
+    scanning its own leg; 16 settle + 16 timed fleet scans; robot 0
+    bitwise equal to its lone run over 4 scans; the fleet's ms/scan beside
+    one robot's alone.  ``counts`` takes the launches of the fleet's 32
+    scans.  Returns (a call that runs 16 more fleet scans, ms a fleet
+    scan)."""
+    from mcmh_localization_tpu_torch.config import FilterConfig
+    from mcmh_localization_tpu_torch.filter.step import make_model
+    from mcmh_localization_tpu_torch.ops import _cuda
+    from mcmh_localization_tpu_torch.parallel.batched import (
+        make_batched_model,
+        state_row,
+    )
+
+    n = FLEET_PARTICLES
+    cfg = FilterConfig(mode="AMHAMCL", num_particles=n, min_particles=n,
+                       max_particles=n, initialized=True, initial_pose=START,
+                       likelihood_impl="jnp")
+    shift = [FLEET_LEG * b for b in range(FLEET)]
+    seq = torch.stack([torch.roll(scans, -k, 0) for k in shift], 1)  # (T, B, M)
+    dls = deltas[:, None].expand(-1, FLEET, 3).contiguous()
+    starts = [tuple(map(float, poses[k])) for k in shift]
+    truth = np.stack([poses[(k - 1) % SCAN_LEN] for k in shift])
+    fleet = make_batched_model(cfg, gm, FLEET)
+    _cuda.reset_launch_counts()
+    states = fleet.init(0, initial_poses=starts)
+    states, _, ms_settle = events_run(fleet, states, seq, angles, dls)
+    states, infos, ms_fleet = events_run(fleet, states, seq, angles, dls)
+    counts.update(_cuda.launch_counts())
+    errs = fleet_errors(infos, truth)
+    alone = make_model(cfg, gm)
+    st = state_row(states, 0)
+    st, _, _ = events_run(alone, st, seq[:, 0], angles, deltas)
+    st, _, ms_alone = events_run(alone, st, seq[:, 0], angles, deltas)
+    check_rows_alone(fleet, [alone] * FLEET, seq, angles, dls, 4, [0], starts,
+                     "batched")
+    print(f"[batched] {FLEET} robots x AMHAMCL n={n} ('jnp', 'reject', "
+          f"{scans.shape[1]} beams), starts {FLEET_LEG} poses apart: "
+          f"{ms_fleet:.4f} ms a fleet scan (settle {ms_settle:.4f}); one "
+          f"robot alone {ms_alone:.4f} ms/scan, x{FLEET} = "
+          f"{FLEET * ms_alone:.4f}; fleet / alone = {ms_fleet / ms_alone:.4f} "
+          f"on {smi}; final errors (m) {np.round(errs, 4).tolist()}; robot 0 "
+          f"bitwise its lone run over 4 scans; launches {counts}")
+    check((errs < 0.2).all(), f"[batched] final errors {errs} m, not all "
+          "under 0.2 m")
+    for name in ("likelihood_scores", "gather_2d", "expand_sorted"):
+        check(counts.get(name, 0) > 0, f"[batched] {name} never launched")
+    return functools.partial(events_run, fleet, states, seq, angles,
+                             dls), ms_fleet
+
+
+def walled_house() -> np.ndarray:
+    """[multimap]'s second map: the house with an extra 2 m wall across the
+    free space east of START."""
+    occ = house_occupancy()
+    occ[200:240, 230] = 100
+    return occ
+
+
+def drive_multimap(gm, scans, angles, deltas, poses, smi, counts) -> None:
+    """[multimap]: two robots, one on the house and one on the walled
+    house (each scanning its own map along the circle), MHMCL at 100k (the
+    exact "jnp" scorer the multimap model forces), 16 scans; each ends
+    under 0.25 m, and each scores on its own map's field: the two fields'
+    checksums differ, and each robot of a fresh fleet is bitwise its lone
+    model on its own map over 2 scans.  Returns (a call that runs 16 more
+    fleet scans, ms a fleet scan)."""
+    from mcmh_localization_tpu_torch.config import FilterConfig
+    from mcmh_localization_tpu_torch.filter.step import make_model
+    from mcmh_localization_tpu_torch.maps.grid_map import build_grid_map
+    from mcmh_localization_tpu_torch.ops import _cuda
+    from mcmh_localization_tpu_torch.parallel.batched import (
+        make_multimap_model,
+        map_row,
+        stack_maps,
+    )
+
+    half = MAP_CELLS * RES / 2
+    gm2 = build_grid_map(walled_house(), RES, (-half, -half), device=gm.device)
+    scans2 = torch.stack([scan_at(gm2, p, N_BEAMS, 5.0)[0] for p in poses])
+    seq = torch.stack([scans, scans2], 1)
+    dls = deltas[:, None].expand(-1, 2, 3).contiguous()
+    cfg = FilterConfig(mode="MHMCL", num_particles=FLEET_PARTICLES,
+                       initialized=True, initial_pose=START)
+    maps = stack_maps([gm, gm2])
+    fleet = make_multimap_model(cfg, maps, 2)
+    check(fleet.config.likelihood_impl == "jnp",
+          "[multimap] the multimap model did not force the exact scorer")
+    lone = [make_model(fleet.config, map_row(maps, b)) for b in range(2)]
+    sums = [float(m.log_field.double().sum()) for m in lone]
+    check(sums[0] != sums[1], "[multimap] the two maps' fields are alike")
+    _cuda.reset_launch_counts()
+    states, infos, ms = events_run(fleet, fleet.init(0), seq, angles, dls)
+    counts.update(_cuda.launch_counts())
+    errs = fleet_errors(infos, np.stack([poses[-1]] * 2))
+    check_rows_alone(fleet, lone, seq, angles, dls, 2, [0, 1], None,
+                     "multimap")
+    print(f"[multimap] 2 robots x MHMCL n={FLEET_PARTICLES} ('jnp'), the "
+          f"house and the "
+          f"walled house (field checksums {sums[0]:.6f} / {sums[1]:.6f}): "
+          f"{ms:.4f} ms a fleet scan over {SCAN_LEN} scans on {smi}; final "
+          f"errors (m) {np.round(errs, 4).tolist()}; each robot bitwise its "
+          f"lone model on its own map over 2 scans; launches {counts}")
+    check((errs < 0.25).all(), f"[multimap] final errors {errs} m, not all "
+          "under 0.25 m")
+    check(counts.get("likelihood_scores", 0) > 0,
+          "[multimap] likelihood_scores never launched")
+    return functools.partial(events_run, fleet, states, seq, angles, dls), ms
+
+
+def drive_entry(smi, counts) -> None:
+    """[entry]: ``graft_entry.entry()`` on the card: one step, then 16 timed
+    steps chained on the example scan; a finite estimate, 4096 particles,
+    kernels 6 and 3 launched.  Returns (a call that runs 16 more steps, ms
+    a step)."""
+    from mcmh_localization_tpu_torch import graft_entry
+    from mcmh_localization_tpu_torch.ops import _cuda
+
+    fn, (st, ranges, angles, delta) = graft_entry.entry()
+    check(st.particles.device.type == "cuda", "[entry] not on the card")
+
+    def steps(st):
+        for _ in range(SCAN_LEN):
+            st, info = fn(st, ranges, angles, delta)
+        return st, info
+
+    _cuda.reset_launch_counts()
+    st, info = fn(st, ranges, angles, delta)
+    (st, info), ms = once_ms(lambda: steps(st))
+    ms /= SCAN_LEN
+    counts.update(_cuda.launch_counts())
+    est = info.estimate.mean.cpu().numpy()
+    print(f"[entry] graft_entry.entry(): AMHAMCL n={st.particles.shape[0]} "
+          f"on the 256^2 room: {ms:.4f} ms/step "
+          f"over {SCAN_LEN} steps on {smi}; estimate {np.round(est, 4)}; "
+          f"count {int(st.count)}; launches {counts}")
+    check(np.isfinite(est).all(), "[entry] non-finite estimate")
+    check(st.particles.shape[0] == 4096, "[entry] not 4096 particles")
+    for name in ("likelihood_scores", "expand_sorted"):
+        check(counts.get(name, 0) > 0, f"[entry] {name} never launched")
+    return functools.partial(steps, st), ms
 
 
 ONLINE_SCANS = 3 * SCAN_LEN   # about 48 scans, three odometry messages each
@@ -1608,7 +2022,11 @@ def main(argv=None) -> int:
         make_staged_model,
         run_staged,
     )
-    from mcmh_localization_tpu_torch.filter.step import make_model, state_size
+    from mcmh_localization_tpu_torch.filter.step import (
+        _resolved_likelihood_impl,
+        make_model,
+        state_size,
+    )
     from mcmh_localization_tpu_torch.maps.grid_map import build_grid_map
     from mcmh_localization_tpu_torch.models.sensor import raycast
     from mcmh_localization_tpu_torch.ops import _cuda
@@ -1679,6 +2097,18 @@ def main(argv=None) -> int:
     compare_beam_kernel(gm, beam, scans[0], angles, rows)
     compare_lidar_kernel(vm, nav, lidar_cfg, lidar.log_field, lscans[0],
                          directions, rows)
+    stamps.append(("kernel_past_caps", time.perf_counter()))
+    # FilterConfig(sensor_model="beam", corr_window_cells=128) at its
+    # defaults: 360 table bins, which kernel 7 sums in chunks
+    bd_cfg = FilterConfig(sensor_model="beam", corr_window_cells=128,
+                          initialized=True, initial_pose=START)
+    t0 = time.perf_counter()
+    beam_default = make_model(bd_cfg, gm)
+    torch.cuda.synchronize()
+    print(f"[beam_default] range table ({bd_cfg.beam_table_n_theta}, "
+          f"{MAP_CELLS}, {MAP_CELLS}) and its int8 forms built in "
+          f"{time.perf_counter() - t0:.2f} s on {smi}")
+    compare_past_caps(gm, beam_default, beam, vm, lidar_cfg, lidar, rows)
     path_counts: dict[str, dict[str, int]] = {}
     path_scans: dict[str, int] = {}
 
@@ -1689,20 +2119,14 @@ def main(argv=None) -> int:
         for k, n in counts.items():
             tot[k] = tot.get(k, 0) + n
 
-    def timed(model, st, reps, seq=None, ang=None):
-        """``reps`` laps of the circle (the house scans, or ``seq``, ``ang``)
-        through ``model.run``: (state, infos, ms/scan by CUDA events)."""
-        seq = (scans if seq is None else seq).repeat(reps, 1)
-        ang = angles if ang is None else ang
-        dls = deltas.repeat(reps, 1)
-        torch.cuda.synchronize()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        st, infos = model.run(st, seq, ang, dls)
-        e1.record()
-        torch.cuda.synchronize()
-        return st, infos, e0.elapsed_time(e1) / seq.shape[0]
+    def timed(model, st, reps, seq=None, ang=None, dls=None):
+        """``reps`` laps of the circle (the house scans, or ``seq``, ``ang``
+        and ``dls``) through ``model.run``: (state, infos, ms/scan by CUDA
+        events)."""
+        return events_run(model, st,
+                          (scans if seq is None else seq).repeat(reps, 1),
+                          angles if ang is None else ang,
+                          (deltas if dls is None else dls).repeat(reps, 1))
 
     def final_error(infos) -> float:
         e = infos.estimate.mean.cpu().numpy()
@@ -1911,6 +2335,59 @@ def main(argv=None) -> int:
     del model, st
     print(f"[beam] kernel launches: {path_counts['beam']}")
 
+    stamps.append(("beam_default", time.perf_counter()))
+    # -- 7a. the beam model at its defaults (360 table bins, kernel 7 in
+    # chunks) and the exact scorer on a 2160-beam scan: sizes the card
+    # refused before
+    _cuda.reset_launch_counts()
+    st, _, ms_settle = timed(beam_default, beam_default.init(0), 1,
+                             seq=scans[:8], dls=deltas[:8])
+    st, x_infos, ms_x = timed(beam_default, st, 1, seq=scans[8:],
+                              dls=deltas[8:])
+    err_x = final_error(x_infos)
+    c = _cuda.launch_counts()
+    add_counts("beam_default", c, SCAN_LEN)
+    print(f"[beam_default] FilterConfig(sensor_model='beam', "
+          f"corr_window_cells=128) at its defaults (n={bd_cfg.num_particles}, "
+          f"max {bd_cfg.max_particles}, {bd_cfg.beam_table_n_theta} table "
+          f"bins, coarse x{bd_cfg.corr_coarse_factor} at "
+          f"{bd_cfg.corr_coarse_n_theta} bins, gate "
+          f"{bd_cfg.coarse_gate_escapees}): {ms_x:.4f} ms/scan over 8 timed "
+          f"scans (settle {ms_settle:.4f}) on {smi}; final error "
+          f"{err_x:.4f} m; launches {c}")
+    check(err_x < 0.25, f"[beam_default] final error {err_x:.3f} m >= 0.25 m")
+    check(c.get("lut_field", 0) >= SCAN_LEN,
+          "[beam_default] lut_field not launched every scan")
+    to_profile.append(("beam_default", beam_default, st, ms_x))
+    del beam_default, st
+
+    _cuda.reset_launch_counts()
+    ex_cfg = FilterConfig(initialized=True, initial_pose=START)
+    scans2160, angles2160 = zip(*(scan_at(gm, p, 2160, ex_cfg.max_range)
+                                  for p in poses))
+    scans2160, angles2160 = torch.stack(scans2160), angles2160[0]
+    model = make_model(ex_cfg, gm)
+    st, _, _ = timed(model, model.init(0), 1, seq=scans2160[:8],
+                     ang=angles2160, dls=deltas[:8])
+    st, x_infos, ms_x = timed(model, st, 1, seq=scans2160[8:],
+                              ang=angles2160, dls=deltas[8:])
+    e = x_infos.estimate.mean.cpu().numpy()
+    check(np.isfinite(e).all(), "[exact_2160] non-finite estimate")
+    err8 = float(np.mean(np.hypot(e[:, 0] - poses[8:, 0],
+                                  e[:, 1] - poses[8:, 1])))
+    c = _cuda.launch_counts()
+    add_counts("exact_2160", c, SCAN_LEN)
+    print(f"[exact_2160] FilterConfig() (n={ex_cfg.num_particles}, max "
+          f"{ex_cfg.max_particles}, 'auto' -> "
+          f"{_resolved_likelihood_impl(ex_cfg, dev)}) on 2160-beam scans: "
+          f"{ms_x:.4f} ms/scan over 8 timed scans on {smi}; mean error last "
+          f"8 {err8:.4f} m; launches {c}")
+    check(err8 < 0.25, f"[exact_2160] error {err8:.3f} m >= 0.25 m")
+    check(c.get("likelihood_scores", 0) >= SCAN_LEN,
+          "[exact_2160] likelihood_scores not launched every scan")
+    to_profile.append(("exact_2160", model, st, ms_x, scans2160, angles2160))
+    del model, st, scans2160
+
     stamps.append(("beam_staged", time.perf_counter()))
     # -- 7b. the staged beam model at the main path's capacity: BIG is the
     # range-table scorer (kernel 2's fused form (a)) at 1M with "sum" and
@@ -2013,6 +2490,19 @@ def main(argv=None) -> int:
         "shapes", []).append(row)
     del lidar, st, cloud
 
+    stamps.append(("batched", time.perf_counter()))
+    # -- 7d. the batched fleet, a fleet on two maps, and the entry twin
+    for tag, drive, n in (
+            ("batched", lambda c: drive_fleet(gm, scans, angles, deltas,
+                                              poses, smi, c), 2 * SCAN_LEN),
+            ("multimap", lambda c: drive_multimap(gm, scans, angles, deltas,
+                                                  poses, smi, c), SCAN_LEN),
+            ("entry", lambda c: drive_entry(smi, c), SCAN_LEN + 1)):
+        c = {}
+        run16, ms = drive(c)
+        add_counts(tag, c, n)
+        to_profile.append((tag, run16, ms))
+
     stamps.append(("eval", time.perf_counter()))
     # -- 8. the experiment runner's CLI on a simulated bag
     for path, c, n in drive_eval(cfg, gm, smi, _cuda.reset_launch_counts,
@@ -2042,10 +2532,16 @@ def main(argv=None) -> int:
 
         pdir = Path(args.profile)
         pdir.mkdir(parents=True, exist_ok=True)
-        for tag, model, st, ms, *inputs in to_profile:
+        for tag, *what in to_profile:
+            # (model, state, ms, inputs...) for a model's 16 scans, or (a
+            # call that runs 16 scans, ms)
+            run16 = (what[0] if len(what) == 2
+                     else functools.partial(timed, what[0], what[1], 1,
+                                            *what[3:]))
+            ms = what[-1] if len(what) == 2 else what[2]
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
-                timed(model, st, 1, *inputs)
+                run16()
             averages = prof.key_averages()
             (pdir / f"{tag}_profile.txt").write_text(averages.table(
                 sort_by="self_device_time_total", row_limit=80))

@@ -12,8 +12,12 @@ the JAX package wrote in Pallas for the TPU are CUDA C++ for Hopper here
 PyTorch version that CPU tensors take.  The port imports, opens and
 executes nothing of JAX or of the JAX package: ``config.py``, ``io/``'s
 readers, ``sim/bag.py`` and ``eval``'s evaluator and plots are its own
-copies of that package's pure-Python files.
+copies of that package's pure-Python files.  The top level exports the
+JAX package's names; ``build_grid_map`` is importable here too, as in
+``maps.grid_map``.
 """
+
+__version__ = "0.1.0"
 
 from mcmh_localization_tpu_torch.config import FilterConfig, parse_mode
 from mcmh_localization_tpu_torch.maps.grid_map import (
@@ -22,5 +26,10 @@ from mcmh_localization_tpu_torch.maps.grid_map import (
     load_map,
 )
 
-__all__ = ["FilterConfig", "parse_mode", "GridMap", "build_grid_map",
-           "load_map"]
+__all__ = [
+    "FilterConfig",
+    "parse_mode",
+    "GridMap",
+    "load_map",
+    "__version__",
+]

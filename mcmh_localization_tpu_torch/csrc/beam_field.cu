@@ -39,9 +39,18 @@
 //  - a qt or s that is not aligned for 16-byte copies (or a C or K * nq
 //    that is not a multiple of them) takes 4-byte copies, and a ragged last
 //    tile reads zeros past C and stores nothing there.
+//  - where the LUT slots and the qt tile of all K bins do not fit a
+//    block's shared memory (K = 360 table bins at nq = 51: 385 920 bytes
+//    at 4 b a block), the block walks the bins in chunks of ``kg`` that
+//    fit (ops/beam_field.py::lut_plan), restaging both between chunks and
+//    keeping each output's sum in a register across them, in a template
+//    instance of its own, so a build whose bins fit runs the one-staging
+//    code unchanged.  The TPU kernel chunks over K the same way.  One
+//    launch a chunk, each adding onto the partial sums in ``out``, was
+//    slower (chip_kernel_ab.py --kernels 7k, PERF.md §6).
 // Each output still adds over g in ascending order from 0.0f with
-// round-to-nearest adds, the plain PyTorch version's order, so the two
-// agree bitwise.
+// round-to-nearest adds, the plain PyTorch version's order, in one chunk
+// or several, so the two agree bitwise.
 // Tried and dropped (timed on an NVIDIA H100 80GB HBM3 at 700 W at the
 // beam path's shapes, in turns with the first kernel; PERF.md §6): one b a
 // block (slower at both builds); 2 or 4 cells a thread; a block walking two passes with the next LUTs landing in
@@ -80,27 +89,21 @@ __host__ __device__ __forceinline__ int slot_floats(int k, int nq) {
   return (k * nq + 3) & ~3;
 }
 
-template <int BPAR>
-__global__ void __launch_bounds__(kMaxThreads) lut_field_kernel(
-    const signed char* __restrict__ qt, const float* __restrict__ s, int nb,
-    int k, int nq, int c, bool vec_q, bool vec_s, float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
+// Stages the qt rows and LUT rows of bins [g0, g0 + gn) of the block's
+// cells and b: gn rows of tc bytes of qt, 16 a copy (zeros past C), and
+// gn * nq floats of each LUT s[b0 .. b0 + n_b - 1] into its slot, 16-byte
+// copies where vec.
+__device__ __forceinline__ void stage_bins(
+    const signed char* __restrict__ qt, const float* __restrict__ s, int kn,
+    int nq, int c, int c0, int b0, int n_b, int g0, int gn, int slot,
+    bool vec_q, bool vec_s, float* lut, unsigned char* q_s) {
   const int tc = blockDim.x;
-  const int kn = k * nq;
-  const int slot = slot_floats(k, nq);
-  float* lut = reinterpret_cast<float*>(smem);
-  unsigned char* q_s = smem + sizeof(float) * slot * BPAR;
-  const int c0 = blockIdx.x * tc;
-  const int b0 = blockIdx.y * BPAR;
-  const int n_b = min(BPAR, nb - b0);
-
-  // the qt tile: K rows of tc bytes, 16 a copy (zeros past C)
   const int pieces = tc / 16;
-  for (int idx = threadIdx.x; idx < k * pieces; idx += tc) {
-    const int g = idx / pieces;
-    const int cell = c0 + 16 * (idx - g * pieces);
-    unsigned char* dst = q_s + g * tc + (cell - c0);
-    const signed char* src = qt + static_cast<long long>(g) * c + cell;
+  for (int idx = threadIdx.x; idx < gn * pieces; idx += tc) {
+    const int gl = idx / pieces;
+    const int cell = c0 + 16 * (idx - gl * pieces);
+    unsigned char* dst = q_s + gl * tc + (cell - c0);
+    const signed char* src = qt + static_cast<long long>(g0 + gl) * c + cell;
     if (vec_q && cell + 16 <= c) {
       cp_async16(dst, src);
     } else {
@@ -110,28 +113,33 @@ __global__ void __launch_bounds__(kMaxThreads) lut_field_kernel(
       }
     }
   }
-  // the LUTs s[b0 .. b0 + n_b - 1], one slot each: 16-byte copies where vec
+  const int cn = gn * nq;
   for (int p = 0; p < n_b; ++p) {
     float* dst = lut + p * slot;
-    const float* src = s + static_cast<long long>(b0 + p) * kn;
+    const float* src = s + static_cast<long long>(b0 + p) * kn +
+                       static_cast<long long>(g0) * nq;
     if (vec_s) {
-      for (int i = 4 * threadIdx.x; i < kn; i += 4 * tc) {
+      for (int i = 4 * threadIdx.x; i < cn; i += 4 * tc) {
         cp_async16(dst + i, src + i);
       }
     } else {
-      for (int i = threadIdx.x; i < kn; i += tc) cp_async4(dst + i, src + i);
+      for (int i = threadIdx.x; i < cn; i += tc) cp_async4(dst + i, src + i);
     }
   }
   cp_async_wait_all();
   __syncthreads();
+}
 
-  // (slots past n_b are never stored: their sums read stale shared memory)
+// Adds the gn staged bins of this thread's cell onto acc, in ascending g.
+// (slots past n_b are never stored: their sums read stale shared memory)
+template <int BPAR>
+__device__ __forceinline__ void sum_bins(const float* lut,
+                                         const unsigned char* q_s, int gn,
+                                         int nq, int slot, float* acc) {
+  const int tc = blockDim.x;
   const unsigned char* q_col = q_s + threadIdx.x;
-  float acc[BPAR];
-#pragma unroll
-  for (int p = 0; p < BPAR; ++p) acc[p] = 0.0f;
   int g = 0;
-  for (; g + kChunk <= k; g += kChunk) {
+  for (; g + kChunk <= gn; g += kChunk) {
     unsigned q[kChunk];
 #pragma unroll
     for (int u = 0; u < kChunk; ++u) q[u] = q_col[(g + u) * tc];
@@ -148,10 +156,44 @@ __global__ void __launch_bounds__(kMaxThreads) lut_field_kernel(
       for (int p = 0; p < BPAR; ++p) acc[p] = __fadd_rn(acc[p], v[u][p]);
     }
   }
-  for (; g < k; ++g) {
+  for (; g < gn; ++g) {
     const float* row = lut + g * nq + q_col[g * tc];
 #pragma unroll
     for (int p = 0; p < BPAR; ++p) acc[p] = __fadd_rn(acc[p], row[p * slot]);
+  }
+}
+
+// kChunked: the block stages kg < K bins at a time and keeps each output's
+// sum in a register across the chunks; else it stages all K at once.
+template <int BPAR, bool kChunked>
+__global__ void __launch_bounds__(kMaxThreads) lut_field_kernel(
+    const signed char* __restrict__ qt, const float* __restrict__ s, int nb,
+    int k, int nq, int c, int kg, bool vec_q, bool vec_s,
+    float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int kn = k * nq;
+  const int slot = slot_floats(kChunked ? kg : k, nq);
+  float* lut = reinterpret_cast<float*>(smem);
+  unsigned char* q_s = smem + sizeof(float) * slot * BPAR;
+  const int c0 = blockIdx.x * blockDim.x;
+  const int b0 = blockIdx.y * BPAR;
+  const int n_b = min(BPAR, nb - b0);
+
+  float acc[BPAR];
+#pragma unroll
+  for (int p = 0; p < BPAR; ++p) acc[p] = 0.0f;
+  if constexpr (!kChunked) {
+    stage_bins(qt, s, kn, nq, c, c0, b0, n_b, 0, k, slot, vec_q, vec_s, lut,
+               q_s);
+    sum_bins<BPAR>(lut, q_s, k, nq, slot, acc);
+  } else {
+    for (int g0 = 0; g0 < k; g0 += kg) {
+      if (g0 > 0) __syncthreads();  // every thread is done with the chunk
+      const int gn = min(kg, k - g0);
+      stage_bins(qt, s, kn, nq, c, c0, b0, n_b, g0, gn, slot, vec_q, vec_s,
+                 lut, q_s);
+      sum_bins<BPAR>(lut, q_s, gn, nq, slot, acc);
+    }
   }
   const int cell = c0 + threadIdx.x;
   if (cell < c) {
@@ -164,7 +206,7 @@ __global__ void __launch_bounds__(kMaxThreads) lut_field_kernel(
 
 // Lets a kernel take `smem` bytes of dynamic shared memory on the current
 // device; the attribute is set once for each larger size, not every call.
-template <int BPAR>
+template <int BPAR, bool kChunked>
 cudaError_t allow_smem(int smem) {
   constexpr int kDevices = 64;
   static int allowed[kDevices] = {};
@@ -173,7 +215,7 @@ cudaError_t allow_smem(int smem) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < kDevices && smem <= allowed[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(lut_field_kernel<BPAR>,
+  err = cudaFuncSetAttribute(lut_field_kernel<BPAR, kChunked>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) {
@@ -184,41 +226,57 @@ cudaError_t allow_smem(int smem) {
   return err;
 }
 
-template <int BPAR>
-cudaError_t launch(const signed char* qt, const float* s, int b, int k,
-                   int nq, int c, int threads, float* out,
-                   cudaStream_t stream) {
-  // the LUT slots and the qt tile (ops/beam_field.py::lut_smem_bytes)
+template <int BPAR, bool kChunked>
+cudaError_t launch_as(const signed char* qt, const float* s, int b, int k,
+                      int nq, int c, int threads, int kg, float* out,
+                      cudaStream_t stream) {
+  // the LUT slots and the qt tile of one chunk of kg bins
+  // (ops/beam_field.py::lut_smem_bytes)
   const int smem =
-      static_cast<int>(sizeof(float)) * slot_floats(k, nq) * BPAR +
-      k * threads;
-  const cudaError_t err = allow_smem<BPAR>(smem);
+      static_cast<int>(sizeof(float)) * slot_floats(kg, nq) * BPAR +
+      kg * threads;
+  const cudaError_t err = allow_smem<BPAR, kChunked>(smem);
   if (err != cudaSuccess) return err;
   const bool vec_q = c % 16 == 0 && aligned_to(qt, 16);
-  const bool vec_s = (k * nq) % 4 == 0 && aligned_to(s, 16);
+  // every chunk's rows start on 16 bytes
+  const bool vec_s =
+      (k * nq) % 4 == 0 && (kg * nq) % 4 == 0 && aligned_to(s, 16);
   dim3 grid((c + threads - 1) / threads, (b + BPAR - 1) / BPAR);
-  lut_field_kernel<BPAR><<<grid, threads, smem, stream>>>(
-      qt, s, b, k, nq, c, vec_q, vec_s, out);
+  lut_field_kernel<BPAR, kChunked><<<grid, threads, smem, stream>>>(
+      qt, s, b, k, nq, c, kg, vec_q, vec_s, out);
   return cudaGetLastError();
+}
+
+template <int BPAR>
+cudaError_t launch(const signed char* qt, const float* s, int b, int k,
+                   int nq, int c, int threads, int kg, float* out,
+                   cudaStream_t stream) {
+  return kg < k ? launch_as<BPAR, true>(qt, s, b, k, nq, c, threads, kg, out,
+                                        stream)
+                : launch_as<BPAR, false>(qt, s, b, k, nq, c, threads, k, out,
+                                         stream);
 }
 
 }  // namespace
 
 // threads: the cells a block, a multiple of 16 up to 256; bpar: the b a
-// block, 2 or 4 (ops/beam_field.py::lut_tiles).
+// block, 2 or 4 (ops/beam_field.py::lut_tiles); kg: the bins a block
+// stages at once (ops/beam_field.py::lut_plan; K or more: all of them).
 extern "C" int mcmh_lut_field(const signed char* qt, const float* s, int b,
                               int k, int nq, int c, int threads, int bpar,
-                              float* out, void* stream) {
+                              int kg, float* out, void* stream) {
   if (b <= 0 || c <= 0) return 0;
-  if (threads <= 0 || threads > kMaxThreads || threads % 16 != 0) {
+  if (threads <= 0 || threads > kMaxThreads || threads % 16 != 0 || kg <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (bpar) {
     case 2:
-      return static_cast<int>(launch<2>(qt, s, b, k, nq, c, threads, out, st));
+      return static_cast<int>(
+          launch<2>(qt, s, b, k, nq, c, threads, kg, out, st));
     case 4:
-      return static_cast<int>(launch<4>(qt, s, b, k, nq, c, threads, out, st));
+      return static_cast<int>(
+          launch<4>(qt, s, b, k, nq, c, threads, kg, out, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

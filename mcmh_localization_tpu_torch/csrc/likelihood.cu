@@ -40,6 +40,14 @@
 //    thread a pose would leave most SMs idle (2 x 1500 poses);
 //  - the group's first lane loads the pose and computes cosf / sinf once;
 //    the other lanes take them by shuffle.
+//  - a scan of more than kBeamTile beams runs the kernel's tiled instance:
+//    tiles of kBeamTile raw beams, each compacted as above, staged once per
+//    group of poses, and lane g carries its sum across the tiles: it adds
+//    the compacted beams whose rank among all the scan's valid beams is
+//    g mod G, in ascending order (the ranks before a tile carried as a
+//    running base), so the order and the sums stay those of one tile.  A
+//    scan of at most kBeamTile beams runs the untiled instance, staged once
+//    for all the block's poses.
 // Tried and dropped (chip_kernel_ab.py, the kernels alone, multiply form,
 // NVIDIA H100 80GB HBM3 at 700 W): the first kernel, one warp a pose striding
 // over all M beams and skipping the invalid ones, 0.1611-0.1624 ms at
@@ -56,10 +64,47 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxBeams = 2048;  // staged as float2: 16 KB of shared memory
+// raw beams a tile (ops/likelihood.py::BEAM_TILE): 16 KB of float2
+constexpr int kBeamTile = 2048;
 constexpr int kMaxBlocks = 4096;
 
+// The first index >= t0 that lane g of G takes: j == g (mod G).
+template <int G>
+__device__ __forceinline__ int first_of_lane(int t0, int g) {
+  return t0 + ((g - t0) & (G - 1));
+}
+
+// Lane g's sum over the staged beams j, j + G, ... below j_end, onto acc,
+// for the pose (x, y) with heading (c, s).
 template <int G, bool kDiv>
+__device__ __forceinline__ float beam_sum(
+    float acc, const float2* s_uv, int j, int j_end, float x, float y,
+    float c, float s, const float* __restrict__ field, int h, int w,
+    float origin_x, float origin_y, float scale) {
+#pragma unroll 4
+  for (; j < j_end; j += G) {
+    const float2 b = s_uv[j];
+    // JAX order: (x + c*u) - s*v and (y + s*u) + c*v
+    const float lx =
+        __fsub_rn(__fadd_rn(x, __fmul_rn(c, b.x)), __fmul_rn(s, b.y));
+    const float ly =
+        __fadd_rn(__fadd_rn(y, __fmul_rn(s, b.x)), __fmul_rn(c, b.y));
+    const float dx = __fsub_rn(lx, origin_x);
+    const float dy = __fsub_rn(ly, origin_y);
+    const int mx = __float2int_rz(kDiv ? __fdiv_rn(dx, scale)
+                                       : __fmul_rn(dx, scale));
+    const int my = __float2int_rz(kDiv ? __fdiv_rn(dy, scale)
+                                       : __fmul_rn(dy, scale));
+    if (mx >= 0 && mx < w && my >= 0 && my < h) {
+      acc = __fadd_rn(acc, __ldg(field + my * w + mx));
+    }
+  }
+  return acc;
+}
+
+// kTiled: the scan has more than kBeamTile beams, staged a tile at a time
+// for each group of poses; else it is staged once for the block's poses.
+template <int G, bool kDiv, bool kTiled>
 __global__ void __launch_bounds__(kThreads) likelihood_scores_kernel(
     const float* __restrict__ particles, int n, const float* __restrict__ u,
     const float* __restrict__ v, const unsigned char* __restrict__ valid,
@@ -67,8 +112,11 @@ __global__ void __launch_bounds__(kThreads) likelihood_scores_kernel(
     float origin_y, float scale, const int* __restrict__ count,
     int sum_aggregation, float blind_score, float* __restrict__ out) {
   extern __shared__ float2 s_uv[];
-  const int m_valid = mcmh::stage_valid_beams<kThreads>(
-      valid, m, s_uv, [=](int j) { return make_float2(u[j], v[j]); });
+  int m_valid = 0;
+  if constexpr (!kTiled) {
+    m_valid = mcmh::stage_valid_beams<kThreads>(
+        valid, m, s_uv, [=](int j) { return make_float2(u[j], v[j]); });
+  }
   const int n_valid = __ldg(count);
   constexpr int kGroups = kThreads / G;  // poses a block takes at a time
   const int g = threadIdx.x & (G - 1);
@@ -92,23 +140,21 @@ __global__ void __launch_bounds__(kThreads) likelihood_scores_kernel(
       s = __shfl_sync(0xffffffffu, s, 0, G);
     }
     float acc = 0.0f;
-    const int j_end = active ? m_valid : 0;
-#pragma unroll 4
-    for (int j = g; j < j_end; j += G) {
-      const float2 b = s_uv[j];
-      // JAX order: (x + c*u) - s*v and (y + s*u) + c*v
-      const float lx =
-          __fsub_rn(__fadd_rn(x, __fmul_rn(c, b.x)), __fmul_rn(s, b.y));
-      const float ly =
-          __fadd_rn(__fadd_rn(y, __fmul_rn(s, b.x)), __fmul_rn(c, b.y));
-      const float dx = __fsub_rn(lx, origin_x);
-      const float dy = __fsub_rn(ly, origin_y);
-      const int mx = __float2int_rz(kDiv ? __fdiv_rn(dx, scale)
-                                         : __fmul_rn(dx, scale));
-      const int my = __float2int_rz(kDiv ? __fdiv_rn(dy, scale)
-                                         : __fmul_rn(dy, scale));
-      if (mx >= 0 && mx < w && my >= 0 && my < h) {
-        acc = __fadd_rn(acc, __ldg(field + my * w + mx));
+    if constexpr (!kTiled) {
+      acc = beam_sum<G, kDiv>(acc, s_uv, g, active ? m_valid : 0, x, y, c, s,
+                              field, h, w, origin_x, origin_y, scale);
+    } else {
+      int base = 0;  // valid beams staged before this tile
+      for (int t0 = 0; t0 < m; t0 += kBeamTile) {
+        // the valid beams of raw beams [t0, t0 + kBeamTile), compacted
+        const int staged = mcmh::stage_valid_beams<kThreads>(
+            valid + t0, min(kBeamTile, m - t0), s_uv,
+            [=](int j) { return make_float2(u[t0 + j], v[t0 + j]); });
+        acc = beam_sum<G, kDiv>(acc, s_uv, first_of_lane<G>(base, g) - base,
+                                active ? staged : 0, x, y, c, s, field, h, w,
+                                origin_x, origin_y, scale);
+        base += staged;
+        __syncthreads();  // s_uv is rewritten by the next tile
       }
     }
 #pragma unroll
@@ -134,10 +180,18 @@ cudaError_t launch(const float* particles, int n, const float* u,
   constexpr int kGroups = kThreads / G;
   long long blocks = (static_cast<long long>(n) + kGroups - 1) / kGroups;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  likelihood_scores_kernel<G, kDiv>
-      <<<static_cast<int>(blocks), kThreads, m * sizeof(float2), stream>>>(
-          particles, n, u, v, valid, m, field, h, w, origin_x, origin_y,
-          scale, count, sum_aggregation, blind_score, out);
+  if (m <= kBeamTile) {
+    likelihood_scores_kernel<G, kDiv, false>
+        <<<static_cast<int>(blocks), kThreads, m * sizeof(float2), stream>>>(
+            particles, n, u, v, valid, m, field, h, w, origin_x, origin_y,
+            scale, count, sum_aggregation, blind_score, out);
+  } else {
+    likelihood_scores_kernel<G, kDiv, true>
+        <<<static_cast<int>(blocks), kThreads, kBeamTile * sizeof(float2),
+           stream>>>(particles, n, u, v, valid, m, field, h, w, origin_x,
+                     origin_y, scale, count, sum_aggregation, blind_score,
+                     out);
+  }
   return cudaGetLastError();
 }
 
@@ -179,7 +233,6 @@ extern "C" int mcmh_likelihood_scores(const float* particles, int n,
                                       float blind_score, int lanes,
                                       float* out, void* stream) {
   if (n <= 0) return 0;
-  if (m > kMaxBeams) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       cell_div ? launch_lanes<true>(lanes, particles, n, u, v, valid, m,

@@ -73,10 +73,16 @@
 // offsets G/2 down to 1.  ops/scan_scores.py's plain versions sum in that
 // order (ops/likelihood.py::lane_sum), so kernel and plain version agree
 // bitwise.  Every rounding is explicit (_rn intrinsics, --fmad=false).
-// (b) stages its beams in tiles of kVoxelTile raw beams and (a) its LUT in
-// tiles of valid beams (kLutFloats floats), both in ascending order: a
-// lane's sum carries across tiles in the same order, and a block needs at
-// most about 60 KB, so an SM holds several.
+// (b) stages its beams in tiles of kVoxelTile raw beams, (a) its beams in
+// tiles of kTableTile raw beams and, in the level form, the LUT rows of
+// each tile's valid beams in tiles of kLutFloats floats, all in ascending
+// order: lane g adds the valid beams whose rank among all the scan's
+// valid beams is g mod G (the ranks before a tile carried as a running
+// base), so a lane's sum carries across tiles in one tile's order, any
+// scan length takes the same sums, and a block needs at most about 60 KB,
+// so an SM holds several.  A scan of at most one tile is staged once for
+// all the block's poses (in the per-pair form, by a template instance of
+// its own).
 //
 // Bounds, on an H100 SXM at 700 W: (a) at the staged BIG program's 2 x 1M
 // poses and a house scan's 114 valid beams of 360 is bound by operations
@@ -94,8 +100,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 4096;
-constexpr int kMaxTableBeams = 2048;   // float2: 16 KB
-constexpr int kMaxVoxelBeams = 14336;
+constexpr int kTableTile = 2048;       // raw beams a tile of (a): 16 KB of float2
 constexpr int kVoxelTile = 512;        // raw beams a tile of (b): 8 KB
 constexpr int kMaxVoxelLevels = 4096;  // (b)'s levels in shared memory: 16 KB
 constexpr int kMaxTableLevels = 1024;
@@ -214,7 +219,11 @@ __device__ __forceinline__ void table_pose(const float* __restrict__ particles,
 }
 
 // (a), the per-pair form: the f32 table read and the mixture a pair.
-template <int G>
+// kTiled: the scan has more than kTableTile beams, staged a tile at a time
+// for each group of poses; else it is staged once for the block's poses
+// (a template instance of its own, as kernel 6's, so a scan of one tile
+// runs the single-staging code).
+template <int G, bool kTiled>
 __global__ void __launch_bounds__(kThreads) table_pairs_kernel(
     const float* __restrict__ particles, int n,
     const float* __restrict__ ranges, const float* __restrict__ angles,
@@ -222,9 +231,14 @@ __global__ void __launch_bounds__(kThreads) table_pairs_kernel(
     const float* __restrict__ table, const int* __restrict__ count,
     TableArgs a, float* __restrict__ out) {
   extern __shared__ float2 s_ra[];
-  const int m_valid = mcmh::stage_valid_beams<kThreads>(
-      valid, m, s_ra,
-      [=](int j) { return make_float2(ranges[j], angles[j]); });
+  // the valid beams of raw beams [t0, t0 + kTableTile), compacted
+  auto stage = [=](int t0) {
+    return mcmh::stage_valid_beams<kThreads>(
+        valid + t0, min(kTableTile, m - t0), s_ra,
+        [=](int j) { return make_float2(ranges[t0 + j], angles[t0 + j]); });
+  };
+  int m_valid = 0;
+  if constexpr (!kTiled) m_valid = stage(0);
   const int n_valid = __ldg(count);
   constexpr int kGroups = kThreads / G;
   const int g = threadIdx.x & (G - 1);
@@ -237,13 +251,28 @@ __global__ void __launch_bounds__(kThreads) table_pairs_kernel(
     table_pose<G>(particles, i, active, g, a, theta, cell, in_map);
     const float* __restrict__ row =
         table + static_cast<long long>(cell) * a.n_theta;
-    float acc = 0.0f;
-    const int j_end = in_map ? m_valid : 0;  // in_map only where active
+    // lane g's sum over the staged valid beams j == base + g (mod G)
+    auto pairs = [&](float acc, int j0, int staged) {
+      const int j_end = in_map ? staged : 0;  // in_map only where active
 #pragma unroll 2
-    for (int j = g; j < j_end; j += G) {
-      const float2 b = s_ra[j];
-      const int k = theta_bin(theta, b.y, a);
-      acc = __fadd_rn(acc, pair_mixture(b.x, __ldg(row + k), a));
+      for (int j = j0; j < j_end; j += G) {
+        const float2 b = s_ra[j];
+        const int k = theta_bin(theta, b.y, a);
+        acc = __fadd_rn(acc, pair_mixture(b.x, __ldg(row + k), a));
+      }
+      return acc;
+    };
+    float acc = 0.0f;
+    if constexpr (!kTiled) {
+      acc = pairs(acc, g, m_valid);
+    } else {
+      int base = 0;  // valid beams staged before this tile
+      for (int t0 = 0; t0 < m; t0 += kTableTile) {
+        const int staged = stage(t0);
+        acc = pairs(acc, first_of_lane<G>(base, g) - base, staged);
+        base += staged;
+        __syncthreads();  // s_ra is rewritten by the next tile
+      }
     }
     acc = group_sum<G>(acc);
     if (active && g == 0) {
@@ -254,23 +283,34 @@ __global__ void __launch_bounds__(kThreads) table_pairs_kernel(
 
 // (a)'s per-scan LUT over the valid beams in ascending order: lut[i * nq +
 // q] = the mixture of the i-th valid beam at level q.  Each block compacts
-// the scan's ranges (at most kMaxTableBeams) in shared memory first.
+// the scan's ranges in tiles of kTableTile raw beams in shared memory and
+// computes its entries of each tile's rows.
 __global__ void __launch_bounds__(kThreads) lut_kernel(
     const float* __restrict__ ranges, const unsigned char* __restrict__ valid,
     int m, const float* __restrict__ levels, int nq, TableArgs a,
     float* __restrict__ lut) {
   extern __shared__ float s_r[];
-  const int m_valid = mcmh::stage_valid_beams<kThreads>(
-      valid, m, s_r, [=](int j) { return ranges[j]; });
-  for (int e = blockIdx.x * kThreads + threadIdx.x; e < m_valid * nq;
-       e += gridDim.x * kThreads) {
-    const int i = e / nq;
-    lut[e] = pair_mixture(s_r[i], __ldg(levels + (e - i * nq)), a);
+  const int stride = gridDim.x * kThreads;
+  const int e0 = blockIdx.x * kThreads + threadIdx.x;
+  int base = 0;  // valid beams staged before this tile
+  for (int t0 = 0; t0 < m; t0 += kTableTile) {
+    const int staged = mcmh::stage_valid_beams<kThreads>(
+        valid + t0, min(kTableTile, m - t0), s_r,
+        [=](int j) { return ranges[t0 + j]; });
+    // this thread's entries of the rows [base, base + staged)
+    const int lo = base * nq;
+    int e = e0 < lo ? e0 + (lo - e0 + stride - 1) / stride * stride : e0;
+    for (; e < (base + staged) * nq; e += stride) {
+      const int i = e / nq;
+      lut[e] = pair_mixture(s_r[i - base], __ldg(levels + (e - i * nq)), a);
+    }
+    base += staged;
+    __syncthreads();  // s_r is rewritten by the next tile
   }
 }
 
-// (a), the LUT form.  Shared memory: the valid beams' angles, compacted, a
-// tile of ``rows`` LUT rows of nq floats and, with
+// (a), the LUT form.  Shared memory: a tile's valid beams' angles,
+// compacted, a tile of ``rows`` LUT rows of nq floats and, with
 // kStageRows, each group's pose row of the index table (``row_words``
 // 32-bit words a row, an odd count, so that lanes reading the same bin of
 // different rows hit different banks).  A pair's index read is then a
@@ -284,10 +324,14 @@ __global__ void __launch_bounds__(kThreads) table_lut_kernel(
     int nq, int rows, int row_words, const int* __restrict__ count,
     TableArgs a, float* __restrict__ out) {
   extern __shared__ float s_a[];
-  float* s_lp = s_a + m;
+  float* s_lp = s_a + min(m, kTableTile);
   unsigned int* s_rows = reinterpret_cast<unsigned int*>(s_lp + rows * nq);
-  const int m_valid = mcmh::stage_valid_beams<kThreads>(
-      valid, m, s_a, [=](int j) { return angles[j]; });
+  // the valid beams' angles of raw beams [t0, t0 + kTableTile), compacted
+  auto stage_angles = [=](int t0) {
+    return mcmh::stage_valid_beams<kThreads>(
+        valid + t0, min(kTableTile, m - t0), s_a,
+        [=](int j) { return angles[t0 + j]; });
+  };
   // the LUT rows of the valid beams [t0, t1): one contiguous copy
   auto stage_rows = [&](int t0, int t1) {
     const float* __restrict__ src = lut + t0 * nq;
@@ -296,9 +340,12 @@ __global__ void __launch_bounds__(kThreads) table_lut_kernel(
       s_lp[e] = __ldg(src + e);
     }
   };
-  const bool one_tile = m_valid <= rows;
+  const bool one_beam_tile = m <= kTableTile;
+  const int m_one = one_beam_tile ? stage_angles(0) : 0;
+  // the scan's whole LUT in one tile: staged once for all the poses
+  const bool one_tile = one_beam_tile && m_one <= rows;
   if (one_tile) {
-    stage_rows(0, m_valid);
+    stage_rows(0, m_one);
     __syncthreads();
   }
   const int n_valid = __ldg(count);
@@ -332,25 +379,33 @@ __global__ void __launch_bounds__(kThreads) table_lut_kernel(
     const Idx* pose_row = row;
     if constexpr (kStageRows) pose_row = reinterpret_cast<const Idx*>(my_row);
     float acc = 0.0f;
-    for (int t0 = 0; t0 < m_valid; t0 += rows) {
-      const int t1 = min(t0 + rows, m_valid);
-      if (!one_tile) {
-        stage_rows(t0, t1);
-        __syncthreads();
-      }
-      const int j_end = in_map ? t1 : 0;  // in_map only where active
-#pragma unroll 8
-      for (int j = first_of_lane<G>(t0, g); j < j_end; j += G) {
-        const int k = theta_bin(theta, s_a[j], a);
-        int q;
-        if constexpr (kStageRows) {
-          q = static_cast<int>(pose_row[k]);
-        } else {
-          q = static_cast<int>(__ldg(pose_row + k));
+    int base = 0;  // valid beams staged before this beam tile
+    for (int r0 = 0; r0 < m; r0 += kTableTile) {
+      const int staged = one_beam_tile ? m_one : stage_angles(r0);
+      // the LUT rows of the valid beams [base, base + staged), ``rows`` at
+      // a time
+      for (int t0 = base; t0 < base + staged; t0 += rows) {
+        const int t1 = min(t0 + rows, base + staged);
+        if (!one_tile) {
+          stage_rows(t0, t1);
+          __syncthreads();
         }
-        acc = __fadd_rn(acc, s_lp[(j - t0) * nq + q]);
+        const int j_end = in_map ? t1 : 0;  // in_map only where active
+#pragma unroll 8
+        for (int j = first_of_lane<G>(t0, g); j < j_end; j += G) {
+          const int k = theta_bin(theta, s_a[j - base], a);
+          int q;
+          if constexpr (kStageRows) {
+            q = static_cast<int>(pose_row[k]);
+          } else {
+            q = static_cast<int>(__ldg(pose_row + k));
+          }
+          acc = __fadd_rn(acc, s_lp[(j - t0) * nq + q]);
+        }
+        if (!one_tile) __syncthreads();  // s_lp is rewritten by the next tile
       }
-      if (!one_tile) __syncthreads();  // s_lp is rewritten by the next tile
+      base += staged;
+      if (!one_beam_tile) __syncthreads();  // s_a is rewritten by the next tile
     }
     acc = group_sum<G>(acc);
     if (active && g == 0) {
@@ -523,9 +578,16 @@ cudaError_t launch_table_pairs(const float* particles, int n,
   constexpr int kGroups = kThreads / G;
   long long blocks = (static_cast<long long>(n) + kGroups - 1) / kGroups;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  table_pairs_kernel<G>
-      <<<static_cast<int>(blocks), kThreads, m * sizeof(float2), stream>>>(
-          particles, n, ranges, angles, valid, m, table, count, a, out);
+  if (m <= kTableTile) {
+    table_pairs_kernel<G, false>
+        <<<static_cast<int>(blocks), kThreads, m * sizeof(float2), stream>>>(
+            particles, n, ranges, angles, valid, m, table, count, a, out);
+  } else {
+    table_pairs_kernel<G, true>
+        <<<static_cast<int>(blocks), kThreads, kTableTile * sizeof(float2),
+           stream>>>(particles, n, ranges, angles, valid, m, table, count, a,
+                     out);
+  }
   return cudaGetLastError();
 }
 
@@ -538,7 +600,8 @@ cudaError_t launch_table_lut_as(const float* particles, int n,
                                 const TableArgs& a, int sm_count, float* out,
                                 cudaStream_t stream) {
   constexpr int kGroups = kThreads / G;
-  const int smem = (m + rows * nq + (kStageRows ? kGroups * row_words : 0)) *
+  const int smem = ((m < kTableTile ? m : kTableTile) + rows * nq +
+                    (kStageRows ? kGroups * row_words : 0)) *
                    static_cast<int>(sizeof(float));
   const void* kernel =
       reinterpret_cast<const void*>(table_lut_kernel<G, Idx, kStageRows>);
@@ -562,13 +625,15 @@ cudaError_t launch_table_lut(const float* particles, int n,
                              const Idx* index, const float* levels, int nq,
                              float* lut, const int* count, const TableArgs& a,
                              int sm_count, float* out, cudaStream_t stream) {
-  const int lut_blocks = (m * nq + kThreads - 1) / kThreads;
-  lut_kernel<<<lut_blocks > 0 ? lut_blocks : 1, kThreads,
-               m * static_cast<int>(sizeof(float)), stream>>>(
-      ranges, valid, m, levels, nq, a, lut);
+  const int tile = m < kTableTile ? m : kTableTile;
+  int lut_blocks = (m * nq + kThreads - 1) / kThreads;
+  lut_blocks = lut_blocks < 1 ? 1 : (lut_blocks > kMaxBlocks ? kMaxBlocks
+                                                             : lut_blocks);
+  lut_kernel<<<lut_blocks, kThreads, tile * static_cast<int>(sizeof(float)),
+               stream>>>(ranges, valid, m, levels, nq, a, lut);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int rows = m < kLutFloats / nq ? m : kLutFloats / nq;
+  const int rows = tile < kLutFloats / nq ? tile : kLutFloats / nq;
   // a pose row in shared memory: whole words, an odd count
   const int row_words =
       ((a.n_theta * static_cast<int>(sizeof(Idx)) + 3) / 4) | 1;
@@ -689,9 +754,8 @@ extern "C" int mcmh_table_scores(const float* particles, int n,
                                  int lanes, int sm_count, float* out,
                                  void* stream) {
   if (n <= 0) return 0;
-  if (m > kMaxTableBeams || (index != nullptr &&
-                             (nq < 1 || nq > kMaxTableLevels ||
-                              (index_bytes != 1 && index_bytes != 2)))) {
+  if (index != nullptr && (nq < 1 || nq > kMaxTableLevels ||
+                           (index_bytes != 1 && index_bytes != 2))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(table_dispatch(
@@ -712,8 +776,7 @@ extern "C" int mcmh_voxel_scores(const float* particles, int n,
                                  const int* count, VoxelArgs a, int lanes,
                                  int sm_count, float* out, void* stream) {
   if (n <= 0) return 0;
-  if (m > kMaxVoxelBeams ||
-      (index != nullptr && (n_levels < 1 || n_levels > kMaxVoxelLevels))) {
+  if (index != nullptr && (n_levels < 1 || n_levels > kMaxVoxelLevels)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(voxel_dispatch(lanes, particles, n, u, v, zrow, live,

@@ -611,8 +611,9 @@ def _sensor_table(grid_map, config, voxel_map=None):
     """The per-(map, config) sensor precompute (JAX step.py:786-816): the
     voxel map and its log-mixture volume (3-D lidar), the BeamTables of the
     beam score field, the cell-major range table of the beam "table"
-    scorer (each of the last two scorers' tables in the level form its
-    kernel reads), or the log-likelihood field."""
+    scorer (each of the last two scorers' tables in the form its kernel
+    reads, ``ops/scan_scores.py::table_levels``), or the log-likelihood
+    field."""
     if config.sensor_model == "lidar3d":
         if voxel_map is None:
             raise ValueError(
@@ -625,8 +626,11 @@ def _sensor_table(grid_map, config, voxel_map=None):
         if impl == "field":
             return make_beam_tables(grid_map, config)
         if impl == "table":
+            # the poses a scan scores: the proposed and previous sets under MH
+            poses = state_size(config) * (2 if config.use_mh else 1)
             return table_levels(table_cell_major(build_range_table(
-                grid_map, config.beam_table_n_theta, config.max_range)))
+                grid_map, config.beam_table_n_theta, config.max_range)),
+                poses)
     return log_likelihood_field(grid_map, config)
 
 

@@ -113,7 +113,7 @@ _SIGNATURES = {
         _P, _P,
     ),
     "mcmh_take_rows": (_P, _I, _I, _P, _I, _P, _P),
-    "mcmh_lut_field": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
+    "mcmh_lut_field": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     "mcmh_table_scores": (_P, _I, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _P,
                           TableArgs, _I, _I, _P, _P),
     "mcmh_voxel_scores": (_P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P,

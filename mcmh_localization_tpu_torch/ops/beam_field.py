@@ -6,19 +6,31 @@ hi/lo planes of ``s`` are TPU mechanics: here each output is a sum of K
 reads from a table in shared memory, in ascending ``g`` from 0.0 with f32
 adds, so the plain version and the kernel agree bitwise and neither
 quantizes ``s``.  A block of the kernel owns a tile of cells and a group
-of consecutive ``b``; ``lut_tiles`` picks the layout.
+of consecutive ``b``; ``lut_tiles`` picks the layout, and ``lut_plan`` the
+bins a block stages at once: all K where they fit its shared memory, else
+chunks of them, each output's sum carried across the chunks in ascending
+``g`` (the TPU kernel chunks over K too).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 from mcmh_localization_tpu_torch.ops import _cuda
 
-# the dynamic shared memory one block can hold on Hopper (227 KB)
+# the dynamic shared memory one block can hold on Hopper (227 KB), and
+# one SM's (228 KB; the card keeps 1 KB of it a block)
 MAX_SMEM_BYTES = 232_448
+SM_SMEM_BYTES = 233_472
+# A plan that chunks the bins sizes its chunks for this many blocks an SM:
+# the fine build at 360 bins took 0.79 ms at one block an SM (two chunks
+# of 180), 0.52 at three (six of 60), 0.50 at four (eight of 48) and 0.51
+# at six (twelve of 32) (chip_kernel_ab.py --kernels 7k on an H100,
+# PERF.md §6).
+LUT_CHUNK_BLOCKS = 4
 
 
 class LutTile(NamedTuple):
@@ -42,10 +54,62 @@ def lut_tiles(b: int, c: int) -> LutTile:
 
 
 def lut_smem_bytes(k: int, nq: int, tile: LutTile) -> int:
-    """A block's shared memory: ``bpar`` LUT slots of K * nq floats, each
-    rounded up to 16 bytes, and its ``qt`` tile (K rows of its cells'
-    bytes)."""
+    """A block's shared memory for a chunk of ``k`` bins: ``bpar`` LUT
+    slots of k * nq floats, each rounded up to 16 bytes, and its ``qt``
+    tile (k rows of its cells' bytes)."""
     return -(-k * nq // 4) * 16 * tile.bpar + k * tile.threads
+
+
+class LutPlan(NamedTuple):
+    """One ``lut_field`` call: the layout, and ``chunk`` bins staged at a
+    time (K where all of them fit)."""
+
+    tile: LutTile
+    chunk: int
+
+
+@functools.lru_cache(maxsize=64)
+def lut_plan(b: int, k: int, nq: int, c: int) -> LutPlan:
+    """The launch plan for B LUTs of K bins and nq levels over C cells:
+    ``lut_tiles``' layout, and all K bins at once where their LUT slots and
+    qt tile fit ``MAX_SMEM_BYTES``.  Else chunks of bins small enough that
+    ``LUT_CHUNK_BLOCKS`` blocks share an SM (where one bin allows that; else
+    as many bins as one block holds): the fewest such chunks, of equal
+    size rounded up to a multiple of 4 bins where that still fits (so every
+    chunk's LUT rows start on 16 bytes).  Raises where one bin does not fit
+    a block."""
+    tile = lut_tiles(b, c)
+    if lut_smem_bytes(k, nq, tile) <= MAX_SMEM_BYTES:
+        return LutPlan(tile, k)
+    fit = _most_bins(nq, tile, SM_SMEM_BYTES // LUT_CHUNK_BLOCKS - 1024)
+    if fit == 0:
+        fit = _most_bins(nq, tile, MAX_SMEM_BYTES)
+    if fit == 0:
+        raise ValueError(
+            f"lut_field: one bin needs {lut_smem_bytes(1, nq, tile)} bytes of "
+            f"shared memory (nq={nq}, {tile.bpar} LUTs and {tile.threads} "
+            f"cells a block), above the {MAX_SMEM_BYTES} bytes a block can "
+            "hold")
+    n = -(-k // fit)
+    chunk = -(-k // n)
+    round4 = -(-chunk // 4) * 4
+    return LutPlan(tile, round4 if round4 <= fit else chunk)
+
+
+def _most_bins(nq: int, tile: LutTile, budget: int) -> int:
+    """The most bins whose LUT slots and qt tile fit ``budget`` bytes
+    (``lut_smem_bytes`` grows with the bins)."""
+    fit = budget // (4 * nq * tile.bpar + tile.threads)
+    while lut_smem_bytes(fit + 1, nq, tile) <= budget:
+        fit += 1
+    while fit > 0 and lut_smem_bytes(fit, nq, tile) > budget:
+        fit -= 1
+    return fit
+
+
+def lut_chunks(k: int, chunk: int) -> list[tuple[int, int]]:
+    """The bin ranges [g0, g1) a block sums, in its order."""
+    return [(g0, min(g0 + chunk, k)) for g0 in range(0, k, chunk)]
 
 
 def lut_field_plain(qt: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -72,16 +136,11 @@ def lut_field(qt: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
         raise ValueError("lut_field: s must be (B, K, nq) float32 with qt's K")
     b, k, nq = s.shape
     c = qt.shape[1]
-    tile = lut_tiles(b, c)
-    smem = lut_smem_bytes(k, nq, tile)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"lut_field: a block needs {smem} bytes of shared memory for "
-            f"K={k}, nq={nq}, above the {MAX_SMEM_BYTES} bytes it can hold")
+    tile, chunk = lut_plan(b, k, nq, c)
     out = torch.empty((b, c), dtype=torch.float32, device=qt.device)
     code = _cuda.library().mcmh_lut_field(
-        qt.data_ptr(), s.data_ptr(), b, k, nq, c, *tile, out.data_ptr(),
-        _cuda.stream_of(qt),
+        qt.data_ptr(), s.data_ptr(), b, k, nq, c, *tile, chunk,
+        out.data_ptr(), _cuda.stream_of(qt),
     )
     _cuda.check_launch("lut_field", code)
     return out

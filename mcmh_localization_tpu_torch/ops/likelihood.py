@@ -20,7 +20,10 @@ from mcmh_localization_tpu_torch.models.sensor import BLIND_SCORE
 from mcmh_localization_tpu_torch.ops import _cuda
 from mcmh_localization_tpu_torch.utils.f32 import divide
 
-MAX_BEAMS = 2048  # the kernel stages the scan in shared memory
+# The kernel stages a scan's valid beams in shared memory in tiles of this
+# many raw beams (csrc/likelihood.cu::kBeamTile), carrying each lane's sum
+# across tiles in ``lane_sum``'s order: a multiple of every G.
+BEAM_TILE = 2048
 
 
 def scan_endpoints_uv(particles: torch.Tensor, u: torch.Tensor,
@@ -118,9 +121,8 @@ def likelihood_scores(particles: torch.Tensor, u: torch.Tensor,
         raise ValueError("likelihood_scores: valid must be bool and "
                          "particles (N, 3)")
     m = u.shape[0]
-    if m > MAX_BEAMS or v.shape != u.shape or valid.shape != u.shape:
-        raise ValueError(f"likelihood_scores: u, v, valid must be (M,) alike "
-                         f"with M <= {MAX_BEAMS}")
+    if v.shape != u.shape or valid.shape != u.shape:
+        raise ValueError("likelihood_scores: u, v, valid must be (M,) alike")
     n = particles.shape[0]
     h, w = field.shape
     out = torch.empty(n, dtype=torch.float32, device=particles.device)

@@ -47,13 +47,22 @@ from mcmh_localization_tpu_torch.ops.gather import PI_F32
 from mcmh_localization_tpu_torch.ops.likelihood import lane_sum, lanes_per_particle
 from mcmh_localization_tpu_torch.utils.f32 import divide
 
-MAX_TABLE_BEAMS = 2048    # csrc/scan_scores.cu: staged as float2
-MAX_VOXEL_BEAMS = 14336
+# The raw beams a tile of the kernels' beam staging (csrc/scan_scores.cu:
+# kTableTile, kVoxelTile): each lane's sum carries across tiles in
+# ``lane_sum``'s order, so a scan of any length takes the sums of one tile;
+# each a multiple of every G.
+TABLE_TILE = 2048
+VOXEL_TILE = 512
 # The level forms' limits (csrc/scan_scores.cu): the range table's LUT
 # form (uint8 indices up to 256 levels, int16 above), and the log volume's
 # levels in shared memory; a table with more levels keeps its f32 form.
 MAX_TABLE_LEVELS = 1024
 MAX_VOXEL_LEVELS = 4096
+# Form (a) takes its level form for a scorer that scores at least this many
+# poses a call, else the per-pair f32 form: below it the level form's LUT
+# launch and each block's LUT copy cost more than the mixture they save
+# (chip_kernel_ab.py's sweep over N on an H100, PERF.md §6).
+TABLE_LEVEL_MIN_POSES = 40_000
 # The index volume's planes are stored in TILE x TILE bricks of 16-bit
 # indices, one 32-byte sector each (``tile_planes``).
 TILE = 4
@@ -159,11 +168,16 @@ def _levels(values: torch.Tensor):
     return uniq.view(torch.float32), inverse
 
 
-def table_levels(table_cm: torch.Tensor) -> TableLevels:
+def table_levels(table_cm: torch.Tensor,
+                 poses: int | None = None) -> TableLevels:
     """Form (a)'s table from an (H*W, K) f32 cell-major range table, on its
     device: the level form where it has at most ``MAX_TABLE_LEVELS``
-    distinct values (a ray-cast table has ``max_range / RAY_STEP + 1``),
-    else the table itself."""
+    distinct values (a ray-cast table has ``max_range / RAY_STEP + 1``)
+    and its scorer scores at least ``TABLE_LEVEL_MIN_POSES`` ``poses`` a
+    call (None: any number), else the table itself.  Both forms score
+    bitwise alike."""
+    if poses is not None and poses < TABLE_LEVEL_MIN_POSES:
+        return TableLevels(None, None, table_cm.contiguous())
     levels, inverse = _levels(table_cm)
     if levels.numel() > MAX_TABLE_LEVELS:
         return TableLevels(None, None, table_cm.contiguous())
@@ -322,10 +336,9 @@ def table_scores(particles: torch.Tensor, ranges: torch.Tensor,
                          "float32")
     m = ranges.shape[0]
     if (valid.dtype != torch.bool or particles.shape[1:] != (3,)
-            or angles.shape != ranges.shape or valid.shape != ranges.shape
-            or m > MAX_TABLE_BEAMS):
-        raise ValueError(f"table_scores: particles (N, 3), ranges, angles, "
-                         f"valid (M,) alike with M <= {MAX_TABLE_BEAMS}")
+            or angles.shape != ranges.shape or valid.shape != ranges.shape):
+        raise ValueError("table_scores: particles (N, 3), ranges, angles, "
+                         "valid (M,) alike")
     shape = (geo.h * geo.w, geo.n_theta)
     if lut:
         nq = table.levels.shape[0]
@@ -418,11 +431,9 @@ def voxel_scores(particles: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     m = u.shape[0]
     if (zrow.dtype != torch.int32 or live.dtype != torch.bool
             or particles.shape[1:] != (3,) or v.shape != u.shape
-            or zrow.shape != u.shape or live.shape != u.shape
-            or m > MAX_VOXEL_BEAMS):
-        raise ValueError(f"voxel_scores: particles (N, 3); u, v, zrow "
-                         f"(int32), live (bool) (M,) alike with M <= "
-                         f"{MAX_VOXEL_BEAMS}")
+            or zrow.shape != u.shape or live.shape != u.shape):
+        raise ValueError("voxel_scores: particles (N, 3); u, v, zrow "
+                         "(int32), live (bool) (M,) alike")
     if levels:
         hp, wp = -(-geo.h // TILE) * TILE, -(-geo.w // TILE) * TILE
         n_levels = table.levels.shape[0]

@@ -37,6 +37,30 @@ def test_script_imports_and_parses_without_jax(script):
     assert "usage" in res.stdout
 
 
+def test_fleet_and_entry_modules_import_without_jax():
+    """The batched fleet and the entry-point twin import, and the entry
+    builds on the CPU, in an interpreter where jax and the JAX package
+    cannot be imported."""
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        top = name.split('.')[0]\n"
+        "        if top in ('jax', 'jaxlib', 'mcmh_localization_tpu'):\n"
+        "            raise ImportError(f'{name} blocked')\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import mcmh_localization_tpu_torch.parallel.batched\n"
+        "from mcmh_localization_tpu_torch import graft_entry, parallel\n"
+        "fn, args = graft_entry.entry(device='cpu')\n"
+        "assert args[0].particles.shape == (4096, 3)\n"
+        "assert parallel.__all__ == []\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
 def _room():
     from mcmh_localization_tpu_torch.maps import voxel_map as tvm
 
@@ -120,3 +144,20 @@ def test_table_ops_counts_the_form_s_work():
     assert chip_smoke.table_ops(levels, 1000, 50) == 6 * 1000 + 10 * 50 * 6
     assert chip_smoke.table_ops(per_pair, 1000, 50) == 14 * 1000
     assert table_kernels(levels) == 2 and table_kernels(per_pair) == 1
+
+
+def test_lut_launch_ablation_edits_this_tree_s_kernel():
+    """``chip_kernel_ab.LUT_LAUNCH_ABLATION``, the throwaway one-launch-a-
+    chunk build of kernel 7, edits this tree's ``beam_field.cu``: each
+    pattern occurs there once, the edited chunked kernel takes a bin range,
+    and the production C entry point keeps only the chunk size."""
+    import chip_kernel_ab as ab
+
+    src = (ROOT / "mcmh_localization_tpu_torch" / "csrc"
+           / "beam_field.cu").read_text()
+    for pattern, repl in ab.LUT_LAUNCH_ABLATION:
+        assert src.count(pattern) == 1, pattern
+        src = src.replace(pattern, repl)
+    assert "for (int g0 = g_lo; g0 < g_hi; g0 += kg)" in src
+    entry = src[src.index('extern "C" int mcmh_lut_field('):]
+    assert "g_lo" not in entry and "accumulate" not in entry

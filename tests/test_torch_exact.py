@@ -57,6 +57,8 @@ CASES = {
     "step4": (100, 180, 1, dict(step=4)),
     "n513_m90": (513, 90, 2, {}),
     "sum": (700, 360, 3, dict(score_aggregation="sum")),
+    # past the 2048 beams the kernel once refused: its beams in two tiles
+    "m2160": (200, 2160, 4, {}),
 }
 
 

@@ -14,9 +14,11 @@ torch = pytest.importorskip("torch")
 from mcmh_localization_tpu.config import FilterConfig as JConfig  # noqa: E402
 from mcmh_localization_tpu.filter import staged as jstaged  # noqa: E402
 from mcmh_localization_tpu.filter import step as jstep  # noqa: E402
+from mcmh_localization_tpu.parallel import batched as jbatched  # noqa: E402
 from mcmh_localization_tpu_torch.config import FilterConfig  # noqa: E402
 from mcmh_localization_tpu_torch.convert import grid_map_from_numpy  # noqa: E402
 from mcmh_localization_tpu_torch.filter import staged, step  # noqa: E402
+from mcmh_localization_tpu_torch.parallel import batched  # noqa: E402
 from tests.test_torch_ops import torch_one_thread  # noqa: E402,F401
 
 # JAX exports the port does not have yet, each with the ROADMAP item that
@@ -32,6 +34,8 @@ UNPORTED = {
     "io": {},
     "sim": {},
     "eval": {},
+    "parallel": {name: "ROADMAP item 15.3" for name in (
+        "make_mesh", "make_sharded_model", "shard_state")},
 }
 
 
@@ -48,6 +52,21 @@ def test_subpackage_exports_match_jax_less_unported(sub):
         assert not hasattr(tmod, name), f"{name} is ported: export it"
 
 
+def test_top_level_exports_match_jax():
+    """The top level exports JAX's names, ``__version__`` among them;
+    ``build_grid_map`` stays importable from it (and from
+    ``maps.grid_map``) without being exported."""
+    import mcmh_localization_tpu as jpkg
+    import mcmh_localization_tpu_torch as tpkg
+    from mcmh_localization_tpu_torch.maps.grid_map import build_grid_map
+
+    assert tpkg.__all__ == jpkg.__all__
+    assert isinstance(tpkg.__version__, str) and tpkg.__version__
+    for name in tpkg.__all__:
+        assert getattr(tpkg, name) is not None, name
+    assert tpkg.build_grid_map is build_grid_map
+
+
 def _params(fn):
     return [(p.name, p.default) for p in inspect.signature(fn).parameters.values()]
 
@@ -55,11 +74,16 @@ def _params(fn):
 @pytest.mark.parametrize("port_fn,jax_fn", [
     (staged.make_staged_model, jstaged.make_staged_model),
     (step.make_model, jstep.make_model),
-], ids=["make_staged_model", "make_model"])
+    (batched.make_batched_model, jbatched.make_batched_model),
+    (batched.make_multimap_model, jbatched.make_multimap_model),
+], ids=["make_staged_model", "make_model", "make_batched_model",
+        "make_multimap_model"])
 def test_factory_signatures_match_jax(port_fn, jax_fn):
     assert _params(port_fn) == _params(jax_fn)
     names = [name for name, _ in _params(port_fn)]
-    assert names.index("voxel_map") == (3 if "tracking_capacity" in names else 2)
+    if "voxel_map" in names:
+        assert names.index("voxel_map") == (3 if "tracking_capacity" in names
+                                            else 2)
 
 
 @pytest.fixture(scope="module")

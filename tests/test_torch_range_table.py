@@ -39,6 +39,7 @@ from mcmh_localization_tpu_torch.filter.step import (  # noqa: E402
 )
 from mcmh_localization_tpu_torch.ops.scan_scores import (  # noqa: E402
     MAX_TABLE_LEVELS,
+    TABLE_LEVEL_MIN_POSES,
     TableGeometry,
     TableLevels,
     table_levels,
@@ -617,18 +618,28 @@ def test_table_scores_per_pair_chunked_equals_unchunked(box_maps, table_case,
 
 def test_table_sensor_table_is_the_level_form():
     """The "table" scorer's sensor table is built once per (map, config) in
-    its level form: uint8 at the default 5 m, int16 at 30 m (no refusal),
-    and a filter step runs on either."""
+    its level form where a scan scores at least TABLE_LEVEL_MIN_POSES poses
+    (the proposed and previous sets under MH): uint8 at the default 5 m,
+    int16 at 30 m (no refusal); below that count, in the per-pair f32
+    form; a filter step runs on each."""
     _, tm = _open_hall()
-    for max_range, dtype in ((5.0, torch.uint8), (30.0, torch.int16)):
+    big = TABLE_LEVEL_MIN_POSES // 2
+    for max_range, n, dtype in ((5.0, big, torch.uint8),
+                                (30.0, big, torch.int16),
+                                (5.0, big - 1, None), (5.0, 64, None)):
         cfg = FilterConfig(sensor_model="beam", beam_impl="table",
                            beam_table_n_theta=8, max_range=max_range,
-                           num_particles=64, min_particles=64,
-                           max_particles=64, initialized=True,
+                           num_particles=n, min_particles=n,
+                           max_particles=n, initialized=True,
                            initial_pose=(0.0, 0.0, 0.0))
+        assert cfg.use_mh
         table = _sensor_table(tm, cfg)
         assert isinstance(table, TableLevels)
-        assert table.index.dtype == dtype and table.table is None
+        if dtype is None:
+            assert table.index is None and table.levels is None
+            assert table.table.dtype == torch.float32
+        else:
+            assert table.index.dtype == dtype and table.table is None
         model = make_model(cfg, tm)
         angles = _t(_angles(24))
         ranges = torch.full((24,), 4.0)

@@ -48,7 +48,12 @@
    and, at the end, its launches per scan on each path.  Every line with a
    time names the card and its power limit.  Then the sizes the kernels
    refused before the size-limit repairs, each ``torch.equal`` to its
-   plain version and timed: kernel 7 at the fine and coarse builds of
+   plain version and timed: the bin slices a D-rank theta-sharded build
+   runs (D = 2, 4 and 8, where D divides the bins): kernel 1 at BIG (120
+   bins) and SMALL (32), kernel 7 at the beam point's fine and coarse
+   builds (24 bins each), every rank's slice ``torch.equal`` to the full
+   build's rows, rank 0's timed (kernel 1's beside its conv2d yardstick);
+   kernel 7 at the fine and coarse builds of
    ``FilterConfig(sensor_model="beam", corr_window_cells=128)`` at its
    defaults (360 table bins, summed in chunks of bins), kernel 6 at 2 x 100k poses on 2160- and 4096-beam
    scans in both cell forms, form (a) at 2 x 20k poses on a 2160-beam
@@ -134,6 +139,20 @@
    under 0.25 m, the exact scorer, ``gather_2d`` and the expansion
    launched), each with its ms/scan by the host clock; ``warmup_staged``
    timed, the generator's state unchanged.
+   ``[dist]``: the multi-rank filter (``parallel/distributed.py``,
+   ``parallel/sharding.py``, ``filter/staged.py::make_staged_dist_model``)
+   on an NCCL process group of one rank in this process, at full width:
+   the [single] flagship at 1M through ``make_dist_model``, the [main]
+   configuration through ``make_staged_dist_model`` (the hand-off cycle
+   big -> shrink -> small -> grow -> big, kept rows bitwise, then
+   ``run_staged`` over 16 + 16 scans), [beam]'s field point and
+   [lidar3d]'s point through ``make_dist_model`` (each one lap settled,
+   one timed: ms/scan and the collectives a scan beside the
+   single-program run, final error under 0.2 m), ``make_sharded_model``
+   at (B)'s 100k "jnp" point ``torch.equal`` to ``make_model``'s steps,
+   and ``graft_entry.dryrun_multichip(1)`` on a group started with no
+   backend named, whose mesh and rank device must be the card's.  A run
+   with more than one rank needs a machine with more than one card.
 9. Prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` as
    the last line.
 
@@ -750,7 +769,34 @@ def compare_kernels(gm, cfg, small_cfg, log_field, ranges, angles, rows):
     oys = torch.where(oys >= zb, side, oys).to(torch.int32).contiguous()
     small_row, field_small = field_build_row("SMALL", padded_small, oxs, oys,
                                              win, win, m, lmax)
-    rows.append({**field_row, "shapes": [small_row]})
+    from mcmh_localization_tpu_torch.ops.corr_field_build import (
+        corr_field_build,
+        corr_field_build_plain,
+    )
+
+    slices = []
+    for tag, pd, bx, by, fh, fw, field, row in (
+            ("BIG", padded_big, ox, oy, h, w, field_big, field_row),
+            ("SMALL", padded_small, oxs, oys, win, win, field_small,
+             small_row)):
+
+        def calls(b0, n, pd=pd, bx=bx, by=by, fh=fh, fw=fw):
+            # the slice's offset rows, copied once; its valid beams count
+            # the operations and the conv2d yardstick's kernel, as in
+            # field_build_row
+            sx = bx[b0:b0 + n].contiguous()
+            sy = by[b0:b0 + n].contiguous()
+            live = sy < pd.shape[0] - fh
+            conv = conv_field_call(pd[:pd.shape[0] - fh], sx, sy, live, fh, fw)
+            return (lambda: corr_field_build(pd, sx, sy, fh, fw),
+                    lambda: corr_field_build_plain(pd, sx, sy, fh, fw),
+                    (conv, "conv2d", 1e-5 * m * lmax),
+                    float(live.sum()) * fh * fw,
+                    4.0 * (pd.numel() + 2 * sx.numel() + n * fh * fw))
+
+        slices += bin_slice_rows("corr_field_build", tag, field, bx.shape[0],
+                                 row, calls)
+    rows.append({**field_row, "shapes": [small_row] + slices})
 
     # kernel 2: lookups of 2 x n poses (the MH step scores both sets in one
     # call); each pose reads one field value
@@ -1268,6 +1314,53 @@ def lut_field_row(tag, qt, s):
         chunks=chunks), out
 
 
+# the mesh sizes whose bin slices [kernel] times: a D-rank theta-sharded
+# build (models/range_table.py::_sharded_bin_stack) runs one slice a rank
+SLICE_RANKS = (2, 4, 8)
+
+
+def bin_slice_rows(name, tag, full, k, full_row, calls) -> list:
+    """The bin slices a D-rank build runs, for each D in SLICE_RANKS that
+    divides the ``k`` bins: every rank's slice ``torch.equal`` to the same
+    rows of the full build ``full``; rank 0's slice, its plain version and
+    its library call (where there is one, held to the kernel within its
+    tolerance) timed beside its bound and the full build's share of its
+    bound.  ``calls(b0, n)`` slices the inputs to bins [b0, b0 + n) once,
+    so that a timed call launches the kernel alone, and gives (kernel
+    call, plain call, (library call, its name, tolerance) or None, ops,
+    bytes)."""
+    out = []
+    for d in SLICE_RANKS:
+        if k % d:
+            continue
+        kd = k // d
+        for r in range(d):
+            check(torch.equal(calls(r * kd, kd)[0](),
+                              full[r * kd:(r + 1) * kd]),
+                  f"{name} {tag} bins [{r * kd}, {(r + 1) * kd}) of {k}: "
+                  "the slice != the full build's rows")
+        kernel, plain, library, ops, nbytes = calls(0, kd)
+        lib_ms = lib = None
+        if library is not None:
+            lib_call, lib_name, tol = library
+            lerr = float((lib_call() - kernel()).abs().max())
+            check(lerr <= tol, f"{lib_name} yardstick {name} {tag} D={d}: "
+                  f"max abs err {lerr} > {tol}")
+            lib_ms, lib = device_ms(lib_call, runs=5), f"{lib_name}, err {lerr:.3g}"
+        row = kernel_row(
+            name, full_row["source"][len(SRC):], full_row["replaces"],
+            f"{tag} slice of D={d}: {kd} of {k} bins", err=0.0,
+            ms=device_ms(kernel), plain_ms=device_ms(plain), ops=ops,
+            nbytes=nbytes, library_ms=lib_ms, library=lib)
+        print(f"[kernel] {name} {tag} D={d}: every rank's {kd}-bin slice "
+              f"torch.equal to the full build's rows; rank 0's "
+              f"{row['ms']:.4f} ms ({row['pct_of_bound']:.1f}% of its bound) "
+              f"beside the full build's {full_row['ms']:.4f} ms "
+              f"({full_row['pct_of_bound']:.1f}%) on {nvidia_smi_line()}")
+        out.append(row)
+    return out
+
+
 def compare_beam_kernel(gm, beam_model, ranges, angles, rows):
     """Phase 3 for kernel 7: the LUT field at the beam path's fine and
     coarse builds, on the path's own quantized table and per-scan LUT."""
@@ -1285,10 +1378,23 @@ def compare_beam_kernel(gm, beam_model, ranges, angles, rows):
     valid = torch.isfinite(ranges) & (ranges < cfg.max_range)
     win, tw = cfg.corr_window_cells, cfg.corr_theta_window_bins
     ox0, oy0, kstart = start_window(gm, k, win, tw)
+    from mcmh_localization_tpu_torch.ops.beam_field import (
+        lut_field,
+        lut_field_plain,
+    )
+
     lut_rows, fields = [], []
     for tag, qt, s in lut_inputs(gm, beam_model, ranges, angles):
         row, out = lut_field_row(tag, qt, s)
-        lut_rows.append(row)
+        b, kk, nq = s.shape
+        c = qt.shape[1]
+        def calls(b0, n, qt=qt, s=s, kk=kk, nq=nq, c=c):
+            sb = s[b0:b0 + n]   # leading rows: a contiguous view
+            return (lambda: lut_field(qt, sb), lambda: lut_field_plain(qt, sb),
+                    None, n * kk * c, kk * c + 4 * (n * kk * nq + n * c))
+
+        lut_rows += [row] + bin_slice_rows("lut_field", tag, out, b, row,
+                                           calls)
         fields.append(out)
     rows.append({**lut_rows[0], "shapes": lut_rows[1:]})
 
@@ -2000,6 +2106,215 @@ def drive_eval(cfg, gm, smi, reset, counts) -> list:
     return launches
 
 
+def start_world_of_one(backend="nccl") -> None:
+    """[dist]'s process group: one rank on ``cuda:0``, in this process (a
+    ``HashStore``: no port, no other process); NCCL, or with ``backend``
+    None what ``init_process_group`` picks when none is named."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1)
+
+
+def end_world() -> None:
+    """Destroy the process group if one is up."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def collectives_line(counts: dict, scans: int) -> str:
+    """Calls and bytes a scan of each collective (``parallel/distributed.
+    py::collective_counts`` over ``scans`` scans)."""
+    return ", ".join(f"{k} {c / scans:.2f} calls {b / scans:.0f} B"
+                     for k, (c, b, _) in sorted(counts.items()))
+
+
+def drive_dist(gm, cfg, single_cfg, beam_cfg, lidar, scans, angles, deltas,
+               smi, timed, final_error, add_counts, to_profile, ref_ms):
+    """[dist]: the multi-rank filter over ``torch.distributed`` on an NCCL
+    group of one rank (``start_world_of_one``), at full width: (1) the
+    [single] flagship through ``make_dist_model``, (2) the [main]
+    configuration through ``make_staged_dist_model`` (the hand-off cycle
+    big -> shrink -> small -> grow -> big, each kept row bitwise, then
+    ``run_staged`` over 16 + 16 scans), (3) [beam]'s field point and (4)
+    [lidar3d]'s through ``make_dist_model``, each with ms/scan by CUDA
+    events and the collectives a scan beside its single-program run
+    (``ref_ms``); (5) ``make_sharded_model`` at (B)'s 100k "jnp" point
+    ``torch.equal`` to ``make_model``'s steps; (6) is ``drive_dryrun``.
+    Gates: (1)-(4) end under 0.2 m."""
+    from mcmh_localization_tpu_torch.config import FilterConfig
+    from mcmh_localization_tpu_torch.filter.staged import (
+        make_staged_dist_model,
+        run_staged,
+    )
+    from mcmh_localization_tpu_torch.filter.state import copy_generator
+    from mcmh_localization_tpu_torch.filter.step import make_model, state_size
+    from mcmh_localization_tpu_torch.ops import _cuda
+    from mcmh_localization_tpu_torch.parallel import distributed
+    from mcmh_localization_tpu_torch.parallel.sharding import (
+        make_mesh,
+        make_sharded_model,
+        shard_state,
+    )
+
+    vm, nav, lidar_cfg, directions, lscans = lidar
+    start_world_of_one()
+    mesh = make_mesh()
+    print(f"[dist] NCCL process group of {mesh.size()} rank on "
+          f"{torch.cuda.get_device_name(0)}; mesh {tuple(mesh.shape)} "
+          f"'{mesh.mesh_dim_names[0]}'")
+    # the host cost of one collective: 200 psums of a scalar (in place: a
+    # sum over one rank leaves it as it is), synchronized once
+    one = torch.zeros((), device="cuda")
+    distributed.psum(one, mesh.get_group())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        distributed.psum(one, mesh.get_group())
+    torch.cuda.synchronize()
+    print(f"[dist] host clock a call over 200 calls: psum of a scalar "
+          f"{(time.perf_counter() - t0) / 200 * 1e6:.1f} us on {smi}")
+
+    def run(tag, path, model, ref, seq=None, ang=None, need=()):
+        """Settle one lap, then time one: (state, ms/scan); the launches
+        of both laps counted as ``path``'s, the collectives of the timed
+        lap printed."""
+        _cuda.reset_launch_counts()
+        st, _, ms_settle = timed(model, model.init(0), 1, seq, ang)
+        distributed.reset_collective_counts()
+        st, infos, ms = timed(model, st, 1, seq, ang)
+        coll = distributed.collective_counts()
+        err = final_error(infos)
+        c = _cuda.launch_counts()
+        add_counts(path, c, 2 * SCAN_LEN)
+        print(f"[dist] {tag} (n_max={state_size(model.config)}): {ms:.4f} "
+              f"ms/scan over {SCAN_LEN} timed scans (settle {ms_settle:.4f}) "
+              f"beside {ref:.4f} single-program on {smi}; final error "
+              f"{err:.4f} m; collectives a scan: "
+              f"{collectives_line(coll, SCAN_LEN)}; launches {c}")
+        check(err < 0.2, f"[dist] {tag}: final error {err:.3f} m >= 0.2 m")
+        for name in need:
+            check(c.get(name, 0) >= 2 * SCAN_LEN,
+                  f"[dist] {tag}: {name} not launched every scan")
+        return st, ms
+
+    # (1) the 1M flagship, windowed corr with the coarse fallback
+    model = distributed.make_dist_model(single_cfg, gm, mesh)
+    st, ms = run("flagship", "dist_single", model, ref_ms["single"],
+                 need=("corr_field_build", "window_score"))
+    to_profile.append(("dist_single", model, st, ms))
+    del model, st
+
+    # (2) the staged main path: the hand-off cycle, then run_staged
+    staged = make_staged_dist_model(cfg, gm, mesh)
+    cap_l, big_l = staged.small.nl, staged.big.nl
+    big, _ = staged.big.step(staged.init(0), scans[0], angles, deltas[0])
+    small = staged.shrink(big)
+    check(small.particles.shape[0] == cap_l
+          and torch.equal(small.particles, big.particles[:cap_l])
+          and torch.equal(small.weights, big.weights[:cap_l]),
+          "[dist] shrink did not keep the rank's first cap rows bitwise")
+    small, _ = staged.small.step(small, scans[1], angles, deltas[1])
+    back = staged.grow(small)
+    check(back.particles.shape[0] == big_l
+          and torch.equal(back.particles[:cap_l], small.particles)
+          and not back.particles[cap_l:].any() and not back.weights[cap_l:].any(),
+          "[dist] grow did not keep the rows and zero the tail")
+    _, info = staged.big.step(back, scans[2], angles, deltas[2])
+    check(bool(torch.isfinite(info.estimate.mean).all()),
+          "[dist] the hand-off cycle's estimate is not finite")
+    print(f"[dist] staged hand-off cycle: big ({big_l} rows, count "
+          f"{int(big.count)}) -> shrink ({cap_l}) -> small -> grow -> big; "
+          "the kept rows bitwise, the grown tail zero")
+    _cuda.reset_launch_counts()
+    out, run_ms = once_ms(lambda: run_staged(
+        staged, staged.init(0), scans.repeat(2, 1), angles,
+        deltas.repeat(2, 1), chunk=SCAN_LEN))
+    err = final_error(out.infos)
+    add_counts("dist_staged", _cuda.launch_counts(), 2 * SCAN_LEN)
+    print(f"[dist] staged run_staged: {2 * SCAN_LEN} scans in "
+          f"{run_ms / 1e3:.2f} s, modes={out.modes.tolist()} switches="
+          f"{out.switches}; final error {err:.4f} m")
+    check(err < 0.2, f"[dist] staged: final error {err:.3f} m >= 0.2 m")
+    small = out.state if out.modes[-1] == 1 else staged.shrink(out.state)
+    for tag, prog, st0, ref in (
+            ("staged SMALL", staged.small, small, ref_ms["small"]),
+            ("staged BIG", staged.big, staged.grow(small), ref_ms["big"])):
+        _cuda.reset_launch_counts()
+        distributed.reset_collective_counts()
+        st, infos, ms = timed(prog, st0, 1)
+        final_error(infos)
+        c = _cuda.launch_counts()
+        add_counts("dist_staged", c, SCAN_LEN)
+        print(f"[dist] {tag} (n_max={state_size(prog.config)}): {ms:.4f} "
+              f"ms/scan over {SCAN_LEN} scans beside {ref:.4f} single-program "
+              f"on {smi}; collectives a scan: "
+              f"{collectives_line(distributed.collective_counts(), SCAN_LEN)}; "
+              f"launches {c}")
+        to_profile.append((f"dist_{tag.split()[1].lower()}", prog, st, ms))
+    del staged, out, small, big, back
+
+    # (3) the beam point and (4) the 3-D lidar
+    model = distributed.make_dist_model(beam_cfg, gm, mesh)
+    st, ms = run("beam field", "dist_beam", model, ref_ms["beam"],
+                 need=("lut_field", "window_score"))
+    to_profile.append(("dist_beam", model, st, ms))
+    model = distributed.make_dist_model(lidar_cfg, nav, mesh, voxel_map=vm)
+    st, ms = run("lidar3d", "dist_lidar3d", model, ref_ms["lidar3d"], lscans,
+                 directions, need=("voxel_scores",))
+    to_profile.append(("dist_lidar3d", model, st, ms, lscans, directions))
+    del model, st
+
+    # (5) the GSPMD twin at (B)'s 100k point: make_model's steps bitwise
+    cfg_b = FilterConfig(mode="AMHAMCL", initialized=True, initial_pose=START,
+                         likelihood_impl="jnp", num_particles=100_000,
+                         min_particles=100_000, max_particles=100_000)
+    single = make_model(cfg_b, gm)
+    sharded = make_sharded_model(cfg_b, gm, mesh)
+    s1 = single.init(0)
+    s2 = shard_state(s1.replace(key=copy_generator(s1.key)), mesh)
+    _cuda.reset_launch_counts()
+    for t in range(4):
+        s1, i1 = single.step(s1, scans[t], angles, deltas[t])
+        s2, i2 = sharded.step(s2, scans[t], angles, deltas[t])
+        check(torch.equal(s1.particles, s2.particles)
+              and torch.equal(s1.weights, s2.weights)
+              and torch.equal(i1.estimate.mean, i2.estimate.mean),
+              f"[dist] make_sharded_model step {t} != make_model's")
+    add_counts("dist_sharded", _cuda.launch_counts(), 8)
+    print(f"[dist] make_sharded_model (n={cfg_b.num_particles}, 'jnp'): 4 "
+          "steps torch.equal to make_model's (particles, weights, estimate)")
+    del single, sharded, s1, s2
+
+
+def drive_dryrun() -> None:
+    """[dist] (6): ``graft_entry.dryrun_multichip(1)``'s five parts on a
+    group started with no backend named (a backend a device type, which
+    torch names "cpu:gloo,cuda:nccl" or "undefined"), whose mesh
+    and rank device must be the card's.  It ends (1)-(5)'s NCCL group, so
+    it runs after the profiles of their models, which hold that group."""
+    import torch.distributed as dist
+
+    from mcmh_localization_tpu_torch import graft_entry
+    from mcmh_localization_tpu_torch.parallel.sharding import (
+        make_mesh,
+        rank_device,
+    )
+
+    end_world()
+    start_world_of_one(backend=None)
+    backend = dist.get_backend()
+    check(make_mesh().device_type == "cuda"
+          and rank_device() == torch.device("cuda", 0),
+          f"[dist] a {backend!r} group gave a mesh or device off the card")
+    print(f"[dist] a group with no backend named ({backend!r}): mesh and "
+          "rank device on cuda:0")
+    graft_entry.dryrun_multichip(1)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None,
@@ -2134,6 +2449,7 @@ def main(argv=None) -> int:
         return float(np.hypot(e[-1, 0] - poses[-1, 0], e[-1, 1] - poses[-1, 1]))
 
     to_profile = []
+    ref_ms = {}  # single-program ms/scan that [dist]'s runs print beside
 
     stamps.append(("main", time.perf_counter()))
     # -- 4. the staged main path
@@ -2177,6 +2493,7 @@ def main(argv=None) -> int:
         check(path_counts["main"].get(name, 0) > 0, f"[main] {name} never launched")
     to_profile += [("small", staged.small, small_state, ms_small),
                    ("big", staged.big, big_state, ms_big)]
+    ref_ms.update(small=ms_small, big=ms_big)
     del staged, out, big_state
 
     stamps.append(("online", time.perf_counter()))
@@ -2215,6 +2532,7 @@ def main(argv=None) -> int:
           f"[single] {builds} field builds in {n_scans} scans: the coarse "
           "build did not run every scan")
     to_profile.append(("single", single, st, ms_single))
+    ref_ms["single"] = ms_single
     del single
     for tag, cfg_x in (
             ("kld_adaptive", single_cfg.replace(min_particles=100_000)),
@@ -2314,6 +2632,7 @@ def main(argv=None) -> int:
               f"[beam] {tag}: window_score not launched every scan")
         if tag == "field":
             to_profile.append(("beam", model, st, ms_x))
+            ref_ms["beam"] = ms_x
         del model, st
     del beam
     _cuda.reset_launch_counts()
@@ -2473,6 +2792,7 @@ def main(argv=None) -> int:
     check(c.get("voxel_scores", 0) >= 2 * SCAN_LEN,
           "[lidar3d] voxel_scores not launched every scan")
     to_profile.append(("lidar3d", lidar, st, ms_lidar, lscans, directions))
+    ref_ms["lidar3d"] = ms_lidar
     # form (b) on the cloud the filter scores on a tracked scan, in its slot
     # order (the step after the timed lap: the truth at the circle's start)
     from mcmh_localization_tpu_torch.models.sensor3d import (
@@ -2511,6 +2831,21 @@ def main(argv=None) -> int:
     print(f"[eval] kernel launches: staged {path_counts['eval']}, "
           f"FilterConfig() {path_counts['eval_exact']}")
 
+    stamps.append(("dist", time.perf_counter()))
+    # -- 8b. the multi-rank filter on an NCCL group of one rank
+    drive_dist(gm, cfg, single_cfg, beam_cfg,
+               (vm, nav, lidar_cfg, directions, lscans), scans, angles,
+               deltas, smi, timed, final_error, add_counts, to_profile,
+               ref_ms)
+    dist_counts = {p: c for p, c in path_counts.items()
+                   if p.startswith("dist_")}
+    print(f"[dist] kernel launches: {dist_counts}")
+    for name in ("corr_field_build", "corr_lookup", "window_score",
+                 "expand_sorted", "lut_field", "voxel_scores",
+                 "likelihood_scores", "gather_2d"):
+        check(any(c.get(name, 0) for c in dist_counts.values()),
+              f"[dist] {name} never launched")
+
     for row in rows:
         row["launches"] = sum(c.get(row["name"], 0)
                               for c in path_counts.values())
@@ -2545,6 +2880,8 @@ def main(argv=None) -> int:
             averages = prof.key_averages()
             (pdir / f"{tag}_profile.txt").write_text(averages.table(
                 sort_by="self_device_time_total", row_limit=80))
+            (pdir / f"{tag}_host.txt").write_text(averages.table(
+                sort_by="self_cpu_time_total", row_limit=40))
             cummax = sorted({e.key for e in averages if "cummax" in e.key})
             check(not cummax, f"[profile] {tag}: a cummax ran: {cummax}")
             trace = pdir / f"{tag}_trace.json"
@@ -2559,6 +2896,17 @@ def main(argv=None) -> int:
                   f"{ms:.4f} ms/scan unprofiled -> idle share "
                   f"{1 - busy / ms:.3f} on {smi}; no cummax ran; wrote "
                   f"{pdir}/{tag}_*")
+            # the host's own time a scan under the profiler, and the ops
+            # that hold most of it (calls a scan, host ms a scan)
+            host = sorted(averages, key=lambda e: -e.self_cpu_time_total)
+            total = sum(e.self_cpu_time_total for e in averages)
+            print(f"[profile] {tag}: host self time {total / 1e3 / SCAN_LEN:.4f}"
+                  " ms/scan, most in " + ", ".join(
+                      f"{e.key} {e.count / SCAN_LEN:.1f}x "
+                      f"{e.self_cpu_time_total / 1e3 / SCAN_LEN:.4f}"
+                      for e in host[:6]))
+
+    drive_dryrun()
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -2581,4 +2929,8 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        end_world()
+    sys.exit(code)

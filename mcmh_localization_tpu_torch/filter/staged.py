@@ -18,6 +18,7 @@ docstring for the measured rationale of each choice.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -39,9 +40,15 @@ class StagedModel(NamedTuple):
     config: object          # the BIG config
     small_config: object    # capacity-reduced twin
     grid_map: object
-    big: FilterModel
+    big: FilterModel        # or a DistModel (make_staged_dist_model)
     small: FilterModel
     init: object
+    # the hand-offs; None = shrink_state / grow_state on the whole state.
+    # make_staged_dist_model installs per-rank ones: each island is
+    # prefix-packed after its own resample, so every rank's rows are
+    # sliced or padded, not the global prefix
+    shrink: object = None
+    grow: object = None
 
 
 def default_tracking_capacity(config) -> int:
@@ -154,6 +161,65 @@ def _staged_configs(
     return big_config, small_config
 
 
+def make_staged_dist_model(
+    config,
+    grid_map,
+    mesh,
+    axis: str = "data",
+    tracking_capacity: int | None = None,
+    voxel_map=None,
+    global_scoring: str = "full",
+    tracking_theta_bins: int | None = None,
+    tracking_window_cells: int | None = None,
+    migration_fraction: float = 0.125,
+    global_score_aggregation: str | None = "sum",
+) -> StagedModel:
+    """Staged execution over a mesh: both programs are
+    ``parallel/distributed.py`` models over the same mesh, and the hand-off
+    resizes each rank's rows with no collective (JAX :270-356).
+
+    The island KLD packs each island's active particles into its own
+    prefix, and the count stays a multiple of D with every island the same
+    size, so count <= cap means count / D <= cap / D on every rank: slicing
+    cap / D rows off every rank keeps every active particle, and growing
+    zero-pads every rank's tail.  ``tracking_ess_threshold`` is absent: the
+    distributed step always resamples.  The counts and the capacity are
+    rounded to multiples of the mesh size."""
+    from mcmh_localization_tpu_torch.parallel.distributed import (
+        make_dist_model,
+        round_counts,
+        round_up,
+    )
+
+    config = round_counts(config, mesh.size())
+    cap = round_up(tracking_capacity or default_tracking_capacity(config),
+                   mesh.size())
+    big_config, small_config = _staged_configs(
+        config, cap, global_scoring, None, tracking_theta_bins,
+        tracking_window_cells, global_score_aggregation,
+    )
+    big = make_dist_model(big_config, grid_map, mesh, axis=axis,
+                          migration_fraction=migration_fraction,
+                          voxel_map=voxel_map)
+    small = make_dist_model(small_config, grid_map, mesh, axis=axis,
+                            migration_fraction=migration_fraction,
+                            voxel_map=voxel_map)
+    return StagedModel(
+        config=big.config, small_config=small.config, grid_map=grid_map,
+        big=big, small=small, init=big.init,
+        shrink=_shard_handoff(big.nl, small.nl),
+        grow=_shard_handoff(small.nl, big.nl),
+    )
+
+
+def _shard_handoff(nl_in: int, nl_out: int):
+    """The per-rank resize of ``nl_in`` rows to ``nl_out``: the
+    single-device slice or zero pad, on this rank's rows alone."""
+    if nl_out <= nl_in:
+        return functools.partial(shrink_state, cap=nl_out)
+    return functools.partial(grow_state, n_big=nl_out)
+
+
 def shrink_state(state: FilterState, cap: int) -> FilterState:
     """BIG -> SMALL: exact prefix slice (the active particles occupy slots
     [0, count) after the KLD resample).  Copies, so the BIG arrays free."""
@@ -204,6 +270,18 @@ def next_stage(
     )
 
 
+def _handoff_fns(model: StagedModel):
+    """(shrink, grow, the SMALL program's rows on this rank) of ``model``:
+    the factory-installed per-rank callables, else the slice and pad to
+    the programs' rows, a distributed program's ``nl`` (JAX's global
+    shape is the whole state, the rank's is 1 / D of it)."""
+    small_rows = getattr(model.small, "nl", state_size(model.small_config))
+    big_rows = getattr(model.big, "nl", state_size(model.config))
+    shrink = model.shrink or functools.partial(shrink_state, cap=small_rows)
+    grow = model.grow or functools.partial(grow_state, n_big=big_rows)
+    return shrink, grow, small_rows
+
+
 class StagedRun(NamedTuple):
     state: FilterState
     infos: StepInfo        # stacked over all T scans
@@ -229,8 +307,9 @@ def warmup_staged(model: StagedModel, state: FilterState, ranges_seq,
     sizes = {min(chunk, t_total)}
     if t_total % chunk:
         sizes.add(t_total % chunk)
-    small_state = shrink_state(state, state_size(model.small_config))
-    grow_state(small_state, state_size(model.config))
+    shrink, grow, _ = _handoff_fns(model)
+    small_state = shrink(state)
+    grow(small_state)
     for tc in sorted(sizes):
         for st, m in ((state, model.big), (small_state, model.small)):
             m.run(st.replace(key=copy_generator(state.key)),
@@ -252,14 +331,16 @@ def run_staged(
     escalate_mass: float = 0.35,
 ) -> StagedRun:
     """Host-staged trajectory run; returns per-scan infos plus the program
-    trace."""
+    trace.  Under a mesh, ``next_stage`` reads the psum'd infos, the same
+    on every rank, so every rank switches together."""
     cap = state_size(model.small_config)
-    n_big = state_size(model.config)
+    shrink, grow, small_rows = _handoff_fns(model)
     dev = model.grid_map.device
     ranges_seq = as_f32(ranges_seq, dev)
     deltas = as_f32(deltas, dev)
     t_total = ranges_seq.shape[0]
-    in_small = state.particles.shape[0] == cap
+    # the rank's rows: the JAX global shape is cap, the local one cap / D
+    in_small = state.particles.shape[0] == small_rows
 
     infos_chunks = []
     modes = np.zeros(t_total, np.int8)
@@ -280,10 +361,10 @@ def run_staged(
             shrink_mass=shrink_mass, escalate_mass=escalate_mass,
         )
         if nxt and not in_small:
-            state = shrink_state(state, cap)
+            state = shrink(state)
             switches += 1
         elif in_small and not nxt:
-            state = grow_state(state, n_big)
+            state = grow(state)
             switches += 1
         in_small = nxt
         t += tc

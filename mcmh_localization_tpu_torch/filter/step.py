@@ -239,13 +239,15 @@ def _resolved_impl(config, device) -> str:
 
 
 def _make_scorer(ranges, angles, grid_map, table, config, impl,
-                 window_origin):
+                 window_origin, shard_group=None):
     """The scorer for the resolved ``impl`` on the sensor ``table``
     (``_sensor_table``): the 3-D lidar's (``angles`` (M, 2): azimuth and
     elevation); the beam score field (with the window origin), the
     range-table or ray-march beam scorer; corr (with the window origin,
     when windowed) or the exact scorer in the "jnp" (divide) or "pallas"
-    (multiply) cell form."""
+    (multiply) cell form.  ``shard_group``: the process group over which
+    the corr and beam fields build their theta bins
+    (``parallel/distributed.py``)."""
     if impl == "lidar3d":
         def score(p):
             return lidar3d_scores(p, ranges, angles, table.voxel_map, config,
@@ -256,7 +258,8 @@ def _make_scorer(ranges, angles, grid_map, table, config, impl,
         def score(p):
             return beam_field_scores(p, ranges, angles, grid_map, config,
                                      table, config.beam_table_n_theta,
-                                     window_origin)
+                                     window_origin,
+                                     shard_bins_axis=shard_group)
         return score
     if impl == "table":
         def score(p):
@@ -280,7 +283,8 @@ def _make_scorer(ranges, angles, grid_map, table, config, impl,
         def score(p):
             return correlation_field_scores(
                 p, ranges, angles, grid_map, config, log_field=table,
-                n_theta=config.corr_n_theta, window_origin=window_origin)
+                n_theta=config.corr_n_theta, window_origin=window_origin,
+                shard_bins_axis=shard_group)
         return score
 
     def score(p):

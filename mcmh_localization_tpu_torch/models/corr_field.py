@@ -33,6 +33,7 @@ from mcmh_localization_tpu_torch.models.sensor import (
     INVALID_SCORE,
     log_likelihood_field,
 )
+from mcmh_localization_tpu_torch.models.range_table import _sharded_bin_stack
 from mcmh_localization_tpu_torch.ops.corr_field_build import corr_field_build
 from mcmh_localization_tpu_torch.ops.fused_score import (
     WindowGeometry,
@@ -164,6 +165,7 @@ def correlation_field_scores(
     window_origin: tuple | None = None,  # (oy0, ox0[, kstart]) python ints
     offsets: tuple | None = None,
     coarse_offsets: tuple | None = None,
+    shard_bins_axis=None,  # a process group: the theta-sharded build
 ) -> torch.Tensor:
     """(N,) per-particle scores via one field read each; the same
     normalization, blind penalty, coarse fallback and motion-validity fold
@@ -171,7 +173,14 @@ def correlation_field_scores(
 
     ``offsets``: optional (ox, oy) from ``_bin_offsets`` (global zero-band
     row), and ``coarse_offsets`` the coarse field's, to score with offsets
-    computed elsewhere."""
+    computed elsewhere.
+
+    ``shard_bins_axis``: a process group over whose ranks the field builds
+    its theta bins (``models/range_table.py::_sharded_bin_stack``: rank r
+    builds its bins from its rows of ``ox``/``oy``, one all_gather
+    assembles the stack; JAX :299-309).  The coarse fallback stays a local
+    build, as in JAX, so its escapee gate stays the rank's own: the gated
+    build holds no collective."""
     if log_field is None:
         log_field = log_likelihood_field(grid_map, config)
     if config.step > 1:
@@ -215,8 +224,12 @@ def correlation_field_scores(
         padded = torch.cat([padded0,
                             torch.zeros((h, padded0.shape[1]), device=dev)])
         occ_win = grid_map.occupancy
-    field = corr_field_build(padded.contiguous(), ox.contiguous(),
-                             oy.to(torch.int32).contiguous(), fh, fw)
+    padded = padded.contiguous()
+    oy = oy.to(torch.int32)
+    field = _sharded_bin_stack(
+        lambda b, n: corr_field_build(padded, ox[b:b + n].contiguous(),
+                                      oy[b:b + n].contiguous(), fh, fw),
+        nbins, shard_bins_axis)
 
     n_valid = valid.sum().to(torch.int32)
     score_validity = config.motion_validity == "score"

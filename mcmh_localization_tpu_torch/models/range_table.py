@@ -158,6 +158,29 @@ def table_cell_major(table: torch.Tensor) -> torch.Tensor:
     return table.permute(1, 2, 0).reshape(h * w, k).contiguous()
 
 
+def _sharded_bin_stack(build_bins, nbins: int, group) -> torch.Tensor:
+    """A (nbins, ...) per-theta-bin stack from ``build_bins(start, n)``
+    (bins [start, start + n)), theta-sharded over the process ``group``
+    when one is given (JAX :194-210): rank r builds bins [r * nbins / D,
+    (r + 1) * nbins / D) and one tiled all_gather puts the stack back
+    together.  Each bin is built on its own, so the stack is the local
+    build's, bit for bit.  Where D does not divide the bin count, every
+    rank builds the whole stack, as JAX does."""
+    if group is None:
+        return build_bins(0, nbins)
+    from mcmh_localization_tpu_torch.parallel.distributed import (
+        all_gather_tiled,
+        axis_index,
+        axis_size,
+    )
+
+    n_dev = axis_size(group)
+    if nbins % n_dev or nbins < n_dev:
+        return build_bins(0, nbins)
+    kd = nbins // n_dev
+    return all_gather_tiled(build_bins(axis_index(group) * kd, kd), group)
+
+
 def _beam_lut(safe_r, valid, dvals, config) -> torch.Tensor:
     """(M, nq) per-beam log mixture at each quantized range value (JAX
     :213-230); invalid beams carry 0."""
@@ -268,16 +291,17 @@ def coarse_lut_inputs(lp, angles, tables: BeamTables, config, n_theta: int):
 
 
 def _beam_coarse_field(lp, count, angles, grid_map, tables: BeamTables,
-                       config, n_theta: int) -> torch.Tensor:
+                       config, n_theta: int, shard_group=None) -> torch.Tensor:
     """(kc, hc, wc) coarse full-map fallback field (JAX :284-374): the
     block-centre cells of ``qtc`` evaluated by the LUT kernel with no block
-    max; blocks without a free cell take the invalid penalty under
-    motion_validity="score"."""
+    max, its bins sharded over ``shard_group`` when given; blocks without a
+    free cell take the invalid penalty under motion_validity="score"."""
     f = config.corr_coarse_factor
     kc = config.corr_coarse_n_theta
     _, hc, wc = tables.qtc.shape
-    cfield = lut_field(*coarse_lut_inputs(lp, angles, tables, config, n_theta)
-                       ).reshape(kc, hc, wc)
+    qc, sc = coarse_lut_inputs(lp, angles, tables, config, n_theta)
+    cfield = _sharded_bin_stack(lambda b, n: lut_field(qc, sc[b:b + n]), kc,
+                                shard_group).reshape(kc, hc, wc)
     if config.motion_validity == "score":
         occ = grid_map.occupancy
         h, w = occ.shape
@@ -317,6 +341,7 @@ def beam_field_scores(
     n_theta: int,
     window_origin: tuple,   # (oy0, ox0[, kstart]) python ints
     impl: str = "auto",     # "auto" | "lut" | "dense"
+    shard_bins_axis=None,   # a process group: theta-sharded builds
 ) -> torch.Tensor:
     """(N,) beam-model scores through a per-scan score field (JAX
     :397-750): the field over the window (``corr_window_cells``, and the
@@ -328,7 +353,13 @@ def beam_field_scores(
     beam's mixture on the range-table window, the JAX CPU form.  In-map
     window escapees read the coarse fallback field when
     ``corr_coarse_factor > 0``, its build gated on
-    ``coarse_gate_escapees`` in-map escapees, else take BLIND_SCORE."""
+    ``coarse_gate_escapees`` in-map escapees, else take BLIND_SCORE.
+
+    ``shard_bins_axis``: a process group over whose ranks the fine and
+    coarse fields build their theta bins (``_sharded_bin_stack``).  Under
+    sharding the coarse build is never gated: it holds an all_gather, and
+    the escapee count is each rank's own, so a rank skipping the build
+    while another enters it would hang the group (JAX :621-627)."""
     tables = as_beam_tables(table, config)
     dev = particles.device
     if config.step > 1:
@@ -349,24 +380,32 @@ def beam_field_scores(
 
     lp = _beam_lut(safe_r, valid, tables.dvals, config)
     if impl in ("auto", "lut"):
-        field = lut_field(*fine_lut_inputs(
-            tables, lp, angles, n_theta, (oy0, ox0, kstart), win, nbins,
-            use_theta_win)).reshape(nbins, win, win)
+        qw, s_mat = fine_lut_inputs(tables, lp, angles, n_theta,
+                                    (oy0, ox0, kstart), win, nbins,
+                                    use_theta_win)
+
+        def build_bins(b0, n):
+            return lut_field(qw, s_mat[b0:b0 + n])
     elif impl == "dense":
         rw = tables.table[:, oy0:oy0 + win, ox0:ox0 + win]
         g = _field_bins(kstart, nbins, angles, n_theta)
         inv_sqrt = hit_norm(config.sigma_hit)
         z_floor = config.z_rand / config.max_range
-        bins = []
-        for b in range(nbins):
-            z = divide(safe_r[:, None, None] - rw[g[b]], config.sigma_hit)
-            lpd = torch.log(torch.clamp(
-                config.z_hit * (inv_sqrt * torch.exp(-0.5 * z ** 2)) + z_floor,
-                min=LOG_FLOOR))
-            bins.append(torch.where(valid[:, None, None], lpd, 0.0).sum(dim=0))
-        field = torch.stack(bins)
+
+        def build_bins(b0, n):
+            bins = []
+            for b in range(b0, b0 + n):
+                z = divide(safe_r[:, None, None] - rw[g[b]], config.sigma_hit)
+                lpd = torch.log(torch.clamp(
+                    config.z_hit * (inv_sqrt * torch.exp(-0.5 * z ** 2))
+                    + z_floor, min=LOG_FLOOR))
+                bins.append(torch.where(valid[:, None, None], lpd,
+                                        0.0).sum(dim=0))
+            return torch.stack(bins)
     else:
         raise ValueError(f"unknown beam field impl {impl!r}")
+    field = _sharded_bin_stack(build_bins, nbins, shard_bins_axis).reshape(
+        nbins, win, win)
 
     score_validity = config.motion_validity == "score"
     cnt = count.clamp(min=1).to(torch.float32)
@@ -385,14 +424,14 @@ def beam_field_scores(
         geo = _beam_geometry(grid_map, n_theta, nbins, kstart, win,
                              (ox0, oy0), (config.corr_coarse_factor, kc, hc, wc))
         build = True
-        if config.coarse_gate_escapees:
+        if config.coarse_gate_escapees and shard_bins_axis is None:
             # host if in place of the JAX 0-or-1-iteration while_loop
             # (:629-646): below the gate the escapees take the blind fill
             build = (int(window_escapees(particles, geo))
                      >= config.coarse_gate_escapees)
         if build:
             cfield = _beam_coarse_field(lp, count, angles, grid_map, tables,
-                                        config, n_theta)
+                                        config, n_theta, shard_bins_axis)
             coarse_t = cfield.transpose(0, 1).reshape(hc * kc, wc).contiguous()
         else:
             # the blind fill (:613-619): BLIND_SCORE after the "mean" divide

@@ -1,13 +1,19 @@
-"""Fleets of robots on one card (port of ``mcmh_localization_tpu/parallel``).
+"""Fleets and meshes (port of ``mcmh_localization_tpu/parallel``).
 
-``parallel.batched`` holds the batched fleet (``make_batched_model``,
-``make_multimap_model``, ``stack_maps``).  The JAX package's exports here
-are its particle-axis sharding (``make_mesh``, ``make_sharded_model``,
-``shard_state``), which the port has not yet ported, so it exports none of
-them.
+``parallel.batched`` holds the batched fleet on one card
+(``make_batched_model``, ``make_multimap_model``, ``stack_maps``);
+``parallel.sharding`` the particle-axis sharding over a ``torch.
+distributed`` mesh (``make_mesh``, ``make_sharded_model``,
+``shard_state``), the JAX package's exports here; ``parallel.distributed``
+the multi-rank island filter (``make_dist_model``).
 """
 
 from mcmh_localization_tpu_torch.parallel import batched  # noqa: F401
+from mcmh_localization_tpu_torch.parallel.sharding import (
+    make_mesh,
+    make_sharded_model,
+    shard_state,
+)
 
-# the JAX package's parallel exports, less the sharding names not yet ported
-__all__: list[str] = []
+# the JAX package's parallel exports
+__all__ = ["make_mesh", "make_sharded_model", "shard_state"]

@@ -53,7 +53,39 @@ def test_fleet_and_entry_modules_import_without_jax():
         "from mcmh_localization_tpu_torch import graft_entry, parallel\n"
         "fn, args = graft_entry.entry(device='cpu')\n"
         "assert args[0].particles.shape == (4096, 3)\n"
-        "assert parallel.__all__ == []\n"
+        "assert parallel.__all__ == ['make_mesh', 'make_sharded_model', "
+        "'shard_state']\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_dist_helpers_import_without_jax():
+    """[dist]'s modules and chip_smoke's [dist] helpers import where jax and
+    the JAX package cannot be imported, and ``collectives_line`` prints
+    calls and bytes a scan of each collective."""
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        top = name.split('.')[0]\n"
+        "        if top in ('jax', 'jaxlib', 'mcmh_localization_tpu'):\n"
+        "            raise ImportError(f'{name} blocked')\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "from mcmh_localization_tpu_torch.parallel import distributed, sharding\n"
+        "from mcmh_localization_tpu_torch.filter.staged import (\n"
+        "    make_staged_dist_model)\n"
+        "from mcmh_localization_tpu_torch.graft_entry import dryrun_multichip\n"
+        "import chip_smoke\n"
+        "for name in ('drive_dist', 'start_world_of_one', 'end_world',\n"
+        "             'bin_slice_rows'):\n"
+        "    assert callable(getattr(chip_smoke, name)), name\n"
+        "line = chip_smoke.collectives_line(\n"
+        "    {'psum': (26, 232, 12), 'all_gather': (2, 64, 32)}, 2)\n"
+        "assert line == 'all_gather 1.00 calls 32 B, psum 13.00 calls 116 B', line\n"
+        "chip_smoke.end_world()\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

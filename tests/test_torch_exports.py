@@ -15,10 +15,16 @@ from mcmh_localization_tpu.config import FilterConfig as JConfig  # noqa: E402
 from mcmh_localization_tpu.filter import staged as jstaged  # noqa: E402
 from mcmh_localization_tpu.filter import step as jstep  # noqa: E402
 from mcmh_localization_tpu.parallel import batched as jbatched  # noqa: E402
+from mcmh_localization_tpu.parallel import distributed as jdistributed  # noqa: E402
+from mcmh_localization_tpu.parallel import sharding as jsharding  # noqa: E402
 from mcmh_localization_tpu_torch.config import FilterConfig  # noqa: E402
 from mcmh_localization_tpu_torch.convert import grid_map_from_numpy  # noqa: E402
 from mcmh_localization_tpu_torch.filter import staged, step  # noqa: E402
-from mcmh_localization_tpu_torch.parallel import batched  # noqa: E402
+from mcmh_localization_tpu_torch.parallel import (  # noqa: E402
+    batched,
+    distributed,
+    sharding,
+)
 from tests.test_torch_ops import torch_one_thread  # noqa: E402,F401
 
 # JAX exports the port does not have yet, each with the ROADMAP item that
@@ -34,8 +40,7 @@ UNPORTED = {
     "io": {},
     "sim": {},
     "eval": {},
-    "parallel": {name: "ROADMAP item 15.3" for name in (
-        "make_mesh", "make_sharded_model", "shard_state")},
+    "parallel": {},
 }
 
 
@@ -76,12 +81,18 @@ def _params(fn):
     (step.make_model, jstep.make_model),
     (batched.make_batched_model, jbatched.make_batched_model),
     (batched.make_multimap_model, jbatched.make_multimap_model),
+    (staged.make_staged_dist_model, jstaged.make_staged_dist_model),
+    (distributed.make_dist_model, jdistributed.make_dist_model),
+    (sharding.make_sharded_model, jsharding.make_sharded_model),
+    (sharding.make_mesh, jsharding.make_mesh),
+    (sharding.shard_state, jsharding.shard_state),
 ], ids=["make_staged_model", "make_model", "make_batched_model",
-        "make_multimap_model"])
+        "make_multimap_model", "make_staged_dist_model", "make_dist_model",
+        "make_sharded_model", "make_mesh", "shard_state"])
 def test_factory_signatures_match_jax(port_fn, jax_fn):
     assert _params(port_fn) == _params(jax_fn)
     names = [name for name, _ in _params(port_fn)]
-    if "voxel_map" in names:
+    if "voxel_map" in names and "mesh" not in names:
         assert names.index("voxel_map") == (3 if "tracking_capacity" in names
                                             else 2)
 

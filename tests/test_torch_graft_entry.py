@@ -125,3 +125,31 @@ def test_entry_step_matches_jax_on_shared_draws():
     p_j, p_t = np.asarray(js2.particles)[:count], ts2.particles.numpy()[:count]
     moved = np.abs(p_j - p_t).max(axis=1) > 1e-4
     assert moved.mean() <= 0.005, moved.mean()
+
+
+def test_dryrun_multichip_on_four_gloo_ranks(tmp_path):
+    """Twin of tests/test_graft_entry.py's dry run: the five parts pass on
+    4 gloo ranks with ``device="cpu"``; asked for 8 ranks of those 4, every
+    rank raises; with no device named it asks for the card and, there
+    being none, raises rather than run on the CPU."""
+    from tests import torch_ranks
+
+    pool = torch_ranks.RankPool(4, tmp_path)
+    try:
+        assert pool.run(torch_ranks.dryrun, 4) == ["ok"] * 4
+        for msg in pool.run(torch_ranks.dryrun, 8):
+            assert "needs a process group of 8 ranks, have 4" in msg
+        for msg in pool.run(torch_ranks.dryrun, 4, None):
+            assert "no CUDA device is available" in msg
+    finally:
+        pool.close()
+
+
+def test_dryrun_multichip_raises_without_a_group():
+    """With no process group the dry run raises: it starts none and falls
+    back to no other device."""
+    import torch.distributed as dist
+
+    with pytest.raises(RuntimeError, match="needs a process group of 1"):
+        graft_entry.dryrun_multichip(1)
+    assert not dist.is_initialized()

@@ -129,6 +129,16 @@
    the two fields' checksums printed.  ``[entry]``:
    ``graft_entry.entry()`` on the card, one step then 16 timed: a finite
    estimate, 4096 particles, kernels 6 and 3 launched.
+   ``[edt]``: the house built with ``edt_impl="device"`` (the EDT kernel,
+   ``csrc/edt.cu``, two launches a map build; host ms beside the scipy
+   build), its field within one ulp of the scipy map's and every other
+   field equal; ``FilterConfig()`` on that map, 8 settle + 8 timed scans,
+   mean error over the last 8 under 0.25 m.  Then ``[kernel]`` rows of
+   the EDT kernel: ``torch.equal`` to its plain version and to scipy's
+   squared distances rounded to integers at 37 x 53 (random), the house
+   (384^2) and the house tiled to 2048^2 and 4096^2 (squares past 2^24;
+   the plain version in chunks of 32 columns there), timed beside its
+   bound (5 bytes a cell), the plain version and scipy on the host.
 8. ``[eval]``: the experiment runner (``eval/runner.py``) through its CLI
    on the card: the house map written as PGM + YAML and the ``[main]``
    configuration as a params YAML; a simulated ``square`` bag (30 s at
@@ -1791,6 +1801,128 @@ def drive_entry(smi, counts) -> None:
     return functools.partial(steps, st), ms
 
 
+# [edt]'s map sides: the kernel torch.equal to its plain version at each of
+# EDT_SIDES (37 x 53 random, the house, the house tiled to 2048^2), and
+# equal to scipy's rounded squares at EDT_SCIPY_SIDE (the house tiled to a
+# 205 m floor at 0.05 m)
+EDT_SIDES = ((37, 53), (MAP_CELLS, MAP_CELLS), (2048, 2048))
+EDT_SCIPY_SIDE = 4096
+
+
+def edt_occupied(h: int, w: int) -> np.ndarray:
+    """(h, w) bool: 10% random cells below the house's side, else the
+    house's occupied and unknown cells, tiled."""
+    if h < MAP_CELLS:
+        return np.random.default_rng(h * w).random((h, w)) < 0.1
+    house = house_occupancy() != 0
+    k = -(-max(h, w) // MAP_CELLS)
+    return np.ascontiguousarray(np.tile(house, (k, k))[:h, :w])
+
+
+def scipy_squares(occ: np.ndarray) -> tuple:
+    """(scipy's squared distances rounded to integers as f32, its host ms)."""
+    from scipy.ndimage import distance_transform_edt
+
+    t0 = time.perf_counter()
+    d = distance_transform_edt(~occ)
+    ms = (time.perf_counter() - t0) * 1e3
+    return np.rint(d * d).astype(np.float32), ms
+
+
+def edt_row(occ: np.ndarray, plain_chunk: int = 128) -> dict:
+    """The EDT kernel at one map: ``torch.equal`` to its plain version (in
+    column chunks of ``plain_chunk``) and to scipy's rounded squares, timed
+    beside its bound, the plain version and scipy on the host."""
+    from mcmh_localization_tpu_torch.ops.edt import (
+        squared_edt,
+        squared_edt_plain,
+    )
+
+    h, w = occ.shape
+    oc = torch.from_numpy(occ).cuda()
+    k = squared_edt(oc)
+    plain, pms = once_ms(lambda: squared_edt_plain(oc, plain_chunk))
+    check(torch.equal(k, plain), f"squared_edt {h}x{w}: kernel != plain")
+    del plain
+    ref, sms = scipy_squares(occ)
+    check(np.array_equal(k.cpu().numpy(), ref),
+          f"squared_edt {h}x{w}: kernel != scipy's rounded squares")
+    ms = device_ms(lambda: squared_edt(oc))
+    print(f"[kernel] squared_edt {h}x{w}: torch.equal to the plain version "
+          f"(chunk {plain_chunk}) and to scipy's rounded squares; scipy on "
+          f"the host {sms:.2f} ms")
+    # each input byte read once, each f32 written once; at least one min a
+    # cell in each pass
+    return kernel_row(
+        "squared_edt", "edt.cu", "mcmh_localization_tpu/maps/edt.py:51",
+        f"{h}x{w}", ms=ms, plain_ms=pms, err=0.0, ops=2 * h * w,
+        nbytes=5 * h * w, scipy_host_ms=sms)
+
+
+def drive_edt(gm, timed, scans, deltas, poses, smi, counts, rows) -> None:
+    """[edt]: the house built with ``edt_impl="device"`` on the card (the
+    EDT kernel, two launches a map build), its field within one ulp of
+    the scipy map's ``gm``, and ``FilterConfig()`` tracking on it, 8 + 8
+    scans under 0.25 m; ``counts`` gets the launches of that build and
+    run.  Then the kernel against its plain version and scipy at every
+    side of ``EDT_SIDES`` and ``EDT_SCIPY_SIDE`` (its rows join ``rows``)."""
+    from mcmh_localization_tpu_torch.config import FilterConfig
+    from mcmh_localization_tpu_torch.filter.step import make_model
+    from mcmh_localization_tpu_torch.maps.grid_map import build_grid_map
+    from mcmh_localization_tpu_torch.ops import _cuda
+
+    half = MAP_CELLS * RES / 2
+    occ = house_occupancy()
+    _cuda.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gm_dev = build_grid_map(occ, RES, (-half, -half), edt_impl="device",
+                            device=gm.device)
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0
+    builds = _cuda.launch_counts().get("squared_edt", 0)
+    t0 = time.perf_counter()
+    build_grid_map(occ, RES, (-half, -half), device=gm.device)
+    torch.cuda.synchronize()
+    scipy_s = time.perf_counter() - t0
+    a, b = gm_dev.distance.cpu().numpy(), gm.distance.cpu().numpy()
+    ulps = np.abs(a - b) / np.spacing(np.maximum(a, b))
+    print(f"[edt] build_grid_map({MAP_CELLS}^2 house, edt_impl='device') "
+          f"{dev_s * 1e3:.2f} ms against 'scipy' {scipy_s * 1e3:.2f} ms by "
+          f"the host clock on {smi}; the field differs from scipy's in "
+          f"{int((ulps > 0).sum())} of {a.size} cells, by at most "
+          f"{ulps.max():.0f} ulp; {builds} EDT launches")
+    check(builds == 2, f"[edt] {builds} EDT launches in one map build")
+    check(ulps.max() <= 1, f"[edt] device field {ulps.max()} ulp off scipy's")
+    for name in ("occupancy", "origin", "resolution", "free_xy", "free_mask"):
+        check(torch.equal(getattr(gm_dev, name), getattr(gm, name)),
+              f"[edt] {name} differs from the scipy map's")
+    cfg = FilterConfig(initialized=True, initial_pose=START)
+    model = make_model(cfg, gm_dev)
+    st, _, _ = timed(model, model.init(0), 1, seq=scans[:8], dls=deltas[:8])
+    st, x_infos, ms_x = timed(model, st, 1, seq=scans[8:], dls=deltas[8:])
+    e = x_infos.estimate.mean.cpu().numpy()
+    check(np.isfinite(e).all(), "[edt] non-finite estimate")
+    err8 = float(np.mean(np.hypot(e[:, 0] - poses[8:, 0],
+                                  e[:, 1] - poses[8:, 1])))
+    counts.update(_cuda.launch_counts())
+    print(f"[edt] FilterConfig() (n={cfg.num_particles}) on the device-EDT "
+          f"map: {ms_x:.4f} ms/scan over 8 timed scans on {smi}; mean error "
+          f"last 8 {err8:.4f} m; launches {counts}")
+    check(err8 < 0.25, f"[edt] error {err8:.3f} m >= 0.25 m")
+    check(counts.get("likelihood_scores", 0) >= SCAN_LEN,
+          "[edt] likelihood_scores not launched every scan")
+    del model, st, gm_dev
+    row = edt_row(edt_occupied(MAP_CELLS, MAP_CELLS))
+    row["shapes"] = [edt_row(edt_occupied(h, w)) for h, w in EDT_SIDES
+                     if (h, w) != (MAP_CELLS, MAP_CELLS)]
+    # past 2896 cells a side the squares pass 2^24, held against scipy; the
+    # plain version in chunks of 32 columns (4.3 GB of int64 at a time)
+    row["shapes"].append(edt_row(edt_occupied(EDT_SCIPY_SIDE, EDT_SCIPY_SIDE),
+                                 plain_chunk=32))
+    rows.append(row)
+
+
 ONLINE_SCANS = 3 * SCAN_LEN   # about 48 scans, three odometry messages each
 ONLINE_RESUME = 5             # scans replayed after the checkpoint
 
@@ -2823,6 +2955,13 @@ def main(argv=None) -> int:
         add_counts(tag, c, n)
         to_profile.append((tag, run16, ms))
 
+    stamps.append(("edt", time.perf_counter()))
+    # -- 7e. the device EDT: a map built with it, tracking on that map, then
+    # the kernel against its plain version and scipy up to 4096^2
+    c = {}
+    drive_edt(gm, timed, scans, deltas, poses, smi, c, rows)
+    add_counts("edt", c, SCAN_LEN)
+
     stamps.append(("eval", time.perf_counter()))
     # -- 8. the experiment runner's CLI on a simulated bag
     for path, c, n in drive_eval(cfg, gm, smi, _cuda.reset_launch_counts,
@@ -2916,10 +3055,11 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys},
          **({} if r.get("on_main_path", True) else {"on_main_path": False}),
-         **{k: r[k] for k in ("cummax_ms", "searchsorted_ms", "smem_floor_ms")
-            if k in r},
-         **({"shapes": [{k: x[k] for k in shape_keys + ("smem_floor_ms",)
-                         if k in x} for x in r["shapes"]]}
+         **{k: r[k] for k in ("cummax_ms", "searchsorted_ms", "smem_floor_ms",
+                              "scipy_host_ms") if k in r},
+         **({"shapes": [{k: x[k] for k in shape_keys + (
+             "smem_floor_ms", "scipy_host_ms") if k in x}
+             for x in r["shapes"]]}
             if r.get("shapes") else {})}
         for r in rows]}))
     print(json.dumps({"ok": True, "device": {

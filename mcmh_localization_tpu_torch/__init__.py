@@ -11,8 +11,8 @@ the JAX package wrote in Pallas for the TPU are CUDA C++ for Hopper here
 (``csrc/``, built on first use by ``ops/_cuda.py``), each beside a plain
 PyTorch version that CPU tensors take.  The port imports, opens and
 executes nothing of JAX or of the JAX package: ``config.py``, ``io/``'s
-readers, ``sim/bag.py`` and ``eval``'s evaluator and plots are its own
-copies of that package's pure-Python files.  The top level exports the
+readers, ``sim/bag.py``, ``eval``'s evaluator and plots and ``native/``'s
+ctypes binding are its own copies of that package's pure-Python files.  The top level exports the
 JAX package's names; ``build_grid_map`` is importable here too, as in
 ``maps.grid_map``.
 """

@@ -14,6 +14,10 @@ class PoseEstimate(NamedTuple):
     mean: torch.Tensor  # (3,) [x, y, theta]
     cov: torch.Tensor   # (3, 3) over (x, y, theta)
 
+    def replace(self, **kw) -> "PoseEstimate":
+        """A copy with the given fields (JAX's flax ``.replace``)."""
+        return self._replace(**kw)
+
 
 def estimate_pose(particles: torch.Tensor, weights: torch.Tensor,
                   mask: torch.Tensor | None = None) -> PoseEstimate:

@@ -92,6 +92,10 @@ class StepInfo(NamedTuple):
     w_fast: torch.Tensor
     anchor_mass: torch.Tensor
 
+    def replace(self, **kw) -> "StepInfo":
+        """A copy with the given fields (JAX's flax ``.replace``)."""
+        return self._replace(**kw)
+
 
 @dataclasses.dataclass
 class Draws:

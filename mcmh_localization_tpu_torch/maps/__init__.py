@@ -1,3 +1,4 @@
+from mcmh_localization_tpu_torch.maps.edt import distance_transform_edt_device
 from mcmh_localization_tpu_torch.maps.grid_map import (
     GridMap,
     build_grid_map,
@@ -12,12 +13,11 @@ from mcmh_localization_tpu_torch.maps.voxel_map import (
     save_voxel_map,
 )
 
-# the JAX package's maps exports, less the device EDT (the port's EDT is
-# scipy's on the host)
 __all__ = [
     "GridMap",
     "load_map",
     "build_grid_map",
+    "distance_transform_edt_device",
     "VoxelMap",
     "build_voxel_map",
     "nav_slice",

@@ -16,8 +16,12 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from mcmh_localization_tpu_torch import native
 from mcmh_localization_tpu_torch.io.pgm import load_map_yaml
-from mcmh_localization_tpu_torch.maps.edt import distance_transform_edt
+from mcmh_localization_tpu_torch.maps.edt import (
+    distance_transform_edt,
+    distance_transform_edt_device,
+)
 from mcmh_localization_tpu_torch.utils.device import (
     DEFAULT_DEVICE,
     resolve_device,
@@ -52,6 +56,24 @@ class GridMap:
         """``1.0 / resolution`` in f32, as the JAX call sites compute it."""
         return float(np.float32(1.0) / np.float32(self.res))
 
+    @property
+    def limits(self) -> torch.Tensor:
+        """(4,) f32 [x_min, x_max, y_min, y_max] (amcmh_localizer.py:168-173;
+        JAX grid_map.py:58-70)."""
+        ox, oy = self.origin[0], self.origin[1]
+        return torch.stack([ox, ox + self.width * self.resolution,
+                            oy, oy + self.height * self.resolution])
+
+    def replace(self, **kw) -> "GridMap":
+        """A copy with the given fields (JAX's flax ``.replace``).  A new
+        ``resolution`` or ``origin`` tensor also sets the python floats kept
+        beside it, unless ``res`` / ``origin_xy`` are given too."""
+        if "resolution" in kw and "res" not in kw:
+            kw["res"] = float(kw["resolution"])
+        if "origin" in kw and "origin_xy" not in kw:
+            kw["origin_xy"] = tuple(float(o) for o in kw["origin"][:2])
+        return dataclasses.replace(self, **kw)
+
     # ---- transforms --------------------------------------------------------
 
     def world_to_grid(self, x, y):
@@ -59,6 +81,14 @@ class GridMap:
         mx = ((x - self.origin[0]) / self.resolution).to(torch.int32)
         my = ((y - self.origin[1]) / self.resolution).to(torch.int32)
         return mx, my
+
+    def grid_to_world(self, mx, my):
+        """World coords of cell centres, f32 on the map's device
+        (amcmh_localizer.py:163-164; JAX grid_map.py:80-84)."""
+        mx = torch.as_tensor(mx, device=self.device).to(torch.float32)
+        my = torch.as_tensor(my, device=self.device).to(torch.float32)
+        return (self.origin[0] + (mx + 0.5) * self.resolution,
+                self.origin[1] + (my + 0.5) * self.resolution)
 
     def in_bounds(self, mx, my) -> torch.Tensor:
         return (mx >= 0) & (mx < self.width) & (my >= 0) & (my < self.height)
@@ -95,20 +125,27 @@ class GridMap:
         return self.is_free_world(particles[..., 0], particles[..., 1])
 
 
+EDT_IMPLS = ("auto", "native", "device", "scipy")
+
+
 def build_grid_map(
     occupancy: np.ndarray,
     resolution: float,
     origin: Tuple[float, float] = (0.0, 0.0),
     distance: np.ndarray | None = None,
+    edt_impl: str = "scipy",
     device: str | torch.device = DEFAULT_DEVICE,
 ) -> GridMap:
     """Build a GridMap on ``device`` (the card unless told otherwise; raises
-    without one), computing the EDT on the host with scipy when
-    ``distance`` is not given."""
+    without one), computing the EDT by ``edt_impl`` when ``distance`` is
+    not given: "scipy" (the default; JAX's is "auto"), "native", "device"
+    or "auto" (see ``_compute_edt``)."""
     dev = resolve_device(device)
     occupancy = np.asarray(occupancy, dtype=np.int8)
     if distance is None:
-        distance = distance_transform_edt(occupancy != 0, resolution)
+        field = _compute_edt(occupancy != 0, resolution, edt_impl, dev)
+    else:
+        field = torch.from_numpy(np.array(distance, np.float32)).to(dev)
     rows, cols = np.nonzero(occupancy == 0)
     if rows.size == 0:  # degenerate all-occupied map: keep one dummy cell
         rows, cols = np.array([0]), np.array([0])
@@ -120,7 +157,7 @@ def build_grid_map(
     res32 = np.float32(resolution)
     return GridMap(
         occupancy=torch.from_numpy(occupancy.copy()).to(dev),
-        distance=torch.from_numpy(np.array(distance, np.float32)).to(dev),
+        distance=field,
         origin=torch.from_numpy(origin32).to(dev),
         resolution=torch.tensor(res32, dtype=torch.float32, device=dev),
         free_xy=torch.from_numpy(free_xy).to(dev),
@@ -131,10 +168,32 @@ def build_grid_map(
     )
 
 
-def load_map(yaml_path: str,
+def _compute_edt(occupied: np.ndarray, resolution: float, impl: str,
+                 dev: torch.device) -> torch.Tensor:
+    """The (H, W) f32 distance field in meters on ``dev``, with the JAX
+    package's meanings (grid_map.py:165-180): "scipy" on the host; "native"
+    the C++ library (raises when it is not built); "device" the EDT kernel
+    on ``dev`` (its plain version on the CPU), kept there; "auto" native
+    when ``native.available()``, else device.  Any other name raises (JAX
+    takes its device path there)."""
+    if impl not in EDT_IMPLS:
+        raise ValueError(f"edt_impl {impl!r}: expected one of {EDT_IMPLS}")
+    if impl == "auto":
+        impl = "native" if native.available() else "device"
+    if impl == "device":
+        return distance_transform_edt_device(
+            torch.from_numpy(occupied).to(dev), resolution)
+    if impl == "native":
+        dist = native.edt(occupied) * resolution
+    else:
+        dist = distance_transform_edt(occupied, resolution)
+    return torch.from_numpy(np.array(dist, np.float32)).to(dev)
+
+
+def load_map(yaml_path: str, edt_impl: str = "scipy",
              device: str | torch.device = DEFAULT_DEVICE) -> GridMap:
     """Load a ROS map YAML+PGM pair onto ``device`` (the card unless told
-    otherwise)."""
+    otherwise), its EDT by ``edt_impl`` as in ``build_grid_map``."""
     occ, meta = load_map_yaml(yaml_path)
     return build_grid_map(occ, meta["resolution"], meta["origin"][:2],
-                          device=device)
+                          edt_impl=edt_impl, device=device)

@@ -53,6 +53,10 @@ class VoxelMap:
     def device(self) -> torch.device:
         return self.occupancy.device
 
+    def replace(self, **kw) -> "VoxelMap":
+        """A copy with the given fields (JAX's flax ``.replace``)."""
+        return dataclasses.replace(self, **kw)
+
     def world_to_voxel(self, x, y, z):
         """(vx, vy, vz) int32: ``floor((p - origin) * inv)`` with ``inv =
         1 / resolution`` a python float (JAX voxel_map.py:46-51: the
@@ -151,11 +155,8 @@ def raycast3d(
 def nav_slice(voxel_map: VoxelMap, z: float = 0.0,
               edt_impl: str = "scipy") -> GridMap:
     """The 2-D navigation GridMap of the voxel layer at height ``z``, on the
-    map's device, with the voxel map's resolution and x/y origin (JAX
-    voxel_map.py:138-159).  The port's EDT is scipy's: ``edt_impl`` is
-    JAX's parameter and takes "scipy" only."""
-    if edt_impl != "scipy":
-        raise ValueError(f"edt_impl {edt_impl!r}: the port's EDT is scipy's")
+    map's device, with the voxel map's resolution and x/y origin, its EDT
+    by ``edt_impl`` as in ``build_grid_map`` (JAX voxel_map.py:138-159)."""
     k = int(np.clip(
         np.floor((z - voxel_map.origin[2]) / voxel_map.resolution),
         0, voxel_map.depth - 1,
@@ -163,7 +164,7 @@ def nav_slice(voxel_map: VoxelMap, z: float = 0.0,
     occ2d = to_numpy(voxel_map.occupancy[k])
     return build_grid_map(occ2d, voxel_map.resolution,
                           (voxel_map.origin[0], voxel_map.origin[1]),
-                          device=voxel_map.device)
+                          edt_impl=edt_impl, device=voxel_map.device)
 
 
 def save_voxel_map(path: str, voxel_map: VoxelMap) -> None:

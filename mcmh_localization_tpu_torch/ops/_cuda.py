@@ -29,7 +29,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("corr_field_build.cu", "gather.cu", "rank.cu", "fused_score.cu",
-           "likelihood.cu", "take.cu", "beam_field.cu", "scan_scores.cu")
+           "likelihood.cu", "take.cu", "beam_field.cu", "scan_scores.cu",
+           "edt.cu")
 HEADERS = ("thread_runs.cuh", "stage_beams.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -113,6 +114,7 @@ _SIGNATURES = {
         _P, _P,
     ),
     "mcmh_take_rows": (_P, _I, _I, _P, _I, _P, _P),
+    "mcmh_squared_edt": (_P, _I, _I, _P, _P, _P),
     "mcmh_lut_field": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     "mcmh_table_scores": (_P, _I, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _P,
                           TableArgs, _I, _I, _P, _P),

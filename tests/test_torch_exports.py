@@ -1,16 +1,20 @@
 """The port's package surface against the JAX package's: each sub-package
-exports the JAX sub-package's names less a listed set not yet ported, and
-the model factories take the JAX factories' parameters in their order."""
+exports the JAX sub-package's names less a listed set not yet ported, every
+exported callable takes the JAX parameters and every exported class has the
+JAX members (less a listed set of deliberate differences), and the model
+factories take the JAX factories' parameters in their order."""
 
 import dataclasses
 import importlib
 import inspect
+import re
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax.numpy as jnp  # noqa: E402
 from mcmh_localization_tpu.config import FilterConfig as JConfig  # noqa: E402
 from mcmh_localization_tpu.filter import staged as jstaged  # noqa: E402
 from mcmh_localization_tpu.filter import step as jstep  # noqa: E402
@@ -33,9 +37,7 @@ UNPORTED = {
     "filter": {},
     "models": {},
     "ops": {},
-    "maps": {
-        "distance_transform_edt_device":
-            "Not ported: the port's EDT is scipy's exact one on the host"},
+    "maps": {},
     "utils": {},
     "io": {},
     "sim": {},
@@ -70,6 +72,114 @@ def test_top_level_exports_match_jax():
     for name in tpkg.__all__:
         assert getattr(tpkg, name) is not None, name
     assert tpkg.build_grid_map is build_grid_map
+
+
+# The deliberate differences of the port's signatures and members from
+# JAX's (ROADMAP §1): random draws come from a torch generator or the
+# caller's draws, never from a JAX PRNG ``key`` (nor its ``rng_impl``); the
+# port's FilterModel is a plain class, where JAX's NamedTuple inherits the
+# tuple methods ``count`` and ``index``.
+DELIBERATE_PARAMS = {"key", "rng_impl"}
+DELIBERATE_MEMBERS = {"FilterModel": {"count", "index"}}
+
+
+def _members(cls) -> set:
+    """Public names of a class: its attributes, dataclass and NamedTuple
+    fields, and the attributes its ``__init__`` assigns."""
+    names = set(dir(cls)) | set(getattr(cls, "_fields", ()))
+    if dataclasses.is_dataclass(cls):
+        names |= {f.name for f in dataclasses.fields(cls)}
+    elif "__init__" in cls.__dict__ and not hasattr(cls, "_fields"):
+        src = inspect.getsource(cls.__init__)
+        names |= set(re.findall(r"self\.(\w+)\s*=", src))
+    return {n for n in names if not n.startswith("_")}
+
+
+@pytest.mark.parametrize("sub", [None, *UNPORTED])
+def test_exports_take_jax_parameters_and_members(sub):
+    """For every name in a JAX (sub-)package's ``__all__``: the port's
+    callable takes every JAX parameter, and the port's class has every
+    public JAX member, less the deliberate differences listed above."""
+    suffix = "" if sub is None else f".{sub}"
+    jmod = importlib.import_module(f"mcmh_localization_tpu{suffix}")
+    tmod = importlib.import_module(f"mcmh_localization_tpu_torch{suffix}")
+    gaps = {}
+    for name in jmod.__all__:
+        j, t = getattr(jmod, name), getattr(tmod, name)
+        if inspect.isclass(j):
+            missing = (_members(j) - _members(t)
+                       - DELIBERATE_MEMBERS.get(name, set()))
+        elif callable(j):
+            tparams = inspect.signature(t).parameters
+            missing = {p for p in inspect.signature(j).parameters
+                       if p not in tparams} - DELIBERATE_PARAMS
+        else:
+            continue
+        if missing:
+            gaps[name] = sorted(missing)
+    assert not gaps
+
+
+def test_grid_map_limits_and_grid_to_world_match_jax(house_map,
+                                                     house_occupancy):
+    """``GridMap.limits`` and ``grid_to_world`` (F4) equal JAX's bitwise on
+    the house map built from the same python resolution and origin."""
+    from mcmh_localization_tpu_torch.maps.grid_map import build_grid_map
+
+    m = build_grid_map(house_occupancy, 0.05, (-4.8, -4.8), device="cpu")
+    assert m.limits.dtype == torch.float32
+    np.testing.assert_array_equal(m.limits.numpy(),
+                                  np.asarray(house_map.limits))
+    rng = np.random.default_rng(0)
+    mx = np.concatenate([[0, 10, 191], rng.integers(-5, 200, 64)]).astype(np.int32)
+    my = np.concatenate([[0, 20, 191], rng.integers(-5, 200, 64)]).astype(np.int32)
+    tx, ty = m.grid_to_world(torch.from_numpy(mx), torch.from_numpy(my))
+    jx, jy = house_map.grid_to_world(jnp.asarray(mx), jnp.asarray(my))
+    assert tx.dtype == torch.float32 and tx.device == m.device
+    np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
+    np.testing.assert_array_equal(ty.numpy(), np.asarray(jy))
+    # the round trip of tests/test_maps.py::test_world_grid_roundtrip
+    gx, gy = m.world_to_grid(tx[:3], ty[:3])
+    assert gx.tolist() == [0, 10, 191] and gy.tolist() == [0, 20, 191]
+
+
+def test_replace_on_maps_estimates_and_infos(house_occupancy):
+    """``.replace(**kw)`` (F5) on GridMap, VoxelMap, PoseEstimate and
+    StepInfo: a new object with the given fields and the rest as they were,
+    the original unchanged; a GridMap given a new resolution or origin
+    tensor also updates the python floats its kernels read."""
+    from mcmh_localization_tpu_torch.filter.estimate import PoseEstimate
+    from mcmh_localization_tpu_torch.filter.step import StepInfo
+    from mcmh_localization_tpu_torch.maps.grid_map import build_grid_map
+    from mcmh_localization_tpu_torch.maps.voxel_map import build_voxel_map
+
+    m = build_grid_map(house_occupancy, 0.05, (-4.8, -4.8), device="cpu")
+    zeros = torch.zeros_like(m.distance)
+    m2 = m.replace(distance=zeros)
+    assert m2.distance is zeros and m.distance is not zeros
+    assert m2.occupancy is m.occupancy and m2.res == m.res
+    m3 = m.replace(resolution=torch.tensor(0.1), origin=torch.tensor([1.0, 2.0]))
+    assert m3.res == float(np.float32(0.1)) and m3.origin_xy == (1.0, 2.0)
+    assert m.res == float(np.float32(0.05))
+    np.testing.assert_array_equal(m3.limits.numpy(), np.float32(
+        [1.0, 1.0 + 192 * np.float32(0.1), 2.0, 2.0 + 192 * np.float32(0.1)]))
+
+    vm = build_voxel_map(np.stack([house_occupancy] * 2), 0.05,
+                         (-4.8, -4.8, 0.0), device="cpu")
+    vm2 = vm.replace(max_distance=2.0)
+    assert vm2.max_distance == 2.0 and vm.max_distance is None
+    assert vm2.distance is vm.distance
+
+    est = PoseEstimate(mean=torch.zeros(3), cov=torch.eye(3))
+    est2 = est.replace(mean=torch.ones(3))
+    assert torch.equal(est2.mean, torch.ones(3)) and est2.cov is est.cov
+    assert torch.equal(est.mean, torch.zeros(3))
+    scalars = {f: torch.tensor(float(i)) for i, f in
+               enumerate(StepInfo._fields[1:])}
+    info = StepInfo(estimate=est, **scalars)
+    info2 = info.replace(ess=torch.tensor(7.0), estimate=est2)
+    assert info2.ess.item() == 7.0 and info2.estimate is est2
+    assert info2.count is info.count and info.ess.item() == 0.0
 
 
 def _params(fn):

@@ -62,12 +62,25 @@
 4. ``[main]``: the staged main path: AMHAMCL, KLD-adaptive at 1M capacity /
    100k minimum, 360 beams, the staged two-program runner with a 0.9
    tracking ESS gate and the windowed corr scorer, on a procedural 384x384
-   house map at 0.05 m, over 4x16 scans of a closed circle; then times the
-   SMALL (tracking) and BIG programs.  Checks the run ends in the SMALL
-   program, estimates are finite, the final error is under 0.2 m, and the
-   field build, lookup and expansion kernels all launched.
+   house map at 0.05 m, over 4x16 scans of a closed circle; both programs
+   replay their steps captured in CUDA graphs (``filter/captured.py``;
+   ``warmup_staged`` captures them).  Then times the SMALL (tracking) and
+   BIG programs.  Checks the run ends in the SMALL program, estimates are
+   finite, the final error is under 0.2 m, and the field build, lookup,
+   expansion and conditional-node kernels all launched.
+   ``[graph]``: each program's captured step against its eager steps over
+   16 scans (SMALL from the settled state, BIG from the start with the
+   augmented-MCL averages apart, so it injects): every state field, the
+   generator and every StepInfo field ``torch.equal``; a captured chunk
+   under ``set_sync_debug_mode("error")``; ms/scan by CUDA events, device
+   busy, idle share, kernels a scan and host self time under
+   torch.profiler, host syncs a scan, the graph's nodes, each gate's
+   conditional body and the scans that ran it, and the device time of
+   the work the gates run on every scan; then the conditional node's
+   kernel alone (32 IF nodes in a graph, equal to 32 host ifs).
    ``[online]``: the same configuration through the online facade,
-   ``OnlineLocalizer(staged=True)``: ``warmup`` (the generator's state
+   ``OnlineLocalizer(staged=True)``, whose ``on_scan`` replays each
+   program's captured correct step: ``warmup`` (the generator's state
    unchanged), then about 48 scans of the circle with three ``on_odom``
    calls before each ``on_scan``; checks the hand-off to SMALL, an error
    under 0.2 m, a checkpoint taken in SMALL whose resume replays the next
@@ -605,22 +618,30 @@ def conv_field_call(table, ox, oy, live, h, w):
     return lambda: torch.nn.functional.conv2d(x, weight)[0]
 
 
-def field_build_row(tag, padded, ox, oy, fh, fw, m, lmax):
-    """Kernel 1 at one path shape: bitwise against its plain version, timed
-    beside its bound and the conv2d yardstick.  Returns (row, field)."""
+def field_build_row(tag, padded, ox, oy, fh, fw, m, lmax, table,
+                    origin=None, zero_row=None, prev=None):
+    """Kernel 1 at one path shape, in the form the step launches it
+    (``origin``: the window's corner as a device tensor; ``zero_row``: the
+    first invalid row): bitwise against its plain version, timed beside its
+    bound and the conv2d yardstick on ``table``, the (fh + kh - 1, fw + kw
+    - 1) region the build reads.  ``prev``: (padded, ox, oy) of the earlier
+    form (the region sliced out on the host, the zero band appended),
+    checked bitwise against this one and timed beside it.  Returns (row,
+    field)."""
     from mcmh_localization_tpu_torch.ops.corr_field_build import (
         corr_field_build,
         corr_field_build_plain,
     )
 
-    out = corr_field_build(padded, ox, oy, fh, fw)
-    ref = corr_field_build_plain(padded, ox, oy, fh, fw)
+    form = dict(origin=origin, zero_row=zero_row)
+    out = corr_field_build(padded, ox, oy, fh, fw, **form)
+    ref = corr_field_build_plain(padded, ox, oy, fh, fw, **form)
     torch.cuda.synchronize()
     err = float((out - ref).abs().max())
     check(torch.equal(out, ref), f"corr_field_build {tag}: kernel != plain "
           f"(max abs err {err})")
-    live = oy < padded.shape[0] - fh
-    conv = conv_field_call(padded[:padded.shape[0] - fh], ox, oy, live, fh, fw)
+    live = oy < (padded.shape[0] - fh if zero_row is None else zero_row)
+    conv = conv_field_call(table, ox, oy, live, fh, fw)
     tol = 1e-5 * m * lmax  # f32 sums of M log values in another order
     cerr = float((conv() - out).abs().max())
     check(cerr <= tol, f"conv2d yardstick {tag}: max abs err {cerr} > {tol}")
@@ -643,17 +664,32 @@ def field_build_row(tag, padded, ox, oy, fh, fw, m, lmax):
           f"beam {held:.4f} in the kernel's layout ({ry}x4, columns 32 apart), "
           f"{strip:.4f} in a strip of 8 consecutive columns; {same:.4f} of "
           "consecutive valid beams repeat the offset")
-    ms = device_ms(lambda: corr_field_build(padded, ox, oy, fh, fw))
-    pms = device_ms(lambda: corr_field_build_plain(padded, ox, oy, fh, fw))
+    ms = device_ms(lambda: corr_field_build(padded, ox, oy, fh, fw, **form))
+    pms = device_ms(lambda: corr_field_build_plain(padded, ox, oy, fh, fw,
+                                                   **form))
     lms = device_ms(conv, runs=5)
-    # one add per output and valid beam; the table and the offsets read
+    extra = {}
+    if prev is not None:
+        check(torch.equal(corr_field_build(*prev, fh, fw), out),
+              f"corr_field_build {tag}: the earlier host-sliced form != "
+              "the device-origin form")
+        extra["prev_ms"] = device_ms(lambda: corr_field_build(*prev, fh, fw))
+        form_name = ("the window at the device-held origin"
+                     if origin is not None else "the padded field read to "
+                     "its zero-band row")
+        prev_name = ("the region sliced on the host, the zero band appended"
+                     if origin is not None else "the zero band appended")
+        print(f"[kernel] corr_field_build {tag}: {form_name} {ms:.4f} ms "
+              f"beside the earlier form's {extra['prev_ms']:.4f} ms "
+              f"({prev_name}), bitwise equal, on {nvidia_smi_line()}")
+    # one add per output and valid beam; the region and the offsets read
     # once, the field written once
     return kernel_row(
         "corr_field_build", "corr_field_build.cu", "corr_field_pallas.py:40",
         f"{tag} K={k} {fh}x{fw} M={m} ({m_valid:.0f} valid)", ms=ms,
         plain_ms=pms, err=err, ops=k * fh * fw * m_valid * 1.0,
-        nbytes=4.0 * (padded.numel() + 2 * ox.numel() + k * fh * fw),
-        library_ms=lms, library=f"conv2d, err {cerr:.3g}"), out
+        nbytes=4.0 * (table.numel() + 2 * ox.numel() + k * fh * fw),
+        library_ms=lms, library=f"conv2d, err {cerr:.3g}", **extra), out
 
 
 def window_score_row(fine_t, coarse_t, parts, geo, denom, n_valid,
@@ -763,46 +799,56 @@ def compare_kernels(gm, cfg, small_cfg, log_field, ranges, angles, rows):
     m = int(ranges.shape[0])
     lmax = float(log_field.abs().max())
 
-    # kernel 1, BIG: full map, all 120 bins, beams in the build's order
+    # kernel 1, BIG: full map, all 120 bins, beams in the build's order;
+    # the step's form reads the padded field with its invalid beams at the
+    # zero-band row, the earlier one had the band appended
     ox, oy = _bin_offsets(u, v, valid, gm.inv_res, cfg.corr_n_theta, pad, zb)
+    padded0 = padded0.contiguous()
     padded_big = torch.cat([padded0, torch.zeros((h, padded0.shape[1]), device=dev)])
-    field_row, field_big = field_build_row("BIG", padded_big, ox, oy, h, w,
-                                           m, lmax)
-    # SMALL: 128-cell window at the start pose, 32 theta bins
+    field_row, field_big = field_build_row(
+        "BIG", padded0, ox, oy, h, w, m, lmax, padded0, zero_row=zb,
+        prev=(padded_big, ox, oy))
+    # SMALL: 128-cell window at the start pose, 32 theta bins, read in place
+    # at the device-held origin (the earlier form sliced it on the host)
     win, tw = small_cfg.corr_window_cells, small_cfg.corr_theta_window_bins
     ox0, oy0, kstart = start_window(gm, cfg.corr_n_theta, win, tw)
+    origin = torch.tensor([oy0, ox0, kstart], dtype=torch.int32, device=dev)
     oxs, oys = _bin_offsets(u, v, valid, gm.inv_res, cfg.corr_n_theta, pad, zb,
-                            bin_start=kstart, nbins=tw)
+                            bin_start=origin[2], nbins=tw)
     side = win + 2 * pad
-    padded_small = torch.cat([padded0[oy0:oy0 + side, ox0:ox0 + side],
-                              torch.zeros((win, side), device=dev)]).contiguous()
-    oys = torch.where(oys >= zb, side, oys).to(torch.int32).contiguous()
-    small_row, field_small = field_build_row("SMALL", padded_small, oxs, oys,
-                                             win, win, m, lmax)
+    region = padded0[oy0:oy0 + side, ox0:ox0 + side]
+    padded_small = torch.cat([region, torch.zeros((win, side), device=dev)]
+                             ).contiguous()
+    oys_host = torch.where(oys >= zb, side, oys).to(torch.int32).contiguous()
+    small_row, field_small = field_build_row(
+        "SMALL", padded0, oxs, oys, win, win, m, lmax, region, origin=origin,
+        zero_row=zb, prev=(padded_small, oxs, oys_host))
     from mcmh_localization_tpu_torch.ops.corr_field_build import (
         corr_field_build,
         corr_field_build_plain,
     )
 
     slices = []
-    for tag, pd, bx, by, fh, fw, field, row in (
-            ("BIG", padded_big, ox, oy, h, w, field_big, field_row),
-            ("SMALL", padded_small, oxs, oys, win, win, field_small,
-             small_row)):
+    for tag, bx, by, fh, fw, field, row, form, table in (
+            ("BIG", ox, oy, h, w, field_big, field_row,
+             dict(zero_row=zb), padded0),
+            ("SMALL", oxs, oys, win, win, field_small, small_row,
+             dict(origin=origin, zero_row=zb), region)):
 
-        def calls(b0, n, pd=pd, bx=bx, by=by, fh=fh, fw=fw):
+        def calls(b0, n, bx=bx, by=by, fh=fh, fw=fw, form=form, table=table):
             # the slice's offset rows, copied once; its valid beams count
             # the operations and the conv2d yardstick's kernel, as in
             # field_build_row
             sx = bx[b0:b0 + n].contiguous()
             sy = by[b0:b0 + n].contiguous()
-            live = sy < pd.shape[0] - fh
-            conv = conv_field_call(pd[:pd.shape[0] - fh], sx, sy, live, fh, fw)
-            return (lambda: corr_field_build(pd, sx, sy, fh, fw),
-                    lambda: corr_field_build_plain(pd, sx, sy, fh, fw),
+            live = sy < zb
+            conv = conv_field_call(table, sx, sy, live, fh, fw)
+            return (lambda: corr_field_build(padded0, sx, sy, fh, fw, **form),
+                    lambda: corr_field_build_plain(padded0, sx, sy, fh, fw,
+                                                   **form),
                     (conv, "conv2d", 1e-5 * m * lmax),
                     float(live.sum()) * fh * fw,
-                    4.0 * (pd.numel() + 2 * sx.numel() + n * fh * fw))
+                    4.0 * (table.numel() + 2 * sx.numel() + n * fh * fw))
 
         slices += bin_slice_rows("corr_field_build", tag, field, bx.shape[0],
                                  row, calls)
@@ -814,37 +860,59 @@ def compare_kernels(gm, cfg, small_cfg, log_field, ranges, angles, rows):
     cov = torch.diag(torch.tensor(cfg.initial_cov))
     geo_big = LookupGeometry(gm.origin_xy[0], gm.origin_xy[1], gm.inv_res,
                              cfg.corr_n_theta, cfg.corr_n_theta, h, w, h, w)
-    geo_small = LookupGeometry(gm.origin_xy[0], gm.origin_xy[1], gm.inv_res,
-                               cfg.corr_n_theta, tw, win, win, h, w,
-                               kstart=kstart, window=(ox0, oy0))
+    # SMALL: the window and theta window at the device-held origin (the
+    # step's form); the earlier form took them as launch arguments
+    geo_small_host = LookupGeometry(gm.origin_xy[0], gm.origin_xy[1],
+                                    gm.inv_res, cfg.corr_n_theta, tw, win,
+                                    win, h, w, kstart=kstart,
+                                    window=(ox0, oy0))
+    geo_small = geo_small_host._replace(kstart=None, window=None,
+                                        theta_window=True, space_window=True)
     look = []
-    for tag, n, field, geo, agg in (
-            ("BIG", 1_000_000, field_big, geo_big, "sum"),
-            ("SMALL", 130_048, field_small, geo_small, "mean")):
+    for tag, n, field, geo, agg, o, host_geo in (
+            ("BIG", 1_000_000, field_big, geo_big, "sum", None, None),
+            ("SMALL", 130_048, field_small, geo_small, "mean", origin,
+             geo_small_host)):
         parts = init_gaussian(START, cov, 2 * n, gm, generator=gen)
-        out = corr_lookup(field, parts, n_valid, geo, agg, True)
-        ref = corr_lookup_plain(field, parts, n_valid, geo, agg, True)
+        out = corr_lookup(field, parts, n_valid, geo, agg, True, origin=o)
+        ref = corr_lookup_plain(field, parts, n_valid, geo, agg, True,
+                                origin=o)
         torch.cuda.synchronize()
         check(torch.equal(out, ref), f"corr_lookup {tag}: kernel != plain")
         # a view 12 bytes past an aligned base, N - 1 poses: 4-byte pose
         # loads and a ragged last thread
         check(torch.equal(corr_lookup(field, parts[1:], n_valid, geo, agg,
-                                      True), ref[1:]),
+                                      True, origin=o), ref[1:]),
               f"corr_lookup {tag}: the misaligned view != plain")
         print(f"[kernel] corr_lookup {tag}: N={2 * n}, P="
               f"{poses_per_thread(2 * n)} poses a thread, bitwise (also "
               "the misaligned view parts[1:])")
-        ms = device_ms(lambda: corr_lookup(field, parts, n_valid, geo, agg, True))
-        pms = device_ms(lambda: corr_lookup_plain(field, parts, n_valid, geo, agg, True))
+        ms = device_ms(lambda: corr_lookup(field, parts, n_valid, geo, agg,
+                                           True, origin=o))
+        pms = device_ms(lambda: corr_lookup_plain(field, parts, n_valid, geo,
+                                                  agg, True, origin=o))
+        extra = {}
+        if host_geo is not None:
+            check(torch.equal(corr_lookup(field, parts, n_valid, host_geo,
+                                          agg, True), out),
+                  f"corr_lookup {tag}: the launch-argument form != the "
+                  "device-origin form")
+            extra["prev_ms"] = device_ms(lambda: corr_lookup(
+                field, parts, n_valid, host_geo, agg, True))
+            print(f"[kernel] corr_lookup {tag}: device-held origin {ms:.4f} "
+                  f"ms beside the launch-argument form's "
+                  f"{extra['prev_ms']:.4f} ms, bitwise equal, on "
+                  f"{nvidia_smi_line()}")
         look.append(kernel_row(
             "corr_lookup", "gather.cu", "gather_pallas.py:96",
             f"{tag} N=2x{n}", ms=ms, plain_ms=pms, err=0.0, ops=2 * n,
-            nbytes=2 * n * (3 * 4 + 4) + gathered_bytes(field, 2 * n)))
+            nbytes=2 * n * (3 * 4 + 4) + gathered_bytes(field, 2 * n),
+            **extra))
         parts_s = parts
     rows.append({**look[0], "shapes": look[1:]})
 
     # gather_2d at the TPU's SMALL lookup shape: a (4096, 128) table, 2x130048
-    tbin, myc, mxc, _, _ = corr_lookup_indices(parts_s, geo_small)
+    tbin, myc, mxc, _, _ = corr_lookup_indices(parts_s, geo_small, origin)
     table = field_small.reshape(tw * win, win)
     y = (tbin * win + myc).to(torch.int32).contiguous()
     x = mxc.to(torch.int32).contiguous()
@@ -978,8 +1046,9 @@ def compare_slice2_kernels(gm, single_cfg, log_field, ranges, angles,
     padded, ox, oy = coarse_build_inputs(u, v, valid, log_field, gm, single_cfg)
     for row in rows:
         if row["name"] == "corr_field_build":
-            row["shapes"].append(field_build_row("coarse", padded, ox, oy,
-                                                 hc, wc, m, lmax)[0])
+            row["shapes"].append(field_build_row(
+                "coarse", padded, ox, oy, hc, wc, m, lmax,
+                padded[:padded.shape[0] - hc])[0])
 
     # kernel 5: the window score at 2x1M poses, a mixed cloud: tracked
     # poses in the window, escapees across the map (coarse reads), and off
@@ -1951,6 +2020,8 @@ def drive_online(cfg, gm, scans, angles, poses, smi) -> int:
 
     loc = OnlineLocalizer(cfg, gm, seed=0, staged=True,
                           tracking_ess_threshold=0.9)
+    check(loc.staged.big.replays_graph and loc.staged.small.replays_graph,
+          "[online] on_scan would not replay a captured correct step")
     gen_before = loc.state.key.get_state().clone()
     t0 = time.perf_counter()
     loc.warmup(scans[0], angles)
@@ -1960,7 +2031,8 @@ def drive_online(cfg, gm, scans, angles, poses, smi) -> int:
     check(loc.last_info is None and not loc._in_small,
           "[online] warmup changed the facade's state")
     print(f"[online] warmup (one BIG and one SMALL throwaway step on copies "
-          f"of the generator) {warm_s:.2f} s; generator state unchanged")
+          f"of the generator, capturing each program's correct step) "
+          f"{warm_s:.2f} s; generator state unchanged")
 
     def scan_step(t):
         """Odometry from pose t - 1 to pose t in three messages, then scan t;
@@ -2020,6 +2092,215 @@ def drive_online(cfg, gm, scans, angles, poses, smi) -> int:
                   f"mean, {1e3 * float(np.median(ts)):.4f} median over "
                   f"{len(ts)} scans on {smi}")
     return t + ONLINE_RESUME
+
+
+def sync_count(fn) -> tuple:
+    """(result, host syncs) of ``fn``: the synchronizing CUDA calls
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def profile_window(fn, scans: int) -> tuple:
+    """(device busy ms/scan, kernels a scan, host self ms/scan) of ``fn``'s
+    ``scans`` scans under torch.profiler: busy is the kernels', copies' and
+    memsets' own time on the card."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        trace = Path(d) / "trace.json"
+        prof.export_chrome_trace(str(trace))
+        events = json.loads(trace.read_text())["traceEvents"]
+    busy = sum(e.get("dur", 0.0) for e in events
+               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    host = sum(e.self_cpu_time_total for e in prof.key_averages())
+    return busy / 1e3 / scans, kernels / scans, host / 1e3 / scans
+
+
+def run_if_row(dev) -> dict:
+    """The conditional node's kernel (csrc/graph_cond.cu, ``run_if``):
+    R nodes on alternating predicates captured in one graph, each body one
+    add; the replay's result equal to R host ifs (the plain version), and
+    the time of a node beside the host if's, both per gate."""
+    from mcmh_localization_tpu_torch.ops import graph as cgraph
+
+    r = 32
+    preds = (torch.arange(r, device=dev) % 3 == 0)
+    x = torch.zeros((), device=dev)
+
+    def gates():
+        for i in range(r):
+            (y,) = cgraph.run_if(preds[i], lambda i=i: [x + (i + 1)], [x],
+                                 donate=True)
+            x.copy_(y)
+
+    g = torch.cuda.CUDAGraph()
+    with cgraph.capturing(dev) as cap, torch.cuda.graph(g):
+        gates()
+    x.zero_()
+    g.replay()
+    torch.cuda.synchronize()
+    got = float(x)
+    want = float(sum(i + 1 for i in range(r) if i % 3 == 0))
+    x.zero_()
+    gates()
+    check(got == want == float(x), f"run_if: replay {got}, host ifs "
+          f"{float(x)}, expected {want}")
+
+    def replay():
+        g.replay()
+
+    ms = device_ms(replay) / r
+    pms = device_ms(gates, runs=5) / r
+    row = kernel_row(
+        "run_if", "graph_cond.cu",
+        "mcmh_localization_tpu/filter/step.py:529", f"{r} IF nodes",
+        ms=ms, plain_ms=pms, err=0.0, ops=1.0, nbytes=1.0 + 16.0)
+    print(f"[graph] run_if: {r} conditional nodes replayed equal {r} host "
+          f"ifs; {ms * 1e3:.2f} us a node beside {pms * 1e3:.2f} us a host "
+          f"if (its read of the predicate waits on the card) on "
+          f"{nvidia_smi_line()}")
+    del g, replay
+    cap.release()
+    return row
+
+
+def drive_graph(staged, big_state, small_state, scans, angles, deltas,
+                smi) -> dict:
+    """``[graph]``: each staged program's captured step against its eager
+    steps over one chunk of SCAN_LEN scans: every state field, the
+    generator's state and every StepInfo field ``torch.equal`` on the same
+    draws; a captured chunk under ``set_sync_debug_mode("error")``; ms/scan
+    by CUDA events (in turns: eager, captured, captured, eager), device
+    busy, idle share, kernels a scan and host self time under torch.profiler,
+    host syncs a scan, the graph's nodes (launches a scan), each
+    conditional body's name and the scans that ran it, and the device time
+    of the work the gates run on every scan (the draws before the gates
+    and the carries) beside the program's device busy."""
+    from mcmh_localization_tpu_torch.filter.captured import STATE_TENSORS
+    from mcmh_localization_tpu_torch.filter.state import copy_generator
+    from mcmh_localization_tpu_torch.filter.step import (
+        Draws,
+        StepInfo,
+        _resample_draws,
+    )
+
+    out = {}
+    for tag, model, st in (("SMALL", staged.small, small_state),
+                           ("BIG", staged.big, big_state)):
+        check(model.replays_graph, f"[graph] {tag}: not graph-capturable")
+
+        def fresh(st=st):
+            return st.replace(key=copy_generator(st.key))
+
+        def eager(model=model, fresh=fresh):
+            return model.run_eager(fresh(), scans, angles, deltas)
+
+        def captured(model=model, fresh=fresh):
+            return model.run(fresh(), scans, angles, deltas)
+
+        e_st, e_inf = eager()
+        c_st, c_inf = captured()
+        torch.cuda.synchronize()
+        for f in STATE_TENSORS:
+            check(torch.equal(getattr(e_st, f), getattr(c_st, f)),
+                  f"[graph] {tag}: captured state.{f} != eager")
+        check(torch.equal(e_st.key.get_state(), c_st.key.get_state()),
+              f"[graph] {tag}: the generators moved apart")
+        for f in StepInfo._fields:
+            a, b = getattr(e_inf, f), getattr(c_inf, f)
+            pairs = (zip(a, b) if f == "estimate" else ((a, b),))
+            for x, y in pairs:
+                check(torch.equal(x, y), f"[graph] {tag}: StepInfo.{f} "
+                      "captured != eager")
+        graph = model.captured(st, scans.shape[1])
+        cap = graph.capture
+        taken0 = cap.taken[:len(cap.bodies)].clone()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            captured()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        taken = (cap.taken[:len(cap.bodies)] - taken0).tolist()
+        _, syncs_e = sync_count(eager)
+        _, syncs_c = sync_count(captured)
+        ms = {"eager": [], "captured": []}
+        for kind in ("eager", "captured", "captured", "eager"):
+            _, t = once_ms(eager if kind == "eager" else captured)
+            ms[kind].append(t / SCAN_LEN)
+        busy_e, kern_e, host_e = profile_window(eager, SCAN_LEN)
+        busy_c, kern_c, host_c = profile_window(captured, SCAN_LEN)
+        ms_e, ms_c = float(np.mean(ms["eager"])), float(np.mean(ms["captured"]))
+        nodes = graph.launches_per_scan()
+        bodies = ", ".join(f"{n} {k}/{SCAN_LEN}"
+                           for n, k in zip(cap.names, taken))
+        # the gates' always-run work: the draws made before them, the
+        # carries cloned for them, and (BIG) the escalation's padded prefix
+        cfg = model.config
+        draws_ms = device_ms(lambda: _resample_draws(fresh(), model.grid_map,
+                                                     cfg, Draws()))
+        n = st.n_max
+        # the ESS gate's carry is donated but for a copy of the count and
+        # the zero injection probability
+        carry_ms = (device_ms(lambda: (c_st.count.clone(), torch.full(
+            (), 0.0, device=st.device)))
+            if cfg.resample_ess_threshold < 1.0 else 0.0)
+        pad_ms = 0.0
+        if "escalate" in cap.names:
+            w1 = 131_072
+            pad_ms = device_ms(lambda: torch.cat(
+                [c_st.particles[:w1], torch.zeros((n - w1, 3), device=st.device)]))
+        always = draws_ms + carry_ms + pad_ms
+        check(busy_c > 0 and busy_e > 0,
+              f"[graph] {tag}: the profiler saw no device time")
+        print(f"[graph] {tag} (n_max={n}): captured == eager (torch.equal: "
+              f"every state field, the generator, every StepInfo field) "
+              f"over {SCAN_LEN} scans; no sync in a captured chunk under "
+              f"set_sync_debug_mode('error')")
+        print(f"[graph] {tag}: ms/scan captured {ms_c:.4f} "
+              f"({', '.join(f'{t:.4f}' for t in ms['captured'])}) beside eager "
+              f"{ms_e:.4f} ({', '.join(f'{t:.4f}' for t in ms['eager'])}); "
+              f"device busy {busy_c:.4f} / {busy_e:.4f} ms/scan -> idle share "
+              f"{1 - busy_c / ms_c:.3f} / {1 - busy_e / ms_e:.3f}; kernels a "
+              f"scan {kern_c:.1f} / {kern_e:.1f} (profiler); host self time "
+              f"{host_c:.4f} / {host_e:.4f} ms/scan; host syncs a scan "
+              f"{syncs_c / SCAN_LEN:.2f} / {syncs_e / SCAN_LEN:.2f} "
+              f"(captured / eager) on {smi}")
+        print(f"[graph] {tag}: graph nodes a replay {json.dumps(nodes)}; "
+              f"conditional bodies run: {bodies}")
+        print(f"[graph] {tag}: gates' always-run work {always:.4f} ms/scan "
+              f"(draws before the gates {draws_ms:.4f}, the ESS gate's "
+              f"carry {carry_ms:.4f}, the escalation's padded prefix "
+              f"{pad_ms:.4f}) = {100 * always / busy_c:.2f}% of the captured "
+              f"device busy; every gate is a conditional node "
+              f"({', '.join(cap.names)})")
+        out[tag] = dict(ms_captured=ms_c, ms_eager=ms_e, busy_captured=busy_c,
+                        busy_eager=busy_e, kernels_captured=kern_c,
+                        kernels_eager=kern_e, host_captured=host_c,
+                        host_eager=host_e, syncs_captured=syncs_c / SCAN_LEN,
+                        syncs_eager=syncs_e / SCAN_LEN, nodes=nodes,
+                        bodies=dict(zip(cap.names, taken)),
+                        always_ms=always)
+    print(f"[graph] {json.dumps(out)}")
+    return out
 
 
 EVAL_SECONDS = 30.0   # the runner's default --duration; whole squares: 178 scans
@@ -2212,7 +2493,9 @@ def drive_eval(cfg, gm, smi, reset, counts) -> list:
               f"[eval] staged RMSE {res.rmse:.4f} m >= 0.2 m")
         recs = read_metrics(str(d / "results" / "eval_staged.jsonl"))
         check(len(recs) == n, f"[eval] {len(recs)} metrics lines for {n} scans")
-        for name in ("corr_field_build", "corr_lookup", "expand_sorted"):
+        # run_if: the programs replayed their captured steps
+        for name in ("corr_field_build", "corr_lookup", "expand_sorted",
+                     "run_if"):
             check(c.get(name, 0) > 0, f"[eval] staged: {name} never launched")
         print(f"[eval] single --staged (1M / 100k, tracking ESS 0.9) on the "
               f"{n}-scan bag: RMSE {res.rmse:.4f} m, {in_small}/{n} scans in "
@@ -2468,6 +2751,7 @@ def main(argv=None) -> int:
         grow_state,
         make_staged_model,
         run_staged,
+        warmup_staged,
     )
     from mcmh_localization_tpu_torch.filter.step import (
         _resolved_likelihood_impl,
@@ -2584,9 +2868,17 @@ def main(argv=None) -> int:
     ref_ms = {}  # single-program ms/scan that [dist]'s runs print beside
 
     stamps.append(("main", time.perf_counter()))
-    # -- 4. the staged main path
-    _cuda.reset_launch_counts()
+    # -- 4. the staged main path: both programs replay their captured steps
+    # (filter/captured.py), captured by warmup_staged
+    check(staged.big.replays_graph and staged.small.replays_graph,
+          "[main] a staged program does not replay a captured step")
     state = staged.init(0)
+    t0 = time.perf_counter()
+    warmup_staged(staged, state, scans.repeat(4, 1), angles,
+                  deltas.repeat(4, 1), chunk=SCAN_LEN)
+    print(f"[main] warmup_staged (captures BIG's and SMALL's steps) "
+          f"{time.perf_counter() - t0:.2f} s")
+    _cuda.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = run_staged(staged, state, scans.repeat(4, 1), angles,
@@ -2621,12 +2913,25 @@ def main(argv=None) -> int:
     # 64 settle scans, 48 SMALL and 16 BIG
     add_counts("main", _cuda.launch_counts(), 8 * SCAN_LEN)
     print(f"[main] kernel launches in the main path: {path_counts['main']}")
-    for name in ("corr_field_build", "corr_lookup", "expand_sorted"):
+    for name in ("corr_field_build", "corr_lookup", "expand_sorted", "run_if"):
         check(path_counts["main"].get(name, 0) > 0, f"[main] {name} never launched")
     to_profile += [("small", staged.small, small_state, ms_small),
                    ("big", staged.big, big_state, ms_big)]
     ref_ms.update(small=ms_small, big=ms_big)
-    del staged, out, big_state
+
+    stamps.append(("graph", time.perf_counter()))
+    # -- 4a. the captured steps against the eager ones: SMALL from the
+    # settled state, BIG from the start with the augmented-MCL averages
+    # apart (it injects, and the diffuse cloud escalates the KLD draw)
+    _cuda.reset_launch_counts()
+    big_start = staged.init(0)
+    big_start = big_start.replace(
+        w_slow=torch.full((), 1.0, device=dev),
+        w_fast=torch.full((), 0.5, device=dev))
+    drive_graph(staged, big_start, out.state, scans, angles, deltas, smi)
+    rows.append(run_if_row(dev))
+    add_counts("graph", _cuda.launch_counts(), 2 * 11 * SCAN_LEN)
+    del staged, out, big_state, big_start
 
     stamps.append(("online", time.perf_counter()))
     # -- 4b. the online facade on the main path's configuration
@@ -2634,7 +2939,7 @@ def main(argv=None) -> int:
     online = drive_online(cfg, gm, scans, angles, poses, smi)
     add_counts("online", _cuda.launch_counts(), online)
     print(f"[online] kernel launches: {path_counts['online']}")
-    for name in ("corr_field_build", "corr_lookup", "expand_sorted"):
+    for name in ("corr_field_build", "corr_lookup", "expand_sorted", "run_if"):
         check(path_counts["online"].get(name, 0) > 0,
               f"[online] {name} never launched")
 
@@ -3056,9 +3361,9 @@ def main(argv=None) -> int:
         {**{k: r[k] for k in keys},
          **({} if r.get("on_main_path", True) else {"on_main_path": False}),
          **{k: r[k] for k in ("cummax_ms", "searchsorted_ms", "smem_floor_ms",
-                              "scipy_host_ms") if k in r},
+                              "scipy_host_ms", "prev_ms") if k in r},
          **({"shapes": [{k: x[k] for k in shape_keys + (
-             "smem_floor_ms", "scipy_host_ms") if k in x}
+             "smem_floor_ms", "scipy_host_ms", "prev_ms") if k in x}
              for x in r["shapes"]]}
             if r.get("shapes") else {})}
         for r in rows]}))

@@ -40,6 +40,16 @@
 // Sums run over the valid beams in the given order from 0.0 with
 // round-to-nearest adds and no contraction: bitwise the plain PyTorch
 // version's sum over all beams in that order.
+//
+// The SMALL program's window: the build reads its region in place inside
+// the whole padded table, at the (oy0, ox0) cell origin
+// the step computes on the card (filter/step.py::_window_origin), read
+// from device memory by every block; the beams at or past `zero_row` (the
+// padded table's height, where the JAX package's zero band starts) are
+// the invalid ones.  So the window needs no slice or copy placed by the
+// host, and a captured step replays with each scan's own origin.  (The
+// earlier form sliced the region out on the host, with the zero band
+// appended: origin null, zero_row = hp - h.)
 
 #include <cuda_runtime.h>
 
@@ -54,7 +64,8 @@ __global__ void __launch_bounds__(kWarps * 32)
 corr_field_build_kernel(const float* __restrict__ padded, int wp,
                         int zero_row, const int* __restrict__ ox,
                         const int* __restrict__ oy, int k_bins, int m,
-                        float* __restrict__ out, int h, int w) {
+                        float* __restrict__ out, int h, int w,
+                        const int* __restrict__ origin) {
   __shared__ int s_off[kWarps][kStage];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -64,12 +75,16 @@ corr_field_build_kernel(const float* __restrict__ padded, int wp,
   const int y0 = blockIdx.y * RY;
   // warp-uniform: the tile lies inside the field, no clamping
   const bool full = xb + 32 * kRunX <= w && y0 + RY <= h;
+  // the window's corner inside the padded table (0 for a whole table)
+  const int corner =
+      origin != nullptr ? __ldg(origin) * wp + __ldg(origin + 1) : 0;
   int idx[RY][kRunX];  // read index of each output, clamped at the edge
 #pragma unroll
   for (int r = 0; r < RY; ++r) {
 #pragma unroll
     for (int i = 0; i < kRunX; ++i) {
-      idx[r][i] = min(y0 + r, h - 1) * wp + min(xb + lane + 32 * i, w - 1);
+      idx[r][i] = corner + min(y0 + r, h - 1) * wp +
+                  min(xb + lane + 32 * i, w - 1);
     }
   }
   float acc[RY][kRunX];
@@ -141,29 +156,34 @@ corr_field_build_kernel(const float* __restrict__ padded, int wp,
 template <int RY>
 cudaError_t launch(const float* padded, int wp, int zero_row, const int* ox,
                    const int* oy, int k, int m, float* out, int h, int w,
-                   cudaStream_t stream) {
+                   const int* origin, cudaStream_t stream) {
   dim3 grid((w + 32 * kRunX - 1) / (32 * kRunX), (h + RY - 1) / RY,
             (k + kWarps - 1) / kWarps);
   corr_field_build_kernel<RY><<<grid, kWarps * 32, 0, stream>>>(
-      padded, wp, zero_row, ox, oy, k, m, out, h, w);
+      padded, wp, zero_row, ox, oy, k, m, out, h, w, origin);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// zero_row: beams with oy >= zero_row are invalid and skipped; origin:
+// the (oy0, ox0) corner of the h x w window in `padded`, two ints in device
+// memory (null: the corner is (0, 0))
 extern "C" int mcmh_corr_field_build(const float* padded, int hp, int wp,
                                      const int* ox, const int* oy, int k,
                                      int m, float* out, int h, int w,
+                                     int zero_row, const int* origin,
                                      void* stream) {
+  (void)hp;
   if (k <= 0 || h <= 0 || w <= 0) return 0;
-  const int zero_row = hp - h;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   // two rows per thread where the grid stays large (the full-map field),
   // one where it would leave SMs idle (the window and coarse fields)
   const cudaError_t err =
       h * w >= 65536
-          ? launch<2>(padded, wp, zero_row, ox, oy, k, m, out, h, w, s)
-          : launch<1>(padded, wp, zero_row, ox, oy, k, m, out, h, w, s);
+          ? launch<2>(padded, wp, zero_row, ox, oy, k, m, out, h, w, origin, s)
+          : launch<1>(padded, wp, zero_row, ox, oy, k, m, out, h, w, origin,
+                      s);
   return static_cast<int>(err);
 }
 

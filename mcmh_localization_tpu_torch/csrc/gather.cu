@@ -34,6 +34,11 @@
 //    parts[1:]) takes the same kernel with 4-byte loads, and the last
 //    thread of a ragged N reads and writes its items one by one; the output
 //    is the wrapper's own allocation and always aligned.
+// mcmh_corr_lookup_at reads the window's (oy0, ox0) corner and its first
+// theta bin from three ints in device memory (filter/step.py::
+// _window_origin computes them on the card), loaded with the valid-beam
+// count before the poses; mcmh_corr_lookup, the earlier form, takes them as
+// launch arguments.
 
 #include <cuda_runtime.h>
 
@@ -74,12 +79,17 @@ struct LookupArgs {
 template <int P>
 __global__ void __launch_bounds__(kThreads) corr_lookup_kernel(
     const float* __restrict__ field, const float* __restrict__ particles,
-    int n, bool vec, const int* __restrict__ n_valid, LookupArgs a,
-    float* __restrict__ out) {
+    int n, bool vec, const int* __restrict__ n_valid,
+    const int* __restrict__ origin, LookupArgs a, float* __restrict__ out) {
   const long long i0 =
       (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) * P;
   if (i0 >= n) return;
   const int count = __ldg(n_valid);
+  if (origin != nullptr) {  // (oy0, ox0, kstart) on the card
+    a.oy0 = __ldg(origin);
+    a.ox0 = __ldg(origin + 1);
+    a.kstart = __ldg(origin + 2);
+  }
   float p[3 * P];
   load_poses<P>(particles, i0, n, vec, p);
   long long src[P];
@@ -151,11 +161,33 @@ cudaError_t launch_gather(const float* table, int w, const int* y,
 
 template <int P>
 cudaError_t launch_lookup(const float* field, const float* particles, int n,
-                          const int* n_valid, const LookupArgs& a,
-                          float* out, cudaStream_t stream) {
+                          const int* n_valid, const int* origin,
+                          const LookupArgs& a, float* out,
+                          cudaStream_t stream) {
   corr_lookup_kernel<P><<<blocks_for(n, P, kThreads), kThreads, 0, stream>>>(
-      field, particles, n, aligned_to(particles, 16), n_valid, a, out);
+      field, particles, n, aligned_to(particles, 16), n_valid, origin, a,
+      out);
   return cudaGetLastError();
+}
+
+int lookup(const float* field, const float* particles, int n,
+           const int* n_valid, const int* origin, const LookupArgs& a,
+           int poses, float* out, void* stream) {
+  if (n <= 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (poses) {
+    case 4:
+      return launch_lookup<4>(field, particles, n, n_valid, origin, a, out,
+                              st);
+    case 2:
+      return launch_lookup<2>(field, particles, n, n_valid, origin, a, out,
+                              st);
+    case 1:
+      return launch_lookup<1>(field, particles, n, n_valid, origin, a, out,
+                              st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -190,7 +222,6 @@ extern "C" int mcmh_corr_lookup(const float* field, int nbins, int fh, int fw,
                                 int sum_aggregation, int score_validity,
                                 float blind_score, float invalid_score,
                                 int poses, float* out, void* stream) {
-  if (n <= 0) return 0;
   LookupArgs a;
   a.nbins = nbins;
   a.fh = fh;
@@ -212,15 +243,43 @@ extern "C" int mcmh_corr_lookup(const float* field, int nbins, int fh, int fw,
   a.score_validity = score_validity;
   a.blind_score = blind_score;
   a.invalid_score = invalid_score;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (poses) {
-    case 4:
-      return launch_lookup<4>(field, particles, n, n_valid, a, out, st);
-    case 2:
-      return launch_lookup<2>(field, particles, n, n_valid, a, out, st);
-    case 1:
-      return launch_lookup<1>(field, particles, n, n_valid, a, out, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return lookup(field, particles, n, n_valid, nullptr, a, poses, out, stream);
+}
+
+// origin: (oy0, ox0, kstart), three ints in device memory, read where
+// use_window / use_theta_win ask for them (null when neither does)
+extern "C" int mcmh_corr_lookup_at(const float* field, int nbins, int fh,
+                                   int fw, const float* particles, int n,
+                                   const int* n_valid, float origin_x,
+                                   float origin_y, float inv_res, float pi_f,
+                                   float theta_scale, int n_theta,
+                                   int use_theta_win, int use_window,
+                                   const int* origin, int map_h, int map_w,
+                                   int sum_aggregation, int score_validity,
+                                   float blind_score, float invalid_score,
+                                   int poses, float* out, void* stream) {
+  LookupArgs a;
+  a.nbins = nbins;
+  a.fh = fh;
+  a.fw = fw;
+  a.origin_x = origin_x;
+  a.origin_y = origin_y;
+  a.inv_res = inv_res;
+  a.pi_f = pi_f;
+  a.theta_scale = theta_scale;
+  a.n_theta = n_theta;
+  a.kstart = 0;
+  a.use_theta_win = use_theta_win;
+  a.ox0 = 0;
+  a.oy0 = 0;
+  a.use_window = use_window;
+  a.map_h = map_h;
+  a.map_w = map_w;
+  a.sum_aggregation = sum_aggregation;
+  a.score_validity = score_validity;
+  a.blind_score = blind_score;
+  a.invalid_score = invalid_score;
+  return lookup(field, particles, n, n_valid,
+                use_window || use_theta_win ? origin : nullptr, a, poses, out,
+                stream);
 }

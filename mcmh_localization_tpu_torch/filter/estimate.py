@@ -44,6 +44,12 @@ def estimate_pose(particles: torch.Tensor, weights: torch.Tensor,
     return PoseEstimate(mean=mean, cov=cov)
 
 
+def row_at(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``x[i]`` for a 0-d integer tensor ``i`` on ``x``'s device, without
+    reading ``i`` on the host (indexing with a 0-d tensor does)."""
+    return x.index_select(0, i.reshape(1))[0]
+
+
 def _near(particles, pose, radius_xy, radius_theta):
     dx = particles[:, 0] - pose[0]
     dy = particles[:, 1] - pose[1]
@@ -63,7 +69,7 @@ def estimate_pose_cluster(
     (radius_xy, radius_theta) neighborhood."""
     w = torch.where(mask, weights, 0.0) if mask is not None else weights
     if anchor is None:
-        anchor = particles[torch.argmax(w)]
+        anchor = row_at(particles, torch.argmax(w))
     near = _near(particles, anchor, radius_xy, radius_theta)
     cmask = near if mask is None else (near & mask)
     return estimate_pose(particles, weights, cmask)

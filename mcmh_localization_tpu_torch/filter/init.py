@@ -14,6 +14,19 @@ import torch
 _POOL = 65536
 
 
+def uniform_draws(n: int, grid_map, generator: torch.Generator | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``init_uniform``'s draws, in its order: (cells, jitter, theta)."""
+    dev = grid_map.device
+    f = grid_map.free_xy.shape[0]
+    cells = torch.randint(0, f, (min(n, _POOL),), generator=generator,
+                          device=dev)
+    jitter = torch.rand((n, 2), generator=generator, device=dev) - 0.5
+    theta = torch.rand((n,), generator=generator, device=dev) \
+        * (2.0 * math.pi) - math.pi
+    return cells, jitter, theta
+
+
 def init_uniform(
     n: int,
     grid_map,
@@ -25,17 +38,13 @@ def init_uniform(
     """(n, 3) poses uniform over free space, theta ~ U(-pi, pi).
 
     ``cells``: (min(n, 65536),) int free-cell indices; ``jitter``: (n, 2)
-    U(-0.5, 0.5) in-cell offsets (in cells); ``theta``: (n,) headings."""
-    dev = grid_map.device
-    f = grid_map.free_xy.shape[0]
+    U(-0.5, 0.5) in-cell offsets (in cells); ``theta``: (n,) headings
+    (``uniform_draws``; drawn from ``generator`` where None)."""
+    if cells is None or jitter is None or theta is None:
+        drawn = uniform_draws(n, grid_map, generator)
+        cells, jitter, theta = (d if g is None else g for d, g in
+                                zip(drawn, (cells, jitter, theta)))
     pool = min(n, _POOL)
-    if cells is None:
-        cells = torch.randint(0, f, (pool,), generator=generator, device=dev)
-    if jitter is None:
-        jitter = torch.rand((n, 2), generator=generator, device=dev) - 0.5
-    if theta is None:
-        theta = torch.rand((n,), generator=generator, device=dev) \
-            * (2.0 * math.pi) - math.pi
     xy = grid_map.free_xy[cells.to(torch.int64)]
     if pool < n:
         xy = xy.repeat(-(-n // pool), 1)[:n]

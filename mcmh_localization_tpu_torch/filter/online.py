@@ -10,6 +10,12 @@ returns the estimate.  The filter runs where the map lives: the card for a
 map built by the port's entry points with their default device, the CPU
 for a map built with ``device="cpu"``.
 
+On the card, ``on_scan`` replays its program's correct step captured in a
+CUDA graph (``filter/captured.py``) wherever the config is
+``graph_capturable`` (the staged main path's two programs are); the
+odometry's predict steps run eagerly.  Every other config, and the CPU,
+runs the correct step eagerly.
+
 The state's random source is a ``torch.Generator``, which the step advances
 in place, where the JAX key is a value.  So wherever the JAX facade reuses
 a key value (``warmup``'s throwaway steps on both programs), this one works
@@ -128,11 +134,13 @@ class OnlineLocalizer:
         """Run one throwaway predict+correct per program this localizer can
         dispatch (and, staged, the shrink/grow hand-off), outside any timed
         or real-time region: on the card this builds the CUDA kernels at
-        their first use (``ops/_cuda.py``) and fills PyTorch's allocator
-        and library caches.  The steps run on copies of the state's
-        generator, so the localizer's state, its random stream, the
-        odometry bookkeeping and the estimate cache are untouched.  The
-        online twin of the JAX ``filter.staged.warmup_staged``."""
+        their first use (``ops/_cuda.py``), captures each capturable
+        program's correct step (the port's counterpart of JAX's compile)
+        and fills PyTorch's allocator and library caches.  The steps run on
+        copies of the state's generator, so the localizer's state, its
+        random stream, the odometry bookkeeping and the estimate cache are
+        untouched.  The online twin of the JAX
+        ``filter.staged.warmup_staged``."""
         ranges, angles = self._scan_inputs(ranges, angles, angle_min, angle_max)
         delta = torch.zeros(3, dtype=torch.float32, device=self.device)
 
@@ -156,7 +164,7 @@ class OnlineLocalizer:
                         (self.staged.small, copy(small_state))]
         for model, st in programs:
             st = model.predict(st, delta)
-            model.correct(st, ranges, angles)
+            _correct_scan(model, st, ranges, angles)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -199,7 +207,8 @@ class OnlineLocalizer:
                                    torch.from_numpy(self._last_odom))
             self.state = self.model.predict(self.state, delta)
             self._predicted_from = self._last_odom
-        self.state, info = self.model.correct(self.state, ranges, angles)
+        self.state, info = _correct_scan(self.model, self.state, ranges,
+                                         angles)
         self.last_info = info
         if self.staged is not None:
             from mcmh_localization_tpu_torch.filter.staged import (
@@ -313,3 +322,12 @@ class OnlineLocalizer:
         self._predicted_from = None
         self.last_info = None
         self._est_for = self._est_cache = None
+
+
+def _correct_scan(model, state: FilterState, ranges, angles):
+    """``model.correct``: a replay of its captured correct step where the
+    model ``replays_graph``, an eager step otherwise."""
+    if model.replays_graph:
+        return model.captured(state, ranges.shape[0], predict=False).scan(
+            state, ranges, angles)
+    return model.correct(state, ranges, angles)

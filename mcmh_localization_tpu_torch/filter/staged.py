@@ -9,8 +9,9 @@ A KLD-adaptive config runs as two programs over the same config:
   * SMALL: n_max = tracking capacity (converged tracking); the windowed
            field without the coarse fallback, optional ESS-gated resampling.
 
-The host runs ``chunk`` scans at a time, reads the chunk's StepInfo and
-hands the state over: down (an exact prefix slice) when the counts fit the
+The host runs ``chunk`` scans at a time (on the card, one replay of each
+program's captured step a scan, ``filter/captured.py``), reads the chunk's
+StepInfo once and hands the state over: down (an exact prefix slice) when the counts fit the
 small capacity and one mode dominates, up (zero tail pad) on injection, a
 count pegged at capacity, or decaying mode dominance.  See the JAX module
 docstring for the measured rationale of each choice.
@@ -296,10 +297,11 @@ def warmup_staged(model: StagedModel, state: FilterState, ranges_seq,
     remainder), and the shrink-then-grow hand-off, before a timed run: the
     staged twin of ``eval/runner.py::run_filter_on_bag``'s warmup.  On the
     card that is the kernels' build and load at first use
-    (``ops/_cuda.py``), cuBLAS's initialization and the allocator's pools;
-    there is no compile cache to fill.  The throwaway runs work on copies
-    of ``state``'s generator, so the state, its random stream and a run
-    after this are as without it."""
+    (``ops/_cuda.py``), the capture of each capturable program's step in a
+    CUDA graph (``filter/captured.py``; the counterpart of JAX's compile),
+    cuBLAS's initialization and the allocator's pools.  The throwaway runs
+    work on copies of ``state``'s generator, so the state, its random
+    stream and a run after this are as without it."""
     dev = model.grid_map.device
     ranges_seq = as_f32(ranges_seq, dev)
     deltas = as_f32(deltas, dev)
@@ -353,9 +355,12 @@ def run_staged(
                              deltas[t:t + tc])
         infos_chunks.append(infos)
         modes[t:t + tc] = 1 if in_small else 0
+        # the chunk's one read on the host: the policy's three scalars
+        counts, p_rand, mass = torch.stack([
+            infos.count.to(torch.float64), infos.p_random.to(torch.float64),
+            infos.anchor_mass.to(torch.float64)]).cpu().numpy()
         nxt = next_stage(
-            in_small, infos.count.cpu().numpy(),
-            infos.p_random.cpu().numpy(), infos.anchor_mass.cpu().numpy(),
+            in_small, counts, p_rand, mass,
             cap, shrink_margin=shrink_margin,
             escalate_p_random=escalate_p_random,
             shrink_mass=shrink_mass, escalate_mass=escalate_mass,

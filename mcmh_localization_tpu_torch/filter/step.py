@@ -8,16 +8,27 @@ One scan is ``_predict`` (odometry proposal, with rejection retries under
 motion_validity="reject") then ``_correct`` (score the proposed and
 previous sets in one call, MH, augmented-MCL bookkeeping, anchor refresh,
 estimate, the optionally ESS-gated resample: KLD, "simple" or "lvr" in the
-adaptive modes, systematic otherwise).  PyTorch runs eagerly, so ``run`` is
-a Python loop in place of ``lax.scan``, and the JAX program's
-data-dependent branches are host ``if``s on synced scalars: the window
-origin, the ESS gate (JAX ``while_loop`` at step.py:748), the coarse-build
-gates (corr_field.py:562, range_table.py:629), the KLD escalation
-(resampling.py:464) and the injection ``lax.cond`` (:529).  Capturing the step in a CUDA graph is
-later work.
+adaptive modes, systematic otherwise).
+
+The JAX program's data-dependent choices stay on the device: the corr
+window origin is a tensor (``_window_origin``) that the field build and
+the lookup read from device memory, and the injection ``lax.cond``
+(:529), the ESS gate's ``while_loop`` (:748) and the KLD escalation
+(resampling.py:464) go through ``ops/graph.py::run_if``: conditional
+nodes in a captured step, host ``if``s in an eager one.  On the card,
+``FilterModel.run`` replays a step captured in a CUDA graph for the
+configs ``filter/captured.py::graph_capturable`` names (the JAX
+``lax.scan`` of step.py:872-882 compiles the trajectory once); the other
+configs (the coarse-gated window, the beam and 3-D lidar scorers, the
+exact scorer) run the Python loop of eager steps.
 
 Random draws: each scan's draws come from the state's generator, or from
-an optional ``Draws`` record (so a test can hand in the JAX draws).
+an optional ``Draws`` record (so a test can hand in the JAX draws).  For
+a graph-capturable config the resampler's draws are all made at static
+shapes before its gates (``_resample_draws``), as the JAX key is split
+whether a branch runs or not, so an eager step and a replay of the
+captured one use the stream alike; the other configs draw inside the
+branches that run.
 """
 
 from __future__ import annotations
@@ -29,13 +40,19 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from mcmh_localization_tpu_torch.filter.captured import graph_capturable
 from mcmh_localization_tpu_torch.filter.estimate import (
     PoseEstimate,
     cluster_mass,
     estimate_pose,
     estimate_pose_cluster,
+    row_at,
 )
-from mcmh_localization_tpu_torch.filter.init import init_gaussian, init_uniform
+from mcmh_localization_tpu_torch.filter.init import (
+    init_gaussian,
+    init_uniform,
+    uniform_draws,
+)
 from mcmh_localization_tpu_torch.filter.mh import asymmetric_mh, symmetric_mh
 from mcmh_localization_tpu_torch.filter.state import (
     FilterState,
@@ -65,8 +82,10 @@ from mcmh_localization_tpu_torch.models.sensor import (
     raycast_beam_scores,
     wrap_score_with_validity,
 )
+from mcmh_localization_tpu_torch.ops.graph import run_if
 from mcmh_localization_tpu_torch.ops.resampling import (
     effective_sample_size,
+    kld_noise_rows,
     kld_resample,
     multinomial_resample_indices,
     softmax_weights,
@@ -259,6 +278,11 @@ def _make_scorer(ranges, angles, grid_map, table, config, impl,
                                   log_volume=table.levels)
         return score
     if impl == "field":
+        # the beam field's LUT build takes the window on the host (the
+        # beam configs run eagerly)
+        if isinstance(window_origin, torch.Tensor):
+            window_origin = tuple(window_origin.tolist())
+
         def score(p):
             return beam_field_scores(p, ranges, angles, grid_map, config,
                                      table, config.beam_table_n_theta,
@@ -299,12 +323,16 @@ def _make_scorer(ranges, angles, grid_map, table, config, impl,
 
 
 def _window_origin(state: FilterState, grid_map, config,
-                   n_theta: int | None = None) -> tuple:
-    """(oy0, ox0[, kstart]) python ints: the corr window's lower-left cell
-    and first theta bin, centered on the anchor (window_center="anchor")
-    or the active cloud's mean; see the JAX docstring (step.py:231-263)."""
+                   n_theta: int | None = None) -> torch.Tensor:
+    """(3,) int32 (oy0, ox0, kstart) on the state's device: the corr
+    window's lower-left cell, centered on the anchor (window_center=
+    "anchor") or the active cloud's mean and clamped to ``[0, h - win]``
+    x ``[0, w - win]`` as the JAX scorer clamps it (corr_field.py:378-380),
+    and the theta window's first bin (0 without a theta window); see the
+    JAX docstring (step.py:231-263).  Nothing is read on the host."""
     mask = state.active_mask
-    half = config.corr_window_cells // 2
+    win = config.corr_window_cells
+    half = win // 2
     if config.window_center == "anchor":
         cx, cy = state.anchor[0], state.anchor[1]
         mean_t = state.anchor[2]
@@ -318,8 +346,10 @@ def _window_origin(state: FilterState, grid_map, config,
         mean_t = None
     ox0 = ((cx - grid_map.origin[0]) * grid_map.inv_res).to(torch.int32) - half
     oy0 = ((cy - grid_map.origin[1]) * grid_map.inv_res).to(torch.int32) - half
+    oy0 = oy0.clamp(0, max(grid_map.height - win, 0))
+    ox0 = ox0.clamp(0, max(grid_map.width - win, 0))
     if not config.corr_theta_window_bins:
-        return tuple(torch.stack([oy0, ox0]).tolist())
+        return torch.stack([oy0, ox0, torch.zeros_like(oy0)])
     if mean_t is None:
         sets = ((state.particles, state.prev_particles) if config.use_mh
                 else (state.particles,))
@@ -329,7 +359,7 @@ def _window_origin(state: FilterState, grid_map, config,
     k = n_theta if n_theta is not None else config.corr_n_theta
     kmid = ((mean_t + math.pi) * (k / (2.0 * math.pi))).to(torch.int32) % k
     kstart = (kmid - config.corr_theta_window_bins // 2) % k
-    return tuple(torch.stack([oy0, ox0, kstart]).tolist())
+    return torch.stack([oy0, ox0, kstart.to(torch.int32)])
 
 
 def refresh_anchor(particles, weights, anchor, streak, config, mask,
@@ -338,7 +368,7 @@ def refresh_anchor(particles, weights, anchor, streak, config, mask,
     (anchor, anchor_mass, streak).  See the JAX docstring (step.py:307)."""
     w = torch.where(mask, weights, 0.0)
     top = torch.argmax(w)
-    cand = particles[top].to(torch.float32)
+    cand = row_at(particles, top).to(torch.float32)
     rxy, rth = config.cluster_radius_xy, config.cluster_radius_theta
     m_cand = cluster_mass(particles, w, cand, rxy, rth)
     m_cur = cluster_mass(particles, w, anchor, rxy, rth)
@@ -352,7 +382,7 @@ def refresh_anchor(particles, weights, anchor, streak, config, mask,
         inc = (d2 <= rxy ** 2) & (
             torch.abs(normalize_angle_about(particles[:, 2], anchor[2])) <= rth)
         w_inc_top = torch.where(inc, w, 0.0).max()
-        w_cand_top = w[top]
+        w_cand_top = row_at(w, top)
         migrate = migrate & (
             w_inc_top < w_cand_top * torch.exp(
                 torch.as_tensor(-config.anchor_score_margin * score_scale)))
@@ -446,7 +476,10 @@ def _resample_amcl_lvr(state: FilterState, grid_map, config, d: Draws):
 
 def _resample_kld(state: FilterState, grid_map, config, d: Draws):
     """Augmented-MCL injection + KLD-sized systematic resampling
-    (resample_amcl_kld, amcmh_localizer.py:496-527)."""
+    (resample_amcl_kld, amcmh_localizer.py:496-527).  The injection is
+    ``run_if`` on ``n_random > 0`` (the JAX ``lax.cond``, step.py:529); a
+    captured config's randoms come drawn at static shape on every
+    resampling scan (``_resample_draws``)."""
     n = state.count
     n_max = state.n_max
     dev = state.device
@@ -473,24 +506,74 @@ def _resample_kld(state: FilterState, grid_map, config, d: Draws):
         generator=state.key,
     )
     n_kept = torch.minimum(n_kept, n_resampled)
-    nr = int(n_random)  # host if in place of the JAX lax.cond (step.py:529)
-    if nr > 0:
+
+    def inject():
         # injected randoms take the FIRST slots (reference order); the kept
-        # samples shift behind them
+        # samples shift behind them: the roll by the device-held n_random
         randoms = init_uniform(n_max, grid_map, generator=state.key,
                                cells=d.inject_cells, jitter=d.inject_jitter,
                                theta=d.inject_theta)
-        take_random = torch.arange(n_max, device=dev) < nr
-        particles = torch.where(take_random[:, None], randoms,
-                                torch.roll(samples, nr, dims=0))
-    else:
-        particles = samples
+        slot = torch.arange(n_max, device=dev)
+        shifted = samples[(slot - n_random) % n_max]
+        return [torch.where((slot < n_random)[:, None], randoms, shifted)]
+
+    (particles,) = run_if(n_random > 0, inject, [samples], donate=True)
     new_count = torch.clamp(n_random + n_kept, config.min_particles,
                             n_max).to(torch.int32)
     mask = torch.arange(n_max, device=dev) < new_count
     weights = torch.where(mask, 1.0 / new_count.to(torch.float32), 0.0)
     return (state.replace(particles=particles, weights=weights,
                           count=new_count), p_random)
+
+
+def _resample_draws(state: FilterState, grid_map, config, d: Draws) -> Draws:
+    """``d`` with every draw the config's resampler can use, at static
+    shapes: the fields left None are drawn from the state's generator, in
+    the order the resamplers take them (the systematic offset or the KLD
+    offset, jitter normals and escalation tail; the multinomial uniforms;
+    the uniform candidates; the "lvr" coins).  A graph-capturable config
+    makes them before the ESS gate, the KLD escalation and the injection,
+    so the stream moves by the same draws whichever branches run, in a
+    replay (which draws what it captured) as in an eager step, as the JAX
+    key is split whether a branch runs or not.  The configs that run
+    eagerly draw inside the branches that run."""
+    n = state.n_max
+    dev = state.device
+    gen = state.key
+    fill = {}
+
+    def need(name):
+        return getattr(d, name) is None
+
+    def uniform(name, shape):
+        if need(name):
+            fill[name] = torch.rand(shape, generator=gen, device=dev)
+
+    if not config.use_adaptive:
+        uniform("resample_r", ())
+        return dataclasses.replace(d, **fill)
+    kind = config.adaptive_resampler
+    if kind == "kld":
+        uniform("kld_r", ())
+        rows, tail = kld_noise_rows(n, config.min_particles,
+                                    config.kld_eval_window)
+        for name, k in (("kld_noise", rows), ("kld_noise_tail", tail)):
+            if k and need(name):
+                fill[name] = torch.randn((k, 3), generator=gen, device=dev,
+                                         dtype=state.particles.dtype)
+    elif kind == "simple":
+        uniform("multinomial_u", (n,))
+    else:
+        uniform("resample_r", ())
+    if need("inject_cells") or need("inject_jitter") or need("inject_theta"):
+        drawn = uniform_draws(n, grid_map, gen)
+        for name, x in zip(("inject_cells", "inject_jitter", "inject_theta"),
+                           drawn):
+            if need(name):
+                fill[name] = x
+    if kind == "lvr":
+        uniform("lvr_coins", (n,))
+    return dataclasses.replace(d, **fill)
 
 
 def _beam_count(ranges: torch.Tensor, config) -> torch.Tensor:
@@ -586,20 +669,31 @@ def _correct(state: FilterState, ranges: torch.Tensor, angles: torch.Tensor,
         est = estimate_pose(state.particles, state.weights, mask)
     ess = effective_sample_size(state.weights)
 
-    # -- resample, ESS-gated when the threshold is below 1 (host if in
+    # -- resample, ESS-gated when the threshold is below 1 (run_if in
     # place of the JAX 0/1-iteration while_loop, step.py:748)
     if config.use_adaptive:
         resample = {"kld": _resample_kld, "simple": _resample_amcl_simple,
                     "lvr": _resample_amcl_lvr}[config.adaptive_resampler]
     else:
         resample = _resample_systematic
-    p_random = scalar(0.0, state.device)
+    if graph_capturable(config):
+        d = _resample_draws(state, grid_map, config, d)
     if carry_on:
         need = ess < config.resample_ess_threshold * state.count.to(torch.float32)
         if config.use_adaptive:
             need = need | (_p_random(state, config) > 0)
-        if bool(need):
-            state, p_random = resample(state, grid_map, config, d)
+        fields = ("particles", "weights", "count")
+
+        def gated():
+            st, p = resample(state, grid_map, config, d)
+            return [getattr(st, f) for f in fields] + [p]
+
+        # the carry is donated: the pre-resample set is read by nothing
+        # after the gate (the count is the step's input, so a copy)
+        *new, p_random = run_if(
+            need, gated, [state.particles, state.weights, state.count.clone(),
+                          scalar(0.0, state.device)], donate=True)
+        state = state.replace(**dict(zip(fields, new)))
     else:
         state, p_random = resample(state, grid_map, config, d)
 
@@ -655,10 +749,28 @@ class FilterModel:
         self.grid_map = grid_map
         self.voxel_map = voxel_map
         self.log_field = _sensor_table(grid_map, config, voxel_map)
+        self._graphs: dict = {}
 
     @property
     def device(self) -> torch.device:
         return self.grid_map.device
+
+    @property
+    def replays_graph(self) -> bool:
+        """True where ``run`` replays a captured step: on a CUDA device, for
+        a config ``filter/captured.py::graph_capturable`` names."""
+        return self.device.type == "cuda" and graph_capturable(self.config)
+
+    def captured(self, state, beams: int, predict: bool = True):
+        """The ``CapturedStep`` of this model for ``state``'s slots and
+        scans of ``beams`` ranges (``predict=False``: the correct step
+        alone), made at first use; it captures at its first run."""
+        from mcmh_localization_tpu_torch.filter.captured import CapturedStep
+
+        key = (state.n_max, beams, predict)
+        if key not in self._graphs:
+            self._graphs[key] = CapturedStep(self, state, beams, predict)
+        return self._graphs[key]
 
     def init(self, seed: int | torch.Generator = 0, initial_pose=None,
              initial_cov=None) -> FilterState:
@@ -695,7 +807,24 @@ class FilterModel:
     def run(self, state, ranges_seq, angles, deltas):
         """A trajectory, one step per scan: (T, M) ranges, (M,) angles (or
         the 3-D lidar's (M, 2) directions), (T, 3) deltas -> (final state,
-        stacked StepInfo)."""
+        stacked StepInfo).
+
+        On a CUDA device a config that ``replays_graph`` runs one replay of
+        its captured step per scan (``filter/captured.py``; the step is
+        captured at the first run, or by ``filter/staged.py::
+        warmup_staged``), bitwise the eager steps on the same generator;
+        every other config, and every CPU run, is a Python loop of eager
+        steps.  The choice is the config's, not a fallback."""
+        if not self.replays_graph:
+            return self.run_eager(state, ranges_seq, angles, deltas)
+        ranges_seq = self._on_device(ranges_seq)
+        return self.captured(state, ranges_seq.shape[1]).run(
+            state, ranges_seq, self._on_device(angles),
+            self._on_device(deltas))
+
+    def run_eager(self, state, ranges_seq, angles, deltas):
+        """``run`` as a Python loop of eager steps on any config: the
+        captured run's plain version."""
         ranges_seq = self._on_device(ranges_seq)
         angles = self._on_device(angles)
         deltas = self._on_device(deltas)

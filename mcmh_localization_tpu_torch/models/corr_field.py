@@ -162,7 +162,7 @@ def correlation_field_scores(
     config,
     log_field: torch.Tensor | None = None,
     n_theta: int = 180,
-    window_origin: tuple | None = None,  # (oy0, ox0[, kstart]) python ints
+    window_origin=None,  # (3,) int32 tensor, or (oy0, ox0[, kstart]) ints
     offsets: tuple | None = None,
     coarse_offsets: tuple | None = None,
     shard_bins_axis=None,  # a process group: the theta-sharded build
@@ -170,6 +170,11 @@ def correlation_field_scores(
     """(N,) per-particle scores via one field read each; the same
     normalization, blind penalty, coarse fallback and motion-validity fold
     as the JAX scorer.
+
+    ``window_origin``: the window's (oy0, ox0, kstart), an int32 tensor on
+    the card (``filter/step.py::_window_origin``; the field build and the
+    lookup read it from device memory) or a sequence of ints
+    (``window_origin_tensor``).
 
     ``offsets``: optional (ox, oy) from ``_bin_offsets`` (global zero-band
     row), and ``coarse_offsets`` the coarse field's, to score with offsets
@@ -193,65 +198,87 @@ def correlation_field_scores(
     safe_r = torch.where(valid, ranges, 0.0)
     u = (safe_r * torch.cos(angles)).to(torch.float32)
     v = (safe_r * torch.sin(angles)).to(torch.float32)
-    padded0 = F.pad(log_field, (pad, pad, pad, pad))
+    padded0 = F.pad(log_field, (pad, pad, pad, pad)).contiguous()
     zero_band_row = padded0.shape[0]
 
     win = config.corr_window_cells
     use_window = bool(win) and win < min(h, w) and window_origin is not None
     use_coarse = use_window and bool(config.corr_coarse_factor)
     tw = config.corr_theta_window_bins
+    dev = log_field.device
+    origin = (window_origin_tensor(window_origin, h, w, win, dev)
+              if use_window else None)
     use_theta_win = bool(tw) and use_window and len(window_origin) == 3
     nbins = tw if use_theta_win else n_theta
-    kstart = int(window_origin[2]) if use_theta_win else 0
     if offsets is None:
         ox, oy = _bin_offsets(u, v, valid, grid_map.inv_res, n_theta, pad,
-                              zero_band_row, bin_start=kstart, nbins=nbins)
+                              zero_band_row,
+                              bin_start=origin[2] if use_theta_win else 0,
+                              nbins=nbins)
     else:
         ox, oy = (o.to(torch.int32) for o in offsets)
 
-    dev = log_field.device
-    if use_window:
-        oy0 = min(max(int(window_origin[0]), 0), h - win)
-        ox0 = min(max(int(window_origin[1]), 0), w - win)
-        fh = fw = win
-        side = win + 2 * pad
-        region = padded0[oy0:oy0 + side, ox0:ox0 + side]
-        padded = torch.cat([region, torch.zeros((win, side), device=dev)])
-        oy = torch.where(oy >= zero_band_row, side, oy)
-        occ_win = grid_map.occupancy[oy0:oy0 + fh, ox0:ox0 + fw]
-    else:
-        fh, fw = h, w
-        padded = torch.cat([padded0,
-                            torch.zeros((h, padded0.shape[1]), device=dev)])
-        occ_win = grid_map.occupancy
-    padded = padded.contiguous()
+    # the build reads the window in place at the device-held origin; the
+    # beams at the zero-band row are the invalid ones
+    fh, fw = (win, win) if use_window else (h, w)
     oy = oy.to(torch.int32)
     field = _sharded_bin_stack(
-        lambda b, n: corr_field_build(padded, ox[b:b + n].contiguous(),
-                                      oy[b:b + n].contiguous(), fh, fw),
+        lambda b, n: corr_field_build(padded0, ox[b:b + n].contiguous(),
+                                      oy[b:b + n].contiguous(), fh, fw,
+                                      origin=origin, zero_row=zero_band_row),
         nbins, shard_bins_axis)
 
     n_valid = valid.sum().to(torch.int32)
     score_validity = config.motion_validity == "score"
     if score_validity:
         # non-free cells score INVALID_SCORE per valid beam (JAX :445-461)
+        occ_win = (_window_cells(grid_map.occupancy, origin, fh, fw)
+                   if use_window else grid_map.occupancy)
         pen_total = INVALID_SCORE * n_valid.clamp(min=1).to(torch.float32)
         field = field + pen_total * torch.where(occ_win == 0, 0.0, 1.0)[None]
 
     if use_coarse:
+        # the coarse fallback's window-score kernel takes the window as
+        # launch arguments: this config reads the origin on the host (it
+        # runs eagerly, filter/captured.py::graph_capturable)
+        oy0, ox0, kstart = origin.tolist()
         return _window_scores_with_coarse(
             field, particles, u, v, valid, n_valid, log_field, grid_map,
-            config, n_theta, kstart, (ox0, oy0), coarse_offsets)
+            config, n_theta, kstart if use_theta_win else 0, (ox0, oy0),
+            coarse_offsets)
 
     geo = LookupGeometry(
         origin_x=grid_map.origin_xy[0], origin_y=grid_map.origin_xy[1],
         inv_res=grid_map.inv_res, n_theta=n_theta, nbins=nbins, fh=fh, fw=fw,
-        map_h=h, map_w=w,
-        kstart=kstart if use_theta_win else None,
-        window=(ox0, oy0) if use_window else None,
+        map_h=h, map_w=w, theta_window=use_theta_win, space_window=use_window,
     )
     return corr_lookup(field.contiguous(), particles.contiguous(), n_valid,
-                       geo, config.score_aggregation, score_validity)
+                       geo, config.score_aggregation, score_validity,
+                       origin=origin)
+
+
+def window_origin_tensor(window_origin, h: int, w: int, win: int,
+                         device) -> torch.Tensor:
+    """The (3,) int32 (oy0, ox0, kstart) window origin on ``device``: the
+    step's tensor as it is (``filter/step.py::_window_origin`` clamps it
+    on the card), or a sequence (oy0, ox0[, kstart]) of ints clamped to
+    ``[0, h - win]`` and ``[0, w - win]`` here (kstart 0 when absent)."""
+    if isinstance(window_origin, torch.Tensor):
+        return window_origin.to(device=device, dtype=torch.int32)
+    oy0, ox0 = (int(x) for x in window_origin[:2])
+    kstart = int(window_origin[2]) if len(window_origin) == 3 else 0
+    return torch.tensor([min(max(oy0, 0), h - win), min(max(ox0, 0), w - win),
+                         kstart], dtype=torch.int32, device=device)
+
+
+def _window_cells(table: torch.Tensor, origin: torch.Tensor, fh: int,
+                  fw: int) -> torch.Tensor:
+    """``table[oy0:oy0 + fh, ox0:ox0 + fw]`` at the device-held origin: a
+    gather, so the corner is never read on the host."""
+    dev = table.device
+    rows = origin[0].to(torch.int64) + torch.arange(fh, device=dev)
+    cols = origin[1].to(torch.int64) + torch.arange(fw, device=dev)
+    return table[rows[:, None], cols[None, :]]
 
 
 def window_geometry(grid_map, config, n_theta, nbins, kstart, fh, fw,

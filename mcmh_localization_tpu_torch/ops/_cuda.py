@@ -11,7 +11,9 @@ loads the library already built.
 Every wrapper in ``ops/`` launches on ``torch.cuda.current_stream()``,
 raises when the launch reports an error, and adds one to its launch count
 (``launch_counts``) for each kernel it launches, where it launches them and
-nowhere else.
+nowhere else.  While a step is being captured into a CUDA graph
+(``ops/graph.py``) nothing launches: the counts go to the capture's own
+tally, and each replay adds them (``add_launches``, ``add_replayed``).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("corr_field_build.cu", "gather.cu", "rank.cu", "fused_score.cu",
            "likelihood.cu", "take.cu", "beam_field.cu", "scan_scores.cu",
-           "edt.cu")
+           "edt.cu", "graph_cond.cu")
 HEADERS = ("thread_runs.cuh", "stage_beams.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -93,11 +95,16 @@ class VoxelArgs(ctypes.Structure):
 
 
 _SIGNATURES = {
-    "mcmh_corr_field_build": (_P, _I, _I, _P, _P, _I, _I, _P, _I, _I, _P),
+    "mcmh_corr_field_build": (_P, _I, _I, _P, _P, _I, _I, _P, _I, _I, _I, _P,
+                              _P),
     "mcmh_gather_2d": (_P, _I, _I, _P, _P, _I, _I, _P, _P),
     "mcmh_corr_lookup": (
         _P, _I, _I, _I, _P, _I, _P, _F, _F, _F, _F, _F, _I, _I, _I, _I, _I,
         _I, _I, _I, _I, _I, _F, _F, _I, _P, _P,
+    ),
+    "mcmh_corr_lookup_at": (
+        _P, _I, _I, _I, _P, _I, _P, _F, _F, _F, _F, _F, _I, _I, _I, _P, _I,
+        _I, _I, _I, _F, _F, _I, _P, _P,
     ),
     "mcmh_rank_scratch_words": (_I,),
     "mcmh_rank_workspace_words": (_I,),
@@ -120,12 +127,20 @@ _SIGNATURES = {
                           TableArgs, _I, _I, _P, _P),
     "mcmh_voxel_scores": (_P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P,
                           VoxelArgs, _I, _I, _P, _P),
+    "mcmh_cond_begin": (_P, _P, _P, _P, _P),
+    "mcmh_cond_end": (_P,),
 }
 
 _lib = None
 build_log = ""          # nvcc's output of the last build (ptxas -v lines)
 build_seconds = 0.0     # wall time of the last build; 0.0 when it was cached
 _launches: dict[str, int] = {}
+# where check_launch counts: None, the launches; a dict, the tally of the
+# capture scope being recorded (ops/graph.py)
+_sink: dict[str, int] | None = None
+# the replayed captures' conditional bodies: (taken counters, the launches
+# of each body), resolved into the counts when they are read
+_replayed: list = []
 
 
 def nvcc_path() -> str:
@@ -217,7 +232,31 @@ def check_launch(name: str, code: int, kernels: int = 1) -> None:
     if code != 0:
         msg = library().mcmh_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA launch failed ({code}: {msg})")
-    _launches[name] = _launches.get(name, 0) + kernels
+    tally = _launches if _sink is None else _sink
+    tally[name] = tally.get(name, 0) + kernels
+
+
+def set_sink(sink: dict[str, int] | None) -> dict[str, int] | None:
+    """Send check_launch's counts to ``sink`` (None: the launches); returns
+    the sink it replaces."""
+    global _sink
+    prev, _sink = _sink, sink
+    return prev
+
+
+def add_launches(counts: dict[str, int], times: int = 1) -> None:
+    """Add ``times`` replays of a captured scope's ``counts``."""
+    for name, n in counts.items():
+        _launches[name] = _launches.get(name, 0) + n * times
+
+
+def add_replayed(taken: torch.Tensor, bodies: list) -> None:
+    """Register a captured step's conditional bodies: ``taken`` (B,) int64
+    on the card counts the replays that ran body i, ``bodies[i]`` its
+    launches.  ``launch_counts`` reads the counters (one wait on the
+    card), ``reset_launch_counts`` zeroes them on the card's queue."""
+    if not any(t is taken for t, _ in _replayed):
+        _replayed.append((taken, bodies))
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:
@@ -234,8 +273,16 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
 
 
 def launch_counts() -> dict[str, int]:
-    return dict(_launches)
+    out = dict(_launches)
+    for taken, bodies in _replayed:
+        for n, counts in zip(taken.tolist(), bodies):
+            for name, k in counts.items():
+                if n * k:
+                    out[name] = out.get(name, 0) + n * k
+    return out
 
 
 def reset_launch_counts() -> None:
     _launches.clear()
+    for taken, _ in _replayed:
+        taken.zero_()

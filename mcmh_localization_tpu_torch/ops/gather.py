@@ -66,9 +66,12 @@ class LookupGeometry(NamedTuple):
     """Static description of one scan's field for the per-particle lookup.
 
     ``origin_x``/``origin_y``/``inv_res`` are the map's f32 values as
-    python floats; ``kstart`` is the theta window's first global bin (None:
-    all ``n_theta`` bins); ``window`` the spatial window's (ox0, oy0) cell
-    corner (None: the full map)."""
+    python floats.  The windows come in one of two forms: ``kstart``, the
+    theta window's first global bin, and ``window``, the spatial window's
+    (ox0, oy0) cell corner, as host ints (None: all ``n_theta`` bins, the
+    full map); or ``theta_window`` / ``space_window`` set, with the values
+    in the (oy0, ox0, kstart) int32 tensor the lookup takes as ``origin``
+    (the step's window origin, computed on the card)."""
 
     origin_x: float
     origin_y: float
@@ -81,24 +84,41 @@ class LookupGeometry(NamedTuple):
     map_w: int
     kstart: int | None = None
     window: tuple[int, int] | None = None
+    theta_window: bool = False
+    space_window: bool = False
 
 
-def corr_lookup_indices(particles: torch.Tensor, g: LookupGeometry):
+def _windows(g: LookupGeometry, origin):
+    """(kstart, (ox0, oy0)) of ``g``, ints or 0-d tensors of ``origin``;
+    None where the window is off."""
+    if g.theta_window or g.space_window:
+        if origin is None:
+            raise ValueError("corr_lookup: the geometry's windows need the "
+                             "origin tensor")
+        kstart = origin[2] if g.theta_window else None
+        window = (origin[1], origin[0]) if g.space_window else None
+        return kstart, window
+    return g.kstart, g.window
+
+
+def corr_lookup_indices(particles: torch.Tensor, g: LookupGeometry,
+                        origin: torch.Tensor | None = None):
     """(tbin, myc, mxc, in_map, covered): the field index of each particle
     and its masks (JAX corr_field.py:466-490)."""
+    kstart, window = _windows(g, origin)
     px, py, pth = particles[:, 0], particles[:, 1], particles[:, 2]
     mx = ((px - g.origin_x) * g.inv_res).to(torch.int32)
     my = ((py - g.origin_y) * g.inv_res).to(torch.int32)
     tbin = ((pth + PI_F32) * theta_scale(g.n_theta)).to(torch.int32) % g.n_theta
-    if g.kstart is not None:
-        k_rel = (tbin - g.kstart) % g.n_theta
+    if kstart is not None:
+        k_rel = (tbin - kstart) % g.n_theta
         in_theta = k_rel < g.nbins
         tbin = torch.where(in_theta, k_rel, 0)
     else:
         in_theta = torch.ones_like(mx, dtype=torch.bool)
     in_map = (mx >= 0) & (mx < g.map_w) & (my >= 0) & (my < g.map_h)
-    if g.window is not None:
-        ox0, oy0 = g.window
+    if window is not None:
+        ox0, oy0 = window
         mxw = mx - ox0
         myw = my - oy0
         in_window = (mxw >= 0) & (mxw < g.fw) & (myw >= 0) & (myw < g.fh)
@@ -113,8 +133,10 @@ def corr_lookup_indices(particles: torch.Tensor, g: LookupGeometry):
 
 def corr_lookup_plain(field: torch.Tensor, particles: torch.Tensor,
                       n_valid: torch.Tensor, g: LookupGeometry,
-                      aggregation: str, score_validity: bool) -> torch.Tensor:
-    tbin, myc, mxc, in_map, covered = corr_lookup_indices(particles, g)
+                      aggregation: str, score_validity: bool,
+                      origin: torch.Tensor | None = None) -> torch.Tensor:
+    tbin, myc, mxc, in_map, covered = corr_lookup_indices(particles, g,
+                                                          origin)
     flat = (tbin.to(torch.int64) * g.fh + myc) * g.fw + mxc
     totals = field.reshape(-1)[flat]
     totals = torch.where(in_map & covered, totals, 0.0)
@@ -129,29 +151,52 @@ def corr_lookup_plain(field: torch.Tensor, particles: torch.Tensor,
 
 def corr_lookup(field: torch.Tensor, particles: torch.Tensor,
                 n_valid: torch.Tensor, g: LookupGeometry,
-                aggregation: str, score_validity: bool) -> torch.Tensor:
+                aggregation: str, score_validity: bool,
+                origin: torch.Tensor | None = None) -> torch.Tensor:
     """(N,) per-particle corr scores read from ``field`` (nbins, fh, fw).
 
     ``n_valid`` is the scan's valid-beam count (0-d int32 tensor): the
     "mean" divisor, the "sum" invalid penalty scale, and the no-beam
-    blind fill.  The kernel takes ``_cuda.poses_per_thread(N)`` poses a
-    thread and any contiguous (N, 3) pose array, aligned or not."""
+    blind fill.  ``origin``: the (3,) int32 (oy0, ox0, kstart) of a
+    geometry with ``theta_window`` / ``space_window``, which the kernel
+    reads from device memory.  The kernel takes
+    ``_cuda.poses_per_thread(N)`` poses a thread and any contiguous (N, 3)
+    pose array, aligned or not."""
     if field.device.type == "cpu":
         return corr_lookup_plain(field, particles, n_valid, g, aggregation,
-                                 score_validity)
+                                 score_validity, origin)
     n_valid = n_valid.to(torch.int32).reshape(())
-    _cuda.require_cuda("corr_lookup", field, particles, n_valid)
+    device_form = g.theta_window or g.space_window
+    if device_form:
+        if origin is None:
+            raise ValueError("corr_lookup: the geometry's windows need the "
+                             "origin tensor")
+        if origin.dtype != torch.int32 or origin.shape != (3,):
+            raise ValueError("corr_lookup: origin must be (3,) int32")
+    _cuda.require_cuda("corr_lookup", field, particles, n_valid,
+                       *((origin,) if device_form else ()))
     if field.dtype != torch.float32 or particles.dtype != torch.float32:
         raise ValueError("corr_lookup: field and particles must be float32")
     if field.shape != (g.nbins, g.fh, g.fw) or particles.shape[1:] != (3,):
         raise ValueError("corr_lookup: field/particles shape mismatch")
     n = particles.shape[0]
     out = torch.empty(n, dtype=torch.float32, device=field.device)
-    code = _cuda.library().mcmh_corr_lookup(
-        *lookup_args(field, particles, n_valid, g, aggregation,
-                     score_validity),
-        _cuda.poses_per_thread(n), out.data_ptr(), _cuda.stream_of(field),
-    )
+    lib = _cuda.library()
+    if device_form:
+        code = lib.mcmh_corr_lookup_at(
+            field.data_ptr(), g.nbins, g.fh, g.fw, particles.data_ptr(), n,
+            n_valid.data_ptr(), g.origin_x, g.origin_y, g.inv_res, PI_F32,
+            theta_scale(g.n_theta), g.n_theta, int(g.theta_window),
+            int(g.space_window), origin.data_ptr(), g.map_h, g.map_w,
+            int(aggregation == "sum"), int(score_validity), BLIND_SCORE,
+            INVALID_SCORE, _cuda.poses_per_thread(n), out.data_ptr(),
+            _cuda.stream_of(field))
+    else:
+        code = lib.mcmh_corr_lookup(
+            *lookup_args(field, particles, n_valid, g, aggregation,
+                         score_validity),
+            _cuda.poses_per_thread(n), out.data_ptr(), _cuda.stream_of(field),
+        )
     _cuda.check_launch("corr_lookup", code)
     return out
 
@@ -160,7 +205,8 @@ def lookup_args(field: torch.Tensor, particles: torch.Tensor,
                 n_valid: torch.Tensor, g: LookupGeometry, aggregation: str,
                 score_validity: bool) -> tuple:
     """``mcmh_corr_lookup``'s arguments up to the poses a thread: the
-    pointers and the geometry as the C call takes them."""
+    pointers and the geometry's host-int windows as the C call takes
+    them."""
     ox0, oy0 = g.window if g.window is not None else (0, 0)
     return (
         field.data_ptr(), g.nbins, g.fh, g.fw, particles.data_ptr(),

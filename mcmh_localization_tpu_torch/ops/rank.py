@@ -13,8 +13,10 @@ bitwise the JAX function's on ``jax.lax.cummax(bound)``.  The TPU kernel's
 windowed merge, its DMA windows and its ``lax.cond`` scatter fallback are
 TPU mechanics: the CUDA versions scan the bound once and expand, exact for
 any weights.  ``rank_in_sorted`` is one launch that keeps a small
-workspace across calls (``_Workspace``); ``expand_sorted`` launches the
-scan and the expansion after a memset.
+workspace across calls (``_Workspace``, tagged with a host epoch, so it
+raises under a CUDA graph capture); ``expand_sorted`` launches the scan
+and the expansion after a memset of its look-back words, which a captured
+step replays as a memset node, so it is replay-safe.
 """
 
 from __future__ import annotations
@@ -106,6 +108,10 @@ def rank_in_sorted(bound: torch.Tensor, num_out: int,
     the int32 ``bound`` (R,).  ``count``: optional int or 0-d tensor."""
     if bound.device.type == "cpu":
         return rank_in_sorted_plain(bound, num_out, count)
+    if torch.cuda.is_current_stream_capturing():
+        # the call's epoch is a host counter: a replay would repeat it
+        raise RuntimeError("rank_in_sorted: its workspace epochs are not "
+                           "replay-safe; it cannot be captured in a graph")
     cnt = _count_arg(count, bound.device)
     _cuda.require_cuda("rank_in_sorted", bound,
                        *(() if cnt is None else (cnt,)))

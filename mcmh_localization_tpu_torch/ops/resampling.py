@@ -18,6 +18,7 @@ from typing import Tuple
 
 import torch
 
+from mcmh_localization_tpu_torch.ops.graph import run_if
 from mcmh_localization_tpu_torch.ops.rank import expand_sorted, rank_in_sorted
 from mcmh_localization_tpu_torch.ops.take import take_rows_monotone
 from mcmh_localization_tpu_torch.utils.f32 import cumsum, divide, scalar
@@ -27,6 +28,30 @@ KLD_NOISE_STD = (0.001, 0.001, 0.02)
 
 # Stage-1 prefix of the escalating KLD stop evaluation (see kld_resample)
 _KLD_STAGE1 = 131072
+
+# KLD_NOISE_STD on each (device, dtype) it is used on, made once: a copy
+# from the host per call would wait on the card (or stop a capture)
+_noise_std: dict = {}
+
+
+def _kld_noise_std(device, dtype) -> torch.Tensor:
+    key = (torch.device(device), dtype)
+    if key not in _noise_std:
+        _noise_std[key] = torch.tensor(KLD_NOISE_STD, dtype=dtype).to(device)
+    return _noise_std[key]
+
+
+def kld_noise_rows(max_samples: int, min_particles: int,
+                   eval_window: int = 0) -> tuple[int, int]:
+    """(rows of ``noise``, rows of ``noise_tail``) that ``kld_resample``
+    takes: the stage-1 prefix w1 and the escalation's rest where w1 <
+    max_samples applies, else one full draw and no tail."""
+    if min_particles < max_samples and not (
+            eval_window and eval_window < max_samples):
+        w1 = max(_KLD_STAGE1, min_particles + min_particles // 4)
+        if w1 < max_samples:
+            return w1, max_samples - w1
+    return max_samples, 0
 
 
 def softmax_weights(scores: torch.Tensor,
@@ -167,15 +192,16 @@ def kld_resample(
     ``noise``: jitter normals for the first draw, (w1, 3) when the stage-1
     prefix applies (w1 = max(131072, 1.25 * min_particles) < max_samples)
     else (max_samples, 3); ``noise_tail``: (max_samples - w1, 3) for the
-    escalation.  The JAX ``while_loop`` gate of the escalation is a host
-    ``if`` on the synced stage-1 result here."""
+    escalation (``kld_noise_rows``), drawn inside the escalation when None.
+    The escalation's gate is ``ops/graph.py::run_if`` in place of the JAX
+    ``while_loop``: a conditional node in a captured step (whose draws are
+    all given, ``filter/step.py::_resample_draws``), a host ``if`` on the
+    stage-1 result otherwise."""
     if stop_rule not in ("every_sample", "new_bin"):
         raise ValueError(f"unknown stop_rule {stop_rule!r}")
     dev = particles.device
     r = _uniform_offset(r, dev, generator)
-    # no host wait: the copy of a pageable host tensor with non_blocking
-    noise_std = torch.tensor(KLD_NOISE_STD, dtype=particles.dtype).to(
-        dev, non_blocking=True)
+    noise_std = _kld_noise_std(dev, particles.dtype)
     stride = count if count is not None else max_samples
     # one bound serves every draw: for slot values v < num_out <=
     # max_samples, min(b, num_out) <= v exactly when b <= v, so the
@@ -208,6 +234,7 @@ def kld_resample(
     def kept(any_stop, first):
         return torch.where(any_stop, first, max_samples).to(torch.int32)
 
+    rows, tail_rows = kld_noise_rows(max_samples, min_particles, eval_window)
     if min_particles >= max_samples:
         # the caller clamps the count to [min, max]: the stop rule is dead
         return draw(max_samples, noise), scalar(max_samples, dev, torch.int32)
@@ -216,18 +243,21 @@ def kld_resample(
         samples = draw(max_samples, noise)
         return samples, kept(*first_stop(samples[:eval_window]))
 
-    w1 = max(_KLD_STAGE1, min_particles + min_particles // 4)
-    if w1 < max_samples:
+    if tail_rows:
+        w1 = rows
         samples1 = draw(w1, noise)  # == rows [0, w1) of the full sequence
         a1, f1 = first_stop(samples1)
-        if bool(a1):  # host gate in place of the JAX while_loop
-            pad = torch.zeros((max_samples - w1, 3), dtype=samples1.dtype,
-                              device=dev)
-            return torch.cat([samples1, pad]), f1.to(torch.int32)
-        drawn = expand_sorted(bound, particles, max_samples, count=stride)
-        tail = normals(max_samples - w1, noise_tail) * noise_std
-        samples = torch.cat([samples1, drawn[w1:] + tail])
-        return samples, kept(*first_stop(samples))
+        pad = torch.zeros((tail_rows, 3), dtype=samples1.dtype, device=dev)
+
+        def escalate():
+            drawn = expand_sorted(bound, particles, max_samples, count=stride)
+            tail = normals(tail_rows, noise_tail) * noise_std
+            samples = torch.cat([samples1, drawn[w1:] + tail])
+            return samples, kept(*first_stop(samples))
+
+        return tuple(run_if(~a1, escalate,
+                            [torch.cat([samples1, pad]), f1.to(torch.int32)],
+                            donate=True))
 
     samples = draw(max_samples, noise)
     return samples, kept(*first_stop(samples))

@@ -1,0 +1,468 @@
+"""The compiled trajectory run's forms on the CPU: the staged main path's
+step reads nothing on the host outside ``ops/graph.py::run_if``'s plain
+version, the new forms (the device-held window origin, the injection by a
+device shift, the gates through ``run_if``) against the JAX package on
+JAX's draws, and ``kld_resample`` past its stage-1 prefix at 262 144
+samples.  The CUDA graph itself (capture, replay, conditional nodes) runs
+only on the card: ``chip_smoke.py``'s ``[graph]`` phase checks it there.
+"""
+
+import contextlib
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from mcmh_localization_tpu.config import FilterConfig as JConfig  # noqa: E402
+from mcmh_localization_tpu.filter import step as jstep  # noqa: E402
+from mcmh_localization_tpu.models import corr_field as jcf  # noqa: E402
+from mcmh_localization_tpu.models.sensor import (  # noqa: E402
+    log_likelihood_field as j_log_field,
+)
+from mcmh_localization_tpu.ops import resampling as jres  # noqa: E402
+from mcmh_localization_tpu_torch.config import FilterConfig  # noqa: E402
+from mcmh_localization_tpu_torch.convert import (  # noqa: E402
+    STATE_FIELDS,
+    grid_map_from_numpy,
+    state_from_numpy,
+)
+from mcmh_localization_tpu_torch.filter import step as tstep  # noqa: E402
+from mcmh_localization_tpu_torch.filter.captured import (  # noqa: E402
+    graph_capturable,
+)
+from mcmh_localization_tpu_torch.filter.staged import make_staged_model  # noqa: E402
+from mcmh_localization_tpu_torch.models import corr_field as tcf  # noqa: E402
+from mcmh_localization_tpu_torch.ops import graph as tgraph  # noqa: E402
+from mcmh_localization_tpu_torch.ops import resampling as tres  # noqa: E402
+from mcmh_localization_tpu_torch.ops.corr_field_build import (  # noqa: E402
+    corr_field_build,
+)
+from mcmh_localization_tpu_torch.ops.gather import (  # noqa: E402
+    LookupGeometry,
+    corr_lookup,
+)
+from tests.test_torch_ops import torch_one_thread  # noqa: E402,F401
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+@pytest.fixture(scope="module")
+def torch_map(house_map):
+    return grid_map_from_numpy(
+        np.asarray(house_map.occupancy), float(house_map.resolution),
+        np.asarray(house_map.origin), distance=np.asarray(house_map.distance),
+        device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the host-read guard
+# ---------------------------------------------------------------------------
+
+class HostRead(AssertionError):
+    """A step read a tensor's value on the host."""
+
+
+_READS = ("__bool__", "__int__", "__index__", "__float__", "item", "tolist",
+          "cpu", "numpy")
+
+
+def _host_index(index) -> bool:
+    """An index that PyTorch reads on the host: a 0-d integer tensor (a
+    select at its value) or a bool mask (its nonzero count)."""
+    parts = index if isinstance(index, tuple) else (index,)
+    return any(isinstance(i, torch.Tensor)
+               and (i.dtype == torch.bool
+                    or (i.dim() == 0 and not i.is_floating_point()))
+               for i in parts)
+
+
+@contextlib.contextmanager
+def no_host_reads(monkeypatch):
+    """Make every read of a tensor's value on the host raise ``HostRead``,
+    except inside ``run_if``'s plain version (``_host_predicate``, the
+    gates' host ``if``): ``__bool__``, ``__int__``, ``__index__``,
+    ``__float__``, ``item``, ``tolist``, ``cpu``, ``numpy``, indexing with
+    a 0-d integer tensor or a bool mask, and ``nonzero``."""
+    allowed = [0]
+
+    def guard(name, fn):
+        def wrapped(self, *args, **kwargs):
+            if not allowed[0]:
+                raise HostRead(f"Tensor.{name} in the step")
+            return fn(self, *args, **kwargs)
+        return wrapped
+
+    def guard_index(name, fn):
+        def wrapped(self, index, *args):
+            if not allowed[0] and _host_index(index):
+                raise HostRead(f"Tensor.{name} with a host-read index")
+            return fn(self, index, *args)
+        return wrapped
+
+    with monkeypatch.context() as m:
+        for name in _READS + ("nonzero",):
+            m.setattr(torch.Tensor, name, guard(name, getattr(torch.Tensor,
+                                                                name)))
+        for name in ("__getitem__", "__setitem__"):
+            m.setattr(torch.Tensor, name,
+                      guard_index(name, getattr(torch.Tensor, name)))
+        plain = tgraph._host_predicate
+
+        def predicate(pred):
+            allowed[0] += 1
+            try:
+                return plain(pred)
+            finally:
+                allowed[0] -= 1
+
+        m.setattr(tgraph, "_host_predicate", predicate)
+        yield
+
+
+def _main_path_kw(**kw):
+    """The staged main path (bench.py's cfg_kld) at a CPU size."""
+    base = dict(mode="AMHAMCL", num_particles=8192, min_particles=2000,
+                max_particles=8192, initialized=True,
+                initial_pose=(1.0, 1.0, 0.4), initial_cov=(0.02, 0.02, 0.05),
+                max_range=5.0, likelihood_impl="corr", corr_n_theta=48,
+                corr_window_cells=64, corr_theta_window_bins=16,
+                motion_validity="score", min_injection_prob=0.02,
+                kld_eval_window=0, coarse_gate_escapees=0,
+                estimate_mode="cluster")
+    base.update(kw)
+    return base
+
+
+def _scan_inputs(house_map):
+    from tests.test_filter import _simulate
+
+    poses = np.float32([[1.0, 1.0, 0.4], [1.1, 1.03, 0.5]])
+    scans, angles, deltas = _simulate(house_map, poses, max_range=5.0)
+    return _t(scans[1]), _t(angles), _t(deltas[1])
+
+
+@pytest.mark.parametrize("program", ["big", "small"])
+def test_main_path_step_reads_nothing_on_the_host(house_map, torch_map,
+                                                  monkeypatch, program):
+    """One step of each staged program (BIG at 8192 slots, with the KLD
+    escalation reachable and injecting; SMALL at 4096, ESS-gated) under
+    the guard: no host read escapes outside the gates' plain version.
+    Both programs are graph-capturable by config."""
+    monkeypatch.setattr(tres, "_KLD_STAGE1", 1024)
+    staged = make_staged_model(FilterConfig(**_main_path_kw()), torch_map,
+                               tracking_capacity=4096,
+                               tracking_ess_threshold=0.9)
+    model = staged.big if program == "big" else staged.small
+    assert graph_capturable(model.config)
+    state = model.init(0)
+    # an injecting scan: the augmented-MCL averages apart
+    state = state.replace(w_slow=torch.tensor(1.0), w_fast=torch.tensor(0.5))
+    ranges, angles, delta = _scan_inputs(house_map)
+    with no_host_reads(monkeypatch):
+        new, info = model.step(state, ranges, angles, delta)
+    assert float(info.p_random) > 0.02          # the injection ran
+    assert int(new.count) >= model.config.min_particles
+
+
+def test_eager_config_trips_the_guard(house_map, torch_map, monkeypatch):
+    """The window with the coarse fallback and its escapee gate stays an
+    eager config: its step reads the escapee count on the host."""
+    cfg = FilterConfig(**_main_path_kw(corr_coarse_factor=4,
+                                       coarse_gate_escapees=8,
+                                       num_particles=2048,
+                                       max_particles=2048,
+                                       min_particles=500))
+    assert not graph_capturable(cfg)
+    model = tstep.make_model(cfg, torch_map)
+    ranges, angles, delta = _scan_inputs(house_map)
+    with no_host_reads(monkeypatch), pytest.raises(HostRead):
+        model.step(model.init(0), ranges, angles, delta)
+
+
+def test_graph_capturable_by_config():
+    """The captured run is chosen by config: both staged programs of the
+    main path, not the coarse-fallback window, the beam model, the 3-D
+    lidar or the exact scorer; and never on the CPU."""
+    big, small = (FilterConfig(**_main_path_kw(corr_window_cells=0,
+                                               corr_theta_window_bins=0)),
+                  FilterConfig(**_main_path_kw(corr_coarse_factor=0)))
+    assert graph_capturable(big) and graph_capturable(small)
+    for cfg in (FilterConfig(**_main_path_kw(corr_coarse_factor=4)),
+                FilterConfig(sensor_model="beam", corr_window_cells=128),
+                FilterConfig(likelihood_impl="jnp"),
+                FilterConfig(sensor_model="lidar3d")):
+        assert not graph_capturable(cfg)
+
+
+def test_run_if_plain_version():
+    """Off a capture ``run_if`` is a host if: the body's results where the
+    predicate holds, the carry (the same tensors) where it does not."""
+    carry = [torch.zeros(3), torch.tensor(7)]
+
+    def body():
+        return [torch.ones(3), torch.tensor(9)]
+
+    taken = tgraph.run_if(torch.tensor(True), body, carry)
+    assert torch.equal(taken[0], torch.ones(3)) and int(taken[1]) == 9
+    skipped = tgraph.run_if(torch.tensor(False), body, carry)
+    assert skipped[0] is carry[0] and skipped[1] is carry[1]
+
+
+# ---------------------------------------------------------------------------
+# one scan of each gate's branches against JAX's step on JAX's draws
+# ---------------------------------------------------------------------------
+
+SCAN_CASES = {
+    # the BIG program: full map, all bins, "sum", refill
+    "inject": dict(program="big", w=(1.0, 0.5)),
+    "no_inject": dict(program="big", w=None),
+    # the SMALL program, ESS-gated at 0.9: skipped on fresh weights,
+    # resampled where augmented MCL wants to inject
+    "ess_skipped": dict(program="small", w=None),
+    "ess_resampled": dict(program="small", w=(1.0, 0.5)),
+}
+
+
+@pytest.mark.parametrize("case", list(SCAN_CASES))
+def test_gate_branches_match_jax_on_jax_draws(house_map, torch_map,
+                                              monkeypatch, case):
+    """One AMHAMCL scan on JAX's draws (tests/test_torch_filter.py::
+    _scan_draws) through each gate's taken and untaken branch.  The count
+    is equal; estimate, ESS and bookkeeping within rtol 1e-4 (f32
+    reductions in another order); at most 0.5% of the active slots hold
+    another particle (a cumsum in another order can move a segment bound
+    by one)."""
+    from tests.test_torch_filter import _scan_draws
+
+    monkeypatch.setattr(jres, "_KLD_STAGE1", 1024)
+    monkeypatch.setattr(tres, "_KLD_STAGE1", 1024)
+    spec = SCAN_CASES[case]
+    n_max = 4096
+    kw = _main_path_kw(num_particles=n_max, max_particles=n_max,
+                       min_particles=600, corr_coarse_factor=0)
+    if spec["program"] == "big":
+        kw.update(corr_window_cells=0, corr_theta_window_bins=0,
+                  score_aggregation="sum", injection_refill=True)
+    else:
+        kw.update(resample_ess_threshold=0.9)
+    jcfg, tcfg = JConfig(**kw), FilterConfig(**kw)
+    assert graph_capturable(tcfg)
+    ranges, angles, delta = _scan_inputs(house_map)
+    jm = jstep.make_model(jcfg, house_map)
+    js = jm.init(jax.random.PRNGKey(0))
+    if spec["w"] is not None:
+        js = js.replace(w_slow=jnp.float32(spec["w"][0]),
+                        w_fast=jnp.float32(spec["w"][1]))
+    before = {f: np.asarray(getattr(js, f)) for f in STATE_FIELDS}
+    js2, jinfo = jm.step(js, jnp.asarray(ranges.numpy()),
+                         jnp.asarray(angles.numpy()),
+                         jnp.asarray(delta.numpy()))
+
+    tm = tstep.make_model(tcfg, torch_map)
+    tm.log_field = _t(jm.log_field)
+    w1 = max(1024, 600 + 600 // 4)
+    draws = _scan_draws(js.key, n_max, w1, house_map.free_xy.shape[0])
+    ts = state_from_numpy(before, device="cpu")
+    ts2, tinfo = tm.step(ts, ranges, angles, delta, draws)
+
+    count = int(jinfo.count)
+    assert int(tinfo.count) == count
+    np.testing.assert_allclose(tinfo.estimate.mean.numpy(),
+                               np.asarray(jinfo.estimate.mean), atol=1e-4)
+    for f in ("ess", "w_slow", "w_fast", "p_random", "anchor_mass",
+              "accept_rate"):
+        np.testing.assert_allclose(float(getattr(tinfo, f)),
+                                   float(getattr(jinfo, f)), rtol=1e-4,
+                                   atol=1e-6, err_msg=f)
+    p_j, p_t = np.asarray(js2.particles)[:count], ts2.particles.numpy()[:count]
+    moved = np.abs(p_j - p_t).max(axis=1) > 1e-4
+    assert moved.mean() <= 0.005, moved.mean()
+    p_random = float(jinfo.p_random)
+    if case in ("inject", "ess_resampled"):
+        assert p_random > 0.02                  # the branch ran
+    else:
+        assert p_random == 0.0
+    if case == "ess_skipped":
+        assert count == n_max                   # the gate kept the set
+
+
+# ---------------------------------------------------------------------------
+# the window origin on the device
+# ---------------------------------------------------------------------------
+
+WIN, TW, N_THETA = 64, 16, 48
+ORIGIN_CASES = {
+    # anchor near the map's low corner: both coordinates clamp to 0
+    "low_clamp": dict(anchor=(-4.7, -4.7, 0.3)),
+    # near the high corner: both clamp to h - win
+    "high_clamp": dict(anchor=(4.7, 4.7, 0.3)),
+    # heading just past -pi + 7 bins: kstart wraps to n_theta - 1
+    "theta_wrap": dict(anchor=(1.0, 1.0, -np.pi + 7.5 * 2 * np.pi / N_THETA)),
+    # the cloud mean (window_center="mean") near the high corner
+    "mean_center": dict(anchor=(4.6, 4.6, 0.3), window_center="mean"),
+}
+
+
+@pytest.mark.parametrize("case", list(ORIGIN_CASES))
+def test_window_origin_matches_jax(house_map, torch_map, case):
+    """``_window_origin`` is a (3,) int32 tensor equal to JAX's origin
+    clipped as JAX's scorer clips it; the corr scores at it match JAX's
+    (rtol 1e-5, f32 field sums in another order); and the field build and
+    lookup at the device-held origin equal, bitwise, the earlier host form
+    (the region sliced out on the host, the window as host ints)."""
+    spec = ORIGIN_CASES[case]
+    kw = _main_path_kw(num_particles=512, max_particles=512, min_particles=64,
+                       corr_window_cells=WIN, corr_theta_window_bins=TW,
+                       corr_coarse_factor=0,
+                       window_center=spec.get("window_center", "anchor"))
+    jcfg, tcfg = JConfig(**kw), FilterConfig(**kw)
+    jm = jstep.make_model(jcfg, house_map)
+    rng = np.random.default_rng(3)
+    anchor = np.float32(spec["anchor"])
+    parts = (anchor + rng.normal(0, [0.1, 0.1, 0.05], (512, 3))).astype(
+        np.float32)
+    js = jm.init(jax.random.PRNGKey(0)).replace(
+        particles=jnp.asarray(parts), prev_particles=jnp.asarray(parts),
+        anchor=jnp.asarray(anchor))
+    state = state_from_numpy({f: np.asarray(getattr(js, f))
+                              for f in STATE_FIELDS}, device="cpu")
+    h, w = house_map.occupancy.shape
+    j_oy, j_ox, j_k = (int(x) for x in jstep._window_origin(js, house_map,
+                                                             jcfg))
+    want = [min(max(j_oy, 0), h - WIN), min(max(j_ox, 0), w - WIN), j_k]
+    origin = tstep._window_origin(state, torch_map, tcfg)
+    assert origin.dtype == torch.int32 and origin.shape == (3,)
+    assert origin.tolist() == want
+    if case == "low_clamp":
+        assert want[:2] == [0, 0]
+    if case in ("high_clamp", "mean_center"):
+        assert want[:2] == [h - WIN, w - WIN]
+    if case == "theta_wrap":
+        assert want[2] == N_THETA - 1
+
+    # the scores at that origin against JAX's, on JAX's log field
+    ranges, angles, _ = _scan_inputs(house_map)
+    lf = j_log_field(house_map, jcfg)
+    j_scores = np.asarray(jcf.correlation_field_scores(
+        jnp.asarray(parts), jnp.asarray(ranges.numpy()),
+        jnp.asarray(angles.numpy()), house_map, jcfg, log_field=lf,
+        n_theta=N_THETA, window_origin=tuple(jnp.int32(x) for x in
+                                             (j_oy, j_ox, j_k))))
+    t_scores = tcf.correlation_field_scores(
+        _t(parts), ranges, angles, torch_map, tcfg, log_field=_t(lf),
+        n_theta=N_THETA, window_origin=origin).numpy()
+    np.testing.assert_allclose(t_scores, j_scores, rtol=1e-5, atol=1e-5)
+
+    # kernel 1's and kernel 2's plain versions: the device-held origin
+    # against the host form, bitwise
+    log_field = _t(lf)
+    pad = tcf.pad_cells_for(tcfg, torch_map)
+    padded0 = torch.nn.functional.pad(log_field, (pad, pad, pad, pad))
+    zero_row = padded0.shape[0]
+    valid = torch.isfinite(ranges) & (ranges < tcfg.max_range)
+    safe = torch.where(valid, ranges, 0.0)
+    u, v = safe * torch.cos(angles), safe * torch.sin(angles)
+    ox, oy = tcf._bin_offsets(u, v, valid, torch_map.inv_res, N_THETA, pad,
+                              zero_row, bin_start=origin[2], nbins=TW)
+    ox_h, oy_h = tcf._bin_offsets(u, v, valid, torch_map.inv_res, N_THETA,
+                                  pad, zero_row, bin_start=want[2], nbins=TW)
+    assert torch.equal(ox, ox_h) and torch.equal(oy, oy_h)
+    field = corr_field_build(padded0, ox, oy, WIN, WIN, origin=origin,
+                             zero_row=zero_row)
+    oy0, ox0 = want[:2]
+    side = WIN + 2 * pad
+    region = torch.cat([padded0[oy0:oy0 + side, ox0:ox0 + side],
+                        torch.zeros((WIN, side))])
+    host = corr_field_build(region, ox, torch.where(oy >= zero_row, side, oy),
+                            WIN, WIN)
+    assert torch.equal(field, host)
+    n_valid = valid.sum().to(torch.int32)
+    common = (torch_map.origin_xy[0], torch_map.origin_xy[1],
+              torch_map.inv_res, N_THETA, TW, WIN, WIN, h, w)
+    dev_geo = LookupGeometry(*common, theta_window=True, space_window=True)
+    host_geo = LookupGeometry(*common, kstart=want[2], window=(ox0, oy0))
+    for agg in ("mean", "sum"):
+        assert torch.equal(
+            corr_lookup(field, _t(parts), n_valid, dev_geo, agg, True,
+                        origin=origin),
+            corr_lookup(field, _t(parts), n_valid, host_geo, agg, True))
+
+
+# ---------------------------------------------------------------------------
+# kld_resample past its stage-1 prefix
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", ["stage1_stop", "escalated"])
+def test_kld_resample_262144_matches_jax(monkeypatch, case):
+    """At max_samples = 262 144 the stage-1 prefix (w1 = 131 072) is the
+    real one, not a test-sized stand-in: a converged cloud stops inside
+    it, a diffuse one escalates through ``run_if``.  n_kept is equal; on
+    JAX's segment bounds the kept samples agree within an ulp of their
+    magnitude (rtol 1e-6, atol 1e-7: XLA may fuse the jitter's multiply-add
+    into one rounding), with at most 0.5% of the kept rows holding another
+    particle (the JAX escalation recomputes its bounds with another fusion
+    of ceil(c * count - r))."""
+    from tests.test_torch_resampling import _cloud, _integer_weights, _kld_draws
+
+    rng = np.random.default_rng(5)
+    n_max, min_p = 262_144, 20_000
+    kw = dict(bin_size_xy=0.2, bin_size_theta=0.1745, epsilon=0.03, z=2.0)
+    parts = _cloud(n_max, rng, 3.0 if case == "escalated" else 0.15)
+    w = _integer_weights(n_max, rng, "spread")
+    count = 250_000
+    key = jax.random.PRNGKey(23)
+    k_idx = jax.random.split(key, 3)[0]
+
+    def jax_bounds(weights, num_out, count=None, r=None):
+        c = None if count is None else jnp.asarray(np.asarray(count))
+        return torch.from_numpy(np.array(jres._segment_bounds(
+            k_idx, jnp.asarray(weights.numpy()), num_out, c)))
+
+    monkeypatch.setattr(tres, "_segment_bounds", jax_bounds)
+    s_j, k_j = jres.kld_resample(
+        key, jnp.asarray(parts), jnp.asarray(w), n_max, min_p,
+        count=jnp.int32(count), **kw)
+    w1, tail = tres.kld_noise_rows(n_max, min_p)
+    assert (w1, tail) == (131_072, n_max - 131_072)
+    s_t, k_t = tres.kld_resample(
+        _t(parts), _t(w), n_max, min_p,
+        count=torch.tensor(count, dtype=torch.int32),
+        **_kld_draws(key, n_max, w1), **kw)
+    n_kept = int(k_j)
+    assert int(k_t) == n_kept
+    if case == "escalated":
+        assert n_kept > w1
+    else:
+        assert min_p <= n_kept < w1
+    keep = min(n_kept, count)
+    a, b = s_t.numpy()[:keep], np.asarray(s_j)[:keep]
+    moved = np.abs(a - b).max(axis=1) > 1e-5
+    assert moved.mean() <= 0.005
+    np.testing.assert_allclose(a[~moved], b[~moved], rtol=1e-6, atol=1e-7)
+
+
+def test_resample_draws_are_static(house_map, torch_map):
+    """A capturable config's scan makes every resampling draw whichever
+    branches run: the generator ends a scan that injects and escalates
+    where it ends one that does neither."""
+    cfg = FilterConfig(**_main_path_kw(num_particles=4096, max_particles=4096,
+                                       min_particles=600,
+                                       corr_window_cells=0,
+                                       corr_theta_window_bins=0))
+    model = tstep.make_model(cfg, torch_map)
+    ranges, angles, delta = _scan_inputs(house_map)
+    keys, p_random = [], []
+    for w in ((0.5, 1.0), (1.0, 0.5)):
+        st = model.init(0)
+        st = st.replace(w_slow=torch.tensor(w[0]), w_fast=torch.tensor(w[1]))
+        _, info = model.step(st, ranges, angles, delta)
+        keys.append(st.key.get_state())
+        p_random.append(float(info.p_random))
+    assert p_random[0] == 0.0 and p_random[1] > 0.02
+    assert torch.equal(keys[0], keys[1])

@@ -1067,8 +1067,8 @@ def main(argv=None) -> int:
 
             return {"old": call_of(None), **{f"P={p}": call_of(p) for p in POSES}}
 
-        geo = window_geometry(gm, cfg, cfg.corr_n_theta, tw, kstart, win, win,
-                              (ox0, oy0))
+        geo = window_geometry(gm, cfg, cfg.corr_n_theta, tw, win,
+                              win)._replace(ox0=ox0, oy0=oy0, kstart=kstart)
         fine_t = torch.randn((win * tw, win), generator=gen, device=dev)
         coarse_t = torch.randn((hc * kc, wc), generator=gen, device=dev)
         big = mixed_cloud(2_000_000, gm, cov, gen)

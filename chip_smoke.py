@@ -724,6 +724,91 @@ def window_score_row(fine_t, coarse_t, parts, geo, denom, n_valid,
         + gathered_bytes(coarse_t, n_esc), shapes=[])
 
 
+def window_at_rows(fine_t, coarse_t, parts, geo, denom, n_valid,
+                   score_ms: float, esc_ms: float) -> list:
+    """Kernel 5's ``_at`` entries, the window's corner and first bin read
+    from device memory (the flagship's form), at the flagship's shape: the
+    score and the escapee count ``torch.equal`` to their plain versions
+    (given the same origin tensor) and to the launch-argument kernels at
+    the window's clamps (corner at 0 and at h - win), at the theta wrap
+    (kstart = n_theta - 1), at the flagship's window and with the corner
+    alone, under a geometry that holds another window; then timed at the flagship's window beside
+    the launch-argument form (``score_ms``, ``esc_ms``, timed on the same
+    cloud).  Returns the two rows."""
+    from mcmh_localization_tpu_torch.ops.fused_score import (
+        window_escapees,
+        window_escapees_plain,
+        window_indices,
+        window_score,
+        window_score_plain,
+    )
+
+    dev = parts.device
+    n = parts.shape[0]
+    cases = {
+        "corner at 0": (0, 0, geo.kstart),
+        "corner at h - win": (geo.h - geo.fh, geo.w - geo.fw, geo.kstart),
+        "theta wrap": (geo.oy0, geo.ox0, geo.n_theta - 1),
+        "flagship window": (geo.oy0, geo.ox0, geo.kstart),
+        # a (2,) origin (no theta window): kstart stays the geometry's
+        "corner only": (geo.oy0, geo.ox0),
+    }
+    other = geo._replace(ox0=1, oy0=2, kstart=3)
+    for tag, o in cases.items():
+        origin = torch.tensor(o, dtype=torch.int32, device=dev)
+        host = geo._replace(oy0=o[0], ox0=o[1],
+                            kstart=o[2] if len(o) > 2 else other.kstart)
+        args = (fine_t, coarse_t, parts)
+        got = window_score(*args, other, denom, -100.0, count=n_valid,
+                           origin=origin)
+        ref = window_score_plain(*args, other, denom, -100.0, count=n_valid,
+                                 origin=origin)
+        launch = window_score(*args, host, denom, -100.0, count=n_valid)
+        esc = [int(window_escapees(parts, other, origin=origin)),
+               int(window_escapees_plain(parts, other, origin=origin)),
+               int(window_escapees(parts, host))]
+        covered, _, _, in_map = window_indices(parts, host)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref) and torch.equal(got, launch),
+              f"window_score_at ({tag}, origin {o}): kernel != plain or != "
+              "the launch-argument kernel")
+        check(esc[0] == esc[1] == esc[2], f"window_escapees_at ({tag}, "
+              f"origin {o}): kernel, plain, launch-argument counts {esc}")
+        print(f"[kernel] window_score_at / window_escapees_at ({tag}, origin "
+              f"(oy0, ox0, kstart) = {o}): N=2x{n // 2}, "
+              f"{int(covered.sum())} covered, {esc[0]} escapees; bitwise "
+              "its plain version and the launch-argument kernel")
+    o = cases["flagship window"]
+    origin = torch.tensor(o, dtype=torch.int32, device=dev)
+    covered, _, _, in_map = window_indices(parts, geo)
+    n_fine = int((covered & in_map).sum())
+    n_esc = int((~covered & in_map).sum())
+    ms = device_ms(lambda: window_score(fine_t, coarse_t, parts, other, denom,
+                                        -100.0, count=n_valid, origin=origin))
+    pms = device_ms(lambda: window_score_plain(
+        fine_t, coarse_t, parts, other, denom, -100.0, count=n_valid,
+        origin=origin))
+    ms_e = device_ms(lambda: window_escapees(parts, other, origin=origin))
+    pms_e = device_ms(lambda: window_escapees_plain(parts, other,
+                                                    origin=origin))
+    print(f"[kernel] window_score_at N=2x{n // 2}: {ms:.4f} ms beside the "
+          f"launch-argument form's {score_ms:.4f}; window_escapees_at "
+          f"{ms_e:.4f} beside {esc_ms:.4f}, on {nvidia_smi_line()}")
+    # window_score_row's work, and the origin's 12 bytes
+    score_row = kernel_row(
+        "window_score_at", "fused_score.cu", "fused_score_pallas.py:170",
+        f"corr op forms N=2x{n // 2}, origin in device memory", ms=ms,
+        plain_ms=pms, err=0.0, ops=n,
+        nbytes=n * (12 + 4) + gathered_bytes(fine_t, n_fine)
+        + gathered_bytes(coarse_t, n_esc) + 12, prev_ms=score_ms)
+    esc_row = kernel_row(
+        "window_escapees_at", "fused_score.cu",
+        "mcmh_localization_tpu/models/corr_field.py:553",
+        f"N=2x{n // 2}, origin in device memory", ms=ms_e, plain_ms=pms_e,
+        err=0.0, ops=n, nbytes=12 * n + 4 + 12, prev_ms=esc_ms)
+    return [score_row, esc_row]
+
+
 def rank_pattern_rows(r: int, gen) -> list:
     """Kernel 4 under every weight pattern (RANK_PATTERNS) at R = r: a full
     draw, the KLD stage-1 draw (131 072 slots) and one whose count is under
@@ -1056,7 +1141,8 @@ def compare_slice2_kernels(gm, single_cfg, log_field, ranges, angles,
     n = 2_000_000
     nbins, fh, fw = field_small.shape
     geo = window_geometry(gm, single_cfg, single_cfg.corr_n_theta, nbins,
-                          window[2], fh, fw, window[:2])
+                          fh, fw)._replace(ox0=window[0], oy0=window[1],
+                                           kstart=window[2])
     fine_t = field_small.transpose(0, 1).reshape(fh * nbins, fw).contiguous()
     cfield = _coarse_field(u, v, valid, log_field, gm, single_cfg)
     coarse_t = cfield.transpose(0, 1).reshape(hc * kc, wc).contiguous()
@@ -1117,6 +1203,8 @@ def compare_slice2_kernels(gm, single_cfg, log_field, ranges, angles,
     print(f"[kernel] window_score, beam op forms (fine_div, theta_div, "
           f"clip_before_window): N=2x{n // 2} bitwise=True")
     rows += [window_row, esc_row]
+    rows += window_at_rows(fine_t, coarse_t, parts, geo, denom, n_valid,
+                           window_row["ms"], ms_e)
 
     # kernel 6: the exact scorer at 2x1500 and 2x100k poses, 360 beams, on
     # the 384^2 log field; the [exact] path's multiply form and the "jnp"
@@ -2183,80 +2271,115 @@ def run_if_row(dev) -> dict:
     return row
 
 
+def graph_check(tag, model, st, scans, angles, deltas, smi) -> dict:
+    """One config's captured run against its eager steps over the SCAN_LEN
+    scans ``scans`` from ``st`` (on copies of its generator): every state
+    field, the generator's state and every StepInfo field ``torch.equal``;
+    a captured chunk under ``set_sync_debug_mode("error")`` and no host
+    sync a captured scan; ms/scan by CUDA events (in turns: eager,
+    captured, captured, eager), device busy, idle share, kernels a scan and
+    host self time under torch.profiler, host syncs a scan, the graph's
+    nodes a replay (top and bodies) and the scans that ran each
+    conditional body.  Prints the row and returns it, with the
+    ``CapturedStep`` under "graph"."""
+    from mcmh_localization_tpu_torch.filter.captured import STATE_TENSORS
+    from mcmh_localization_tpu_torch.filter.state import copy_generator
+    from mcmh_localization_tpu_torch.filter.step import StepInfo
+
+    check(model.replays_graph, f"[graph] {tag}: not graph-capturable")
+    t = scans.shape[0]
+
+    def fresh():
+        return st.replace(key=copy_generator(st.key))
+
+    def eager():
+        return model.run_eager(fresh(), scans, angles, deltas)
+
+    def captured():
+        return model.run(fresh(), scans, angles, deltas)
+
+    e_st, e_inf = eager()
+    c_st, c_inf = captured()
+    torch.cuda.synchronize()
+    for f in STATE_TENSORS:
+        check(torch.equal(getattr(e_st, f), getattr(c_st, f)),
+              f"[graph] {tag}: captured state.{f} != eager")
+    check(torch.equal(e_st.key.get_state(), c_st.key.get_state()),
+          f"[graph] {tag}: the generators moved apart")
+    for f in StepInfo._fields:
+        a, b = getattr(e_inf, f), getattr(c_inf, f)
+        pairs = (zip(a, b) if f == "estimate" else ((a, b),))
+        for x, y in pairs:
+            check(torch.equal(x, y), f"[graph] {tag}: StepInfo.{f} "
+                  "captured != eager")
+    graph = model.captured(st, scans.shape[1])
+    cap = graph.capture
+    taken0 = cap.taken[:len(cap.bodies)].clone()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        captured()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    taken = (cap.taken[:len(cap.bodies)] - taken0).tolist()
+    _, syncs_e = sync_count(eager)
+    _, syncs_c = sync_count(captured)
+    check(syncs_c == 0, f"[graph] {tag}: {syncs_c} host syncs in a captured "
+          "chunk")
+    ms = {"eager": [], "captured": []}
+    for kind in ("eager", "captured", "captured", "eager"):
+        _, dt = once_ms(eager if kind == "eager" else captured)
+        ms[kind].append(dt / t)
+    busy_e, kern_e, host_e = profile_window(eager, t)
+    busy_c, kern_c, host_c = profile_window(captured, t)
+    check(busy_c > 0 and busy_e > 0,
+          f"[graph] {tag}: the profiler saw no device time")
+    ms_e, ms_c = float(np.mean(ms["eager"])), float(np.mean(ms["captured"]))
+    nodes = graph.launches_per_scan()
+    bodies = ", ".join(f"{n} {k}/{t}" for n, k in zip(cap.names, taken))
+    print(f"[graph] {tag} (n_max={st.n_max}): captured == eager (torch.equal: "
+          f"every state field, the generator, every StepInfo field) over {t} "
+          "scans; no sync in a captured chunk under "
+          "set_sync_debug_mode('error')")
+    print(f"[graph] {tag}: ms/scan captured {ms_c:.4f} "
+          f"({', '.join(f'{x:.4f}' for x in ms['captured'])}) beside eager "
+          f"{ms_e:.4f} ({', '.join(f'{x:.4f}' for x in ms['eager'])}); "
+          f"device busy {busy_c:.4f} / {busy_e:.4f} ms/scan -> idle share "
+          f"{1 - busy_c / ms_c:.3f} / {1 - busy_e / ms_e:.3f}; kernels a "
+          f"scan {kern_c:.1f} / {kern_e:.1f} (profiler); host self time "
+          f"{host_c:.4f} / {host_e:.4f} ms/scan; host syncs a scan "
+          f"{syncs_c / t:.2f} / {syncs_e / t:.2f} (captured / eager) on {smi}")
+    print(f"[graph] {tag}: graph nodes a replay {json.dumps(nodes)}; "
+          f"conditional bodies run: {bodies or 'none'}")
+    return dict(ms_captured=ms_c, ms_eager=ms_e, busy_captured=busy_c,
+                busy_eager=busy_e, kernels_captured=kern_c,
+                kernels_eager=kern_e, host_captured=host_c,
+                host_eager=host_e, syncs_captured=syncs_c / t,
+                syncs_eager=syncs_e / t, nodes=nodes,
+                bodies=dict(zip(cap.names, taken)), scans=t,
+                graph=graph, final=c_st)
+
+
 def drive_graph(staged, big_state, small_state, scans, angles, deltas,
                 smi) -> dict:
     """``[graph]``: each staged program's captured step against its eager
-    steps over one chunk of SCAN_LEN scans: every state field, the
-    generator's state and every StepInfo field ``torch.equal`` on the same
-    draws; a captured chunk under ``set_sync_debug_mode("error")``; ms/scan
-    by CUDA events (in turns: eager, captured, captured, eager), device
-    busy, idle share, kernels a scan and host self time under torch.profiler,
-    host syncs a scan, the graph's nodes (launches a scan), each
-    conditional body's name and the scans that ran it, and the device time
-    of the work the gates run on every scan (the draws before the gates
-    and the carries) beside the program's device busy."""
-    from mcmh_localization_tpu_torch.filter.captured import STATE_TENSORS
+    steps over one chunk of SCAN_LEN scans (``graph_check``), and the
+    device time of the work the gates run on every scan (the draws before
+    the gates and the carries) beside the program's device busy."""
     from mcmh_localization_tpu_torch.filter.state import copy_generator
-    from mcmh_localization_tpu_torch.filter.step import (
-        Draws,
-        StepInfo,
-        _resample_draws,
-    )
+    from mcmh_localization_tpu_torch.filter.step import Draws, _resample_draws
 
     out = {}
     for tag, model, st in (("SMALL", staged.small, small_state),
                            ("BIG", staged.big, big_state)):
-        check(model.replays_graph, f"[graph] {tag}: not graph-capturable")
-
-        def fresh(st=st):
-            return st.replace(key=copy_generator(st.key))
-
-        def eager(model=model, fresh=fresh):
-            return model.run_eager(fresh(), scans, angles, deltas)
-
-        def captured(model=model, fresh=fresh):
-            return model.run(fresh(), scans, angles, deltas)
-
-        e_st, e_inf = eager()
-        c_st, c_inf = captured()
-        torch.cuda.synchronize()
-        for f in STATE_TENSORS:
-            check(torch.equal(getattr(e_st, f), getattr(c_st, f)),
-                  f"[graph] {tag}: captured state.{f} != eager")
-        check(torch.equal(e_st.key.get_state(), c_st.key.get_state()),
-              f"[graph] {tag}: the generators moved apart")
-        for f in StepInfo._fields:
-            a, b = getattr(e_inf, f), getattr(c_inf, f)
-            pairs = (zip(a, b) if f == "estimate" else ((a, b),))
-            for x, y in pairs:
-                check(torch.equal(x, y), f"[graph] {tag}: StepInfo.{f} "
-                      "captured != eager")
-        graph = model.captured(st, scans.shape[1])
-        cap = graph.capture
-        taken0 = cap.taken[:len(cap.bodies)].clone()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            captured()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        taken = (cap.taken[:len(cap.bodies)] - taken0).tolist()
-        _, syncs_e = sync_count(eager)
-        _, syncs_c = sync_count(captured)
-        ms = {"eager": [], "captured": []}
-        for kind in ("eager", "captured", "captured", "eager"):
-            _, t = once_ms(eager if kind == "eager" else captured)
-            ms[kind].append(t / SCAN_LEN)
-        busy_e, kern_e, host_e = profile_window(eager, SCAN_LEN)
-        busy_c, kern_c, host_c = profile_window(captured, SCAN_LEN)
-        ms_e, ms_c = float(np.mean(ms["eager"])), float(np.mean(ms["captured"]))
-        nodes = graph.launches_per_scan()
-        bodies = ", ".join(f"{n} {k}/{SCAN_LEN}"
-                           for n, k in zip(cap.names, taken))
+        row = graph_check(tag, model, st, scans, angles, deltas, smi)
+        cap = row.pop("graph").capture
+        c_st = row.pop("final")
         # the gates' always-run work: the draws made before them, the
         # carries cloned for them, and (BIG) the escalation's padded prefix
         cfg = model.config
-        draws_ms = device_ms(lambda: _resample_draws(fresh(), model.grid_map,
-                                                     cfg, Draws()))
+        draws_ms = device_ms(lambda: _resample_draws(
+            st.replace(key=copy_generator(st.key)), model.grid_map, cfg,
+            Draws()))
         n = st.n_max
         # the ESS gate's carry is donated but for a copy of the count and
         # the zero injection probability
@@ -2269,38 +2392,60 @@ def drive_graph(staged, big_state, small_state, scans, angles, deltas,
             pad_ms = device_ms(lambda: torch.cat(
                 [c_st.particles[:w1], torch.zeros((n - w1, 3), device=st.device)]))
         always = draws_ms + carry_ms + pad_ms
-        check(busy_c > 0 and busy_e > 0,
-              f"[graph] {tag}: the profiler saw no device time")
-        print(f"[graph] {tag} (n_max={n}): captured == eager (torch.equal: "
-              f"every state field, the generator, every StepInfo field) "
-              f"over {SCAN_LEN} scans; no sync in a captured chunk under "
-              f"set_sync_debug_mode('error')")
-        print(f"[graph] {tag}: ms/scan captured {ms_c:.4f} "
-              f"({', '.join(f'{t:.4f}' for t in ms['captured'])}) beside eager "
-              f"{ms_e:.4f} ({', '.join(f'{t:.4f}' for t in ms['eager'])}); "
-              f"device busy {busy_c:.4f} / {busy_e:.4f} ms/scan -> idle share "
-              f"{1 - busy_c / ms_c:.3f} / {1 - busy_e / ms_e:.3f}; kernels a "
-              f"scan {kern_c:.1f} / {kern_e:.1f} (profiler); host self time "
-              f"{host_c:.4f} / {host_e:.4f} ms/scan; host syncs a scan "
-              f"{syncs_c / SCAN_LEN:.2f} / {syncs_e / SCAN_LEN:.2f} "
-              f"(captured / eager) on {smi}")
-        print(f"[graph] {tag}: graph nodes a replay {json.dumps(nodes)}; "
-              f"conditional bodies run: {bodies}")
         print(f"[graph] {tag}: gates' always-run work {always:.4f} ms/scan "
               f"(draws before the gates {draws_ms:.4f}, the ESS gate's "
               f"carry {carry_ms:.4f}, the escalation's padded prefix "
-              f"{pad_ms:.4f}) = {100 * always / busy_c:.2f}% of the captured "
-              f"device busy; every gate is a conditional node "
+              f"{pad_ms:.4f}) = {100 * always / row['busy_captured']:.2f}% of "
+              f"the captured device busy; every gate is a conditional node "
               f"({', '.join(cap.names)})")
-        out[tag] = dict(ms_captured=ms_c, ms_eager=ms_e, busy_captured=busy_c,
-                        busy_eager=busy_e, kernels_captured=kern_c,
-                        kernels_eager=kern_e, host_captured=host_c,
-                        host_eager=host_e, syncs_captured=syncs_c / SCAN_LEN,
-                        syncs_eager=syncs_e / SCAN_LEN, nodes=nodes,
-                        bodies=dict(zip(cap.names, taken)),
-                        always_ms=always)
+        out[tag] = dict(row, always_ms=always)
     print(f"[graph] {json.dumps(out)}")
     return out
+
+
+def graph_row(rows: dict, tag, model, st, scans, angles, deltas, smi):
+    """``graph_check`` of one config into ``rows`` (its JSON line's
+    entries); returns the row with its graph and final state."""
+    row = graph_check(tag, model, st, scans, angles, deltas, smi)
+    rows[tag] = {k: v for k, v in row.items() if k not in ("graph", "final")}
+    return row
+
+
+def zero_scan_check(model, st, beams: int, dims: tuple) -> None:
+    """F6 on the card: ``model.run`` (a captured config) and ``run_eager``
+    over a zero-scan trajectory return the state ``torch.equal`` to the
+    input, the generator unmoved and a StepInfo with a leading 0; neither
+    captures, replays nor launches a kernel."""
+    from mcmh_localization_tpu_torch.filter.captured import STATE_TENSORS
+    from mcmh_localization_tpu_torch.ops import _cuda
+
+    dev = st.particles.device
+    scans = torch.zeros((0, beams), device=dev)
+    angles = torch.zeros(dims, device=dev)
+    deltas = torch.zeros((0, 3), device=dev)
+    key = st.key.get_state()
+    for name, run in (("captured", model.run), ("eager", model.run_eager)):
+        _cuda.reset_launch_counts()
+        new, infos = run(st, scans, angles, deltas)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in _cuda.launch_counts().items() if v}
+        check(all(torch.equal(getattr(new, f), getattr(st, f))
+                  for f in STATE_TENSORS)
+              and torch.equal(new.key.get_state(), key),
+              f"[single] T = 0 ({name}): the state moved")
+        check(infos.estimate.mean.shape == (0, 3)
+              and infos.estimate.cov.shape == (0, 3, 3)
+              and infos.count.shape == (0,)
+              and infos.count.dtype == torch.int32
+              and infos.ess.shape == (0,),
+              f"[single] T = 0 ({name}): StepInfo shapes "
+              f"{infos.estimate.mean.shape}, {infos.count.shape}")
+        check(not launched, f"[single] T = 0 ({name}) launched {launched}")
+    check(model.captured(st, beams).graph is None,
+          "[single] T = 0 captured a step")
+    print("[single] T = 0 (F6): the captured run and run_eager return the "
+          "state torch.equal to the input, the generator unmoved and a "
+          "StepInfo of (0, ...) fields; no capture, replay or launch")
 
 
 EVAL_SECONDS = 30.0   # the runner's default --duration; whole squares: 178 scans
@@ -2619,7 +2764,7 @@ def drive_dist(gm, cfg, single_cfg, beam_cfg, lidar, scans, angles, deltas,
     # (1) the 1M flagship, windowed corr with the coarse fallback
     model = distributed.make_dist_model(single_cfg, gm, mesh)
     st, ms = run("flagship", "dist_single", model, ref_ms["single"],
-                 need=("corr_field_build", "window_score"))
+                 need=("corr_field_build", "window_score_at"))
     to_profile.append(("dist_single", model, st, ms))
     del model, st
 
@@ -2945,9 +3090,14 @@ def main(argv=None) -> int:
 
     stamps.append(("single", time.perf_counter()))
     # -- 5. the single-program flagship: make_model at 1M, ungated coarse
-    # fallback, then its KLD twin and the 100k point with the gate of 8
-    _cuda.reset_launch_counts()
+    # fallback, then its KLD twin and the 100k point with the gate of 8;
+    # each replays its captured step (filter/captured.py)
+    graph_rows: dict = {}
     single = make_model(single_cfg, gm)
+    zero_scan_check(single, single.init(0), N_BEAMS, (N_BEAMS,))
+    _cuda.reset_launch_counts()
+    check(single.replays_graph, "[single] the flagship does not replay a "
+          "captured step")
     st, _, ms_settle = timed(single, single.init(0), 1)
     c_settle = _cuda.launch_counts()
     st, g_infos, ms_single = timed(single, st, 1)
@@ -2957,20 +3107,22 @@ def main(argv=None) -> int:
     builds = c_single.get("corr_field_build", 0)
     print(f"[single] flagship (n={state_size(single_cfg)}, window 128, 32 of "
           f"{single_cfg.corr_n_theta} bins, coarse x{single_cfg.corr_coarse_factor} "
-          f"at {single_cfg.corr_coarse_n_theta} bins, ungated): "
+          f"at {single_cfg.corr_coarse_n_theta} bins, ungated), captured: "
           f"{ms_single:.4f} ms/scan over {SCAN_LEN} timed scans "
           f"(settle {ms_settle:.4f}) on {smi}; final error {err_single:.4f} m; "
           f"launches {c_single}")
     check(err_single < 0.2, f"[single] final error {err_single:.3f} m >= 0.2 m")
-    check(c_single.get("window_score", 0) >= n_scans,
-          "[single] window_score not launched every scan")
+    # the window score reads its window from device memory every scan
+    check(c_single.get("window_score_at", 0) >= n_scans,
+          "[single] window_score_at not launched every scan")
     # one fine and one coarse field build per scan
     check(builds >= 2 * n_scans and c_settle.get("corr_field_build", 0) >= 2 * SCAN_LEN,
           f"[single] {builds} field builds in {n_scans} scans: the coarse "
           "build did not run every scan")
     to_profile.append(("single", single, st, ms_single))
     ref_ms["single"] = ms_single
-    del single
+    single_st = st
+    gated = None
     for tag, cfg_x in (
             ("kld_adaptive", single_cfg.replace(min_particles=100_000)),
             ("100k_gated", single_cfg.replace(
@@ -2981,15 +3133,63 @@ def main(argv=None) -> int:
         st, x_infos, ms_x = timed(model, st, 1)
         err_x = final_error(x_infos)
         print(f"[single] {tag} (n_max={state_size(cfg_x)}, min "
-              f"{cfg_x.min_particles}, gate {cfg_x.coarse_gate_escapees}): "
-              f"{ms_x:.4f} ms/scan on {smi}; final error {err_x:.4f} m; "
-              f"counts {x_infos.count.min().item()}..{x_infos.count.max().item()}")
+              f"{cfg_x.min_particles}, gate {cfg_x.coarse_gate_escapees}), "
+              f"captured: {ms_x:.4f} ms/scan on {smi}; final error "
+              f"{err_x:.4f} m; counts {x_infos.count.min().item()}.."
+              f"{x_infos.count.max().item()}")
         check(err_x < 0.2, f"[single] {tag} final error {err_x:.3f} m >= 0.2 m")
+        if tag == "100k_gated":
+            gated = (model, st)
         del model, st
     add_counts("single", _cuda.launch_counts(), 3 * n_scans)
     print(f"[single] kernel launches: {path_counts['single']}")
-    check(path_counts["single"].get("window_escapees", 0) > 0,
+    check(path_counts["single"].get("window_escapees_at", 0) > 0,
           "[single] the gated run never counted escapees")
+
+    stamps.append(("graph_single", time.perf_counter()))
+    # -- 5a. [graph] rows of the single-program configs: the flagship at 1M
+    # from its settled state; the 100k gated point from its settled state
+    # with 1% of the cloud spread over the map (the gate builds, then skips
+    # once the spread poses are resampled away); entry 1's "lvr" resampler
+    # and non-adaptive systematic draw
+    from mcmh_localization_tpu_torch.filter.init import init_uniform
+
+    _cuda.reset_launch_counts()
+    graph_row(graph_rows, "flagship", single, single_st, scans, angles,
+              deltas, smi)
+    add_counts("graph_flagship", _cuda.launch_counts(), 11 * SCAN_LEN)
+    del single, single_st
+    model, st = gated
+    spread = init_uniform(st.n_max // 100, gm,
+                          generator=torch.Generator(device=dev).manual_seed(3))
+    k = spread.shape[0]
+    st = st.replace(
+        particles=torch.cat([spread, st.particles[k:]]),
+        prev_particles=torch.cat([spread, st.prev_particles[k:]]))
+    _cuda.reset_launch_counts()
+    row = graph_row(graph_rows, "100k_gated", model, st, scans, angles,
+                    deltas, smi)
+    add_counts("graph_100k_gated", _cuda.launch_counts(), 11 * SCAN_LEN)
+    ran = row["bodies"].get("coarse_build", 0)
+    print(f"[graph] 100k_gated: the coarse build (a conditional node) ran on "
+          f"{ran} of {SCAN_LEN} scans and was skipped on {SCAN_LEN - ran}, "
+          f"from a cloud with {k} poses spread over the map")
+    check(0 < ran < SCAN_LEN, f"[graph] 100k_gated: the gate took one branch "
+          f"only (the build ran on {ran} of {SCAN_LEN} scans)")
+    del gated, model, st, row
+    for tag, cfg_x in (
+            ("lvr", single_cfg.replace(
+                num_particles=100_000, min_particles=20_000,
+                max_particles=100_000, adaptive_resampler="lvr")),
+            ("systematic", single_cfg.replace(
+                mode="MHMCL", num_particles=100_000,
+                max_particles=100_000))):
+        model = make_model(cfg_x, gm)
+        _cuda.reset_launch_counts()
+        graph_row(graph_rows, tag, model, model.init(0), scans, angles,
+                  deltas, smi)
+        add_counts(f"graph_{tag}", _cuda.launch_counts(), 11 * SCAN_LEN)
+        del model
 
     stamps.append(("exact", time.perf_counter()))
     # -- 6. the exact scorer: FilterConfig() in all six modes, then corr vs
@@ -3044,6 +3244,22 @@ def main(argv=None) -> int:
               f"faster on {smi} (auto picks "
               f"{'corr' if n >= 8192 else 'exact'})")
     print(f"[exact] kernel launches: {path_counts['exact']}")
+    # [graph] rows of the exact scorer: FilterConfig() as shipped ("auto"
+    # -> "jnp" at 5000 slots, "reject" with its retries) and (B)'s
+    # "pallas" at 100k
+    for tag, cfg_x in (
+            ("FilterConfig()", FilterConfig(initialized=True,
+                                            initial_pose=START)),
+            ("pallas_100k", FilterConfig(
+                mode="AMHAMCL", initialized=True, initial_pose=START,
+                likelihood_impl="pallas", num_particles=100_000,
+                min_particles=100_000, max_particles=100_000))):
+        model = make_model(cfg_x, gm)
+        _cuda.reset_launch_counts()
+        graph_row(graph_rows, tag, model, model.init(0), scans, angles,
+                  deltas, smi)
+        add_counts(f"graph_{tag}", _cuda.launch_counts(), 11 * SCAN_LEN)
+        del model
 
     stamps.append(("beam", time.perf_counter()))
     # -- 7. the beam model: the score field at 100k and its ESS-gated twin,
@@ -3245,6 +3461,12 @@ def main(argv=None) -> int:
                            count3, lidar_cfg)
     next(r for r in rows if r["name"] == "voxel_scores").setdefault(
         "shapes", []).append(row)
+    # [graph] row of the 3-D lidar from its tracked state
+    _cuda.reset_launch_counts()
+    graph_row(graph_rows, "lidar3d", lidar, st, lscans, directions, deltas,
+              smi)
+    add_counts("graph_lidar3d", _cuda.launch_counts(), 11 * SCAN_LEN)
+    print(f"[graph] configs: {json.dumps(graph_rows)}")
     del lidar, st, cloud
 
     stamps.append(("batched", time.perf_counter()))
@@ -3285,7 +3507,8 @@ def main(argv=None) -> int:
                    if p.startswith("dist_")}
     print(f"[dist] kernel launches: {dist_counts}")
     for name in ("corr_field_build", "corr_lookup", "window_score",
-                 "expand_sorted", "lut_field", "voxel_scores",
+                 "window_score_at", "expand_sorted", "lut_field",
+                 "voxel_scores",
                  "likelihood_scores", "gather_2d"):
         check(any(c.get(name, 0) for c in dist_counts.values()),
               f"[dist] {name} never launched")

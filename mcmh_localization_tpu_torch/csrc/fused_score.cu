@@ -47,6 +47,13 @@
 // mcmh_window_escapees counts the in-map particles the window does not
 // cover (the coarse-build gate) in the same layout, with one atomic add
 // per block.
+// mcmh_window_score_at and mcmh_window_escapees_at read the window's
+// (oy0, ox0) corner, and its first theta bin kstart where asked, from
+// device memory (the step's origin, which filter/step.py::_window_origin
+// computes and clamps on the card) in place of WindowArgs' fields: each
+// thread loads the 8 or 12 bytes once, behind its early return, through
+// the read-only cache, so a block's threads share one line.  Every op form
+// and the blind case stay as in the launch-argument entries.
 // Tried and dropped (chip_kernel_ab.py, the kernels alone at 2 x 1M, in
 // turns, NVIDIA H100 80GB HBM3 at 700 W): the first kernel's one particle a
 // thread, 0.0181-0.0183 ms (0.0225-0.0232 as its wrapper called it) where
@@ -122,16 +129,27 @@ __device__ __forceinline__ WindowIndex window_index(float px, float py,
   return r;
 }
 
+// (oy0, ox0[, kstart]) from device memory where the entry was given them
+__device__ __forceinline__ void read_origin(const int* __restrict__ origin,
+                                            int origin_len, WindowArgs& a) {
+  if (origin == nullptr) return;
+  a.oy0 = __ldg(origin);
+  a.ox0 = __ldg(origin + 1);
+  if (origin_len > 2) a.kstart = __ldg(origin + 2);
+}
+
 template <int P>
 __global__ void __launch_bounds__(kThreads) window_score_kernel(
     const float* __restrict__ fine, const float* __restrict__ coarse,
     const float* __restrict__ particles, int n, bool vec,
     const float* __restrict__ denom_ptr, float denom,
     const float* __restrict__ fill_ptr, float fill,
-    const int* __restrict__ count, WindowArgs a, float* __restrict__ out) {
+    const int* __restrict__ count, const int* __restrict__ origin,
+    int origin_len, WindowArgs a, float* __restrict__ out) {
   const long long i0 =
       (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) * P;
   if (i0 >= n) return;
+  read_origin(origin, origin_len, a);
   float p[3 * P];
   load_poses<P>(particles, i0, n, vec, p);
   const bool seen = count == nullptr || __ldg(count) > 0;
@@ -158,13 +176,15 @@ __global__ void __launch_bounds__(kThreads) window_score_kernel(
 
 template <int P>
 __global__ void __launch_bounds__(kThreads) window_escapees_kernel(
-    const float* __restrict__ particles, int n, bool vec, WindowArgs a,
+    const float* __restrict__ particles, int n, bool vec,
+    const int* __restrict__ origin, int origin_len, WindowArgs a,
     int* __restrict__ n_escaped) {
   __shared__ int s_warp[kThreads / 32];
   const long long i0 =
       (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) * P;
   int escaped = 0;
   if (i0 < n) {
+    read_origin(origin, origin_len, a);
     float p[3 * P];
     load_poses<P>(particles, i0, n, vec, p);
 #pragma unroll
@@ -190,23 +210,69 @@ cudaError_t launch_score(const float* fine, const float* coarse,
                          const float* particles, int n,
                          const float* denom_ptr, float denom,
                          const float* fill_ptr, float fill, const int* count,
+                         const int* origin, int origin_len,
                          const WindowArgs& a, float* out,
                          cudaStream_t stream) {
   const int blocks = blocks_for(n, P, kThreads);
   window_score_kernel<P><<<blocks, kThreads, 0, stream>>>(
       fine, coarse, particles, n, aligned_to(particles, 16), denom_ptr, denom,
-      fill_ptr, fill, count, a, out);
+      fill_ptr, fill, count, origin, origin_len, a, out);
   return cudaGetLastError();
 }
 
 template <int P>
-cudaError_t launch_escapees(const float* particles, int n,
-                            const WindowArgs& a, int* n_escaped,
-                            cudaStream_t stream) {
+cudaError_t launch_escapees(const float* particles, int n, const int* origin,
+                            int origin_len, const WindowArgs& a,
+                            int* n_escaped, cudaStream_t stream) {
   const int blocks = blocks_for(n, P, kThreads);
   window_escapees_kernel<P><<<blocks, kThreads, 0, stream>>>(
-      particles, n, aligned_to(particles, 16), a, n_escaped);
+      particles, n, aligned_to(particles, 16), origin, origin_len, a,
+      n_escaped);
   return cudaGetLastError();
+}
+
+int score(const float* fine, const float* coarse, const float* particles,
+          int n, const float* denom_ptr, float denom, const float* fill_ptr,
+          float fill, const int* count, const int* origin, int origin_len,
+          const WindowArgs& a, int poses, float* out, void* stream) {
+  if (n <= 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (poses) {
+    case 4:
+      return launch_score<4>(fine, coarse, particles, n, denom_ptr, denom,
+                             fill_ptr, fill, count, origin, origin_len, a,
+                             out, st);
+    case 2:
+      return launch_score<2>(fine, coarse, particles, n, denom_ptr, denom,
+                             fill_ptr, fill, count, origin, origin_len, a,
+                             out, st);
+    case 1:
+      return launch_score<1>(fine, coarse, particles, n, denom_ptr, denom,
+                             fill_ptr, fill, count, origin, origin_len, a,
+                             out, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int escapees(const float* particles, int n, const int* origin,
+             int origin_len, const WindowArgs& a, int poses, int* n_escaped,
+             void* stream) {
+  if (n <= 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (poses) {
+    case 4:
+      return launch_escapees<4>(particles, n, origin, origin_len, a,
+                                n_escaped, st);
+    case 2:
+      return launch_escapees<2>(particles, n, origin, origin_len, a,
+                                n_escaped, st);
+    case 1:
+      return launch_escapees<1>(particles, n, origin, origin_len, a,
+                                n_escaped, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -220,36 +286,39 @@ extern "C" int mcmh_window_score(const float* fine, const float* coarse,
                                  const float* fill_ptr, float fill,
                                  const int* count, WindowArgs a, int poses,
                                  float* out, void* stream) {
-  if (n <= 0) return 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (poses) {
-    case 4:
-      return launch_score<4>(fine, coarse, particles, n, denom_ptr, denom,
-                             fill_ptr, fill, count, a, out, st);
-    case 2:
-      return launch_score<2>(fine, coarse, particles, n, denom_ptr, denom,
-                             fill_ptr, fill, count, a, out, st);
-    case 1:
-      return launch_score<1>(fine, coarse, particles, n, denom_ptr, denom,
-                             fill_ptr, fill, count, a, out, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  return score(fine, coarse, particles, n, denom_ptr, denom, fill_ptr, fill,
+               count, nullptr, 0, a, poses, out, stream);
+}
+
+// origin: origin_len (2 or 3) ints in device memory, (oy0, ox0[, kstart]),
+// in place of a's; a kstart not given there is a's.
+extern "C" int mcmh_window_score_at(const float* fine, const float* coarse,
+                                    const float* particles, int n,
+                                    const float* denom_ptr, float denom,
+                                    const float* fill_ptr, float fill,
+                                    const int* count, const int* origin,
+                                    int origin_len, WindowArgs a, int poses,
+                                    float* out, void* stream) {
+  if (origin == nullptr || origin_len < 2 || origin_len > 3) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  return score(fine, coarse, particles, n, denom_ptr, denom, fill_ptr, fill,
+               count, origin, origin_len, a, poses, out, stream);
 }
 
 extern "C" int mcmh_window_escapees(const float* particles, int n,
                                     WindowArgs a, int poses, int* n_escaped,
                                     void* stream) {
-  if (n <= 0) return 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (poses) {
-    case 4:
-      return launch_escapees<4>(particles, n, a, n_escaped, st);
-    case 2:
-      return launch_escapees<2>(particles, n, a, n_escaped, st);
-    case 1:
-      return launch_escapees<1>(particles, n, a, n_escaped, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  return escapees(particles, n, nullptr, 0, a, poses, n_escaped, stream);
+}
+
+extern "C" int mcmh_window_escapees_at(const float* particles, int n,
+                                       const int* origin, int origin_len,
+                                       WindowArgs a, int poses,
+                                       int* n_escaped, void* stream) {
+  if (origin == nullptr || origin_len < 2 || origin_len > 3) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  return escapees(particles, n, origin, origin_len, a, poses, n_escaped,
+                  stream);
 }

@@ -175,7 +175,7 @@ def _run_with_frames(bag: Bag, config: FilterConfig, grid_map, key, args):
     gif = rec.to_gif()
     print(f"frames: {len(rec.frames)} -> {args.save_frames}"
           + (f" (animation: {gif})" if gif else ""))
-    return est, stack_infos(infos), wall
+    return est, stack_infos(infos, device=grid_map.device), wall
 
 
 def _run_staged_bag(bag, cfg, grid_map, key, args):

@@ -4,20 +4,26 @@ JAX package's compiled trajectory run (``make_run`` wraps the step in
 filter/step.py:872-882).
 
 On a CUDA device, ``FilterModel.run`` replays one captured step per scan
-for every config ``graph_capturable`` names: the likelihood-field "corr"
-scorer over the full map (the staged BIG program) or a window without the
-coarse fallback (the staged SMALL program), in any mode, resampler and
-ESS gate.  Its step reads nothing on the host: the window origin is a
-tensor and the gates are conditional nodes (``ops/graph.py::run_if``).
-The other configs keep a host gate and run eager steps:
+for every config ``graph_capturable`` names, in any mode, resampler, ESS
+gate and motion validity:
 
-* the window with the coarse fallback (``corr_coarse_factor > 0``): the
-  escapee gate of its build (corr_field.py:290) and the window-score
-  kernel's window as launch arguments;
+* the likelihood-field "corr" scorer over the full map (the staged BIG
+  program), a window without the coarse fallback (the staged SMALL
+  program) or a window with it, gated or not (the single-program
+  flagship): the window origin is a tensor that the field builds and the
+  lookups read from device memory, and the coarse build's escapee gate is
+  a conditional node;
+* the exact scorer, "jnp" and "pallas" ("auto" where it resolves to one
+  of them), under motion_validity "score" or "reject";
+* the 3-D lidar (``sensor_model="lidar3d"``).
+
+Their steps read nothing on the host: every gate is a conditional node
+(``ops/graph.py::run_if``).  The other configs keep a host read and run
+eager steps:
+
 * the beam model: the LUT's level count and the beam field's window
-  (range_table.py:391), and its table scorer's form;
-* the exact scorer ("jnp", "pallas") and the 3-D lidar: not yet audited
-  for host reads;
+  (range_table.py:391), its escapee gate (range_table.py:430), and its
+  table scorer's form;
 * the batched fleet (``parallel/batched.py``) and the multi-device filter
   (``parallel/distributed.py``), whose decisions are psum'd on the host.
 
@@ -57,16 +63,11 @@ _INFO_SCALARS = ("ess", "accept_rate", "p_random", "w_slow", "w_fast",
 
 def graph_capturable(config) -> bool:
     """True for the configs whose step reads nothing on the host, so that
-    ``FilterModel.run`` replays it as a CUDA graph on a CUDA device: the
-    2-D likelihood-field sensor with the corr scorer, windowed only
-    without the coarse fallback (see the module docstring for the rest)."""
-    from mcmh_localization_tpu_torch.filter.step import _resolved_impl
-
-    if config.sensor_model != "likelihood_field":
-        return False
-    if _resolved_impl(config, "cuda") != "corr":
-        return False
-    return not (config.corr_window_cells and config.corr_coarse_factor)
+    ``FilterModel.run`` replays it as a CUDA graph on a CUDA device: every
+    likelihood-field scorer (corr in each window form, the exact "jnp" and
+    "pallas") and the 3-D lidar; not the beam model (see the module
+    docstring)."""
+    return config.sensor_model in ("likelihood_field", "lidar3d")
 
 
 def _storage(t: torch.Tensor) -> int:
@@ -177,12 +178,21 @@ class CapturedStep:
             angles: torch.Tensor, deltas: torch.Tensor | None = None):
         """(final state, stacked StepInfo) of ``ranges_seq`` (T, beams)
         (and ``deltas`` (T, 3) when the step predicts) from ``state``,
-        one replay a scan; ``state.key`` advances as under eager steps."""
-        from mcmh_localization_tpu_torch.filter.step import concat_infos
+        one replay a scan; ``state.key`` advances as under eager steps.
+        A zero-scan trajectory captures and replays nothing: clones of
+        the state and an empty StepInfo (``lax.scan`` of length 0)."""
+        from mcmh_localization_tpu_torch.filter.step import (
+            concat_infos,
+            empty_infos,
+        )
 
         if state.n_max != self.n_max or ranges_seq.shape[1] != self.beams:
             raise ValueError("CapturedStep.run: the state or scans do not "
                              "have the captured shapes")
+        if ranges_seq.shape[0] == 0:
+            return (state.replace(**{f: getattr(state, f).clone()
+                                     for f in STATE_TENSORS}),
+                    empty_infos(self.model.device))
         if self.angles is None:
             self.angles = angles.clone()
         else:

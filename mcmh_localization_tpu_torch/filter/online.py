@@ -12,9 +12,9 @@ for a map built with ``device="cpu"``.
 
 On the card, ``on_scan`` replays its program's correct step captured in a
 CUDA graph (``filter/captured.py``) wherever the config is
-``graph_capturable`` (the staged main path's two programs are); the
-odometry's predict steps run eagerly.  Every other config, and the CPU,
-runs the correct step eagerly.
+``graph_capturable`` (every config but the beam model's); the odometry's
+predict steps run eagerly.  The beam model, and the CPU, run the correct
+step eagerly.
 
 The state's random source is a ``torch.Generator``, which the step advances
 in place, where the JAX key is a value.  So wherever the JAX facade reuses

@@ -18,9 +18,9 @@ the lookup read from device memory, and the injection ``lax.cond``
 nodes in a captured step, host ``if``s in an eager one.  On the card,
 ``FilterModel.run`` replays a step captured in a CUDA graph for the
 configs ``filter/captured.py::graph_capturable`` names (the JAX
-``lax.scan`` of step.py:872-882 compiles the trajectory once); the other
-configs (the coarse-gated window, the beam and 3-D lidar scorers, the
-exact scorer) run the Python loop of eager steps.
+``lax.scan`` of step.py:872-882 compiles the trajectory once): every
+likelihood-field scorer and the 3-D lidar; the beam model runs the Python
+loop of eager steps.
 
 Random draws: each scan's draws come from the state's generator, or from
 an optional ``Draws`` record (so a test can hand in the JAX draws).  For
@@ -156,8 +156,25 @@ def state_size(config) -> int:
     return config.max_particles if config.use_adaptive else config.num_particles
 
 
-def stack_infos(infos: list) -> StepInfo:
-    """Stack per-scan StepInfos along a new leading axis."""
+def empty_infos(device, batch: tuple = ()) -> StepInfo:
+    """The StepInfo of a zero-scan trajectory: each field (0, *batch, ...)
+    with one step's dtype and trailing shape (count int32, the rest
+    float32), as JAX's ``lax.scan`` returns for a length-0 trajectory."""
+    f32 = dict(dtype=torch.float32, device=device)
+    lead = (0, *batch)
+    return StepInfo(
+        estimate=PoseEstimate(mean=torch.zeros((*lead, 3), **f32),
+                              cov=torch.zeros((*lead, 3, 3), **f32)),
+        count=torch.zeros(lead, dtype=torch.int32, device=device),
+        **{f: torch.zeros(lead, **f32) for f in StepInfo._fields
+           if f not in ("estimate", "count")})
+
+
+def stack_infos(infos: list, device=None, batch: tuple = ()) -> StepInfo:
+    """Stack per-scan StepInfos along a new leading axis; no StepInfos
+    give ``empty_infos(device, batch)``."""
+    if not infos:
+        return empty_infos(device, batch)
     return StepInfo(
         estimate=PoseEstimate(
             mean=torch.stack([i.estimate.mean for i in infos]),
@@ -168,8 +185,11 @@ def stack_infos(infos: list) -> StepInfo:
     )
 
 
-def concat_infos(chunks: list) -> StepInfo:
-    """Concatenate stacked StepInfos along the scan axis."""
+def concat_infos(chunks: list, device=None, batch: tuple = ()) -> StepInfo:
+    """Concatenate stacked StepInfos along the scan axis; no chunks give
+    ``empty_infos(device, batch)``."""
+    if not chunks:
+        return empty_infos(device, batch)
     return StepInfo(
         estimate=PoseEstimate(
             mean=torch.cat([c.estimate.mean for c in chunks]),
@@ -832,7 +852,7 @@ class FilterModel:
         for t in range(ranges_seq.shape[0]):
             state, info = self.step(state, ranges_seq[t], angles, deltas[t])
             infos.append(info)
-        return state, stack_infos(infos)
+        return state, stack_infos(infos, device=self.device)
 
     def _on_device(self, x) -> torch.Tensor:
         return as_f32(x, self.device)

@@ -45,6 +45,7 @@ from mcmh_localization_tpu_torch.ops.gather import (
     corr_lookup,
     theta_scale,
 )
+from mcmh_localization_tpu_torch.ops.graph import run_if
 from mcmh_localization_tpu_torch.utils.f32 import scalar
 
 LOG_FLOOR_LOG = -13.815511  # log(1e-6), the coarse max-pool's pad value
@@ -238,13 +239,11 @@ def correlation_field_scores(
         field = field + pen_total * torch.where(occ_win == 0, 0.0, 1.0)[None]
 
     if use_coarse:
-        # the coarse fallback's window-score kernel takes the window as
-        # launch arguments: this config reads the origin on the host (it
-        # runs eagerly, filter/captured.py::graph_capturable)
-        oy0, ox0, kstart = origin.tolist()
+        # the window-score kernel reads the corner (and, with a theta
+        # window, the first bin) from the device-held origin
         return _window_scores_with_coarse(
             field, particles, u, v, valid, n_valid, log_field, grid_map,
-            config, n_theta, kstart if use_theta_win else 0, (ox0, oy0),
+            config, n_theta, origin if use_theta_win else origin[:2],
             coarse_offsets)
 
     geo = LookupGeometry(
@@ -255,6 +254,23 @@ def correlation_field_scores(
     return corr_lookup(field.contiguous(), particles.contiguous(), n_valid,
                        geo, config.score_aggregation, score_validity,
                        origin=origin)
+
+
+def build_correlation_field(log_field, u, v, valid, inv_res, n_theta: int,
+                            pad_cells: int) -> torch.Tensor:
+    """(n_theta, H, W) full-map correlation field of one scan's beam
+    endpoints ``u``, ``v`` (M,) f32 and ``valid`` (M,) bool on the (H, W)
+    ``log_field`` (JAX :670-679, kept there for API compatibility): the
+    field-build kernel over the log field zero-padded by ``pad_cells``,
+    its invalid beams at the zero band's row.  On CPU tensors, the
+    kernel's plain version."""
+    h, w = log_field.shape
+    padded = F.pad(log_field.to(torch.float32),
+                   (pad_cells, pad_cells, pad_cells, pad_cells)).contiguous()
+    zero_band_row = padded.shape[0]
+    ox, oy = _bin_offsets(u, v, valid, inv_res, n_theta, pad_cells,
+                          zero_band_row)
+    return corr_field_build(padded, ox, oy, h, w, zero_row=zero_band_row)
 
 
 def window_origin_tensor(window_origin, h: int, w: int, win: int,
@@ -281,54 +297,64 @@ def _window_cells(table: torch.Tensor, origin: torch.Tensor, fh: int,
     return table[rows[:, None], cols[None, :]]
 
 
-def window_geometry(grid_map, config, n_theta, nbins, kstart, fh, fw,
-                    window) -> WindowGeometry:
+def window_geometry(grid_map, config, n_theta, nbins, fh,
+                    fw) -> WindowGeometry:
     """The corr scorer's lookup geometry for the window-score kernel: the
     multiply forms (``(p - origin) * inv_res``, ``(pth + pi) * n_theta /
-    2pi``) and the coarse cell ``f32(f * res)`` divided (JAX :193-208)."""
+    2pi``) and the coarse cell ``f32(f * res)`` divided (JAX :193-208).
+    The window's corner and first bin are the origin's, which the kernel
+    reads from device memory (``window_score(..., origin=)``): here 0."""
     h, w = grid_map.height, grid_map.width
     kc, hc, wc = coarse_shape(config, h, w)
     return WindowGeometry(
         origin_x=grid_map.origin_xy[0], origin_y=grid_map.origin_xy[1],
         fine_scale=grid_map.inv_res, theta_scale=theta_scale(n_theta),
-        n_theta=n_theta, nbins=nbins, kstart=kstart, fh=fh, fw=fw, h=h, w=w,
-        ox0=window[0], oy0=window[1], kc=kc, hc=hc, wc=wc,
+        n_theta=n_theta, nbins=nbins, kstart=0, fh=fh, fw=fw, h=h, w=w,
+        ox0=0, oy0=0, kc=kc, hc=hc, wc=wc,
         res_c=float(np.float32(config.corr_coarse_factor * grid_map.res)),
         kc_scale=theta_scale(kc))
 
 
 def _window_scores_with_coarse(field, particles, u, v, valid, n_valid,
-                               log_field, grid_map, config, n_theta, kstart,
-                               window, coarse_offsets):
+                               log_field, grid_map, config, n_theta, origin,
+                               coarse_offsets):
     """The windowed lookup with the coarse fallback (JAX :515-616): covered
     particles read the (nbins, fh, fw) fine ``field``, in-map escapees the
-    coarse one, through the window-score kernel."""
+    coarse one, through the window-score kernel at the device-held
+    ``origin`` ((oy0, ox0, kstart), or (oy0, ox0) without a theta window).
+
+    With ``coarse_gate_escapees`` the coarse build is ``run_if`` on the
+    escapee count reaching the gate (JAX's 0-or-1-iteration while_loop,
+    :553-565), its carry the blind fill: a conditional node in a captured
+    step, so a skipped build costs nothing; a host if in an eager one."""
     nbins, fh, fw = field.shape
     kc, hc, wc = coarse_shape(config, *log_field.shape)
-    geo = window_geometry(grid_map, config, n_theta, nbins, kstart, fh, fw,
-                          window)
+    geo = window_geometry(grid_map, config, n_theta, nbins, fh, fw)
+    particles = particles.contiguous()
     mean = config.score_aggregation == "mean"
     cnt = n_valid.clamp(min=1).to(torch.float32)
-    build = True
-    if config.coarse_gate_escapees:
-        # host if in place of the JAX 0-or-1-iteration while_loop (:553-565):
-        # below the gate the escapees take the blind fill, the build is
-        # skipped
-        build = (int(window_escapees(particles.contiguous(), geo))
-                 >= config.coarse_gate_escapees)
-    if build:
+
+    def coarse_build():
         cfield = _coarse_field(u, v, valid, log_field, grid_map, config,
                                offsets=coarse_offsets)
-        cfield_t = cfield.transpose(0, 1).reshape(hc * kc, wc).contiguous()
-    else:
-        # the blind fill (:539-544): BLIND_SCORE after the "mean" divide
+        return [cfield.transpose(0, 1).reshape(hc * kc, wc).contiguous()]
+
+    if config.coarse_gate_escapees:
+        # below the gate the escapees take the blind fill (:539-544):
+        # BLIND_SCORE after the "mean" divide
         fill = BLIND_SCORE * cnt if mean else scalar(BLIND_SCORE, field.device)
-        cfield_t = fill.expand(hc * kc, wc).contiguous()
+        escaped = window_escapees(particles, geo, origin=origin)
+        (cfield_t,) = run_if(escaped >= config.coarse_gate_escapees,
+                             coarse_build,
+                             [fill.expand(hc * kc, wc).contiguous()],
+                             donate=True)
+    else:
+        (cfield_t,) = coarse_build()
     fine_t = field.transpose(0, 1).reshape(fh * nbins, fw).contiguous()
     denom = cnt if mean else 1.0
     if config.motion_validity == "score":
         fill_oom = INVALID_SCORE if mean else INVALID_SCORE * cnt
     else:
         fill_oom = 0.0
-    return window_score(fine_t, cfield_t, particles.contiguous(), geo, denom,
-                        fill_oom, count=n_valid)
+    return window_score(fine_t, cfield_t, particles, geo, denom, fill_oom,
+                        count=n_valid, origin=origin)

@@ -115,7 +115,11 @@ _SIGNATURES = {
     "mcmh_window_score": (
         _P, _P, _P, _I, _P, _F, _P, _F, _P, WindowArgs, _I, _P, _P,
     ),
+    "mcmh_window_score_at": (
+        _P, _P, _P, _I, _P, _F, _P, _F, _P, _P, _I, WindowArgs, _I, _P, _P,
+    ),
     "mcmh_window_escapees": (_P, _I, WindowArgs, _I, _P, _P),
+    "mcmh_window_escapees_at": (_P, _I, _P, _I, WindowArgs, _I, _P, _P),
     "mcmh_likelihood_scores": (
         _P, _I, _P, _P, _P, _I, _P, _I, _I, _F, _F, _F, _I, _P, _I, _F, _I,
         _P, _P,

@@ -79,14 +79,25 @@ def lane_sum(contrib: torch.Tensor, lanes: int) -> torch.Tensor:
     return acc[:, 0]
 
 
+def valid_first(valid: torch.Tensor) -> torch.Tensor:
+    """(M,) the beam order that puts the valid beams first, each group in
+    beam order: the kernels' compaction of the valid beams, at the scan's
+    static shape (a boolean-mask index would read the count on the host).
+    The invalid beams behind them add +0.0 to a lane sum, which changes no
+    bit."""
+    return torch.argsort((~valid).to(torch.uint8), stable=True)
+
+
 def likelihood_scores_plain(particles, u, v, valid, field, origin_x, origin_y,
                             scale, cell_div, count, aggregation, lanes=None):
     h, w = field.shape
     if lanes is None:
         lanes = lanes_per_particle(particles.shape[0])
-    mx, my = endpoint_cells(particles, u[valid], v[valid], origin_x, origin_y,
+    order = valid_first(valid)
+    mx, my = endpoint_cells(particles, u[order], v[order], origin_x, origin_y,
                             scale, cell_div)
-    in_map = (mx >= 0) & (mx < w) & (my >= 0) & (my < h)
+    in_map = ((mx >= 0) & (mx < w) & (my >= 0) & (my < h)
+              & valid[order][None, :])
     flat = my.clamp(0, h - 1).to(torch.int64) * w + mx.clamp(0, w - 1)
     contrib = torch.where(in_map, field.reshape(-1)[flat], 0.0)
     total = lane_sum(contrib, lanes)

@@ -44,7 +44,11 @@ import torch.nn.functional as F
 from mcmh_localization_tpu_torch.models.sensor import BLIND_SCORE, LOG_FLOOR
 from mcmh_localization_tpu_torch.ops import _cuda
 from mcmh_localization_tpu_torch.ops.gather import PI_F32
-from mcmh_localization_tpu_torch.ops.likelihood import lane_sum, lanes_per_particle
+from mcmh_localization_tpu_torch.ops.likelihood import (
+    lane_sum,
+    lanes_per_particle,
+    valid_first,
+)
 from mcmh_localization_tpu_torch.utils.f32 import divide
 
 # The raw beams a tile of the kernels' beam staging (csrc/scan_scores.cu:
@@ -380,7 +384,10 @@ def voxel_scores_plain(particles, u, v, zrow, live, table: VoxelLevels,
     # cos and sin once over all poses: the chunks do not move them
     c = torch.cos(particles[:, 2])
     s = torch.sin(particles[:, 2])
-    ul, vl, zl = u[live], v[live], zrow[live].to(torch.int64)
+    # the live beams first, at the scan's static shape; the rest add +0.0
+    order = valid_first(live)
+    ul, vl, zl = u[order], v[order], zrow[order].to(torch.int64)
+    real = live[order][None, :]
     levels = table.index is not None
     if levels:
         flat = table.index
@@ -396,7 +403,7 @@ def voxel_scores_plain(particles, u, v, zrow, live, table: VoxelLevels,
         ly = particles[sl, 1][:, None] + ss * ul[None, :] + cs * vl[None, :]
         vx = torch.floor((lx - geo.origin_x) * geo.inv).to(torch.int64)
         vy = torch.floor((ly - geo.origin_y) * geo.inv).to(torch.int64)
-        inb = (vx >= 0) & (vx < geo.w) & (vy >= 0) & (vy < geo.h)
+        inb = (vx >= 0) & (vx < geo.w) & (vy >= 0) & (vy < geo.h) & real
         vx, vy = vx.clamp(0, geo.w - 1), vy.clamp(0, geo.h - 1)
         if levels:
             read = table.levels[flat[tiled_offsets(

@@ -135,7 +135,7 @@ def _fleet(config, grid_map, models, batch: int) -> BatchedModel:
         for t in range(ranges_seq.shape[0]):
             states, info = step(states, ranges_seq[t], angles, deltas_seq[t])
             infos.append(info)
-        return states, stack_infos(infos)
+        return states, stack_infos(infos, device=dev, batch=(batch,))
 
     def init(seed: int = 0, initial_poses=None):
         """Each robot's initial state on its own generator, from ``seed``

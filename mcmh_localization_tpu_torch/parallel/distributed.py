@@ -560,7 +560,7 @@ class DistModel:
         for t in range(ranges_seq.shape[0]):
             state, info = self.step(state, ranges_seq[t], angles, deltas[t])
             infos.append(info)
-        return state, stack_infos(infos)
+        return state, stack_infos(infos, device=self.device)
 
 
 def round_up(x: int, n: int) -> int:

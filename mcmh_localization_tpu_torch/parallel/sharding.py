@@ -163,7 +163,7 @@ def make_sharded_model(config, grid_map, mesh,
         for t in range(ranges_seq.shape[0]):
             state, info = step(state, ranges_seq[t], angles, deltas[t])
             infos.append(info)
-        return state, stack_infos(infos)
+        return state, stack_infos(infos, device=base.device)
 
     def init(seed: int = 0, **kw) -> FilterState:
         return shard_state(base.init(seed, **kw), mesh, axis)

@@ -285,3 +285,201 @@ def test_windowed_coarse_scores_match_jax(house_map, torch_map, gate,
         assert n_blind > 100               # every escapee took the fill
     else:
         assert n_blind == 0                # the coarse field scored them
+
+
+# ---------------------------------------------------------------------------
+# kernel 5 with the window in device memory
+# ---------------------------------------------------------------------------
+
+ORIGIN_CASES = {
+    # the window's corner clamped to the map's low and high edges, and the
+    # theta window starting at the last bin (its bins wrap past 0)
+    "low_clamp": (0, 0, 97),
+    "high_clamp": (384 - 64, 384 - 64, 97),
+    "theta_wrap": (140, 150, 119),
+}
+
+
+def _origin_case(flags, case):
+    """``_fused_case`` with a cluster of 1024 poses in the window at the
+    case's (oy0, ox0) with headings across its theta window (its 24 bins
+    from kstart on, past the wrap), so each origin covers poses."""
+    field_t, cfield_t, parts, spec, geo = _fused_case(flags)
+    oy0, ox0, kstart = ORIGIN_CASES[case]
+    rng = np.random.default_rng(7)
+    n = 1024
+    res = 0.05
+    k = (kstart + rng.uniform(0.1, 23.9, n)) % spec["n_theta"]
+    cluster = np.stack([
+        -9.6 + (ox0 + rng.uniform(0, 64, n)) * res,
+        -9.6 + (oy0 + rng.uniform(0, 64, n)) * res,
+        -np.pi + k * (2 * np.pi / spec["n_theta"])], 1).astype(np.float32)
+    parts = np.concatenate([parts, cluster])
+    spec = dict(spec, ox0=ox0, oy0=oy0, kstart=kstart)
+    return field_t, cfield_t, parts, spec, geo, (oy0, ox0, kstart)
+
+
+def _jax_escapees(parts, spec):
+    """JAX's coarse-gate count ``jnp.sum(in_map & ~covered)`` with the JAX
+    scorer's index math (models/corr_field.py:467-488, the corr op
+    forms)."""
+    px, py, pth = (jnp.asarray(parts[:, i]) for i in range(3))
+    n_theta = spec["n_theta"]
+    mx = ((px - jnp.float32(spec["orx"])) * spec["fine_scale"]).astype(
+        jnp.int32)
+    my = ((py - jnp.float32(spec["ory"])) * spec["fine_scale"]).astype(
+        jnp.int32)
+    tbin = ((pth + jnp.pi) * (n_theta / (2.0 * jnp.pi))).astype(
+        jnp.int32) % n_theta
+    in_theta = (tbin - spec["kstart"]) % n_theta < spec["nbins"]
+    in_map = (mx >= 0) & (mx < spec["w"]) & (my >= 0) & (my < spec["h"])
+    mxw, myw = mx - spec["ox0"], my - spec["oy0"]
+    covered = ((mxw >= 0) & (mxw < spec["fw"]) & (myw >= 0)
+               & (myw < spec["fh"]) & in_theta)
+    return int(jnp.sum(in_map & ~covered))
+
+
+@pytest.mark.parametrize("case", list(ORIGIN_CASES))
+@pytest.mark.parametrize("flags", FLAG_SETS, ids=["corr_forms", "beam_forms"])
+def test_window_score_device_origin(flags, case):
+    """The window-score and escapee plain versions with the window read
+    from a device tensor (``origin=``, the ``_at`` kernels' form) at the
+    window's clamps and at the theta wrap: bitwise equal to the
+    launch-argument form at the same window (a geometry holding another
+    window, which the origin overrides), also with a (2,) origin that
+    keeps the geometry's kstart; and, as the launch-argument form is,
+    within the TPU kernel's bf16 hi/lo read (|v| * 2^-15) of JAX's
+    ``fused_window_score_gather`` in interpret mode.  The escapee count
+    equals JAX's ``jnp.sum(in_map & ~covered)`` (corr forms)."""
+    field_t, cfield_t, parts, spec, geo, origin = _origin_case(flags, case)
+    oy0, ox0, kstart = origin
+    tables = torch.from_numpy(field_t), torch.from_numpy(cfield_t)
+    tp = torch.from_numpy(parts)
+    at = torch.tensor(origin, dtype=torch.int32)
+    other = geo._replace(ox0=3, oy0=5, kstart=11)
+    host = geo._replace(ox0=ox0, oy0=oy0, kstart=kstart)
+    denom, fill, count = 37.0, -123.0, torch.tensor(90)
+    got = window_score(*tables, tp, other, denom, fill, count=count,
+                       origin=at)
+    want = window_score(*tables, tp, host, denom, fill, count=count)
+    assert torch.equal(got, want)
+    two = window_score(*tables, tp, other._replace(kstart=kstart), denom,
+                       fill, count=count, origin=at[:2])
+    assert torch.equal(two, want)
+    covered, _, _, in_map = window_indices(tp, host)
+    assert covered.sum() >= 500 and (~covered & in_map).any()
+    if case == "theta_wrap":   # covered headings on both sides of +-pi
+        th = tp[covered, 2]
+        assert (th > 3.0).any() and (th < -3.0).any()
+    n_esc = int(window_escapees(tp, other, origin=at))
+    assert n_esc == int(window_escapees(tp, host)) == int(
+        (~covered & in_map).sum())
+    if flags == FLAG_SETS[0]:
+        assert n_esc == _jax_escapees(parts, spec)
+    jax_scores = np.asarray(fused_window_score_gather(
+        jnp.asarray(field_t), jnp.asarray(cfield_t),
+        jnp.asarray(parts[:, 0]), jnp.asarray(parts[:, 1]),
+        jnp.asarray(parts[:, 2]), jnp.float32(spec["orx"]),
+        jnp.float32(spec["ory"]), jnp.float32(spec["fine_scale"]),
+        jnp.int32(ox0), jnp.int32(oy0), jnp.int32(kstart),
+        jnp.float32(denom), jnp.float32(fill),
+        n_theta=spec["n_theta"], nbins=spec["nbins"], fh=spec["fh"],
+        fw=spec["fw"], h=spec["h"], w=spec["w"], kc=spec["kc"],
+        hc=spec["hc"], wc=spec["wc"], res_c=spec["res_c"],
+        theta_scale=float(spec["theta_scale"]), fine_div=flags[0],
+        theta_div=flags[1], clip_before_window=flags[2], interpret=True))
+    g = got.numpy()
+    assert (np.abs(g - jax_scores) <= np.abs(g) * 2.0 ** -15 + 1e-30).all()
+
+
+def _gate_particles(n_escapees: int) -> np.ndarray:
+    """3000 poses inside the window at (oy0, ox0, kstart) = (40, 50, 44)
+    of 64 cells and 16 of 48 bins (cells 2-61 on each side, headings in
+    bins 0-5, k_rel 4-9), then ``n_escapees`` of them moved onto the map
+    outside the window."""
+    rng = np.random.default_rng(13)
+    n = 3000
+    bin_w = 2 * np.pi / N_THETA
+    parts = np.stack([
+        -4.8 + (50 + rng.uniform(2, 62, n)) * 0.05,
+        -4.8 + (40 + rng.uniform(2, 62, n)) * 0.05,
+        -np.pi + rng.uniform(0.2, 5.8, n) * bin_w], 1).astype(np.float32)
+    parts[:n_escapees, :2] = np.stack([
+        rng.uniform(2.0, 4.0, n_escapees),
+        rng.uniform(2.0, 4.0, n_escapees)], 1)
+    return parts
+
+
+@pytest.mark.parametrize("side", ["below", "above"])
+@pytest.mark.parametrize("aggregation", ["mean", "sum"])
+def test_coarse_gate_branches_match_jax(house_map, torch_map, aggregation,
+                                        side):
+    """The gate of 8 escapees on both sides, the window origin a device
+    tensor: 5 escapees skip the coarse build (``run_if``'s untaken branch:
+    they take the blind fill), 20 build it; the scores match JAX's
+    ``correlation_field_scores`` with ``coarse_gate_escapees=8`` at the
+    tolerance of ``test_windowed_coarse_scores_match_jax`` (rtol 1e-5,
+    atol 1e-5 * M * max|L| under "sum")."""
+    n_esc = 5 if side == "below" else 20
+    kw = dict(max_range=5.0, likelihood_impl="corr", corr_n_theta=N_THETA,
+              corr_window_cells=64, corr_theta_window_bins=16,
+              motion_validity="score", score_aggregation=aggregation,
+              coarse_gate_escapees=8)
+    jcfg, tcfg = JConfig(**kw), FilterConfig(**kw)
+    ranges, angles = _scan(house_map, (1.0, 1.0, 0.4))
+    parts = _gate_particles(n_esc)
+    lf = j_log_field(house_map, jcfg)
+    wo = (40, 50, 44)
+    (ox, oy), (u, v, valid, _, _) = _jax_offsets(
+        house_map, jcfg, jnp.asarray(ranges), jnp.asarray(angles), N_THETA,
+        wo[2], 16)
+    res = float(jax.device_get(house_map.resolution))
+    cox, coy = _coarse_offsets(jcfg, u, v, valid, lf.shape[0], res)
+    want = np.asarray(jcf.correlation_field_scores(
+        jnp.asarray(parts), jnp.asarray(ranges), jnp.asarray(angles),
+        house_map, jcfg, log_field=lf, n_theta=N_THETA,
+        window_origin=tuple(jnp.int32(x) for x in wo)))
+    got = tcf.correlation_field_scores(
+        torch.from_numpy(parts), torch.from_numpy(ranges),
+        torch.from_numpy(angles), torch_map, tcfg,
+        log_field=torch.from_numpy(np.array(lf)), n_theta=N_THETA,
+        window_origin=torch.tensor(wo, dtype=torch.int32),
+        offsets=(torch.from_numpy(np.array(ox)), torch.from_numpy(np.array(oy))),
+        coarse_offsets=(torch.from_numpy(np.array(cox)),
+                        torch.from_numpy(np.array(coy)))).numpy()
+    atol = 1e-5 if aggregation == "mean" else 1e-5 * 90 * 14.0
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=atol)
+    # the blind fill reads -50 after the "mean" divide and raw under "sum"
+    n_blind = int((want == -50.0).sum())
+    assert n_blind == (n_esc if side == "below" else 0)
+    assert int((got == -50.0).sum()) == n_blind
+
+
+def test_build_correlation_field_matches_jax(house_map, torch_map):
+    """``build_correlation_field`` (JAX's API-compatibility function for the
+    full (n_theta, H, W) field) against JAX's on the same scan: the
+    field-build tolerance, rtol 1e-5 and atol 1e-5 * M * max|L| (f32 sums
+    of M log values in another order; the port's bin offsets may move an
+    ulp-edge beam by one cell, as tests/test_torch_corr_field.py allows)."""
+    from mcmh_localization_tpu.models.corr_field import (
+        build_correlation_field as j_build,
+    )
+
+    cfg = JConfig(max_range=5.0)
+    ranges, angles = _scan(house_map, (1.0, 1.0, 0.4), m=90)
+    lf = j_log_field(house_map, cfg)
+    valid = np.isfinite(ranges) & (ranges < cfg.max_range)
+    safe = np.where(valid, ranges, 0.0).astype(np.float32)
+    u = (safe * np.cos(angles)).astype(np.float32)
+    v = (safe * np.sin(angles)).astype(np.float32)
+    res = float(jax.device_get(house_map.resolution))
+    pad = int(-(-cfg.max_range // res)) + 2
+    want = np.asarray(j_build(lf, jnp.asarray(u), jnp.asarray(v),
+                              jnp.asarray(valid), 1.0 / res, 24, pad))
+    got = tcf.build_correlation_field(
+        torch.from_numpy(np.array(lf)), torch.from_numpy(u),
+        torch.from_numpy(v), torch.from_numpy(valid), torch_map.inv_res, 24,
+        pad).numpy()
+    assert got.shape == want.shape == (24,) + lf.shape
+    atol = 1e-5 * 90 * float(np.abs(np.asarray(lf)).max())
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=atol)

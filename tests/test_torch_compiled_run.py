@@ -171,13 +171,16 @@ def test_main_path_step_reads_nothing_on_the_host(house_map, torch_map,
 
 
 def test_eager_config_trips_the_guard(house_map, torch_map, monkeypatch):
-    """The window with the coarse fallback and its escapee gate stays an
-    eager config: its step reads the escapee count on the host."""
-    cfg = FilterConfig(**_main_path_kw(corr_coarse_factor=4,
-                                       coarse_gate_escapees=8,
-                                       num_particles=2048,
-                                       max_particles=2048,
-                                       min_particles=500))
+    """The beam model's score field stays an eager config: its step reads
+    the LUT's window and its escapee count on the host
+    (models/range_table.py), and the guard catches it."""
+    cfg = FilterConfig(
+        mode="AMHAMCL", num_particles=1024, min_particles=256,
+        max_particles=1024, initialized=True,
+        initial_pose=(1.0, 1.0, 0.4), max_range=5.0, sensor_model="beam",
+        beam_impl="field", beam_table_n_theta=48, corr_window_cells=64,
+        corr_theta_window_bins=12, corr_coarse_n_theta=12, sigma_hit=0.2,
+        coarse_gate_escapees=8)
     assert not graph_capturable(cfg)
     model = tstep.make_model(cfg, torch_map)
     ranges, angles, delta = _scan_inputs(house_map)
@@ -187,17 +190,138 @@ def test_eager_config_trips_the_guard(house_map, torch_map, monkeypatch):
 
 def test_graph_capturable_by_config():
     """The captured run is chosen by config: both staged programs of the
-    main path, not the coarse-fallback window, the beam model, the 3-D
-    lidar or the exact scorer; and never on the CPU."""
-    big, small = (FilterConfig(**_main_path_kw(corr_window_cells=0,
-                                               corr_theta_window_bins=0)),
-                  FilterConfig(**_main_path_kw(corr_coarse_factor=0)))
-    assert graph_capturable(big) and graph_capturable(small)
-    for cfg in (FilterConfig(**_main_path_kw(corr_coarse_factor=4)),
-                FilterConfig(sensor_model="beam", corr_window_cells=128),
-                FilterConfig(likelihood_impl="jnp"),
-                FilterConfig(sensor_model="lidar3d")):
-        assert not graph_capturable(cfg)
+    main path, the window with the coarse fallback (gated or not), the
+    exact scorer ("jnp", "pallas", and "auto" resolving to it) under both
+    motion validities and the 3-D lidar; not the beam model in any impl;
+    and never on the CPU."""
+    capturable = [
+        FilterConfig(**_main_path_kw(corr_window_cells=0,
+                                     corr_theta_window_bins=0)),
+        FilterConfig(**_main_path_kw(corr_coarse_factor=0)),
+        FilterConfig(**_main_path_kw(corr_coarse_factor=4)),
+        FilterConfig(**_main_path_kw(corr_coarse_factor=4,
+                                     coarse_gate_escapees=8)),
+        FilterConfig(),
+        FilterConfig(likelihood_impl="jnp", motion_validity="score"),
+        FilterConfig(likelihood_impl="pallas"),
+        FilterConfig(sensor_model="lidar3d"),
+    ]
+    for cfg in capturable:
+        assert graph_capturable(cfg), cfg
+    assert tstep._resolved_impl(FilterConfig(), "cuda") == "jnp"
+    for impl in ("field", "table", "dense", "auto"):
+        assert not graph_capturable(FilterConfig(
+            sensor_model="beam", beam_impl=impl, corr_window_cells=128))
+
+
+# ---------------------------------------------------------------------------
+# the newly capturable configs under the host-read guard
+# ---------------------------------------------------------------------------
+
+def _exact_kw(impl, validity):
+    return dict(mode="AMHAMCL", num_particles=2048, min_particles=500,
+                max_particles=2048, initialized=True,
+                initial_pose=(1.0, 1.0, 0.4), max_range=5.0,
+                likelihood_impl=impl, motion_validity=validity)
+
+
+# entry 1's grid: each mode with the resamplers it can run (the adaptive
+# modes "simple" and "lvr", the others the systematic draw) on the corr
+# window without the coarse fallback
+GRID = [(mode, res) for mode in ("AMCL", "MHAMCL", "AMHAMCL")
+        for res in ("simple", "lvr")] + [
+            (mode, "systematic") for mode in ("MCL", "MHMCL", "AMHMCL")]
+
+GUARD_CASES = {
+    **{f"coarse_gate{g}_{side}": dict(kind="coarse", gate=g, side=side)
+       for g in (0, 8) for side in ("below", "above")},
+    **{f"{impl}_{v}": dict(kind="exact", impl=impl, validity=v)
+       for impl in ("jnp", "pallas") for v in ("reject", "score")},
+    "lidar3d": dict(kind="lidar3d"),
+    **{f"{mode}_{res}_{v}": dict(kind="grid", mode=mode, resampler=res,
+                                 validity=v)
+       for mode, res in GRID for v in ("score", "reject")},
+}
+
+
+def _lidar3d_case():
+    """A small 3-D lidar model (tests/test_torch_lidar3d.py's room) with
+    one scan of 3 rings x 32 azimuths from its start pose."""
+    from mcmh_localization_tpu_torch.maps import voxel_map as tvm
+    from mcmh_localization_tpu_torch.models.sensor3d import simulate_scan3d
+    from tests.test_torch_lidar3d import ORIGIN, _room_occupancy
+
+    room = tvm.build_voxel_map(_room_occupancy(), 0.1, ORIGIN, device="cpu")
+    nav = tvm.nav_slice(room, z=0.1)
+    cfg = FilterConfig(
+        mode="AMHAMCL", num_particles=1024, min_particles=256,
+        max_particles=1024, initialized=True, initial_pose=(0.0, -3.0, 0.0),
+        max_range=6.0, sensor_model="lidar3d", lidar3d_sensor_z=1.0,
+        sigma_hit=0.2, motion_validity="score")
+    az = torch.linspace(-np.pi, np.pi, 33)[:-1]
+    el = torch.tensor([-0.2, 0.0, 0.2])
+    dirs = torch.stack([az.repeat(3), el.repeat_interleave(32)], 1)
+    ranges = simulate_scan3d(None, (0.0, -3.0, 0.0), dirs, room, 6.0,
+                             sensor_z=1.0)
+    model = tstep.make_model(cfg, nav, voxel_map=room)
+    return model, model.init(0), ranges, dirs, torch.tensor([0.0, 0.05, 0.0])
+
+
+@pytest.mark.parametrize("case", list(GUARD_CASES))
+def test_capturable_step_reads_nothing_on_the_host(house_map, torch_map,
+                                                   monkeypatch, case):
+    """One step of each newly graph-capturable config under the guard: the
+    single-program flagship's form (window + coarse fallback, ungated and
+    gated at 8, from a cloud inside the window and one spread over the
+    map: the gate takes each branch, and only the gate's plain version
+    reads the host), the exact scorer in both cell forms under both
+    motion validities, the 3-D lidar, and each mode with the "simple",
+    "lvr" or systematic resampler under both validities."""
+    spec = GUARD_CASES[case]
+    ranges, angles, delta = _scan_inputs(house_map)
+    if spec["kind"] == "lidar3d":
+        model, state, ranges, angles, delta = _lidar3d_case()
+    else:
+        if spec["kind"] == "coarse":
+            cfg = FilterConfig(**_main_path_kw(
+                corr_coarse_factor=4, coarse_gate_escapees=spec["gate"],
+                num_particles=2048, max_particles=2048, min_particles=500))
+        elif spec["kind"] == "exact":
+            cfg = FilterConfig(**_exact_kw(spec["impl"], spec["validity"]))
+        else:
+            cfg = FilterConfig(**_main_path_kw(
+                mode=spec["mode"], num_particles=2048, max_particles=2048,
+                min_particles=500, corr_coarse_factor=0,
+                adaptive_resampler=("kld" if spec["resampler"] == "systematic"
+                                    else spec["resampler"]),
+                motion_validity=spec["validity"]))
+        model = tstep.make_model(cfg, torch_map)
+        state = model.init(0)
+    assert graph_capturable(model.config)
+    builds = []
+    if spec["kind"] == "coarse":
+        if spec["side"] == "above":
+            # a cloud over the whole map: escapees far past the gate
+            from mcmh_localization_tpu_torch.filter.init import init_uniform
+
+            spread = init_uniform(state.n_max, torch_map,
+                                  generator=torch.Generator().manual_seed(1))
+            state = state.replace(particles=spread, prev_particles=spread)
+        plain = tcf._coarse_field
+        monkeypatch.setattr(tcf, "_coarse_field", lambda *a, **k: (
+            builds.append(1), plain(*a, **k))[1])
+    if spec["kind"] == "grid" and spec["mode"] in ("AMCL", "MHAMCL",
+                                                   "AMHAMCL"):
+        # the augmented-MCL averages apart: the candidates replace slots
+        state = state.replace(w_slow=torch.tensor(1.0),
+                              w_fast=torch.tensor(0.5))
+    with no_host_reads(monkeypatch):
+        new, info = model.step(state, ranges, angles, delta)
+    assert np.isfinite(info.estimate.mean.numpy()).all()
+    assert 0 < int(new.count) <= state.n_max
+    if spec["kind"] == "coarse":
+        gated_off = spec["gate"] and spec["side"] == "below"
+        assert len(builds) == (0 if gated_off else 1)
 
 
 def test_run_if_plain_version():

@@ -423,6 +423,40 @@ def staged_kidnap(m, kw, scans, angles, deltas, cap, seed):
             "switches": out.switches, "count": _np(out.infos.count)}
 
 
+def zero_scan_runs(m, kw, angles):
+    """The sharded and the distributed models' ``run`` over a zero-scan
+    trajectory: each StepInfo field's (shape, dtype name), whether the
+    state's tensors come back equal to the input and the generator
+    unmoved."""
+    import torch
+
+    from mcmh_localization_tpu_torch.filter.captured import STATE_TENSORS
+    from mcmh_localization_tpu_torch.filter.step import StepInfo
+    from mcmh_localization_tpu_torch.parallel.distributed import make_dist_model
+    from mcmh_localization_tpu_torch.parallel.sharding import make_sharded_model
+
+    mesh = _mesh()
+    out = {}
+    for name, make in (("sharded", make_sharded_model),
+                       ("dist", make_dist_model)):
+        model = make(_cfg(kw), _map(m), mesh)
+        st = model.init(0)
+        key = st.key.get_state()
+        new, infos = model.run(st, np.zeros((0, angles.shape[0]), np.float32),
+                               angles, np.zeros((0, 3), np.float32))
+        fields = {f: getattr(infos, f) for f in StepInfo._fields
+                  if f != "estimate"}
+        fields.update(mean=infos.estimate.mean, cov=infos.estimate.cov)
+        out[name] = {
+            "infos": {f: (tuple(x.shape), str(x.dtype).replace("torch.", ""))
+                      for f, x in fields.items()},
+            "state_equal": all(torch.equal(getattr(new, f), getattr(st, f))
+                               for f in STATE_TENSORS),
+            "key_unmoved": bool(torch.equal(new.key.get_state(), key)),
+        }
+    return out
+
+
 def dryrun(n_devices, device="cpu"):
     """``graft_entry.dryrun_multichip(n_devices, device)``; its
     RuntimeError's message when it raises."""

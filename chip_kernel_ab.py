@@ -234,8 +234,8 @@ LUT_LAUNCH_ABLATION = (
      "for (int g0 = g_lo; g0 < g_hi; g0 += kg) {"),
     ("if (g0 > 0) __syncthreads();", "if (g0 > g_lo) __syncthreads();"),
     ("const int gn = min(kg, k - g0);", "const int gn = min(kg, g_hi - g0);"),
-    ("qt, s, b, k, nq, c, kg, vec_q, vec_s, out);",
-     "qt, s, b, k, nq, c, kg, 0, k, vec_q, vec_s, out);"),
+    ("qt, s, b, k, nq, c, kg, vec_q, vec_s, wd.origin, plane,",
+     "qt, s, b, k, nq, c, kg, 0, k, vec_q, vec_s, wd.origin, plane,"),
 )
 LUT_LAUNCH_SHIM = r"""
 // one launch of the chunked kernel over bins [g_lo, g_hi)
@@ -252,7 +252,8 @@ int ab_chunk(const signed char* qt, const float* s, int b, int k, int nq,
                      (g_lo * nq) % 4 == 0 && aligned_to(s, 16);
   dim3 grid((c + threads - 1) / threads, (b + BPAR - 1) / BPAR);
   lut_field_kernel<BPAR, true><<<grid, threads, smem, st>>>(
-      qt, s, b, k, nq, c, kg, g_lo, g_hi, vec_q, vec_s, out);
+      qt, s, b, k, nq, c, kg, g_lo, g_hi, vec_q, vec_s, nullptr,
+      static_cast<long long>(c), 0, 0, out);
   return static_cast<int>(cudaGetLastError());
 }
 extern "C" int ab_lut_field_chunk(const signed char* qt, const float* s,

@@ -41,7 +41,14 @@
    beam path's fine
    (B=24, K=96, 64^2) and coarse (B=24, 96^2) builds (beside their
    shared-memory floor: B*K*C four-byte reads at 128 bytes a clock on each
-   of the 132 SMs at the top SM clock nvidia-smi reads).  Each row gives
+   of the 132 SMs at the top SM clock nvidia-smi reads), its ``_at`` entry
+   (the window read in place at a device-held origin: ``torch.equal`` to
+   the launch-argument kernel on the window copied out and to its plain
+   version at the path's origin and at both corners) at the same two
+   builds and at (F)'s 360 table bins (7 chunks), and the bin-LUT kernel
+   (``csrc/bin_lut.cu``, the S matrix: ``torch.equal`` to its plain
+   version, beside the one-hot ``torch.einsum``) at (C)'s 24 window bins
+   and its one offset row, and at (F)'s 360 field bins.  Each row gives
    its bound (the larger of its operations over the f32 rate and its bytes
    over the HBM rate, from this run's inputs), its share of it, the time
    of one PyTorch call computing the same function where there is one,
@@ -103,7 +110,14 @@
    timed scans, error under 0.2 m, the LUT field and the window score
    launched every scan; then its ESS-gated twin (0.9), and the range-table
    scorer at 1500 particles (error under 0.25 m, kernel 2's fused form (a)
-   launched every scan).
+   launched every scan) and the "dense" ray march at 1500.  Each replays
+   its captured step, and each has a ``[graph]`` row (``graph_check``:
+   captured ``torch.equal`` eager, 0 host syncs a captured scan); (C)'s
+   from its settled state with 1% of the cloud spread over the map, so the
+   coarse build's gate runs the build on some scans and skips it on
+   others.  (F) and (D)'s two programs have ``[graph]`` rows too, and
+   the captured BIG program's peak device memory is printed with the
+   memory reserved and its graph's private pool.
    ``[beam_staged]``: the same beam point at the main path's capacity
    (KLD, 1M max / 100k min, ``make_staged_model`` with a 0.9 tracking ESS
    gate): BIG is the range-table scorer at 1M with "sum" and the
@@ -171,7 +185,10 @@
    ``run_staged`` over 16 + 16 scans), [beam]'s field point and
    [lidar3d]'s point through ``make_dist_model`` (each one lap settled,
    one timed: ms/scan and the collectives a scan beside the
-   single-program run, final error under 0.2 m), ``make_sharded_model``
+   single-program run, final error under 0.2 m; the NCCL group's
+   ``DistModel.run`` replays a captured step, its collectives in the
+   graph, and each of (A), the staged SMALL and BIG programs, (C) and (E)
+   has a ``[graph]`` row against its eager steps), ``make_sharded_model``
    at (B)'s 100k "jnp" point ``torch.equal`` to ``make_model``'s steps,
    and ``graft_entry.dryrun_multichip(1)`` on a group started with no
    backend named, whose mesh and rank device must be the card's.  A run
@@ -1202,6 +1219,11 @@ def compare_slice2_kernels(gm, single_cfg, log_field, ranges, angles,
     check(torch.equal(out, ref), "window_score (beam op forms): kernel != plain")
     print(f"[kernel] window_score, beam op forms (fine_div, theta_div, "
           f"clip_before_window): N=2x{n // 2} bitwise=True")
+    # every path now reads its window from device memory (the _at rows
+    # below): the launch-argument entries are the form those are timed
+    # beside, on no path
+    for row in (window_row, esc_row):
+        row["on_main_path"] = False
     rows += [window_row, esc_row]
     rows += window_at_rows(fine_t, coarse_t, parts, geo, denom, n_valid,
                            window_row["ms"], ms_e)
@@ -1481,6 +1503,145 @@ def lut_field_row(tag, qt, s):
         chunks=chunks), out
 
 
+def lut_at_inputs(gm, beam_model, ranges, angles) -> list:
+    """[(tag, qt, s, origin, win, qw)]: kernel 7's ``_at`` inputs at the
+    beam path's fine build (the whole (K, H, W) table, the window at the
+    START pose as an int32 origin on the card) and coarse build (the block
+    centres' (K, hc, wc) table whole, origin (0, 0)), each with the cells
+    copied out that the launch-argument form takes (``lut_inputs``)."""
+    cfg = beam_model.config
+    tables = beam_model.log_field
+    k = cfg.beam_table_n_theta
+    win, tw = cfg.corr_window_cells, cfg.corr_theta_window_bins
+    ox0, oy0, _ = start_window(gm, k, win, tw)
+    dev = ranges.device
+    (_, qw_f, s_f), (_, qw_c, s_c) = lut_inputs(gm, beam_model, ranges,
+                                                angles)
+    _, hc, wc = tables.qtc.shape
+    return [("fine", tables.qt, s_f,
+             torch.tensor([oy0, ox0], dtype=torch.int32, device=dev), win,
+             qw_f),
+            ("coarse", tables.qtc, s_c,
+             torch.zeros(2, dtype=torch.int32, device=dev), min(hc, wc),
+             qw_c)]
+
+
+def lut_field_at_row(tag, qt, s, origin, win, qw, prev_ms) -> dict:
+    """Kernel 7's ``_at`` entry (the window read in place at a device-held
+    origin) on one build: ``torch.equal`` to the launch-argument kernel on
+    the window copied out and to its plain version, here and with the
+    corner at (0, 0) and at (h - win, w - win); timed beside its bound, the
+    plain version and the launch-argument form (``prev_ms``)."""
+    from mcmh_localization_tpu_torch.ops.beam_field import (
+        lut_chunks,
+        lut_field,
+        lut_field_at,
+        lut_field_at_plain,
+        lut_plan,
+    )
+
+    k, h, w = qt.shape
+    dev = qt.device
+    corners = {"path": origin,
+               "corner at 0": torch.zeros(2, dtype=torch.int32, device=dev),
+               "corner at h - win": torch.tensor(
+                   [h - win, w - win], dtype=torch.int32, device=dev)}
+    for name, o in corners.items():
+        got = lut_field_at(qt, s, o, win)
+        oy0, ox0 = o.tolist()
+        copied = qt[:, oy0:oy0 + win, ox0:ox0 + win].reshape(
+            k, win * win).contiguous()
+        check(torch.equal(got, lut_field(copied, s))
+              and torch.equal(got, lut_field_at_plain(qt, s, o, win)),
+              f"lut_field_at {tag} ({name}): kernel != the launch-argument "
+              "kernel or the plain version")
+    check(torch.equal(qw, qt[:, origin[0]:origin[0] + win,
+                             origin[1]:origin[1] + win].reshape(k, -1)),
+          f"lut_field_at {tag}: the launch-argument inputs are another window")
+    ms = device_ms(lambda: lut_field_at(qt, s, origin, win))
+    pms = device_ms(lambda: lut_field_at_plain(qt, s, origin, win), runs=3)
+    b, _, nq = s.shape
+    c = win * win
+    chunks = len(lut_chunks(k, lut_plan(b, k, nq, c).chunk))
+    print(f"[kernel] lut_field_at {tag}: B={b} K={k} win={win} in a ({h}, "
+          f"{w}) table, {chunks} chunk(s); bitwise the launch-argument "
+          f"kernel and the plain version at the path's origin "
+          f"{origin.tolist()} and at both corners; {ms:.4f} ms beside the "
+          f"launch-argument form's {prev_ms:.4f} on {nvidia_smi_line()}")
+    # lut_field's work, and the origin's 8 bytes
+    return kernel_row(
+        "lut_field_at", "beam_field.cu", "beam_field_pallas.py:115",
+        f"{tag} B={b} K={k} nq={nq} win={win} chunks={chunks}, origin in "
+        "device memory", ms=ms, plain_ms=pms, err=0.0, ops=b * k * c,
+        nbytes=k * c + 4 * (b * k * nq + b * c) + 8, prev_ms=prev_ms,
+        shapes=[])
+
+
+def bin_lut_row(tag, idx, lp, k: int) -> dict:
+    """The bin-LUT kernel on one (R, M) index of table bins: ``torch.equal``
+    to its plain version, timed beside its bound, the plain version and
+    the one-hot ``torch.einsum`` (the JAX package's form, its one-hot made
+    once outside the timed call; f32, TF32 off)."""
+    from mcmh_localization_tpu_torch.ops.bin_lut import bin_lut, bin_lut_plain
+
+    idx = idx.to(torch.int32).contiguous()
+    out = bin_lut(idx, lp, k)
+    ref = bin_lut_plain(idx, lp, k)
+    torch.cuda.synchronize()
+    check(torch.equal(out, ref), f"bin_lut {tag}: kernel != plain")
+    r, m = idx.shape
+    nq = lp.shape[1]
+    onehot = (idx.to(torch.int64)[:, :, None]
+              == torch.arange(k, device=idx.device)[None, None, :]).to(
+                  torch.float32)
+
+    def einsum():
+        return torch.einsum("rjg,jq->rgq", onehot, lp)
+
+    lerr = float((einsum() - out).abs().max())
+    ms = device_ms(lambda: bin_lut(idx, lp, k))
+    pms = device_ms(lambda: bin_lut_plain(idx, lp, k), runs=3)
+    lms = device_ms(einsum)
+    print(f"[kernel] bin_lut {tag}: R={r} M={m} K={k} nq={nq}, bitwise its "
+          f"plain version; the one-hot einsum {lms:.4f} ms (max abs err "
+          f"{lerr:.3g}) on {nvidia_smi_line()}")
+    # one add a (r, beam, q); idx and lp read once, S written
+    return kernel_row(
+        "bin_lut", "bin_lut.cu",
+        "mcmh_localization_tpu/models/range_table.py:233",
+        f"{tag} R={r} M={m} K={k} nq={nq}", ms=ms, plain_ms=pms, err=0.0,
+        ops=r * m * nq, nbytes=4 * (r * m + m * nq + r * k * nq),
+        library_ms=lms, library=f"one-hot torch.einsum, err {lerr:.3g}",
+        shapes=[])
+
+
+def bin_lut_inputs(beam_model, ranges, angles) -> list:
+    """[(tag, idx, lp, K)]: the bin-LUT kernel's inputs on the path: the
+    fine window's bins as the general matrix (R = the field bins, each
+    beam's table bin at each bin centre), and the one offset row the
+    rolled form builds (R = 1; the theta window's and the coarse build's
+    call at an integer width ratio)."""
+    from mcmh_localization_tpu_torch.models.range_table import (
+        _beam_lut,
+        _field_bins,
+    )
+    from mcmh_localization_tpu_torch.utils.f32 import divide
+
+    cfg = beam_model.config
+    k = cfg.beam_table_n_theta
+    valid = torch.isfinite(ranges) & (ranges < cfg.max_range)
+    lp = _beam_lut(torch.where(valid, ranges, 0.0), valid,
+                   beam_model.log_field.dvals, cfg)
+    nbins = cfg.corr_theta_window_bins or k
+    kstart = start_window(beam_model.grid_map, k, cfg.corr_window_cells,
+                          cfg.corr_theta_window_bins)[2]
+    field = _field_bins(kstart if cfg.corr_theta_window_bins else 0, nbins,
+                        angles, k)
+    row = (torch.floor(divide(angles, 2.0 * math.pi / k) + 0.5)
+           .to(torch.int64) % k)[None, :]
+    return [("field bins", field, lp, k), ("offset row", row, lp, k)]
+
+
 # the mesh sizes whose bin slices [kernel] times: a D-rank theta-sharded
 # build (models/range_table.py::_sharded_bin_stack) runs one slice a rank
 SLICE_RANKS = (2, 4, 8)
@@ -1550,9 +1711,10 @@ def compare_beam_kernel(gm, beam_model, ranges, angles, rows):
         lut_field_plain,
     )
 
-    lut_rows, fields = [], []
+    lut_rows, fields, launch_ms = [], [], {}
     for tag, qt, s in lut_inputs(gm, beam_model, ranges, angles):
         row, out = lut_field_row(tag, qt, s)
+        launch_ms[tag] = row["ms"]
         b, kk, nq = s.shape
         c = qt.shape[1]
         def calls(b0, n, qt=qt, s=s, kk=kk, nq=nq, c=c):
@@ -1564,6 +1726,16 @@ def compare_beam_kernel(gm, beam_model, ranges, angles, rows):
                                            calls)
         fields.append(out)
     rows.append({**lut_rows[0], "shapes": lut_rows[1:]})
+    # kernel 7's _at entry, the window read in place at the device-held
+    # origin (the path's form), and the bin-LUT kernel that builds its S
+    at_rows = [lut_field_at_row(tag, qt, s, o, w_, qw, launch_ms[tag])
+               for tag, qt, s, o, w_, qw in lut_at_inputs(
+                   gm, beam_model, ranges, angles)]
+    rows.append({**at_rows[0], "shapes": at_rows[1:]})
+    bl_rows = [bin_lut_row(f"(C) {tag}", idx, lp, kk)
+               for tag, idx, lp, kk in bin_lut_inputs(beam_model, ranges,
+                                                       angles)]
+    rows.append({**bl_rows[0], "shapes": bl_rows[1:]})
 
     # kernel 2's fused form (a), the range-table scorer: the staged BIG
     # program's 2 x 1M poses and the [beam] table run's 2 x 1500, on the
@@ -1673,9 +1845,17 @@ def compare_past_caps(gm, beam_default, beam, vm, lidar_cfg, lidar, rows):
     cfg = beam_default.config
     cov = torch.diag(torch.tensor(cfg.initial_cov))
     r360, a360 = scan_at(gm, START, N_BEAMS, cfg.max_range)
+    launch_ms = {}
     for tag, qt, s in lut_inputs(gm, beam_default, r360, a360):
-        row_of(rows, "lut_field")["shapes"].append(
-            lut_field_row(f"K=360 {tag}", qt, s)[0])
+        row = lut_field_row(f"K=360 {tag}", qt, s)[0]
+        row_of(rows, "lut_field")["shapes"].append(row)
+        launch_ms[tag] = row["ms"]
+    for tag, qt, s, o, w_, qw in lut_at_inputs(gm, beam_default, r360, a360):
+        row_of(rows, "lut_field_at")["shapes"].append(lut_field_at_row(
+            f"K=360 {tag}", qt, s, o, w_, qw, launch_ms[tag]))
+    for tag, idx, lp, kk in bin_lut_inputs(beam_default, r360, a360):
+        row_of(rows, "bin_lut")["shapes"].append(
+            bin_lut_row(f"(F) {tag}", idx, lp, kk))
 
     # kernel 6 past its 2048 beams: the exact scorer's inputs as
     # models/sensor.py makes them
@@ -2403,6 +2583,16 @@ def drive_graph(staged, big_state, small_state, scans, angles, deltas,
     return out
 
 
+def graph_pool_bytes(graph) -> int:
+    """The device memory the segments of ``graph``'s private pool hold
+    (the caching allocator's snapshot), or 0 where the snapshot names no
+    pool."""
+    pool = tuple(graph.pool())
+    return sum(seg.get("total_size", 0)
+               for seg in torch.cuda.memory._snapshot()["segments"]
+               if tuple(seg.get("segment_pool_id", ())) == pool)
+
+
 def graph_row(rows: dict, tag, model, st, scans, angles, deltas, smi):
     """``graph_check`` of one config into ``rows`` (its JSON line's
     entries); returns the row with its graph and final state."""
@@ -2761,11 +2951,26 @@ def drive_dist(gm, cfg, single_cfg, beam_cfg, lidar, scans, angles, deltas,
                   f"[dist] {tag}: {name} not launched every scan")
         return st, ms
 
+    def dist_graph(tag, model, st, seq=None, ang=None):
+        """[dist]'s [graph] row: the captured run against the eager steps
+        (``graph_check``) from ``st``."""
+        _cuda.reset_launch_counts()
+        row = graph_check(f"dist {tag}", model, st,
+                          scans if seq is None else seq,
+                          angles if ang is None else ang, deltas, smi)
+        add_counts("graph_dist", _cuda.launch_counts(), 11 * SCAN_LEN)
+        dist_rows[tag] = {k: v for k, v in row.items()
+                          if k not in ("graph", "final")}
+
+    dist_rows: dict = {}
     # (1) the 1M flagship, windowed corr with the coarse fallback
     model = distributed.make_dist_model(single_cfg, gm, mesh)
+    check(model.replays_graph, "[dist] the NCCL group's model does not "
+          "replay a captured step")
     st, ms = run("flagship", "dist_single", model, ref_ms["single"],
                  need=("corr_field_build", "window_score_at"))
     to_profile.append(("dist_single", model, st, ms))
+    dist_graph("flagship (A)", model, st)
     del model, st
 
     # (2) the staged main path: the hand-off cycle, then run_staged
@@ -2815,17 +3020,22 @@ def drive_dist(gm, cfg, single_cfg, beam_cfg, lidar, scans, angles, deltas,
               f"{collectives_line(distributed.collective_counts(), SCAN_LEN)}; "
               f"launches {c}")
         to_profile.append((f"dist_{tag.split()[1].lower()}", prog, st, ms))
+        dist_graph(tag, prog, st0)
     del staged, out, small, big, back
 
     # (3) the beam point and (4) the 3-D lidar
     model = distributed.make_dist_model(beam_cfg, gm, mesh)
     st, ms = run("beam field", "dist_beam", model, ref_ms["beam"],
-                 need=("lut_field", "window_score"))
+                 need=("lut_field_at", "lut_field", "bin_lut",
+                       "window_score_at"))
     to_profile.append(("dist_beam", model, st, ms))
+    dist_graph("beam field (C)", model, st)
     model = distributed.make_dist_model(lidar_cfg, nav, mesh, voxel_map=vm)
     st, ms = run("lidar3d", "dist_lidar3d", model, ref_ms["lidar3d"], lscans,
                  directions, need=("voxel_scores",))
     to_profile.append(("dist_lidar3d", model, st, ms, lscans, directions))
+    dist_graph("lidar3d (E)", model, st, lscans, directions)
+    print(f"[dist] graph rows: {json.dumps(dist_rows)}")
     del model, st
 
     # (5) the GSPMD twin at (B)'s 100k point: make_model's steps bitwise
@@ -3263,11 +3473,15 @@ def main(argv=None) -> int:
 
     stamps.append(("beam", time.perf_counter()))
     # -- 7. the beam model: the score field at 100k and its ESS-gated twin,
-    # then the range-table scorer at 1500
+    # then the range-table scorer at 1500; each replays its captured step
+    # (filter/captured.py), and each has a [graph] row: captured against
+    # its eager steps from its settled state
     for tag, model in (("field", beam),
                        ("field_essgate", make_model(
                            beam_cfg.replace(resample_ess_threshold=0.9), gm))):
         _cuda.reset_launch_counts()
+        check(model.replays_graph, f"[beam] {tag} does not replay a captured "
+              "step")
         st, _, ms_settle = timed(model, model.init(0), 1)
         st, x_infos, ms_x = timed(model, st, 1)
         err_x = final_error(x_infos)
@@ -3275,36 +3489,70 @@ def main(argv=None) -> int:
         add_counts("beam", c, 2 * SCAN_LEN)
         print(f"[beam] {tag} (n={state_size(model.config)}, 96 table bins, "
               f"window 64, 24 theta bins, coarse x4 at 24 bins, gate 8, "
-              f"ESS {model.config.resample_ess_threshold}): {ms_x:.4f} ms/scan "
-              f"over {SCAN_LEN} timed scans (settle {ms_settle:.4f}) on {smi}; "
-              f"final error {err_x:.4f} m; launches {c}")
+              f"ESS {model.config.resample_ess_threshold}), captured: "
+              f"{ms_x:.4f} ms/scan over {SCAN_LEN} timed scans (settle "
+              f"{ms_settle:.4f}) on {smi}; final error {err_x:.4f} m; "
+              f"launches {c}")
         check(err_x < 0.2, f"[beam] {tag}: final error {err_x:.3f} m >= 0.2 m")
-        check(c.get("lut_field", 0) >= 2 * SCAN_LEN,
-              f"[beam] {tag}: lut_field not launched every scan")
-        check(c.get("window_score", 0) >= 2 * SCAN_LEN,
-              f"[beam] {tag}: window_score not launched every scan")
+        for name in ("lut_field_at", "window_score_at", "bin_lut"):
+            check(c.get(name, 0) >= 2 * SCAN_LEN,
+                  f"[beam] {tag}: {name} not launched every scan")
         if tag == "field":
             to_profile.append(("beam", model, st, ms_x))
             ref_ms["beam"] = ms_x
+            # (C) gated at 8 from its settled state with 1% of the cloud
+            # spread over the map: the coarse build (a conditional node)
+            # runs while the spread poses live and is skipped after
+            spread = init_uniform(
+                st.n_max // 100, gm,
+                generator=torch.Generator(device=dev).manual_seed(5))
+            k = spread.shape[0]
+            st_g = st.replace(
+                particles=torch.cat([spread, st.particles[k:]]),
+                prev_particles=torch.cat([spread, st.prev_particles[k:]]))
+            _cuda.reset_launch_counts()
+            row = graph_row(graph_rows, "beam field (C)", model, st_g, scans,
+                            angles, deltas, smi)
+            add_counts("graph_beam", _cuda.launch_counts(), 11 * SCAN_LEN)
+            ran = row["bodies"].get("coarse_build", 0)
+            print(f"[graph] beam field (C): the coarse build (a conditional "
+                  f"node) ran on {ran} of {SCAN_LEN} scans and was skipped on "
+                  f"{SCAN_LEN - ran}, from a cloud with {k} poses spread over "
+                  "the map")
+            check(0 < ran < SCAN_LEN, f"[graph] beam field (C): the gate took "
+                  f"one branch only (the build ran on {ran} of {SCAN_LEN} "
+                  "scans)")
+            del row, st_g, spread
+        else:
+            _cuda.reset_launch_counts()
+            graph_row(graph_rows, "beam field ESS (C)", model, st, scans,
+                      angles, deltas, smi)
+            add_counts("graph_beam", _cuda.launch_counts(), 11 * SCAN_LEN)
         del model, st
     del beam
-    _cuda.reset_launch_counts()
-    tcfg = beam_cfg.replace(beam_impl="table", num_particles=1500,
-                            min_particles=1500, max_particles=1500)
-    model = make_model(tcfg, gm)
-    st, _, _ = timed(model, model.init(0), 1)
-    st, x_infos, ms_x = timed(model, st, 1)
-    err_x = final_error(x_infos)
-    c = _cuda.launch_counts()
-    add_counts("beam", c, 2 * SCAN_LEN)
-    print(f"[beam] table (n=1500, 96 table bins): {ms_x:.4f} ms/scan on {smi}; "
-          f"final error {err_x:.4f} m; launches {c}")
-    check(err_x < 0.25, f"[beam] table: final error {err_x:.3f} m >= 0.25 m")
-    # each call launches table_kernels (2 in the level form) kernels
-    check(c.get("table_scores", 0)
-          >= 2 * SCAN_LEN * table_kernels(model.log_field),
-          "[beam] table: table_scores not launched every scan")
-    del model, st
+    for tag, impl in (("table", "table"), ("dense", "dense")):
+        _cuda.reset_launch_counts()
+        tcfg = beam_cfg.replace(beam_impl=impl, num_particles=1500,
+                                min_particles=1500, max_particles=1500)
+        model = make_model(tcfg, gm)
+        st, _, _ = timed(model, model.init(0), 1)
+        st, x_infos, ms_x = timed(model, st, 1)
+        err_x = final_error(x_infos)
+        c = _cuda.launch_counts()
+        add_counts("beam", c, 2 * SCAN_LEN)
+        print(f"[beam] {tag} (n=1500, 96 table bins), captured: {ms_x:.4f} "
+              f"ms/scan on {smi}; final error {err_x:.4f} m; launches {c}")
+        check(err_x < 0.25, f"[beam] {tag}: final error {err_x:.3f} m >= 0.25 m")
+        if impl == "table":
+            # each call launches table_kernels (2 in the level form) kernels
+            check(c.get("table_scores", 0)
+                  >= 2 * SCAN_LEN * table_kernels(model.log_field),
+                  "[beam] table: table_scores not launched every scan")
+        _cuda.reset_launch_counts()
+        graph_row(graph_rows, f"beam {tag} 1500", model, st, scans, angles,
+                  deltas, smi)
+        add_counts("graph_beam", _cuda.launch_counts(), 11 * SCAN_LEN)
+        del model, st
     print(f"[beam] kernel launches: {path_counts['beam']}")
 
     stamps.append(("beam_default", time.perf_counter()))
@@ -3328,9 +3576,15 @@ def main(argv=None) -> int:
           f"scans (settle {ms_settle:.4f}) on {smi}; final error "
           f"{err_x:.4f} m; launches {c}")
     check(err_x < 0.25, f"[beam_default] final error {err_x:.3f} m >= 0.25 m")
-    check(c.get("lut_field", 0) >= SCAN_LEN,
-          "[beam_default] lut_field not launched every scan")
+    for name in ("lut_field_at", "bin_lut"):
+        check(c.get(name, 0) >= SCAN_LEN,
+              f"[beam_default] {name} not launched every scan")
     to_profile.append(("beam_default", beam_default, st, ms_x))
+    # [graph] row of (F) from its settled state
+    _cuda.reset_launch_counts()
+    graph_row(graph_rows, "beam_default (F)", beam_default, st, scans, angles,
+              deltas, smi)
+    add_counts("graph_beam_default", _cuda.launch_counts(), 11 * SCAN_LEN)
     del beam_default, st
 
     _cuda.reset_launch_counts()
@@ -3401,12 +3655,18 @@ def main(argv=None) -> int:
     s_err = final_error(s_infos)
     check(s_err < 0.2, f"[beam_staged] SMALL final error {s_err:.3f} m")
     big_state = grow_state(small_state, state_size(staged_b.config))
+    # the BIG program replays its step captured at its first chunk: the
+    # memory a captured scan holds is the live tensors' peak, and what the
+    # process keeps reserved over it (the graphs' private pools among it)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     mem0 = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     c0 = _cuda.launch_counts().get("table_scores", 0)
     _, b_infos, ms_bbig = timed(staged_b.big, big_state, 1)
     peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    pool = graph_pool_bytes(staged_b.big.captured(big_state, N_BEAMS).graph)
     final_error(b_infos)
     check(_cuda.launch_counts().get("table_scores", 0) - c0
           >= SCAN_LEN * per_scan,
@@ -3419,14 +3679,24 @@ def main(argv=None) -> int:
           f"sum, refill): {ms_bbig:.4f} ms/scan, over {SCAN_LEN} scans each "
           f"on {smi}; peak device memory over the BIG scans "
           f"{peak / 1e9:.4f} GB ({(peak - mem0) / 1e9:.4f} GB above the "
-          f"{mem0 / 1e9:.4f} GB held before them) against {whole / 1e9:.2f} "
-          "GB for one whole (2N, M) f32 tensor")
+          f"{mem0 / 1e9:.4f} GB held before them), {reserved / 1e9:.4f} GB "
+          f"reserved by the process, the BIG graph's private pool "
+          f"{pool / 1e9:.4f} GB, against {whole / 1e9:.2f} GB for one whole "
+          "(2N, M) f32 tensor")
     check(peak < whole, f"[beam_staged] peak {peak / 1e9:.3f} GB over a BIG "
           f"scan >= {whole / 1e9:.2f} GB")
     add_counts("beam_staged", _cuda.launch_counts(), 6 * SCAN_LEN)
     print(f"[beam_staged] kernel launches: {path_counts['beam_staged']}")
     to_profile += [("beam_small", staged_b.small, small_state, ms_bsmall),
                    ("beam_big", staged_b.big, big_state, ms_bbig)]
+    # [graph] rows of (D)'s two programs: SMALL from its tracked state, BIG
+    # from that state grown
+    for tag, prog, st0 in (("beam_staged SMALL (D)", staged_b.small,
+                            small_state),
+                           ("beam_staged BIG (D)", staged_b.big, big_state)):
+        _cuda.reset_launch_counts()
+        graph_row(graph_rows, tag, prog, st0, scans, angles, deltas, smi)
+        add_counts("graph_beam_staged", _cuda.launch_counts(), 11 * SCAN_LEN)
     del staged_b, out, big_state
 
     stamps.append(("lidar3d", time.perf_counter()))
@@ -3506,10 +3776,9 @@ def main(argv=None) -> int:
     dist_counts = {p: c for p, c in path_counts.items()
                    if p.startswith("dist_")}
     print(f"[dist] kernel launches: {dist_counts}")
-    for name in ("corr_field_build", "corr_lookup", "window_score",
-                 "window_score_at", "expand_sorted", "lut_field",
-                 "voxel_scores",
-                 "likelihood_scores", "gather_2d"):
+    for name in ("corr_field_build", "corr_lookup", "window_score_at",
+                 "expand_sorted", "lut_field", "lut_field_at", "bin_lut",
+                 "voxel_scores", "likelihood_scores", "gather_2d"):
         check(any(c.get(name, 0) for c in dist_counts.values()),
               f"[dist] {name} never launched")
 

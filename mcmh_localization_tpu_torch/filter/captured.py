@@ -4,31 +4,30 @@ JAX package's compiled trajectory run (``make_run`` wraps the step in
 filter/step.py:872-882).
 
 On a CUDA device, ``FilterModel.run`` replays one captured step per scan
-for every config ``graph_capturable`` names, in any mode, resampler, ESS
-gate and motion validity:
+for every config (``graph_capturable``), in any mode, resampler, ESS gate
+and motion validity:
 
 * the likelihood-field "corr" scorer over the full map (the staged BIG
   program), a window without the coarse fallback (the staged SMALL
   program) or a window with it, gated or not (the single-program
-  flagship): the window origin is a tensor that the field builds and the
+  flagship): the window origin is a tensor that the field build and the
   lookups read from device memory, and the coarse build's escapee gate is
   a conditional node;
 * the exact scorer, "jnp" and "pallas" ("auto" where it resolves to one
   of them), under motion_validity "score" or "reject";
+* the beam model in every ``beam_impl``: the score field (its LUT matrix
+  sized by the table's bins, ``ops/bin_lut.py``; its window read in
+  place at the device-held origin, ``ops/beam_field.py::lut_field_at``;
+  its coarse build's escapee gate a conditional node), the range table
+  and the ray march;
 * the 3-D lidar (``sensor_model="lidar3d"``).
 
 Their steps read nothing on the host: every gate is a conditional node
-(``ops/graph.py::run_if``).  The other configs keep a host read and run
-eager steps:
-
-* the beam model: the LUT's level count and the beam field's window
-  (range_table.py:391), its escapee gate (range_table.py:430), and its
-  table scorer's form;
-* the batched fleet (``parallel/batched.py``) and the multi-device filter
-  (``parallel/distributed.py``), whose decisions are psum'd on the host.
-
-The choice is made by config, never by catching a failure: a capture or a
-replay of a capturable config that fails raises.
+(``ops/graph.py::run_if``).  The multi-device filter's ``DistModel.run``
+replays its captured step the same way on an NCCL group, the collectives
+inside the graph (``parallel/distributed.py``); on a gloo group it runs
+on the CPU, eagerly.  The batched fleet (``parallel/batched.py``) runs
+eager steps.  A capture or a replay that fails raises.
 
 ``CapturedStep`` holds the graph and its static buffers: the state (the
 graph reads it and copies the step's new state back into it), the scans'
@@ -43,6 +42,8 @@ caller's stream moves as under eager steps, draw for draw.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -64,10 +65,10 @@ _INFO_SCALARS = ("ess", "accept_rate", "p_random", "w_slow", "w_fast",
 def graph_capturable(config) -> bool:
     """True for the configs whose step reads nothing on the host, so that
     ``FilterModel.run`` replays it as a CUDA graph on a CUDA device: every
-    likelihood-field scorer (corr in each window form, the exact "jnp" and
-    "pallas") and the 3-D lidar; not the beam model (see the module
-    docstring)."""
-    return config.sensor_model in ("likelihood_field", "lidar3d")
+    sensor model (the likelihood field in each scorer and window form, the
+    beam model in every ``beam_impl``, the 3-D lidar); see the module
+    docstring."""
+    return config.sensor_model in ("likelihood_field", "beam", "lidar3d")
 
 
 def _storage(t: torch.Tensor) -> int:
@@ -75,18 +76,20 @@ def _storage(t: torch.Tensor) -> int:
 
 
 class CapturedStep:
-    """One scan of ``model`` (``predict`` then ``correct``, or ``correct``
-    alone with ``predict=False``) captured on the card for states of
-    ``n_max`` slots and scans of ``beams`` ranges."""
+    """One scan of ``model`` (its ``step``, or ``correct`` alone with
+    ``predict=False``) captured on the card for states of ``n_max`` slots
+    and scans of ``beams`` ranges.  ``model`` is a ``FilterModel`` or a
+    ``parallel/distributed.py::DistModel`` (whose step's collectives are
+    captured too; every rank captures and replays the same graph)."""
 
     def __init__(self, model, state: FilterState, beams: int,
                  predict: bool = True):
         dev = model.device
         if dev.type != "cuda":
             raise ValueError("CapturedStep: the model must live on the card")
-        if not graph_capturable(model.config):
-            raise ValueError("CapturedStep: this config keeps a host gate "
-                             "(filter/captured.py::graph_capturable)")
+        if not model.replays_graph:
+            raise ValueError("CapturedStep: this model does not replay a "
+                             "captured step (its replays_graph is False)")
         self.model = model
         self.predict = predict
         self.n_max = state.n_max
@@ -104,6 +107,9 @@ class CapturedStep:
                                   **f32)
         self.counts = torch.zeros(MAX_SCANS, dtype=torch.int32, device=dev)
         self.graph = None
+        # what one replay adds to the model's own tallies (the
+        # collectives a DistModel's step calls), recorded at capture
+        self.tallies = None
 
     def _capture(self) -> None:
         """Warm the step up eagerly on a throwaway copy of the state and
@@ -113,18 +119,24 @@ class CapturedStep:
         warm = self.buf.replace(
             **{f: getattr(self.buf, f).clone() for f in STATE_TENSORS},
             key=copy_generator(self.gen))
+        tally = getattr(model, "tally", contextlib.nullcontext)
         sink = _cuda.set_sink({})   # the warm-up's launches are not the run's
         try:
-            self._step(warm)
+            with tally():
+                self._step(warm)
         finally:
             _cuda.set_sink(sink)
         torch.cuda.synchronize(model.device)
         g = torch.cuda.CUDAGraph(keep_graph=True)
         g.register_generator_state(self.gen)
-        with cgraph.capturing(model.device) as cap, torch.cuda.graph(g):
+        # thread_local: a process group's watchdog thread may query its
+        # events while this thread captures
+        with (cgraph.capturing(model.device) as cap, tally() as tallies,
+              torch.cuda.graph(g, capture_error_mode="thread_local")):
             new, info = self._step(self.buf)
             self._store(new)
             self._record(info)
+        self.tallies = tallies
         self.capture = cap
         self.nodes = cgraph.node_counts(g.raw_cuda_graph())
         self.body_nodes = [cgraph.node_counts(b) for b in cap.bodies]
@@ -137,7 +149,7 @@ class CapturedStep:
         ranges = self.ranges.index_select(0, self.slot).reshape(self.beams)
         if self.predict:
             delta = self.deltas.index_select(0, self.slot).reshape(3)
-            state = self.model.predict(state, delta)
+            return self.model.step(state, ranges, self.angles, delta)
         return self.model.correct(state, ranges, self.angles)
 
     def _store(self, new: FilterState) -> None:
@@ -212,6 +224,8 @@ class CapturedStep:
             for _ in range(t):
                 self.graph.replay()
             _cuda.add_launches(self.capture.launches[0], t)
+            if self.tallies:
+                self.model.add_tallies(self.tallies, t)
             chunks.append(self._infos(t))
         state.key.set_state(self.gen.get_state())
         out = state.replace(**{f: getattr(self.buf, f).clone()

@@ -11,10 +11,9 @@ map built by the port's entry points with their default device, the CPU
 for a map built with ``device="cpu"``.
 
 On the card, ``on_scan`` replays its program's correct step captured in a
-CUDA graph (``filter/captured.py``) wherever the config is
-``graph_capturable`` (every config but the beam model's); the odometry's
-predict steps run eagerly.  The beam model, and the CPU, run the correct
-step eagerly.
+CUDA graph (``filter/captured.py``; every config is ``graph_capturable``);
+the odometry's predict steps run eagerly.  On the CPU the correct step
+runs eagerly.
 
 The state's random source is a ``torch.Generator``, which the step advances
 in place, where the JAX key is a value.  So wherever the JAX facade reuses

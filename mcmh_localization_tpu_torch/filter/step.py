@@ -11,24 +11,24 @@ estimate, the optionally ESS-gated resample: KLD, "simple" or "lvr" in the
 adaptive modes, systematic otherwise).
 
 The JAX program's data-dependent choices stay on the device: the corr
-window origin is a tensor (``_window_origin``) that the field build and
-the lookup read from device memory, and the injection ``lax.cond``
-(:529), the ESS gate's ``while_loop`` (:748) and the KLD escalation
-(resampling.py:464) go through ``ops/graph.py::run_if``: conditional
-nodes in a captured step, host ``if``s in an eager one.  On the card,
-``FilterModel.run`` replays a step captured in a CUDA graph for the
-configs ``filter/captured.py::graph_capturable`` names (the JAX
-``lax.scan`` of step.py:872-882 compiles the trajectory once): every
-likelihood-field scorer and the 3-D lidar; the beam model runs the Python
-loop of eager steps.
+and beam fields' window origin is a tensor (``_window_origin``) that the
+field builds and the lookups read from device memory, the beam field's
+LUT matrix is sized by the table's bins alone (``ops/bin_lut.py``), and
+the injection ``lax.cond`` (:529), the ESS gate's ``while_loop`` (:748),
+the KLD escalation (resampling.py:464) and the coarse builds' escapee
+gates go through ``ops/graph.py::run_if``: conditional nodes in a captured
+step, host ``if``s in an eager one.  On the card, ``FilterModel.run``
+replays a step captured in a CUDA graph for every config
+(``filter/captured.py::graph_capturable``; the JAX ``lax.scan`` of
+step.py:872-882 compiles the trajectory once); ``run_eager`` is its plain
+version, the Python loop of eager steps, which every CPU run takes.
 
 Random draws: each scan's draws come from the state's generator, or from
-an optional ``Draws`` record (so a test can hand in the JAX draws).  For
-a graph-capturable config the resampler's draws are all made at static
-shapes before its gates (``_resample_draws``), as the JAX key is split
-whether a branch runs or not, so an eager step and a replay of the
-captured one use the stream alike; the other configs draw inside the
-branches that run.
+an optional ``Draws`` record (so a test can hand in the JAX draws).  The
+resampler's draws are all made at static shapes before its gates
+(``_resample_draws``), as the JAX key is split whether a branch runs or
+not, so an eager step and a replay of the captured one use the stream
+alike.
 """
 
 from __future__ import annotations
@@ -298,11 +298,6 @@ def _make_scorer(ranges, angles, grid_map, table, config, impl,
                                   log_volume=table.levels)
         return score
     if impl == "field":
-        # the beam field's LUT build takes the window on the host (the
-        # beam configs run eagerly)
-        if isinstance(window_origin, torch.Tensor):
-            window_origin = tuple(window_origin.tolist())
-
         def score(p):
             return beam_field_scores(p, ranges, angles, grid_map, config,
                                      table, config.beam_table_n_theta,
@@ -342,44 +337,60 @@ def _make_scorer(ranges, angles, grid_map, table, config, impl,
     return score
 
 
-def _window_origin(state: FilterState, grid_map, config,
-                   n_theta: int | None = None) -> torch.Tensor:
-    """(3,) int32 (oy0, ox0, kstart) on the state's device: the corr
-    window's lower-left cell, centered on the anchor (window_center=
-    "anchor") or the active cloud's mean and clamped to ``[0, h - win]``
-    x ``[0, w - win]`` as the JAX scorer clamps it (corr_field.py:378-380),
-    and the theta window's first bin (0 without a theta window); see the
-    JAX docstring (step.py:231-263).  Nothing is read on the host."""
-    mask = state.active_mask
+def _anchor_center(state: FilterState, config):
+    """(cx, cy, heading) of an anchor-centred window: the anchor, its
+    heading backed off half the scan's rotation under MH."""
+    mean_t = state.anchor[2]
+    if config.use_mh:
+        mean_t = normalize_angle(
+            mean_t - 0.5 * (state.delta[0] + state.delta[2]))
+    return state.anchor[0], state.anchor[1], mean_t
+
+
+def window_origin_at(cx, cy, mean_t, grid_map, config,
+                     n_theta: int | None = None) -> torch.Tensor:
+    """(3,) int32 (oy0, ox0, kstart) of the window centred on the 0-d
+    tensors (cx, cy): the lower-left cell clamped to ``[0, h - win]`` x
+    ``[0, w - win]`` as the JAX scorer clamps it (corr_field.py:378-380),
+    and the first bin of the theta window around ``mean_t`` (0 without a
+    theta window, where ``mean_t`` may be None).  Nothing is read on the
+    host."""
     win = config.corr_window_cells
     half = win // 2
-    if config.window_center == "anchor":
-        cx, cy = state.anchor[0], state.anchor[1]
-        mean_t = state.anchor[2]
-        if config.use_mh:
-            mean_t = normalize_angle(
-                mean_t - 0.5 * (state.delta[0] + state.delta[2]))
-    else:
-        n = torch.clamp(mask.sum(), min=1)
-        cx = torch.where(mask, state.particles[:, 0], 0.0).sum() / n
-        cy = torch.where(mask, state.particles[:, 1], 0.0).sum() / n
-        mean_t = None
     ox0 = ((cx - grid_map.origin[0]) * grid_map.inv_res).to(torch.int32) - half
     oy0 = ((cy - grid_map.origin[1]) * grid_map.inv_res).to(torch.int32) - half
     oy0 = oy0.clamp(0, max(grid_map.height - win, 0))
     ox0 = ox0.clamp(0, max(grid_map.width - win, 0))
     if not config.corr_theta_window_bins:
         return torch.stack([oy0, ox0, torch.zeros_like(oy0)])
-    if mean_t is None:
+    k = n_theta if n_theta is not None else config.corr_n_theta
+    kmid = ((mean_t + math.pi) * (k / (2.0 * math.pi))).to(torch.int32) % k
+    kstart = (kmid - config.corr_theta_window_bins // 2) % k
+    return torch.stack([oy0, ox0, kstart.to(torch.int32)])
+
+
+def _window_origin(state: FilterState, grid_map, config,
+                   n_theta: int | None = None) -> torch.Tensor:
+    """(3,) int32 (oy0, ox0, kstart) on the state's device: the field
+    window centred on the anchor (window_center="anchor") or the active
+    cloud's mean (``window_origin_at``); see the JAX docstring
+    (step.py:231-263).  The corr and beam fields read it from device
+    memory: nothing is read on the host."""
+    mask = state.active_mask
+    if config.window_center == "anchor":
+        return window_origin_at(*_anchor_center(state, config), grid_map,
+                                config, n_theta)
+    n = torch.clamp(mask.sum(), min=1)
+    cx = torch.where(mask, state.particles[:, 0], 0.0).sum() / n
+    cy = torch.where(mask, state.particles[:, 1], 0.0).sum() / n
+    mean_t = None
+    if config.corr_theta_window_bins:
         sets = ((state.particles, state.prev_particles) if config.use_mh
                 else (state.particles,))
         c = sum(torch.where(mask, torch.cos(p[:, 2]), 0.0).sum() for p in sets)
         s = sum(torch.where(mask, torch.sin(p[:, 2]), 0.0).sum() for p in sets)
         mean_t = torch.atan2(s, c)
-    k = n_theta if n_theta is not None else config.corr_n_theta
-    kmid = ((mean_t + math.pi) * (k / (2.0 * math.pi))).to(torch.int32) % k
-    kstart = (kmid - config.corr_theta_window_bins // 2) % k
-    return torch.stack([oy0, ox0, kstart.to(torch.int32)])
+    return window_origin_at(cx, cy, mean_t, grid_map, config, n_theta)
 
 
 def refresh_anchor(particles, weights, anchor, streak, config, mask,
@@ -497,9 +508,9 @@ def _resample_amcl_lvr(state: FilterState, grid_map, config, d: Draws):
 def _resample_kld(state: FilterState, grid_map, config, d: Draws):
     """Augmented-MCL injection + KLD-sized systematic resampling
     (resample_amcl_kld, amcmh_localizer.py:496-527).  The injection is
-    ``run_if`` on ``n_random > 0`` (the JAX ``lax.cond``, step.py:529); a
-    captured config's randoms come drawn at static shape on every
-    resampling scan (``_resample_draws``)."""
+    ``run_if`` on ``n_random > 0`` (the JAX ``lax.cond``, step.py:529); its
+    randoms come drawn at static shape on every resampling scan
+    (``_resample_draws``)."""
     n = state.count
     n_max = state.n_max
     dev = state.device
@@ -546,18 +557,25 @@ def _resample_kld(state: FilterState, grid_map, config, d: Draws):
                           count=new_count), p_random)
 
 
-def _resample_draws(state: FilterState, grid_map, config, d: Draws) -> Draws:
+def _resample_draws(state: FilterState, grid_map, config, d: Draws,
+                    min_particles: int | None = None,
+                    eval_window: int | None = None) -> Draws:
     """``d`` with every draw the config's resampler can use, at static
     shapes: the fields left None are drawn from the state's generator, in
     the order the resamplers take them (the systematic offset or the KLD
     offset, jitter normals and escalation tail; the multinomial uniforms;
-    the uniform candidates; the "lvr" coins).  A graph-capturable config
-    makes them before the ESS gate, the KLD escalation and the injection,
-    so the stream moves by the same draws whichever branches run, in a
-    replay (which draws what it captured) as in an eager step, as the JAX
-    key is split whether a branch runs or not.  The configs that run
-    eagerly draw inside the branches that run."""
+    the uniform candidates; the "lvr" coins).  The step makes them before
+    the ESS gate, the KLD escalation and the injection, so the stream
+    moves by the same draws whichever branches run, in a replay (which
+    draws what it captured) as in an eager step, as the JAX key is split
+    whether a branch runs or not.  ``min_particles`` and ``eval_window``
+    (the config's by default) size the KLD draw: the multi-device
+    filter's island passes its own (``parallel/distributed.py``)."""
     n = state.n_max
+    if min_particles is None:
+        min_particles = config.min_particles
+    if eval_window is None:
+        eval_window = config.kld_eval_window
     dev = state.device
     gen = state.key
     fill = {}
@@ -575,8 +593,7 @@ def _resample_draws(state: FilterState, grid_map, config, d: Draws) -> Draws:
     kind = config.adaptive_resampler
     if kind == "kld":
         uniform("kld_r", ())
-        rows, tail = kld_noise_rows(n, config.min_particles,
-                                    config.kld_eval_window)
+        rows, tail = kld_noise_rows(n, min_particles, eval_window)
         for name, k in (("kld_noise", rows), ("kld_noise_tail", tail)):
             if k and need(name):
                 fill[name] = torch.randn((k, 3), generator=gen, device=dev,
@@ -696,8 +713,7 @@ def _correct(state: FilterState, ranges: torch.Tensor, angles: torch.Tensor,
                     "lvr": _resample_amcl_lvr}[config.adaptive_resampler]
     else:
         resample = _resample_systematic
-    if graph_capturable(config):
-        d = _resample_draws(state, grid_map, config, d)
+    d = _resample_draws(state, grid_map, config, d)
     if carry_on:
         need = ess < config.resample_ess_threshold * state.count.to(torch.float32)
         if config.use_adaptive:
@@ -829,12 +845,12 @@ class FilterModel:
         the 3-D lidar's (M, 2) directions), (T, 3) deltas -> (final state,
         stacked StepInfo).
 
-        On a CUDA device a config that ``replays_graph`` runs one replay of
-        its captured step per scan (``filter/captured.py``; the step is
+        On a CUDA device (``replays_graph``) it runs one replay of the
+        captured step per scan (``filter/captured.py``; the step is
         captured at the first run, or by ``filter/staged.py::
         warmup_staged``), bitwise the eager steps on the same generator;
-        every other config, and every CPU run, is a Python loop of eager
-        steps.  The choice is the config's, not a fallback."""
+        every CPU run is a Python loop of eager steps (``run_eager``).
+        The choice is the device's, not a fallback."""
         if not self.replays_graph:
             return self.run_eager(state, ranges_seq, angles, deltas)
         ranges_seq = self._on_device(ranges_seq)
@@ -845,17 +861,24 @@ class FilterModel:
     def run_eager(self, state, ranges_seq, angles, deltas):
         """``run`` as a Python loop of eager steps on any config: the
         captured run's plain version."""
-        ranges_seq = self._on_device(ranges_seq)
-        angles = self._on_device(angles)
-        deltas = self._on_device(deltas)
-        infos = []
-        for t in range(ranges_seq.shape[0]):
-            state, info = self.step(state, ranges_seq[t], angles, deltas[t])
-            infos.append(info)
-        return state, stack_infos(infos, device=self.device)
+        return run_steps(self, state, ranges_seq, angles, deltas)
 
     def _on_device(self, x) -> torch.Tensor:
         return as_f32(x, self.device)
+
+
+def run_steps(model, state, ranges_seq, angles, deltas):
+    """(final state, stacked StepInfo) of ``model.step`` once a scan of
+    ``ranges_seq`` (T, M) and ``deltas`` (T, 3), eagerly: a ``FilterModel``'s
+    or ``DistModel``'s ``run_eager``."""
+    dev = model.device
+    ranges_seq, angles, deltas = (as_f32(x, dev)
+                                  for x in (ranges_seq, angles, deltas))
+    infos = []
+    for t in range(ranges_seq.shape[0]):
+        state, info = model.step(state, ranges_seq[t], angles, deltas[t])
+        infos.append(info)
+    return state, stack_infos(infos, device=dev)
 
 
 def make_model(config, grid_map, voxel_map=None) -> FilterModel:

@@ -99,8 +99,9 @@ class GridMap:
         ok = self.in_bounds(mx, my)
         vals = self.occupancy[my.clamp(0, self.height - 1).long(),
                               mx.clamp(0, self.width - 1).long()]
-        return torch.where(ok, vals, torch.tensor(fill, dtype=torch.int8,
-                                                  device=vals.device))
+        # a python fill, not a tensor copied from the host (a captured step
+        # holds no host copy): an int scalar keeps the int8 dtype
+        return torch.where(ok, vals, fill)
 
     def distance_at(self, mx, my, fill: float = 0.0) -> torch.Tensor:
         ok = self.in_bounds(mx, my)

@@ -37,6 +37,7 @@ from mcmh_localization_tpu_torch.models.range_table import _sharded_bin_stack
 from mcmh_localization_tpu_torch.ops.corr_field_build import corr_field_build
 from mcmh_localization_tpu_torch.ops.fused_score import (
     WindowGeometry,
+    window_cells,
     window_escapees,
     window_score,
 )
@@ -233,7 +234,7 @@ def correlation_field_scores(
     score_validity = config.motion_validity == "score"
     if score_validity:
         # non-free cells score INVALID_SCORE per valid beam (JAX :445-461)
-        occ_win = (_window_cells(grid_map.occupancy, origin, fh, fw)
+        occ_win = (window_cells(grid_map.occupancy, origin, fh, fw)
                    if use_window else grid_map.occupancy)
         pen_total = INVALID_SCORE * n_valid.clamp(min=1).to(torch.float32)
         field = field + pen_total * torch.where(occ_win == 0, 0.0, 1.0)[None]
@@ -285,16 +286,6 @@ def window_origin_tensor(window_origin, h: int, w: int, win: int,
     kstart = int(window_origin[2]) if len(window_origin) == 3 else 0
     return torch.tensor([min(max(oy0, 0), h - win), min(max(ox0, 0), w - win),
                          kstart], dtype=torch.int32, device=device)
-
-
-def _window_cells(table: torch.Tensor, origin: torch.Tensor, fh: int,
-                  fw: int) -> torch.Tensor:
-    """``table[oy0:oy0 + fh, ox0:ox0 + fw]`` at the device-held origin: a
-    gather, so the corner is never read on the host."""
-    dev = table.device
-    rows = origin[0].to(torch.int64) + torch.arange(fh, device=dev)
-    cols = origin[1].to(torch.int64) + torch.arange(fw, device=dev)
-    return table[rows[:, None], cols[None, :]]
 
 
 def window_geometry(grid_map, config, n_theta, nbins, fh,

@@ -11,11 +11,16 @@ Per scan the beam model's log-mixture collapses to an (M, nq) LUT, and the
 score of a pose in (cell, theta bin) becomes a sum of K LUT reads through
 the quantized table: ``field[b, c] = sum_g S[b, g, qt[g, c]]`` with
 ``S[b, g] = sum of the LUT rows of the beams whose ray falls in table bin
-g`` (``ops/beam_field.py::lut_field``, a CUDA kernel on the card).  The
-field covers a spatial and theta window; out-of-window poses read a coarse
-full-map field evaluated at block centres, or take the blind penalty.  The
-windowed lookup is ``ops/fused_score.py::window_score`` in the beam op
-forms (divide by the resolution and the bin width, clip before the window).
+g`` (``ops/bin_lut.py::bin_lut`` builds S, ``ops/beam_field.py::
+lut_field_at`` the field, CUDA kernels on the card).  The field covers a
+spatial and theta window; out-of-window poses read a coarse full-map field
+evaluated at block centres (built behind an escapee gate,
+``ops/graph.py::run_if``), or take the blind penalty.  The windowed lookup
+is ``ops/fused_score.py::window_score`` in the beam op forms (divide by the
+resolution and the bin width, clip before the window).  The window's
+origin stays on the device from the step to the lookup: the field build
+and every read take it from device memory, so a step reads nothing on the
+host and runs captured in a CUDA graph (``filter/captured.py``).
 
 ``raycast_table_scores`` reads the cell-major table once per (particle,
 beam), with the bin math, the mixture and the beam sum fused around the
@@ -43,14 +48,17 @@ from mcmh_localization_tpu_torch.models.sensor import (
     RAY_STEP,
     hit_norm,
 )
-from mcmh_localization_tpu_torch.ops.beam_field import lut_field
+from mcmh_localization_tpu_torch.ops.beam_field import lut_field, lut_field_at
+from mcmh_localization_tpu_torch.ops.bin_lut import bin_lut
 from mcmh_localization_tpu_torch.ops.fused_score import (
     WindowGeometry,
+    window_cells,
     window_escapees,
     window_indices,
     window_score,
 )
 from mcmh_localization_tpu_torch.ops.gather import PI_F32, gather_2d, theta_scale
+from mcmh_localization_tpu_torch.ops.graph import run_if
 from mcmh_localization_tpu_torch.ops.scan_scores import (
     Mixture,
     TableGeometry,
@@ -128,8 +136,8 @@ def build_range_table(grid_map, n_theta: int, max_range: float,
     dists = np.arange(1, n_steps + 1) * step
     dx = np.floor(0.5 + np.outer(np.cos(thetas), dists) / res).astype(np.int32)
     dy = np.floor(0.5 + np.outer(np.sin(thetas), dists) / res).astype(np.int32)
-    dx, dy = (dx + pad).tolist(), (dy + pad).tolist()
-    d_steps = dists.astype(np.float32).tolist()
+    dx, dy = ([[int(v) for v in row] for row in a + pad] for a in (dx, dy))
+    d_steps = [float(v) for v in dists.astype(np.float32)]
 
     hit = occ > 50
     if hit_unknown:
@@ -195,29 +203,10 @@ def _beam_lut(safe_r, valid, dvals, config) -> torch.Tensor:
 def _bin_lut_matrix(idx: torch.Tensor, lp: torch.Tensor,
                     k: int) -> torch.Tensor:
     """(R, K, nq): ``S[r, d] = sum of lp[j] over the beams j with
-    idx[r, j] == d`` (JAX :233-246), f32 adds in ascending j (the order of
-    a loop over the beams, on every device).
-
-    Each beam's rank in its bin counts the earlier beams in that bin; the
-    sum then runs one rank level at a time, a gather of each bin's beam at
-    that rank (or of a zero row).  A scatter-add (CUDA float atomics) or a
-    matmul (the TF32 flag) would not fix the order."""
-    r_, m = idx.shape
-    dev = lp.device
-    idx = idx.to(torch.int64)
-    j = torch.arange(m, device=dev)
-    earlier = j[None, :] < j[:, None]                                # (M, M)
-    rank = ((idx[:, :, None] == idx[:, None, :]) & earlier).sum(dim=2)
-    # host read of the most beams in one bin: the number of add levels
-    levels = int(rank.max()) + 1
-    slot = torch.full((r_, k, levels), m, dtype=torch.int64, device=dev)
-    rows = torch.arange(r_, device=dev)[:, None].expand(r_, m)
-    slot[rows, idx, rank] = j[None, :].expand(r_, m)
-    lp_ext = torch.cat([lp, lp.new_zeros((1, lp.shape[1]))])
-    acc = lp_ext[slot[..., 0]]
-    for lvl in range(1, levels):
-        acc = acc + lp_ext[slot[..., lvl]]
-    return acc
+    idx[r, j] == d`` (JAX :233-246), f32 adds in ascending j
+    (``ops/bin_lut.py::bin_lut``: a CUDA kernel on the card, which sizes
+    nothing on the host)."""
+    return bin_lut(idx, lp, k)
 
 
 def _rolled_bin_lut_matrix(lp, angles, n_theta: int, starts, use_half: bool):
@@ -225,7 +214,8 @@ def _rolled_bin_lut_matrix(lp, angles, n_theta: int, starts, use_half: bool):
     sums (JAX :249-281): the circulant form of the bin-sum matrix for
     theta-window bins (``starts = kstart + b``, ``use_half``) and for coarse
     bins at an integer width ratio.  ``starts`` is a (B,) int64 tensor on
-    ``lp``'s device.  T is a one-row ``_bin_lut_matrix``, so the two agree
+    ``lp``'s device (the window's from the device-held kstart), so the
+    rows are a gather.  T is a one-row ``_bin_lut_matrix``, so the two agree
     bitwise where the bins agree."""
     k = n_theta
     dev = lp.device
@@ -247,22 +237,30 @@ def _field_bins(kstart: int, nbins: int, angles, n_theta: int) -> torch.Tensor:
                               dtheta)).to(torch.int64) % n_theta
 
 
+def fine_lut_matrix(lp, angles, n_theta: int, kstart, nbins: int,
+                    theta_window: bool) -> torch.Tensor:
+    """(nbins, K, nq) fine-field LUT matrix of the bins from ``kstart`` (an
+    int or a 0-d int tensor on ``lp``'s device), rolled under a theta
+    window (JAX :505-519)."""
+    if theta_window:
+        starts = kstart + torch.arange(nbins, device=lp.device)
+        return _rolled_bin_lut_matrix(lp, angles, n_theta, starts,
+                                      use_half=True)
+    return _bin_lut_matrix(_field_bins(kstart, nbins, angles, n_theta), lp,
+                           n_theta)
+
+
 def fine_lut_inputs(tables: BeamTables, lp, angles, n_theta: int,
                     window: tuple, win: int, nbins: int, theta_window: bool):
-    """(qw, S): the fine field's (K, win^2) int8 window of ``qt`` at
-    ``window`` = (oy0, ox0, kstart) and its (nbins, K, nq) LUT matrix,
-    rolled under a theta window (JAX :505-519)."""
+    """(qw, S): the fine field's (K, win^2) int8 window of ``qt`` copied out
+    at ``window`` = (oy0, ox0, kstart) ints and its LUT matrix: the
+    launch-argument form's inputs (``lut_field``), which the chip scripts
+    hold ``lut_field_at`` to."""
     oy0, ox0, kstart = window
     k_tab = tables.qt.shape[0]
     qw = tables.qt[:, oy0:oy0 + win, ox0:ox0 + win].reshape(k_tab, win * win)
-    if theta_window:
-        starts = kstart + torch.arange(nbins, device=lp.device)
-        s_mat = _rolled_bin_lut_matrix(lp, angles, n_theta, starts,
-                                       use_half=True)
-    else:
-        s_mat = _bin_lut_matrix(_field_bins(kstart, nbins, angles, n_theta),
-                                lp, n_theta)
-    return qw.contiguous(), s_mat
+    return qw.contiguous(), fine_lut_matrix(lp, angles, n_theta, kstart,
+                                            nbins, theta_window)
 
 
 def coarse_lut_inputs(lp, angles, tables: BeamTables, config, n_theta: int):
@@ -317,8 +315,10 @@ def _beam_geometry(grid_map, n_theta, nbins, kstart, win, window,
     """The window-score geometry in the beam field's op forms: the pose's
     cell by ``/ res``, its bin by ``/ (2 pi / n_theta)``, window coords
     clipped to the map first; the coarse cell by ``/ f32(f * res)`` and bin
-    by ``* f32(kc / 2 pi)`` (JAX :559-572, :377-394).  ``coarse`` is
-    (f, kc, hc, wc), or None for no coarse table."""
+    by ``* f32(kc / 2 pi)`` (JAX :559-572, :377-394).  ``window`` is (ox0,
+    oy0), the window's corner as launch arguments (``beam_field_scores``
+    passes 0s and the device-held origin instead); ``coarse`` is (f, kc,
+    hc, wc), or None for no coarse table."""
     f, kc, hc, wc = coarse if coarse is not None else (0, 0, 0, 0)
     return WindowGeometry(
         origin_x=grid_map.origin_xy[0], origin_y=grid_map.origin_xy[1],
@@ -331,6 +331,23 @@ def _beam_geometry(grid_map, n_theta, nbins, kstart, win, window,
         fine_div=True, theta_div=True, clip_before_window=True)
 
 
+def field_origin(window_origin, h: int, w: int, win: int,
+                 theta_window: bool, device) -> torch.Tensor:
+    """The beam field's window origin as an int32 tensor on ``device``:
+    (oy0, ox0, kstart) under a theta window, else (oy0, ox0), the corner
+    clamped to ``[0, h - win]`` x ``[0, w - win]`` on the device as JAX
+    clips it (:443-449).  ``window_origin`` is the step's tensor
+    (``filter/step.py::_window_origin``) or a sequence of ints."""
+    if not isinstance(window_origin, torch.Tensor):
+        window_origin = torch.tensor([int(x) for x in window_origin],
+                                     dtype=torch.int32)
+    o = window_origin.to(device=device, dtype=torch.int32)
+    parts = [o[0].clamp(0, h - win), o[1].clamp(0, w - win)]
+    if theta_window:
+        parts.append(o[2])
+    return torch.stack(parts)
+
+
 def beam_field_scores(
     particles: torch.Tensor,
     ranges: torch.Tensor,
@@ -339,7 +356,7 @@ def beam_field_scores(
     config,
     table,                  # (K, H, W) range table or BeamTables
     n_theta: int,
-    window_origin: tuple,   # (oy0, ox0[, kstart]) python ints
+    window_origin,          # (3,) int32 tensor, or (oy0, ox0[, kstart]) ints
     impl: str = "auto",     # "auto" | "lut" | "dense"
     shard_bins_axis=None,   # a process group: theta-sharded builds
 ) -> torch.Tensor:
@@ -348,12 +365,20 @@ def beam_field_scores(
     ``corr_theta_window_bins`` theta window when the origin carries a
     first bin), one read per particle.
 
+    ``window_origin``: the window's (oy0, ox0[, kstart]), the step's int32
+    tensor on the card or a sequence of ints; the corner is clamped on the
+    device (``field_origin``), and the field build (``lut_field_at``) and
+    the lookups (kernel 5's ``_at`` entries) read it from device memory,
+    so the step reads nothing on the host.
+
     ``impl``: "lut" (and "auto", on every device) builds the field with
     the LUT kernel (its plain version on the CPU); "dense" evaluates each
     beam's mixture on the range-table window, the JAX CPU form.  In-map
     window escapees read the coarse fallback field when
-    ``corr_coarse_factor > 0``, its build gated on
-    ``coarse_gate_escapees`` in-map escapees, else take BLIND_SCORE.
+    ``corr_coarse_factor > 0``, its build ``run_if`` on
+    ``coarse_gate_escapees`` in-map escapees (JAX's 0-or-1-iteration
+    while_loop, :629-646: a conditional node in a captured step), else
+    take BLIND_SCORE.
 
     ``shard_bins_axis``: a process group over whose ranks the fine and
     coarse fields build their theta bins (``_sharded_bin_stack``).  Under
@@ -371,23 +396,21 @@ def beam_field_scores(
 
     _, h, w = tables.table.shape
     win = min(config.corr_window_cells, h, w)
-    oy0 = min(max(int(window_origin[0]), 0), h - win)
-    ox0 = min(max(int(window_origin[1]), 0), w - win)
     tw = config.corr_theta_window_bins
     use_theta_win = bool(tw) and len(window_origin) == 3
     nbins = min(tw, n_theta) if use_theta_win else n_theta
-    kstart = int(window_origin[2]) if use_theta_win else 0
+    origin = field_origin(window_origin, h, w, win, use_theta_win, dev)
+    kstart = origin[2] if use_theta_win else 0
 
     lp = _beam_lut(safe_r, valid, tables.dvals, config)
     if impl in ("auto", "lut"):
-        qw, s_mat = fine_lut_inputs(tables, lp, angles, n_theta,
-                                    (oy0, ox0, kstart), win, nbins,
-                                    use_theta_win)
+        s_mat = fine_lut_matrix(lp, angles, n_theta, kstart, nbins,
+                                use_theta_win)
 
         def build_bins(b0, n):
-            return lut_field(qw, s_mat[b0:b0 + n])
+            return lut_field_at(tables.qt, s_mat[b0:b0 + n], origin, win)
     elif impl == "dense":
-        rw = tables.table[:, oy0:oy0 + win, ox0:ox0 + win]
+        rw = window_cells(tables.table, origin, win, win)
         g = _field_bins(kstart, nbins, angles, n_theta)
         inv_sqrt = hit_norm(config.sigma_hit)
         z_floor = config.z_rand / config.max_range
@@ -411,7 +434,7 @@ def beam_field_scores(
     cnt = count.clamp(min=1).to(torch.float32)
     if score_validity:
         # non-free window cells score INVALID_SCORE per valid beam (:547-556)
-        occ_win = grid_map.occupancy[oy0:oy0 + win, ox0:ox0 + win]
+        occ_win = window_cells(grid_map.occupancy, origin, win, win)
         field = field + (INVALID_SCORE * cnt) * torch.where(occ_win == 0, 0.0,
                                                             1.0)[None]
     fine_t = field.transpose(0, 1).reshape(win * nbins, win).contiguous()
@@ -421,32 +444,35 @@ def beam_field_scores(
     if config.corr_coarse_factor > 0 and tables.qtc is not None:
         _, hc, wc = tables.qtc.shape
         kc = config.corr_coarse_n_theta
-        geo = _beam_geometry(grid_map, n_theta, nbins, kstart, win,
-                             (ox0, oy0), (config.corr_coarse_factor, kc, hc, wc))
-        build = True
-        if config.coarse_gate_escapees and shard_bins_axis is None:
-            # host if in place of the JAX 0-or-1-iteration while_loop
-            # (:629-646): below the gate the escapees take the blind fill
-            build = (int(window_escapees(particles, geo))
-                     >= config.coarse_gate_escapees)
-        if build:
+        geo = _beam_geometry(grid_map, n_theta, nbins, 0, win, (0, 0),
+                             (config.corr_coarse_factor, kc, hc, wc))
+
+        def coarse_build():
             cfield = _beam_coarse_field(lp, count, angles, grid_map, tables,
                                         config, n_theta, shard_bins_axis)
-            coarse_t = cfield.transpose(0, 1).reshape(hc * kc, wc).contiguous()
-        else:
-            # the blind fill (:613-619): BLIND_SCORE after the "mean" divide
+            return [cfield.transpose(0, 1).reshape(hc * kc, wc).contiguous()]
+
+        if config.coarse_gate_escapees and shard_bins_axis is None:
+            # below the gate the escapees take the blind fill (:613-619):
+            # BLIND_SCORE after the "mean" divide
             fill = BLIND_SCORE * cnt if mean else scalar(BLIND_SCORE, dev)
-            coarse_t = fill.expand(hc * kc, wc).contiguous()
+            escaped = window_escapees(particles, geo, origin=origin)
+            (coarse_t,) = run_if(escaped >= config.coarse_gate_escapees,
+                                 coarse_build,
+                                 [fill.expand(hc * kc, wc).contiguous()],
+                                 donate=True)
+        else:
+            (coarse_t,) = coarse_build()
         if score_validity:
             fill_oom = INVALID_SCORE if mean else INVALID_SCORE * cnt
         else:
             fill_oom = 0.0
         return window_score(fine_t, coarse_t, particles, geo,
-                            cnt if mean else 1.0, fill_oom, count=count)
+                            cnt if mean else 1.0, fill_oom, count=count,
+                            origin=origin)
 
-    geo = _beam_geometry(grid_map, n_theta, nbins, kstart, win, (ox0, oy0),
-                         None)
-    covered, row, lane, in_map = window_indices(particles, geo)
+    geo = _beam_geometry(grid_map, n_theta, nbins, 0, win, (0, 0), None)
+    covered, row, lane, in_map = window_indices(particles, geo, origin=origin)
     totals = gather_2d(fine_t, row.to(torch.int32).contiguous(),
                        lane.to(torch.int32).contiguous())
     totals = torch.where(in_map & covered, totals, 0.0)

@@ -32,7 +32,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("corr_field_build.cu", "gather.cu", "rank.cu", "fused_score.cu",
            "likelihood.cu", "take.cu", "beam_field.cu", "scan_scores.cu",
-           "edt.cu", "graph_cond.cu")
+           "edt.cu", "graph_cond.cu", "bin_lut.cu")
 HEADERS = ("thread_runs.cuh", "stage_beams.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -127,6 +127,9 @@ _SIGNATURES = {
     "mcmh_take_rows": (_P, _I, _I, _P, _I, _P, _P),
     "mcmh_squared_edt": (_P, _I, _I, _P, _P, _P),
     "mcmh_lut_field": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
+    "mcmh_lut_field_at": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I, _P,
+                          _P),
+    "mcmh_bin_lut": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
     "mcmh_table_scores": (_P, _I, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _P,
                           TableArgs, _I, _I, _P, _P),
     "mcmh_voxel_scores": (_P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P,

@@ -10,6 +10,12 @@ of consecutive ``b``; ``lut_tiles`` picks the layout, and ``lut_plan`` the
 bins a block stages at once: all K where they fit its shared memory, else
 chunks of them, each output's sum carried across the chunks in ascending
 ``g`` (the TPU kernel chunks over K too).
+
+``lut_field_at`` builds the fine field over a window of the whole (K, H,
+W) table at a window origin held in device memory
+(``mcmh_lut_field_at``, whose launches count as ``lut_field_at``): the
+corner is never read on the host, so a captured step replays with each
+scan's own window.  ``lut_field`` takes its (K, C) cells as given.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from mcmh_localization_tpu_torch.ops import _cuda
+from mcmh_localization_tpu_torch.ops.fused_score import window_cells
 
 # the dynamic shared memory one block can hold on Hopper (227 KB), and
 # one SM's (228 KB; the card keeps 1 KB of it a block)
@@ -143,4 +150,45 @@ def lut_field(qt: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
         out.data_ptr(), _cuda.stream_of(qt),
     )
     _cuda.check_launch("lut_field", code)
+    return out
+
+
+def lut_field_at_plain(qt: torch.Tensor, s: torch.Tensor,
+                       origin: torch.Tensor, win: int) -> torch.Tensor:
+    """Plain PyTorch version: the window gathered out, then
+    ``lut_field_plain`` on it."""
+    k = qt.shape[0]
+    return lut_field_plain(
+        window_cells(qt, origin, win, win).reshape(k, win * win), s)
+
+
+def lut_field_at(qt: torch.Tensor, s: torch.Tensor, origin: torch.Tensor,
+                 win: int) -> torch.Tensor:
+    """(B, win * win) float32 field over the ``win`` x ``win`` window of
+    ``qt`` (K, H, W) int8 whose corner (oy0, ox0) the int32 tensor
+    ``origin`` holds (its first two entries, inside ``[0, H - win]`` x
+    ``[0, W - win]``: the caller clamps them); ``s`` (B, K, nq) float32.
+    Bitwise ``lut_field`` of the window copied out.  CPU tensors take the
+    plain version."""
+    if qt.device.type == "cpu":
+        return lut_field_at_plain(qt, s, origin, win)
+    _cuda.require_cuda("lut_field_at", qt, s, origin)
+    if qt.dtype != torch.int8 or qt.dim() != 3:
+        raise ValueError("lut_field_at: qt must be (K, H, W) int8")
+    if s.dtype != torch.float32 or s.dim() != 3 or s.shape[1] != qt.shape[0]:
+        raise ValueError("lut_field_at: s must be (B, K, nq) float32 with "
+                         "qt's K")
+    if origin.dtype != torch.int32 or origin.dim() != 1 or origin.shape[0] < 2:
+        raise ValueError("lut_field_at: origin must be int32 (oy0, ox0[, ...])")
+    k, h, w = qt.shape
+    if not 0 < win <= min(h, w):
+        raise ValueError(f"lut_field_at: a {win}-cell window does not fit the "
+                         f"({h}, {w}) table")
+    b, _, nq = s.shape
+    tile, chunk = lut_plan(b, k, nq, win * win)
+    out = torch.empty((b, win * win), dtype=torch.float32, device=qt.device)
+    code = _cuda.library().mcmh_lut_field_at(
+        qt.data_ptr(), s.data_ptr(), b, k, nq, h, w, win, origin.data_ptr(),
+        *tile, chunk, out.data_ptr(), _cuda.stream_of(qt))
+    _cuda.check_launch("lut_field_at", code)
     return out

@@ -73,6 +73,18 @@ def _window_at(g: WindowGeometry, origin: torch.Tensor | None):
     return origin[1], origin[0], origin[2] if origin.shape[0] > 2 else g.kstart
 
 
+def window_cells(table: torch.Tensor, origin: torch.Tensor, fh: int,
+                 fw: int) -> torch.Tensor:
+    """``table[..., oy0:oy0 + fh, ox0:ox0 + fw]`` at the (oy0, ox0) that
+    ``origin`` holds: a gather on the table's device, so the corner is
+    never read on the host."""
+    dev = table.device
+    o = origin.to(torch.int64)
+    rows = o[0] + torch.arange(fh, device=dev)
+    cols = o[1] + torch.arange(fw, device=dev)
+    return table[..., rows[:, None], cols[None, :]]
+
+
 def window_indices(particles: torch.Tensor, g: WindowGeometry,
                    origin: torch.Tensor | None = None):
     """(covered, row, lane, in_map) per particle: a fine-table index where

@@ -154,13 +154,12 @@ def _aggregate(total: torch.Tensor, count: torch.Tensor,
     return torch.where(count > 0, score, BLIND_SCORE).to(torch.float32)
 
 
-def _padded_columns(*cols: torch.Tensor):
-    """The beam columns padded with zeros to a multiple of ``_COLUMN_PAD``
-    and the (M_pad,) mask of the real ones."""
+def _padded_columns(*cols: torch.Tensor) -> list:
+    """The beam columns padded with zeros (False) to a multiple of
+    ``_COLUMN_PAD``."""
     m = cols[0].shape[0]
     mp = -(-max(m, 1) // _COLUMN_PAD) * _COLUMN_PAD
-    real = torch.arange(mp, device=cols[0].device) < m
-    return [F.pad(c, (0, mp - m)) for c in cols], real
+    return [F.pad(c, (0, mp - m)) for c in cols]
 
 
 def _levels(values: torch.Tensor):
@@ -293,15 +292,18 @@ def table_scores_plain(particles, ranges, angles, valid, table: TableLevels,
             + mx.clamp(0, geo.w - 1))
     dtheta = 2.0 * math.pi / geo.n_theta
     lut = table.index is not None
+    # the valid beams first, at the scan's static shape (a boolean-mask
+    # index would read their count on the host); the rest add +0.0
+    order = valid_first(valid)
     if lut:
-        r, a = ranges[valid], angles[valid]
-        real = torch.ones(r.shape[0], dtype=torch.bool, device=dev)
+        r, a, real = ranges[order], angles[order], valid[order]
         nq = table.levels.shape[0]
         lp = _pair_mixture(r[:, None], table.levels[None, :], mix).reshape(-1)
         row = torch.arange(r.shape[0], device=dev) * nq
         flat = table.index.reshape(-1)
     else:
-        (r, a), real = _padded_columns(ranges[valid], angles[valid])
+        r, a, real = _padded_columns(ranges[order], angles[order],
+                                     valid[order])
         flat = table.table.reshape(-1)
     total = torch.empty(n, dtype=torch.float32, device=dev)
     rows = _chunk_rows(r.shape[0], chunk)

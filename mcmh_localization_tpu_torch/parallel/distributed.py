@@ -20,27 +20,36 @@ One scan of ``_dist_step`` is the JAX shard_map body:
     the island KLD's epsilon x D; then a fixed block moves one rank round
     the ring.  No collective moves O(N) particle data.
 
-PyTorch runs eagerly, so the JAX program's data-dependent branches are
-host ``if``s, as in ``filter/step.py``.  A rank that takes another branch
-around a collective hangs the group, so every host decision here reads
-values that are the same on every rank: psum'd sums, the replicated
-scalars, or a local rule that holds no collective.  Each is marked where
-it is taken.
+The JAX program's data-dependent choices stay on the device, as in
+``filter/step.py``: the window origin is a tensor (``_dist_window_origin``)
+that the corr and beam fields read from device memory, the island
+injection shifts by the device-held count, and the gates (the injection,
+the KLD escalation) are ``ops/graph.py::run_if``.  A rank that takes
+another branch around a collective hangs the group, so every gate reads
+values that are the same on every rank (psum'd sums, the replicated
+scalars) or holds no collective (the island's own KLD escalation).  On an
+NCCL group ``DistModel.run`` replays one captured step a scan
+(``filter/captured.py``), its collectives inside the graph; on a gloo
+group (the CPU) it is a loop of eager steps, where ``run_if`` is a host
+``if``.
 
 Random draws: each rank's ``FilterState.key`` is its own generator, seeded
 from ``(seed, rank)`` by ``filter/state.py::split_seed`` (JAX folds the
 axis index into one key); a step's ``draws`` (``filter/step.py::Draws`` at
 the rank's ``nl`` shapes) replace them, so a test can feed JAX's per-shard
-draws.
+draws.  The resampler's draws are made at static shapes before its gates
+(``filter/step.py::_resample_draws`` at the island's sizes), so a replay
+and an eager step move the stream alike.
 
 The collectives live at the top of this module and count what they move
-(``collective_counts``).  They act on the rank's own tensors: NCCL on
-cards, gloo on the CPU.
+(``collective_counts``; a captured step's count once at its capture and
+again at each replay).  They act on the rank's own tensors: NCCL on cards,
+gloo on the CPU.
 """
 
 from __future__ import annotations
 
-import math
+import contextlib
 
 import torch
 import torch.distributed as dist
@@ -48,6 +57,7 @@ import torch.distributed as dist
 from mcmh_localization_tpu_torch.filter.estimate import (
     PoseEstimate,
     cluster_mass,
+    row_at,
 )
 from mcmh_localization_tpu_torch.filter.init import init_uniform
 from mcmh_localization_tpu_torch.filter.mh import asymmetric_mh, symmetric_mh
@@ -59,28 +69,29 @@ from mcmh_localization_tpu_torch.filter.state import (
 from mcmh_localization_tpu_torch.filter.step import (
     Draws,
     StepInfo,
+    _anchor_center,
     _beam_count,
     _make_scorer,
     _p_random,
     _predict,
+    _resample_draws,
     _resolved_impl,
     as_f32,
     make_model,
-    stack_infos,
+    run_steps,
     state_size,
+    window_origin_at,
 )
 from mcmh_localization_tpu_torch.models.motion import invert_delta, motion_density
 from mcmh_localization_tpu_torch.models.sensor import wrap_score_with_validity
+from mcmh_localization_tpu_torch.ops.graph import run_if
 from mcmh_localization_tpu_torch.ops.resampling import (
     kld_resample,
     multinomial_resample_indices,
     systematic_resample_particles,
 )
 from mcmh_localization_tpu_torch.parallel.sharding import shard_state
-from mcmh_localization_tpu_torch.utils.angles import (
-    normalize_angle,
-    normalize_angle_about,
-)
+from mcmh_localization_tpu_torch.utils.angles import normalize_angle_about
 from mcmh_localization_tpu_torch.utils.f32 import scalar
 
 # ---------------------------------------------------------------------------
@@ -107,6 +118,28 @@ def collective_counts() -> dict[str, tuple[int, int, int]]:
 
 def reset_collective_counts() -> None:
     _moved.clear()
+
+
+@contextlib.contextmanager
+def collectives_tallied():
+    """Count the collectives called inside into a tally of their own,
+    which it yields, and not into ``collective_counts``: a captured step's
+    (``filter/captured.py``), which each replay adds (``add_collectives``)."""
+    global _moved
+    outer, _moved = _moved, {}
+    try:
+        yield _moved
+    finally:
+        _moved = outer
+
+
+def add_collectives(tally: dict, times: int = 1) -> None:
+    """Add ``times`` replays of a captured step's ``tally``."""
+    for name, (calls, nbytes, most) in tally.items():
+        rec = _moved.setdefault(name, [0, 0, 0])
+        rec[0] += calls * times
+        rec[1] += nbytes * times
+        rec[2] = max(rec[2], most)
 
 
 def axis_size(group) -> int:
@@ -213,7 +246,7 @@ def _global_top_pose(particles, w, group) -> torch.Tensor:
     is_max = w_best >= wmax
     first = pmin(torch.where(is_max, ax, 2 ** 30).to(torch.int32), group)
     keep = is_max & (first == ax)
-    return psum(torch.where(keep, particles[i], 0.0), group)
+    return psum(torch.where(keep, row_at(particles, i), 0.0), group)
 
 
 def estimate_pose_cluster_dist(particles, weights, mask, group, radius_xy,
@@ -235,40 +268,29 @@ def estimate_pose_cluster_dist(particles, weights, mask, group, radius_xy,
 # ---------------------------------------------------------------------------
 
 def _dist_window_origin(state: FilterState, mask, grid_map, config, group,
-                        n_theta: int | None = None) -> tuple:
-    """(oy0, ox0[, kstart]) python ints, ``filter/step.py::_window_origin``
+                        n_theta: int | None = None) -> torch.Tensor:
+    """(3,) int32 (oy0, ox0, kstart), ``filter/step.py::_window_origin``
     over the ranks: the cloud's position and heading sums are psum'd (the
     theta centre pooled over both scored sets under MH), or the replicated
-    anchor is read.  Either way the ints are the same on every rank, so
-    every rank builds the same window and enters the same collectives."""
-    half = config.corr_window_cells // 2
+    anchor is read.  Either way the origin is the same on every rank, so
+    every rank builds the same window; it stays on the device, where the
+    corr and beam fields read it."""
     if config.window_center == "anchor":
-        cx, cy = state.anchor[0], state.anchor[1]
-        mean_t = state.anchor[2]
-        if config.use_mh:
-            mean_t = normalize_angle(
-                mean_t - 0.5 * (state.delta[0] + state.delta[2]))
-    else:
-        sets = ((state.particles, state.prev_particles) if config.use_mh
-                else (state.particles,))
-        sums = psum(torch.stack([
-            mask.sum().to(torch.float32),
-            torch.where(mask, state.particles[:, 0], 0.0).sum(),
-            torch.where(mask, state.particles[:, 1], 0.0).sum(),
-            sum(torch.where(mask, torch.cos(p[:, 2]), 0.0).sum() for p in sets),
-            sum(torch.where(mask, torch.sin(p[:, 2]), 0.0).sum() for p in sets),
-        ]), group)
-        n = torch.clamp(sums[0], min=1.0)
-        cx, cy = sums[1] / n, sums[2] / n
-        mean_t = torch.atan2(sums[4], sums[3])
-    ox0 = ((cx - grid_map.origin[0]) * grid_map.inv_res).to(torch.int32) - half
-    oy0 = ((cy - grid_map.origin[1]) * grid_map.inv_res).to(torch.int32) - half
-    if not config.corr_theta_window_bins:
-        return tuple(torch.stack([oy0, ox0]).tolist())
-    k = n_theta if n_theta is not None else config.corr_n_theta
-    kmid = ((mean_t + math.pi) * (k / (2.0 * math.pi))).to(torch.int32) % k
-    kstart = (kmid - config.corr_theta_window_bins // 2) % k
-    return tuple(torch.stack([oy0, ox0, kstart]).tolist())
+        return window_origin_at(*_anchor_center(state, config), grid_map,
+                                config, n_theta)
+    sets = ((state.particles, state.prev_particles) if config.use_mh
+            else (state.particles,))
+    sums = psum(torch.stack([
+        mask.sum().to(torch.float32),
+        torch.where(mask, state.particles[:, 0], 0.0).sum(),
+        torch.where(mask, state.particles[:, 1], 0.0).sum(),
+        sum(torch.where(mask, torch.cos(p[:, 2]), 0.0).sum() for p in sets),
+        sum(torch.where(mask, torch.sin(p[:, 2]), 0.0).sum() for p in sets),
+    ]), group)
+    n = torch.clamp(sums[0], min=1.0)
+    return window_origin_at(sums[1] / n, sums[2] / n,
+                            torch.atan2(sums[4], sums[3]), grid_map, config,
+                            n_theta)
 
 
 def _refresh_anchor_dist(state: FilterState, mask, ranges, config, group):
@@ -307,10 +329,21 @@ def _refresh_anchor_dist(state: FilterState, mask, ranges, config, group):
             torch.where(migrate, 0, streak).to(torch.int32))
 
 
+def island_kld_sizes(config, n_dev: int) -> tuple[int, int]:
+    """(min_particles, eval_window) of an island's KLD draw: the global
+    values over the D ranks, the window kept above the island's minimum
+    (JAX :562-596)."""
+    min_l = max(config.min_particles // n_dev, 1)
+    window = (max(config.kld_eval_window // n_dev, min_l + 1)
+              if config.kld_eval_window else 0)
+    return min_l, window
+
+
 def _island_resample(state: FilterState, mask, count_l, grid_map, config,
                      group, n_dev: int, d: Draws):
     """Each rank resamples its own rows (JAX :676-775); returns (state,
-    p_random).  ``count_l`` = count / D, the same on every rank."""
+    p_random).  ``count_l`` = count / D, the same on every rank.  ``d``
+    holds every draw (``filter/step.py::_resample_draws``)."""
     nl = state.n_max
     dev = state.device
     gen = state.key
@@ -334,7 +367,7 @@ def _island_resample(state: FilterState, mask, count_l, grid_map, config,
                             jitter=jitter, theta=theta)
 
     if config.adaptive_resampler == "kld":
-        min_l = max(config.min_particles // n_dev, 1)
+        min_l, eval_window = island_kld_sizes(config, n_dev)
         samples, n_kept = kld_resample(
             state.particles, state.weights,
             max_samples=nl,
@@ -348,28 +381,29 @@ def _island_resample(state: FilterState, mask, count_l, grid_map, config,
             epsilon=config.kld_epsilon * n_dev,
             z=config.kld_z,
             count=count_l - n_drop_l,
-            # the window scales with the island, kept above its minimum
-            eval_window=(max(config.kld_eval_window // n_dev, min_l + 1)
-                         if config.kld_eval_window else 0),
+            eval_window=eval_window,
             stop_rule=("new_bin" if config.ref_compat_kld_newbin_stop
                        else "every_sample"),
             r=d.kld_r, noise=d.kld_noise, noise_tail=d.kld_noise_tail,
             generator=gen,
         )
-        # the stop rule above is the island's own and holds no collective;
-        # every rank adopts the largest island count (never fewer
-        # particles than the KLD bound asks for anywhere)
+        # the stop rule above is the island's own: its escalation gate
+        # holds no collective, so the ranks may take it apart; every rank
+        # adopts the largest island count (never fewer particles than the
+        # KLD bound asks for anywhere)
         n_kept = torch.minimum(n_kept, count_l - n_drop_l)
         new_count_l = torch.clamp(pmax(n_random_l + n_kept, group), min_l,
                                   nl).to(torch.int32)
-        # p_random and count_l are replicated: every rank takes this branch
-        nr = int(n_random_l)
-        if nr > 0:
-            # the randoms take the first slots (reference order)
-            particles = torch.where((slot < nr)[:, None], randoms(nl),
-                                    torch.roll(samples, nr, dims=0))
-        else:
-            particles = samples
+
+        def inject():
+            # the randoms take the first slots (reference order); the kept
+            # samples shift behind them by the device-held n_random_l
+            shifted = samples[(slot - n_random_l) % nl]
+            return [torch.where((slot < n_random_l)[:, None], randoms(nl),
+                                shifted)]
+
+        # p_random and count_l are replicated: every rank takes the branch
+        (particles,) = run_if(n_random_l > 0, inject, [samples], donate=True)
         weights = torch.where(slot < new_count_l,
                               1.0 / (new_count_l * n_dev).to(torch.float32),
                               0.0)
@@ -385,11 +419,8 @@ def _island_resample(state: FilterState, mask, count_l, grid_map, config,
         resampled = systematic_resample_particles(
             state.particles, state.weights, nl, count=count_l,
             r=d.resample_r, generator=gen)
-        coins = d.lvr_coins
-        cand = randoms(nl)
-        if coins is None:
-            coins = torch.rand((nl,), generator=gen, device=dev)
-        particles = torch.where((coins < p_random)[:, None], cand, resampled)
+        particles = torch.where((d.lvr_coins < p_random)[:, None],
+                                randoms(nl), resampled)
     weights = torch.where(mask, 1.0 / torch.clamp(state.count, min=1), 0.0
                           ).to(torch.float32)
     return state.replace(particles=particles, weights=weights), p_random
@@ -490,7 +521,10 @@ def _dist_step(state: FilterState, ranges, angles, delta, *, grid_map,
     ess = 1.0 / torch.clamp(psum((state.weights * state.weights).sum(), group),
                             min=1e-30)
 
-    # -- island resampling, then the ring migration
+    # -- island resampling (every draw made first, at the island's static
+    # shapes), then the ring migration
+    d = _resample_draws(state, grid_map, config, d,
+                        *island_kld_sizes(config, n_dev))
     state, p_random = _island_resample(state, mask, count_l, grid_map, config,
                                        group, n_dev, d)
     if migrate > 0 and n_dev > 1:
@@ -527,6 +561,7 @@ class DistModel:
         self.migrate = int(self.nl * migration_fraction)
         self.base = make_model(config, grid_map, voxel_map=voxel_map)
         self.log_field = self.base.log_field
+        self._graphs: dict = {}
 
     @property
     def device(self) -> torch.device:
@@ -543,6 +578,36 @@ class DistModel:
         gen = make_generator(split_seed(seed, self.n_dev)[rank], self.device)
         return shard_state(full, self.mesh, self.axis).replace(key=gen)
 
+    @property
+    def replays_graph(self) -> bool:
+        """True where ``run`` replays a captured step: on a card, over a
+        group whose collectives NCCL carries (captured into the graph).  A
+        gloo group runs on the CPU: its ``run`` is the eager loop."""
+        return (self.device.type == "cuda"
+                and "nccl" in str(dist.get_backend(self.group)))
+
+    def captured(self, state, beams: int):
+        """The ``CapturedStep`` of this rank's step for ``state``'s rows
+        and scans of ``beams`` ranges, made at first use; it captures at
+        its first run (every rank at the same scan: the capture's warm-up
+        step calls the collectives, the capture records them)."""
+        from mcmh_localization_tpu_torch.filter.captured import CapturedStep
+
+        key = (state.n_max, beams)
+        if key not in self._graphs:
+            self._graphs[key] = CapturedStep(self, state, beams)
+        return self._graphs[key]
+
+    @staticmethod
+    def tally():
+        """The scope in which a capture counts this model's collectives
+        (``collectives_tallied``)."""
+        return collectives_tallied()
+
+    @staticmethod
+    def add_tallies(tally: dict, times: int) -> None:
+        add_collectives(tally, times)
+
     def step(self, state, ranges, angles, delta, draws: Draws | None = None):
         return _dist_step(
             state, as_f32(ranges, self.device), as_f32(angles, self.device),
@@ -552,15 +617,20 @@ class DistModel:
 
     def run(self, state, ranges_seq, angles, deltas):
         """A trajectory, one step per scan; (final state, stacked StepInfo,
-        the same on every rank)."""
+        the same on every rank).  On an NCCL group (``replays_graph``) one
+        replay of the captured step a scan, bitwise the eager steps on the
+        same generators; on a gloo group the eager loop (``run_eager``)."""
+        if not self.replays_graph:
+            return self.run_eager(state, ranges_seq, angles, deltas)
         ranges_seq = as_f32(ranges_seq, self.device)
-        angles = as_f32(angles, self.device)
-        deltas = as_f32(deltas, self.device)
-        infos = []
-        for t in range(ranges_seq.shape[0]):
-            state, info = self.step(state, ranges_seq[t], angles, deltas[t])
-            infos.append(info)
-        return state, stack_infos(infos, device=self.device)
+        return self.captured(state, ranges_seq.shape[1]).run(
+            state, ranges_seq, as_f32(angles, self.device),
+            as_f32(deltas, self.device))
+
+    def run_eager(self, state, ranges_seq, angles, deltas):
+        """``run`` as a loop of eager steps: the captured run's plain
+        version."""
+        return run_steps(self, state, ranges_seq, angles, deltas)
 
 
 def round_up(x: int, n: int) -> int:

@@ -160,7 +160,8 @@ def test_beam_kidnapped_recovery_windowed_port(house_map, torch_map):
     the estimate re-localizes through the coarse fallback.  The run after
     the kidnap is path-dependent in both packages (JAX's own run of this
     configuration ends re-localized at its seed 4 and lost at seed 0; the
-    port's at seeds 1, 2 and 5 of 0-5), so the twin runs a seed of its
+    port's, which draws its resampling draws at static shapes before the
+    gates, at seeds 0, 1, 3 and 8 of 0-9), so the twin runs a seed of its
     own."""
     t_a, t_b = 30, 60
     ts_a = np.linspace(0, 1.5 * np.pi, t_a)
@@ -180,7 +181,7 @@ def test_beam_kidnapped_recovery_windowed_port(house_map, torch_map):
         beam_table_n_theta=90, corr_window_cells=96, sigma_hit=0.2,
         estimate_mode="cluster", alpha_slow=0.05, alpha_fast=0.7)
     model = make_model(cfg, torch_map)
-    _, infos = model.run(model.init(5), np.asarray(scans), np.asarray(angles),
+    _, infos = model.run(model.init(1), np.asarray(scans), np.asarray(angles),
                          deltas)
     est = infos.estimate.mean.numpy()
     errs = np.hypot(est[:, 0] - poses[:, 0], est[:, 1] - poses[:, 1])

@@ -7,8 +7,6 @@ samples.  The CUDA graph itself (capture, replay, conditional nodes) runs
 only on the card: ``chip_smoke.py``'s ``[graph]`` phase checks it there.
 """
 
-import contextlib
-
 import numpy as np
 import pytest
 
@@ -36,6 +34,7 @@ from mcmh_localization_tpu_torch.filter.captured import (  # noqa: E402
 )
 from mcmh_localization_tpu_torch.filter.staged import make_staged_model  # noqa: E402
 from mcmh_localization_tpu_torch.models import corr_field as tcf  # noqa: E402
+from mcmh_localization_tpu_torch.models import range_table as trt  # noqa: E402
 from mcmh_localization_tpu_torch.ops import graph as tgraph  # noqa: E402
 from mcmh_localization_tpu_torch.ops import resampling as tres  # noqa: E402
 from mcmh_localization_tpu_torch.ops.corr_field_build import (  # noqa: E402
@@ -46,6 +45,7 @@ from mcmh_localization_tpu_torch.ops.gather import (  # noqa: E402
     corr_lookup,
 )
 from tests.test_torch_ops import torch_one_thread  # noqa: E402,F401
+from tests.torch_guard import HostRead, no_host_reads  # noqa: E402
 
 
 def _t(x):
@@ -63,67 +63,6 @@ def torch_map(house_map):
 # ---------------------------------------------------------------------------
 # the host-read guard
 # ---------------------------------------------------------------------------
-
-class HostRead(AssertionError):
-    """A step read a tensor's value on the host."""
-
-
-_READS = ("__bool__", "__int__", "__index__", "__float__", "item", "tolist",
-          "cpu", "numpy")
-
-
-def _host_index(index) -> bool:
-    """An index that PyTorch reads on the host: a 0-d integer tensor (a
-    select at its value) or a bool mask (its nonzero count)."""
-    parts = index if isinstance(index, tuple) else (index,)
-    return any(isinstance(i, torch.Tensor)
-               and (i.dtype == torch.bool
-                    or (i.dim() == 0 and not i.is_floating_point()))
-               for i in parts)
-
-
-@contextlib.contextmanager
-def no_host_reads(monkeypatch):
-    """Make every read of a tensor's value on the host raise ``HostRead``,
-    except inside ``run_if``'s plain version (``_host_predicate``, the
-    gates' host ``if``): ``__bool__``, ``__int__``, ``__index__``,
-    ``__float__``, ``item``, ``tolist``, ``cpu``, ``numpy``, indexing with
-    a 0-d integer tensor or a bool mask, and ``nonzero``."""
-    allowed = [0]
-
-    def guard(name, fn):
-        def wrapped(self, *args, **kwargs):
-            if not allowed[0]:
-                raise HostRead(f"Tensor.{name} in the step")
-            return fn(self, *args, **kwargs)
-        return wrapped
-
-    def guard_index(name, fn):
-        def wrapped(self, index, *args):
-            if not allowed[0] and _host_index(index):
-                raise HostRead(f"Tensor.{name} with a host-read index")
-            return fn(self, index, *args)
-        return wrapped
-
-    with monkeypatch.context() as m:
-        for name in _READS + ("nonzero",):
-            m.setattr(torch.Tensor, name, guard(name, getattr(torch.Tensor,
-                                                                name)))
-        for name in ("__getitem__", "__setitem__"):
-            m.setattr(torch.Tensor, name,
-                      guard_index(name, getattr(torch.Tensor, name)))
-        plain = tgraph._host_predicate
-
-        def predicate(pred):
-            allowed[0] += 1
-            try:
-                return plain(pred)
-            finally:
-                allowed[0] -= 1
-
-        m.setattr(tgraph, "_host_predicate", predicate)
-        yield
-
 
 def _main_path_kw(**kw):
     """The staged main path (bench.py's cfg_kld) at a CPU size."""
@@ -171,19 +110,22 @@ def test_main_path_step_reads_nothing_on_the_host(house_map, torch_map,
 
 
 def test_eager_config_trips_the_guard(house_map, torch_map, monkeypatch):
-    """The beam model's score field stays an eager config: its step reads
-    the LUT's window and its escapee count on the host
-    (models/range_table.py), and the guard catches it."""
-    cfg = FilterConfig(
-        mode="AMHAMCL", num_particles=1024, min_particles=256,
-        max_particles=1024, initialized=True,
-        initial_pose=(1.0, 1.0, 0.4), max_range=5.0, sensor_model="beam",
-        beam_impl="field", beam_table_n_theta=48, corr_window_cells=64,
-        corr_theta_window_bins=12, corr_coarse_n_theta=12, sigma_hit=0.2,
-        coarse_gate_escapees=8)
-    assert not graph_capturable(cfg)
+    """The guard catches a step that reads on the host: the beam score
+    field with its window origin read back as host ints before the field
+    build (the form the beam model had before its origin stayed on the
+    device) raises ``HostRead``; the same step as shipped passes."""
+    cfg = FilterConfig(**_beam_kw(coarse_gate_escapees=8))
+    assert graph_capturable(cfg)
     model = tstep.make_model(cfg, torch_map)
     ranges, angles, delta = _scan_inputs(house_map)
+    with no_host_reads(monkeypatch):
+        model.step(model.init(0), ranges, angles, delta)
+    plain = trt.field_origin
+
+    def host_origin(window_origin, *args):
+        return plain(tuple(window_origin.tolist()), *args)
+
+    monkeypatch.setattr(trt, "field_origin", host_origin)
     with no_host_reads(monkeypatch), pytest.raises(HostRead):
         model.step(model.init(0), ranges, angles, delta)
 
@@ -192,8 +134,8 @@ def test_graph_capturable_by_config():
     """The captured run is chosen by config: both staged programs of the
     main path, the window with the coarse fallback (gated or not), the
     exact scorer ("jnp", "pallas", and "auto" resolving to it) under both
-    motion validities and the 3-D lidar; not the beam model in any impl;
-    and never on the CPU."""
+    motion validities, the 3-D lidar, and the beam model in every impl
+    ("field", "table", "dense", "auto"); never on the CPU."""
     capturable = [
         FilterConfig(**_main_path_kw(corr_window_cells=0,
                                      corr_theta_window_bins=0)),
@@ -206,12 +148,18 @@ def test_graph_capturable_by_config():
         FilterConfig(likelihood_impl="pallas"),
         FilterConfig(sensor_model="lidar3d"),
     ]
+    for impl in ("field", "table", "dense", "auto"):
+        capturable.append(FilterConfig(
+            sensor_model="beam", beam_impl=impl, corr_window_cells=128))
     for cfg in capturable:
         assert graph_capturable(cfg), cfg
     assert tstep._resolved_impl(FilterConfig(), "cuda") == "jnp"
-    for impl in ("field", "table", "dense", "auto"):
-        assert not graph_capturable(FilterConfig(
-            sensor_model="beam", beam_impl=impl, corr_window_cells=128))
+    model = tstep.make_model(
+        FilterConfig(sensor_model="beam", beam_impl="dense",
+                     beam_table_n_theta=12, corr_window_cells=16),
+        grid_map_from_numpy(np.zeros((24, 24), np.int8), 0.1, (0.0, 0.0),
+                            device="cpu"))
+    assert not model.replays_graph
 
 
 # ---------------------------------------------------------------------------
@@ -232,9 +180,28 @@ GRID = [(mode, res) for mode in ("AMCL", "MHAMCL", "AMHAMCL")
         for res in ("simple", "lvr")] + [
             (mode, "systematic") for mode in ("MCL", "MHMCL", "AMHMCL")]
 
+# the beam model's grid: the score field gated (both sides of the gate) and
+# ungated, its ESS-gated twin, the range table, the ray march, the field
+# without a theta window ((F)'s form: every table bin from bin 0), and the
+# staged beam programs (BIG: the range table at "sum" with the refill;
+# SMALL: the field without the coarse fallback, ESS-gated)
+BEAM_GUARD = {
+    "beam_field_gate8_below": dict(coarse_gate_escapees=8, side="below"),
+    "beam_field_gate8_above": dict(coarse_gate_escapees=8, side="above"),
+    "beam_field_ungated": dict(coarse_gate_escapees=0),
+    "beam_field_essgate": dict(resample_ess_threshold=0.9),
+    "beam_table": dict(beam_impl="table", corr_window_cells=0,
+                       corr_theta_window_bins=0, motion_validity="reject"),
+    "beam_dense": dict(beam_impl="dense"),
+    "beam_field_no_theta_window": dict(corr_theta_window_bins=0),
+    "beam_staged_big": dict(staged="big"),
+    "beam_staged_small": dict(staged="small"),
+}
+
 GUARD_CASES = {
     **{f"coarse_gate{g}_{side}": dict(kind="coarse", gate=g, side=side)
        for g in (0, 8) for side in ("below", "above")},
+    **{case: dict(kind="beam", **kw) for case, kw in BEAM_GUARD.items()},
     **{f"{impl}_{v}": dict(kind="exact", impl=impl, validity=v)
        for impl in ("jnp", "pallas") for v in ("reject", "score")},
     "lidar3d": dict(kind="lidar3d"),
@@ -242,6 +209,37 @@ GUARD_CASES = {
                                  validity=v)
        for mode, res in GRID for v in ("score", "reject")},
 }
+
+
+def _beam_kw(**kw):
+    """The bench's beam point (tests/test_torch_beam.py's BEAM) at a CPU
+    size: 48 table bins, a 64-cell window with 12 theta bins, the coarse
+    fallback at 12 bins."""
+    base = dict(mode="AMHAMCL", num_particles=1024, min_particles=256,
+                max_particles=1024, initialized=True,
+                initial_pose=(1.0, 1.0, 0.4), initial_cov=(0.02, 0.02, 0.05),
+                max_range=5.0, sensor_model="beam", beam_impl="field",
+                beam_table_n_theta=48, corr_window_cells=64,
+                corr_theta_window_bins=12, corr_coarse_n_theta=12,
+                sigma_hit=0.2, motion_validity="score",
+                min_injection_prob=0.02)
+    base.update(kw)
+    return base
+
+
+def _beam_case(spec, torch_map):
+    """(model, state) of a BEAM_GUARD case."""
+    kw = {k: v for k, v in spec.items() if k not in ("kind", "side",
+                                                     "staged")}
+    if "staged" in spec:
+        staged = make_staged_model(
+            FilterConfig(**_beam_kw(num_particles=2048, max_particles=2048,
+                                    kld_eval_window=0)),
+            torch_map, tracking_capacity=1024, tracking_ess_threshold=0.9)
+        model = staged.big if spec["staged"] == "big" else staged.small
+    else:
+        model = tstep.make_model(FilterConfig(**_beam_kw(**kw)), torch_map)
+    return model, model.init(0)
 
 
 def _lidar3d_case():
@@ -270,17 +268,20 @@ def _lidar3d_case():
 @pytest.mark.parametrize("case", list(GUARD_CASES))
 def test_capturable_step_reads_nothing_on_the_host(house_map, torch_map,
                                                    monkeypatch, case):
-    """One step of each newly graph-capturable config under the guard: the
-    single-program flagship's form (window + coarse fallback, ungated and
-    gated at 8, from a cloud inside the window and one spread over the
+    """One step of each graph-capturable config family under the guard:
+    the single-program flagship's form (window + coarse fallback, ungated
+    and gated at 8, from a cloud inside the window and one spread over the
     map: the gate takes each branch, and only the gate's plain version
-    reads the host), the exact scorer in both cell forms under both
-    motion validities, the 3-D lidar, and each mode with the "simple",
-    "lvr" or systematic resampler under both validities."""
+    reads the host), the beam model's grid (``BEAM_GUARD``, its score
+    field's gate on both sides too), the exact scorer in both cell forms
+    under both motion validities, the 3-D lidar, and each mode with the
+    "simple", "lvr" or systematic resampler under both validities."""
     spec = GUARD_CASES[case]
     ranges, angles, delta = _scan_inputs(house_map)
     if spec["kind"] == "lidar3d":
         model, state, ranges, angles, delta = _lidar3d_case()
+    elif spec["kind"] == "beam":
+        model, state = _beam_case(spec, torch_map)
     else:
         if spec["kind"] == "coarse":
             cfg = FilterConfig(**_main_path_kw(
@@ -299,7 +300,7 @@ def test_capturable_step_reads_nothing_on_the_host(house_map, torch_map,
         state = model.init(0)
     assert graph_capturable(model.config)
     builds = []
-    if spec["kind"] == "coarse":
+    if spec.get("side"):
         if spec["side"] == "above":
             # a cloud over the whole map: escapees far past the gate
             from mcmh_localization_tpu_torch.filter.init import init_uniform
@@ -307,11 +308,13 @@ def test_capturable_step_reads_nothing_on_the_host(house_map, torch_map,
             spread = init_uniform(state.n_max, torch_map,
                                   generator=torch.Generator().manual_seed(1))
             state = state.replace(particles=spread, prev_particles=spread)
-        plain = tcf._coarse_field
-        monkeypatch.setattr(tcf, "_coarse_field", lambda *a, **k: (
+        module, name = ((trt, "_beam_coarse_field") if spec["kind"] == "beam"
+                        else (tcf, "_coarse_field"))
+        plain = getattr(module, name)
+        monkeypatch.setattr(module, name, lambda *a, **k: (
             builds.append(1), plain(*a, **k))[1])
-    if spec["kind"] == "grid" and spec["mode"] in ("AMCL", "MHAMCL",
-                                                   "AMHAMCL"):
+    if spec["kind"] == "beam" or (spec["kind"] == "grid" and spec["mode"] in (
+            "AMCL", "MHAMCL", "AMHAMCL")):
         # the augmented-MCL averages apart: the candidates replace slots
         state = state.replace(w_slow=torch.tensor(1.0),
                               w_fast=torch.tensor(0.5))
@@ -319,8 +322,8 @@ def test_capturable_step_reads_nothing_on_the_host(house_map, torch_map,
         new, info = model.step(state, ranges, angles, delta)
     assert np.isfinite(info.estimate.mean.numpy()).all()
     assert 0 < int(new.count) <= state.n_max
-    if spec["kind"] == "coarse":
-        gated_off = spec["gate"] and spec["side"] == "below"
+    if spec.get("side"):
+        gated_off = spec.get("gate", 8) and spec["side"] == "below"
         assert len(builds) == (0 if gated_off else 1)
 
 

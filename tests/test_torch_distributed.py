@@ -100,6 +100,12 @@ SCAN_CASES = {
                        corr_theta_window_bins=16),
     # the exact scorer
     "exact": dict(likelihood_impl="jnp"),
+    # windowed corr with the augmented-MCL averages apart: every island
+    # injects, its randoms in the first slots and its kept samples shifted
+    # behind them by the device-held count
+    "corr_windowed_inject": dict(likelihood_impl="corr", corr_n_theta=48,
+                                 corr_window_cells=64,
+                                 corr_theta_window_bins=16, inject=True),
 }
 
 
@@ -115,11 +121,14 @@ def test_one_dist_scan_matches_jax_on_shard_draws(house_map, house, ranks,
     from tests.test_filter import _simulate
 
     kw = {**_BASE, **SCAN_CASES[case]}
+    inject = kw.pop("inject", False)
     jcfg = JConfig(**kw)
     poses = np.float32([[1.0, 1.0, 0.4], [1.1, 1.03, 0.5]])
     scans, angles, deltas = _simulate(house_map, poses, max_range=5.0)
     jm = j_make_dist_model(jcfg, house_map, j_make_mesh(jax.devices()[:4]))
     js = jm.init(jax.random.PRNGKey(0))
+    if inject:
+        js = js.replace(w_slow=jnp.float32(1.0), w_fast=jnp.float32(0.5))
     state_np = {f: np.asarray(getattr(js, f)) for f in STATE_FIELDS}
     nl = 4096 // 4
     draws = [_shard_draws(js.key, ax, nl, jcfg, house_map.free_xy.shape[0])
@@ -150,6 +159,35 @@ def test_one_dist_scan_matches_jax_on_shard_draws(house_map, house, ranks,
     p_t = np.stack([r["particles"] for r in out])[:, :count // 4]
     moved = np.abs(p_j - p_t).max(axis=2) > 1e-4
     assert moved.mean() <= 0.005, moved.mean()
+    if inject:
+        assert float(jinfo.p_random) > 0.02          # the injection ran
+
+
+# the dist step's forms under the host-read guard, each injecting: the corr
+# window with the coarse fallback and the beam score field (its coarse
+# build never gated under sharding) with the KLD island, and the exact
+# scorer with the "lvr" island
+GUARD_CASES = {
+    "corr_windowed": dict(SCAN_CASES["corr_windowed"]),
+    "beam_field": dict(SCAN_CASES["beam_field"]),
+    "exact_lvr": dict(likelihood_impl="jnp", adaptive_resampler="lvr"),
+}
+
+
+@pytest.mark.parametrize("case", list(GUARD_CASES))
+def test_dist_step_reads_nothing_on_the_host(house_map, house, ranks, case):
+    """One ``_dist_step`` on two gloo ranks under the host-read guard
+    (tests/torch_guard.py): no host read escapes outside ``run_if``'s
+    plain version (the window origin, the island injection's shift and
+    the gates stay on the device), and the guarded step is ``torch.equal``
+    to the same step unguarded on the same generator, on every rank."""
+    kw = {**_BASE, **GUARD_CASES[case]}
+    ranges, angles = _scan_at(house_map, (1.0, 1.0, 0.4))
+    out = ranks(2).run(torch_ranks.dist_step_guarded, house, kw, ranges,
+                       angles, np.float32([0.0, 0.02, 0.0]), (1.0, 0.5))
+    for r in out:
+        assert r["equal"]
+        assert r["p_random"] > 0.02 and r["count"] > 0
 
 
 # ---------------------------------------------------------------------------

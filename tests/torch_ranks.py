@@ -261,6 +261,43 @@ def dist_scan(m, kw, state_np, ranges, angles, delta, draws, log_field=None):
                 "accept_rate")}}
 
 
+def dist_step_guarded(m, kw, ranges, angles, delta, w=None):
+    """One ``make_dist_model`` step from ``init(0)`` (the augmented-MCL
+    averages set to ``w`` = (w_slow, w_fast) when given) under the host-read
+    guard (``tests/torch_guard.py``), and the same step unguarded on a copy
+    of the rank's generator: whether every state and StepInfo field is
+    ``torch.equal``, and the step's p_random and count."""
+    import pytest
+    import torch
+
+    from mcmh_localization_tpu_torch.filter.captured import STATE_TENSORS
+    from mcmh_localization_tpu_torch.filter.state import copy_generator
+    from mcmh_localization_tpu_torch.parallel.distributed import make_dist_model
+    from tests.torch_guard import no_host_reads
+
+    model = make_dist_model(_cfg(kw), _map(m), _mesh())
+    st = model.init(0)
+    if w is not None:
+        st = st.replace(w_slow=torch.tensor(w[0]), w_fast=torch.tensor(w[1]))
+    eager, e_info = model.step(st.replace(key=copy_generator(st.key)),
+                               ranges, angles, delta)
+    mp = pytest.MonkeyPatch()
+    try:
+        with no_host_reads(mp):
+            guarded, g_info = model.step(
+                st.replace(key=copy_generator(st.key)), ranges, angles, delta)
+    finally:
+        mp.undo()
+    same = all(torch.equal(getattr(eager, f), getattr(guarded, f))
+               for f in STATE_TENSORS)
+    same &= all(torch.equal(a, b) for a, b in (
+        (e_info.estimate.mean, g_info.estimate.mean),
+        (e_info.estimate.cov, g_info.estimate.cov), (e_info.ess, g_info.ess),
+        (e_info.p_random, g_info.p_random), (e_info.count, g_info.count)))
+    return {"equal": bool(same), "p_random": float(g_info.p_random),
+            "count": int(g_info.count)}
+
+
 def dist_track(m, kw, scans, angles, deltas, seed=0):
     """A ``make_dist_model`` run from ``init(seed)``: its infos."""
     from mcmh_localization_tpu_torch.parallel.distributed import make_dist_model

@@ -84,7 +84,10 @@
    torch.profiler, host syncs a scan, the graph's nodes, each gate's
    conditional body and the scans that ran it, and the device time of
    the work the gates run on every scan; then the conditional node's
-   kernel alone (32 IF nodes in a graph, equal to 32 host ifs).
+   kernel alone (32 IF nodes in a graph, equal to 32 host ifs), and the
+   stage stamp of a traced step (``csrc/trace_stamp.cu``): rounds of its
+   stages around sleep kernels, its counts equal to its plain version's,
+   each stage's time against the CUDA events around the same work.
    ``[online]``: the same configuration through the online facade,
    ``OnlineLocalizer(staged=True)``, whose ``on_scan`` replays each
    program's captured correct step: ``warmup`` (the generator's state
@@ -2451,6 +2454,70 @@ def run_if_row(dev) -> dict:
     return row
 
 
+def trace_stamp_row(dev) -> dict:
+    """The stage stamp (csrc/trace_stamp.cu, ``utils/profiling.py``'s
+    stage clock): 20 rounds of stages 0..4, a sleep kernel of a known
+    length before each of stages 1..4 and a CUDA event after every stamp,
+    all queued behind one long sleep so the card never waits for the host.
+    Its counts equal its plain version's over the same rounds exactly,
+    stage 0 adds no time (it opens a round), and each stage's time is
+    within 1 us a stamp of the events after its stamp and the one before
+    it (the timer ticks in 32 ns, an event in 0.5 us); one stamp timed
+    beside the plain version's host call.  The kernel's first launch, which
+    loads it, comes before the rounds."""
+    from mcmh_localization_tpu_torch.ops.trace_stamp import (
+        trace_stamp,
+        trace_stamp_plain,
+    )
+
+    stages, rounds = 5, 20
+    cycles = (0, 100_000, 200_000, 400_000, 800_000)
+    buf = torch.zeros(2 * stages + 1, dtype=torch.int64, device=dev)
+    plain = torch.zeros(2 * stages + 1, dtype=torch.int64)
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(stages)]
+          for _ in range(rounds)]
+    trace_stamp(torch.zeros_like(buf), 0, stages)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
+    for r in range(rounds):
+        for s in range(stages):
+            if cycles[s]:
+                torch.cuda._sleep(cycles[s])
+            trace_stamp(buf, s, stages)
+            ev[r][s].record()
+            trace_stamp_plain(plain, s, stages)
+    torch.cuda.synchronize()
+    got = buf.cpu()
+    want_ms = [sum(ev[r][s - 1].elapsed_time(ev[r][s]) for r in range(rounds))
+               for s in range(1, stages)]
+    got_ms = (got[1:stages].double() * 1e-6).tolist()
+    off = max(abs(g - w) / w for g, w in zip(got_ms, want_ms))
+    print(f"[kernel] trace_stamp: {rounds} rounds of {stages} stages, counts "
+          f"{got[stages:2 * stages].tolist()} (plain "
+          f"{plain[stages:2 * stages].tolist()}), stage ms "
+          f"{[round(g, 5) for g in got_ms]} against the events' "
+          f"{[round(w, 5) for w in want_ms]} (at most {100 * off:.2f}% off) "
+          f"on {nvidia_smi_line()}")
+    check(torch.equal(got[stages:2 * stages], plain[stages:2 * stages]),
+          "trace_stamp: its counts != the plain version's")
+    check(int(got[0]) == 0 == int(plain[0]),
+          "trace_stamp: stage 0 added time")
+    for s, (g, w) in enumerate(zip(got_ms, want_ms), start=1):
+        check(abs(g - w) <= rounds * 1e-3,
+              f"trace_stamp: stage {s} {g:.5f} ms against the events' "
+              f"{w:.5f}")
+    ms = device_ms(lambda: trace_stamp(buf, 1, stages))
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        trace_stamp_plain(plain, 1, stages)
+    pms = (time.perf_counter() - t0)  # ms a call over 1000 calls
+    return kernel_row(
+        "trace_stamp", "trace_stamp.cu",
+        "mcmh_localization_tpu/ (none: the JAX step is timed from outside)",
+        f"one stamp of {stages} stages", ms=ms, plain_ms=pms, err=0.0,
+        ops=1.0, nbytes=48.0, stage_err=off, on_main_path=False)
+
+
 def graph_check(tag, model, st, scans, angles, deltas, smi) -> dict:
     """One config's captured run against its eager steps over the SCAN_LEN
     scans ``scans`` from ``st`` (on copies of its generator): every state
@@ -3286,6 +3353,7 @@ def main(argv=None) -> int:
     drive_graph(staged, big_start, out.state, scans, angles, deltas, smi)
     rows.append(run_if_row(dev))
     add_counts("graph", _cuda.launch_counts(), 2 * 11 * SCAN_LEN)
+    rows.append(trace_stamp_row(dev))   # on no path: tracing is off
     del staged, out, big_state, big_start
 
     stamps.append(("online", time.perf_counter()))

@@ -51,6 +51,7 @@ from mcmh_localization_tpu_torch.filter.estimate import PoseEstimate
 from mcmh_localization_tpu_torch.filter.state import FilterState, copy_generator
 from mcmh_localization_tpu_torch.ops import _cuda
 from mcmh_localization_tpu_torch.ops import graph as cgraph
+from mcmh_localization_tpu_torch.utils import profiling
 
 # the scans one replay loop records before the record is copied out
 MAX_SCANS = 64
@@ -107,6 +108,7 @@ class CapturedStep:
                                   **f32)
         self.counts = torch.zeros(MAX_SCANS, dtype=torch.int32, device=dev)
         self.graph = None
+        self.traced = False     # tracing was on at the capture
         # what one replay adds to the model's own tallies (the
         # collectives a DistModel's step calls), recorded at capture
         self.tallies = None
@@ -114,7 +116,14 @@ class CapturedStep:
     def _capture(self) -> None:
         """Warm the step up eagerly on a throwaway copy of the state and
         the first scan's inputs, then capture it: on the card, capturing
-        runs nothing."""
+        runs nothing.  With tracing on (``utils/profiling.py``), the
+        step's stage stamps go into the graph, on the clock of the
+        model's ``name``.  A step captured before drops its graph first."""
+        with profiling.span("graph.capture"):
+            self._drop_graph()
+            self._capture_graph()
+
+    def _capture_graph(self) -> None:
         model = self.model
         warm = self.buf.replace(
             **{f: getattr(self.buf, f).clone() for f in STATE_TENSORS},
@@ -122,16 +131,20 @@ class CapturedStep:
         tally = getattr(model, "tally", contextlib.nullcontext)
         sink = _cuda.set_sink({})   # the warm-up's launches are not the run's
         try:
-            with tally():
+            with tally(), profiling.clocked(None):
                 self._step(warm)
         finally:
             _cuda.set_sink(sink)
         torch.cuda.synchronize(model.device)
+        traced = profiling.enabled()
+        clock = (profiling.stage_clock(getattr(model, "name", "step"),
+                                       model.device) if traced else None)
         g = torch.cuda.CUDAGraph(keep_graph=True)
         g.register_generator_state(self.gen)
         # thread_local: a process group's watchdog thread may query its
         # events while this thread captures
         with (cgraph.capturing(model.device) as cap, tally() as tallies,
+              profiling.clocked(clock),
               torch.cuda.graph(g, capture_error_mode="thread_local")):
             new, info = self._step(self.buf)
             self._store(new)
@@ -142,7 +155,16 @@ class CapturedStep:
         self.body_nodes = [cgraph.node_counts(b) for b in cap.bodies]
         g.instantiate()
         self.graph = g
-        _cuda.add_replayed(cap.taken, cap.launches[1:])
+        self.traced = traced
+        _cuda.add_replayed(cap.taken, cap.launches[1:], cap.names)
+
+    def _drop_graph(self) -> None:
+        """The graph goes first, then its bodies' pool."""
+        cap = getattr(self, "capture", None)
+        self.graph = None
+        if cap is not None:
+            self.capture = None
+            cap.release()
 
     def _step(self, state: FilterState):
         """One scan on the inputs at the record's slot."""
@@ -219,7 +241,7 @@ class CapturedStep:
             if self.predict:
                 self.deltas[:t].copy_(deltas[t0:t0 + t])
             self.slot.zero_()
-            if self.graph is None:
+            if self.graph is None or self.traced != profiling.enabled():
                 self._capture()
             for _ in range(t):
                 self.graph.replay()
@@ -255,10 +277,7 @@ class CapturedStep:
                 "conditional_bodies": len(self.body_nodes)}
 
     def __del__(self):
-        cap = getattr(self, "capture", None)
-        if cap is not None:
-            self.graph = None   # the graph goes first, then its bodies' pool
-            try:
-                cap.release()
-            except Exception:   # torch is already torn down at exit
-                pass
+        try:
+            self._drop_graph()
+        except Exception:   # torch is already torn down at exit
+            pass

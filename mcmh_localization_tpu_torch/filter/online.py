@@ -15,6 +15,17 @@ CUDA graph (``filter/captured.py``; every config is ``graph_capturable``);
 the odometry's predict steps run eagerly.  On the CPU the correct step
 runs eagerly.
 
+With tracing on (``utils/profiling.py``), both calls record spans where
+their work happens, each carrying the number of the scan (``on_odom``'s,
+the scan it precedes): ``online.on_odom`` with ``online.odom.motion``
+(``compute_motion``) and ``online.odom.predict`` (the predict: the delta's
+copy to the device, the proposal, the anchor's advance); ``online.on_scan``
+with ``online.scan.inputs`` (the scan's copy, the angles),
+``online.scan.replay`` (the correct step), ``online.scan.policy`` (the
+staged policy's read and the hand-off) and ``online.scan.estimate`` (the
+estimate's read and packing).  Each read of a device value counts one
+``host_sync``.
+
 The state's random source is a ``torch.Generator``, which the step advances
 in place, where the JAX key is a value.  So wherever the JAX facade reuses
 a key value (``warmup``'s throwaway steps on both programs), this one works
@@ -36,6 +47,7 @@ from mcmh_localization_tpu_torch.filter.step import (
     state_size,
 )
 from mcmh_localization_tpu_torch.models.motion import compute_motion
+from mcmh_localization_tpu_torch.utils import profiling
 from mcmh_localization_tpu_torch.utils.angles import yaw_from_quaternion
 from mcmh_localization_tpu_torch.viz import TFReanchorer
 
@@ -97,6 +109,8 @@ class OnlineLocalizer:
         self._predicted_from: Optional[np.ndarray] = None
         self.last_info = None
         self._est_for = self._est_cache = None
+        # the scans on_scan was handed: the next scan's number
+        self.scan_count = 0
         # live map->odom re-anchoring (pose_broadcaster node equivalent);
         # fed by on_odom, emits on every on_scan via .reanchor.latest()
         self.reanchor = TFReanchorer()
@@ -174,16 +188,19 @@ class OnlineLocalizer:
         With config.predict_batching="per_scan" this is host-side
         bookkeeping only (no device dispatch); on_scan runs one predict
         covering all odometry since the previous scan."""
-        curr = np.asarray([x, y, yaw], dtype=np.float32)
-        if self._last_odom is None:
-            self._predicted_from = curr
-        elif self.config.predict_batching == "per_message":
-            delta = compute_motion(torch.from_numpy(self._last_odom),
-                                   torch.from_numpy(curr))
-            self.state = self.model.predict(self.state, delta)
-            self._predicted_from = curr
-        self._last_odom = curr
-        self.reanchor.on_odom(x, y, yaw, stamp)
+        with profiling.span("online.on_odom", self.scan_count):
+            curr = np.asarray([x, y, yaw], dtype=np.float32)
+            if self._last_odom is None:
+                self._predicted_from = curr
+            elif self.config.predict_batching == "per_message":
+                with profiling.span("online.odom.motion"):
+                    delta = compute_motion(torch.from_numpy(self._last_odom),
+                                           torch.from_numpy(curr))
+                with profiling.span("online.odom.predict"):
+                    self.state = self.model.predict(self.state, delta)
+                self._predicted_from = curr
+            self._last_odom = curr
+            self.reanchor.on_odom(x, y, yaw, stamp)
 
     def on_odom_quaternion(self, x, y, qx, qy, qz, qw):
         """Odometry with quaternion orientation, as a ROS Odometry carries."""
@@ -195,7 +212,15 @@ class OnlineLocalizer:
         (lidar_callback, amcmh_localizer.py:294-338).  ``angles`` defaults to
         the reference's linspace(angle_min, angle_max, M) layout
         (get_lidar_angles, :346-348)."""
-        ranges, angles = self._scan_inputs(ranges, angles, angle_min, angle_max)
+        scan = self.scan_count
+        self.scan_count = scan + 1
+        with profiling.span("online.on_scan", scan):
+            return self._on_scan(ranges, angles, angle_min, angle_max)
+
+    def _on_scan(self, ranges, angles, angle_min, angle_max):
+        with profiling.span("online.scan.inputs"):
+            ranges, angles = self._scan_inputs(ranges, angles, angle_min,
+                                               angle_max)
         if (
             self.config.predict_batching == "per_scan"
             and self._last_odom is not None
@@ -206,40 +231,51 @@ class OnlineLocalizer:
                                    torch.from_numpy(self._last_odom))
             self.state = self.model.predict(self.state, delta)
             self._predicted_from = self._last_odom
-        self.state, info = _correct_scan(self.model, self.state, ranges,
-                                         angles)
+        with profiling.span("online.scan.replay"):
+            self.state, info = _correct_scan(self.model, self.state, ranges,
+                                             angles)
         self.last_info = info
         if self.staged is not None:
-            from mcmh_localization_tpu_torch.filter.staged import (
-                grow_state,
-                next_stage,
-                shrink_state,
-            )
-
-            # ONE device-to-host copy for the three policy scalars
-            cnt, p_rand, mass = torch.stack([
-                info.count.to(torch.float64), info.p_random.to(torch.float64),
-                info.anchor_mass.to(torch.float64)]).cpu().numpy()
-            nxt = next_stage(self._in_small, cnt, p_rand, mass, self._cap)
-            if nxt and not self._in_small:
-                self.state = shrink_state(self.state, self._cap)
-                self.model = self.staged.small
-            elif self._in_small and not nxt:
-                self.state = grow_state(self.state, self._n_big)
-                self.model = self.staged.big
-            self._in_small = nxt
-        est = self.estimate()
+            with profiling.span("online.scan.policy"):
+                self._hand_off(info)
+        with profiling.span("online.scan.estimate"):
+            est = self.estimate()
         if est:
             # the pose_broadcaster loop: one map->odom re-anchor per
             # estimate (pose_broadcaster.py:31-35)
             self.reanchor.on_estimate(est["pose3"])
         if self.frame_recorder is not None:
+            profiling.count("host_sync")
             self.frame_recorder.update(
                 self.state.particles, self.state.weights,
                 estimate=(est["pose3"] if est else None),
                 count=int(self.state.count),
             )
         return est
+
+    def _hand_off(self, info) -> None:
+        """The staged policy on the scan's count, injection share and mode
+        mass: shrink to the tracking program, grow back to the big one, or
+        stay."""
+        from mcmh_localization_tpu_torch.filter.staged import (
+            grow_state,
+            next_stage,
+            shrink_state,
+        )
+
+        # ONE device-to-host copy for the three policy scalars
+        profiling.count("host_sync")
+        cnt, p_rand, mass = torch.stack([
+            info.count.to(torch.float64), info.p_random.to(torch.float64),
+            info.anchor_mass.to(torch.float64)]).cpu().numpy()
+        nxt = next_stage(self._in_small, cnt, p_rand, mass, self._cap)
+        if nxt and not self._in_small:
+            self.state = shrink_state(self.state, self._cap)
+            self.model = self.staged.small
+        elif self._in_small and not nxt:
+            self.state = grow_state(self.state, self._n_big)
+            self.model = self.staged.big
+        self._in_small = nxt
 
     # -- outputs -------------------------------------------------------------
 
@@ -256,6 +292,7 @@ class OnlineLocalizer:
         if self._est_for is self.last_info:
             return self._est_cache
         e = self.last_info.estimate
+        profiling.count("host_sync")
         host = torch.cat([e.mean.reshape(3), e.cov.reshape(9)]).cpu().numpy()
         mean, cov = host[:3], host[3:]
         yaw = float(mean[2])
@@ -329,4 +366,7 @@ def _correct_scan(model, state: FilterState, ranges, angles):
     if model.replays_graph:
         return model.captured(state, ranges.shape[0], predict=False).scan(
             state, ranges, angles)
-    return model.correct(state, ranges, angles)
+    if not profiling.enabled():
+        return model.correct(state, ranges, angles)
+    with profiling.clocked(profiling.stage_clock(model.name, model.device)):
+        return model.correct(state, ranges, angles)

@@ -80,6 +80,7 @@ def make_staged_model(
     )
     big = make_model(big_config, grid_map, voxel_map=voxel_map)
     small = make_model(small_config, grid_map, voxel_map=voxel_map)
+    big.name, small.name = "big", "small"
     return StagedModel(config=big_config, small_config=small_config,
                        grid_map=grid_map, big=big, small=small,
                        init=big.init)

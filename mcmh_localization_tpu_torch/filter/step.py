@@ -96,6 +96,7 @@ from mcmh_localization_tpu_torch.utils.angles import (
     normalize_angle,
     normalize_angle_about,
 )
+from mcmh_localization_tpu_torch.utils import profiling
 from mcmh_localization_tpu_torch.utils.f32 import scalar
 
 
@@ -621,7 +622,11 @@ def _beam_count(ranges: torch.Tensor, config) -> torch.Tensor:
 def _correct(state: FilterState, ranges: torch.Tensor, angles: torch.Tensor,
              grid_map, log_field: torch.Tensor, config,
              draws: Draws | None = None):
-    """Measurement update (lidar_callback, amcmh_localizer.py:294-338)."""
+    """Measurement update (lidar_callback, amcmh_localizer.py:294-338).
+    Under a stage clock (``utils/profiling.py``) it stamps the stages
+    ``score``, ``mh``, ``estimate`` and ``resample``: stamps make no draws
+    and change no value."""
+    profiling.stamp("begin")
     d = draws if draws is not None else Draws()
     mask = state.active_mask
     impl = _resolved_impl(config, state.device)
@@ -647,6 +652,7 @@ def _correct(state: FilterState, ranges: torch.Tensor, angles: torch.Tensor,
         n_max = state.n_max
         prev_sc = torch.where(mask[:, None], state.prev_particles, anchor)
         s_both = score(torch.cat([p_sc, prev_sc]))  # one field build
+        profiling.stamp("score")
         s_post = s_both[:n_max]
         weights_post = softmax_weights(s_post + log_carry, mask)
         weights_pre = softmax_weights(s_both[n_max:] + log_carry, mask)
@@ -666,8 +672,10 @@ def _correct(state: FilterState, ranges: torch.Tensor, angles: torch.Tensor,
         state = state.replace(particles=particles)
     else:
         s_post = score(p_sc)
+        profiling.stamp("score")
         weights = softmax_weights(s_post + log_carry, mask)
         accept_rate = scalar(1.0, state.device)
+    profiling.stamp("mh")
 
     # -- augmented-MCL bookkeeping (update_acml_weights, :276-286)
     weights = torch.where(mask, weights, 0.0)
@@ -705,6 +713,7 @@ def _correct(state: FilterState, ranges: torch.Tensor, angles: torch.Tensor,
     else:
         est = estimate_pose(state.particles, state.weights, mask)
     ess = effective_sample_size(state.weights)
+    profiling.stamp("estimate")
 
     # -- resample, ESS-gated when the threshold is below 1 (run_if in
     # place of the JAX 0/1-iteration while_loop, step.py:748)
@@ -732,6 +741,7 @@ def _correct(state: FilterState, ranges: torch.Tensor, angles: torch.Tensor,
         state = state.replace(**dict(zip(fields, new)))
     else:
         state, p_random = resample(state, grid_map, config, d)
+    profiling.stamp("resample")
 
     info = StepInfo(
         estimate=est, ess=ess, accept_rate=accept_rate, count=state.count,
@@ -786,6 +796,9 @@ class FilterModel:
         self.voxel_map = voxel_map
         self.log_field = _sensor_table(grid_map, config, voxel_map)
         self._graphs: dict = {}
+        # the program's name: the label of its stage clock
+        # (utils/profiling.py); the staged programs are "big" and "small"
+        self.name = "step"
 
     @property
     def device(self) -> torch.device:

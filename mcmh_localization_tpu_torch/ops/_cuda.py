@@ -32,7 +32,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("corr_field_build.cu", "gather.cu", "rank.cu", "fused_score.cu",
            "likelihood.cu", "take.cu", "beam_field.cu", "scan_scores.cu",
-           "edt.cu", "graph_cond.cu", "bin_lut.cu")
+           "edt.cu", "graph_cond.cu", "bin_lut.cu", "trace_stamp.cu")
 HEADERS = ("thread_runs.cuh", "stage_beams.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -136,6 +136,7 @@ _SIGNATURES = {
                           VoxelArgs, _I, _I, _P, _P),
     "mcmh_cond_begin": (_P, _P, _P, _P, _P),
     "mcmh_cond_end": (_P,),
+    "mcmh_trace_stamp": (_P, _I, _I, _P),
 }
 
 _lib = None
@@ -146,7 +147,8 @@ _launches: dict[str, int] = {}
 # capture scope being recorded (ops/graph.py)
 _sink: dict[str, int] | None = None
 # the replayed captures' conditional bodies: (taken counters, the launches
-# of each body), resolved into the counts when they are read
+# of each body, each body's name), resolved into the counts when they are
+# read
 _replayed: list = []
 
 
@@ -257,13 +259,21 @@ def add_launches(counts: dict[str, int], times: int = 1) -> None:
         _launches[name] = _launches.get(name, 0) + n * times
 
 
-def add_replayed(taken: torch.Tensor, bodies: list) -> None:
+def add_replayed(taken: torch.Tensor, bodies: list, names: list) -> None:
     """Register a captured step's conditional bodies: ``taken`` (B,) int64
     on the card counts the replays that ran body i, ``bodies[i]`` its
-    launches.  ``launch_counts`` reads the counters (one wait on the
-    card), ``reset_launch_counts`` zeroes them on the card's queue."""
-    if not any(t is taken for t, _ in _replayed):
-        _replayed.append((taken, bodies))
+    launches, ``names[i]`` its name (``ops/graph.py::Capture.names``).
+    ``launch_counts`` reads the counters (one wait on the card),
+    ``reset_launch_counts`` zeroes them on the card's queue."""
+    if not any(t is taken for t, _, _ in _replayed):
+        _replayed.append((taken, bodies, list(names)))
+
+
+def body_counters() -> list:
+    """[(taken, names)] of the registered captures' conditional bodies:
+    the counters on the card and each body's name
+    (``utils/profiling.py::collect`` sums the runs by name)."""
+    return [(taken, names) for taken, _, names in _replayed]
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:
@@ -281,7 +291,7 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
 
 def launch_counts() -> dict[str, int]:
     out = dict(_launches)
-    for taken, bodies in _replayed:
+    for taken, bodies, _ in _replayed:
         for n, counts in zip(taken.tolist(), bodies):
             for name, k in counts.items():
                 if n * k:
@@ -291,5 +301,5 @@ def launch_counts() -> dict[str, int]:
 
 def reset_launch_counts() -> None:
     _launches.clear()
-    for taken, _ in _replayed:
+    for taken, _, _ in _replayed:
         taken.zero_()

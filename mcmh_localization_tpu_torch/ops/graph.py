@@ -15,6 +15,10 @@ nothing for a branch it does not take: the injection ``lax.cond``
   reads ``pred`` on the host and runs ``body`` behind an ``if``: the
   helper's plain version, as every kernel has one.
 
+Under tracing (``utils/profiling.py``) both forms count the runs of each
+body by its function's name: the node's counter on the card, a host
+counter in the plain version.
+
 A body allocates from a memory pool of the capture's own (the step's
 graph pool serves the capturing stream only), which lives as long as the
 graph.  The wrappers' launch counts made while capturing go to the
@@ -30,6 +34,7 @@ import ctypes
 import torch
 
 from mcmh_localization_tpu_torch.ops import _cuda
+from mcmh_localization_tpu_torch.utils import profiling
 
 # the conditional nodes one capture may hold, and how deep they may nest
 MAX_CONDS = 64
@@ -119,7 +124,9 @@ def capturing(device: torch.device):
 
 def _host_predicate(pred: torch.Tensor) -> bool:
     """The plain version's host read of the predicate: the one read of a
-    device value that a step of a graph-capturable config makes."""
+    device value that a step of a graph-capturable config makes (a
+    ``host_sync`` to ``utils/profiling.py``)."""
+    profiling.count("host_sync")
     return bool(pred)
 
 
@@ -137,7 +144,10 @@ def run_if(pred: torch.Tensor, body, carry: list, donate: bool = False
     capturing_now = (pred.device.type == "cuda"
                      and torch.cuda.is_current_stream_capturing())
     if not capturing_now:
-        return list(body()) if _host_predicate(pred) else list(carry)
+        if not _host_predicate(pred):
+            return list(carry)
+        profiling.ran(getattr(body, "__name__", ""))
+        return list(body())
     cap = _active
     if cap is None:
         raise RuntimeError(

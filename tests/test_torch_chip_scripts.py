@@ -1,5 +1,5 @@
-"""The card's scripts (chip_smoke.py, chip_kernel_ab.py) on the CPU: they
-import without jax, and their host-side helpers (the A/B script's sector
+"""The card's scripts (chip_smoke.py, chip_kernel_ab.py,
+chip_trace_check.py) on the CPU: they import without jax, and their host-side helpers (the A/B script's sector
 counts and index helpers) do what their docstrings say.  The scripts
 themselves need a card."""
 
@@ -18,7 +18,8 @@ from tests.test_torch_ops import torch_one_thread  # noqa: E402,F401
 ROOT = Path(__file__).resolve().parents[1]
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "chip_kernel_ab.py"])
+@pytest.mark.parametrize("script", ["chip_smoke.py", "chip_kernel_ab.py",
+                                    "chip_trace_check.py"])
 def test_script_imports_and_parses_without_jax(script):
     """Each script imports (its helpers from chip_smoke included) and
     answers --help in an interpreter with no jax module loaded."""

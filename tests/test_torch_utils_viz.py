@@ -1,6 +1,6 @@
 """The port's metrics, profiling and visualization utilities against the
 JAX package's (tests/test_utils_viz.py), on the CPU: twins of the metrics,
-phase timer, marker, plot and initial-pose tests, JSONL lines equal to
+marker, plot and initial-pose tests, JSONL lines equal to
 JAX's for the same StepInfo values, particle markers equal to JAX's on the
 same particles, a torch.profiler trace, and ``sample_check`` on a map on
 the CPU."""
@@ -27,11 +27,8 @@ from mcmh_localization_tpu_torch.utils.metrics import (  # noqa: E402
     read_metrics,
     summarize,
 )
-from mcmh_localization_tpu_torch.utils.profiling import (  # noqa: E402
-    PhaseTimer,
-    annotate,
-    trace,
-)
+from mcmh_localization_tpu_torch.utils import profiling  # noqa: E402
+from mcmh_localization_tpu_torch.utils.profiling import span, trace  # noqa: E402
 from mcmh_localization_tpu_torch.viz import (  # noqa: E402
     latched_initial_pose,
     particle_markers,
@@ -137,22 +134,15 @@ def test_metrics_lines_equal_jax(tmp_path):
             == jmetrics.summarize(str(tmp_path / "jax.jsonl")))
 
 
-def test_phase_timer():
-    pt = PhaseTimer()
-    x = torch.ones((64, 64))
-    with pt.phase("matmul", block_on=x):
-        x @ x
-    with pt.phase("matmul", block_on={"a": [x], "b": None}):
-        x @ x
-    s = pt.summary()
-    assert s["matmul"]["count"] == 2
-    assert s["matmul"]["total_s"] >= 0
-
-
 def test_trace_writes_a_chrome_trace(tmp_path):
-    with trace(str(tmp_path / "prof")):
-        with annotate("scan"):
-            torch.ones(32, 32) @ torch.ones(32, 32)
+    profiling.enable()
+    try:
+        with trace(str(tmp_path / "prof")):
+            with span("scan"):
+                torch.ones(32, 32) @ torch.ones(32, 32)
+    finally:
+        profiling.enable(False)
+        profiling.reset()
     events = json.loads((tmp_path / "prof" / "trace.json").read_text())
     names = {e.get("name") for e in events["traceEvents"]}
     assert "scan" in names

@@ -95,7 +95,13 @@
    calls before each ``on_scan``; checks the hand-off to SMALL, an error
    under 0.2 m, a checkpoint taken in SMALL whose resume replays the next
    five estimates bitwise, and that the field build, lookup and expansion
-   kernels launched; prints the ms per ``on_scan`` of each program.
+   kernels launched; prints the ms per ``on_scan`` of each program.  Then,
+   for that configuration and ``FilterConfig()``, 200 scans of six
+   ``on_odom`` messages each replayed as one graph against the eager
+   ``on_odom`` (the delta computed on the card), bitwise after every scan
+   through hand-offs, a re-initialization and a checkpoint's reload; the
+   card's delta against the host's; the memory with and without the
+   odometry's graphs (``drive_online_odom``).
 5. ``[single]``: the single-program flagship (``make_model``): AMHAMCL at
    1M particles, the windowed corr scorer with its coarse fallback
    (ungated), 16 settle + 16 timed scans; error under 0.2 m, the window
@@ -2365,6 +2371,198 @@ def drive_online(cfg, gm, scans, angles, poses, smi) -> int:
     return t + ONLINE_RESUME
 
 
+ODOM_SCANS = 200              # [online] replay check: scans a configuration
+ODOM_MSGS = 6                 # odometry messages a scan, as the benchmark's
+
+
+def odom_stream(poses, t: int, kidnap: range):
+    """Scan t's pose for the scan (half a lap away inside ``kidnap``: a
+    teleport the odometry does not see) and its ODOM_MSGS odometry poses."""
+    a, b = poses[(t - 1) % SCAN_LEN], poses[t % SCAN_LEN]
+    seen = t + SCAN_LEN // 2 if t in kidnap else t
+    return seen % SCAN_LEN, [odom_between(a, b, k, ODOM_MSGS)
+                             for k in range(1, ODOM_MSGS + 1)]
+
+
+def drive_online_odom(tag, make, scans, angles, poses, smi) -> dict:
+    """``[online]``'s odometry replay: ``make()``'s localizer replaying each
+    ``on_odom`` message as one graph (``filter/captured.py::capture_odom``)
+    against a twin whose messages run eagerly (its ``_odom_step`` None)
+    with the delta computed on the card (``online.compute_motion`` made to
+    take card tensors), in lockstep over ODOM_SCANS scans of ODOM_MSGS
+    messages: a teleport the odometry does not see (scans 60-69: the
+    staged programs escalate and shrink), ``set_initial_pose`` at 100, a
+    checkpoint saved at 120 and loaded at 150.  After every scan the
+    state, the generator, the capacity and the estimate are ``torch.equal``.
+    Also: ``warmup`` leaves the replaying localizer's state and generator
+    as they were; the largest difference between the delta the card
+    computed and the host's ``compute_motion`` of the same poses; and
+    the memory a localizer's warm-up and 64 scans take, eager (as before
+    the replay: no odometry graph captured) and replayed, each from an
+    emptied cache: the graph pools equal (the odometry's graph allocates
+    in the correct graph's pool), the most reserved no higher replayed."""
+    import gc
+    import tempfile
+
+    from mcmh_localization_tpu_torch.filter import online
+    from mcmh_localization_tpu_torch.filter.captured import (
+        STATE_TENSORS,
+        CapturedStep,
+    )
+    from mcmh_localization_tpu_torch.models.motion import compute_motion
+
+    dev = scans.device
+    kidnap = range(60, 70)
+    on_host = online.compute_motion
+
+    def drive(loc, n, ms=None) -> None:
+        loc.on_odom(*map(float, poses[0]))
+        for t in range(1, n + 1):
+            seen, msgs = odom_stream(poses, t, kidnap)
+            t0 = time.perf_counter()
+            for m in msgs:
+                loc.on_odom(*m)
+            if ms is not None:
+                ms.append(time.perf_counter() - t0)
+            loc.on_scan(scans[seen], angles)
+
+    def graph_pools() -> int:
+        """Bytes the process holds in graph pools (every pool but the
+        caching allocator's own)."""
+        return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+                   if tuple(s.get("segment_pool_id", (0, 0))) != (0, 0))
+
+    def peak(replay: bool) -> dict:
+        """A localizer's warm-up and 64 scans from an emptied cache: the
+        most reserved and the graph pools it added (a process keeps the
+        pools of the graphs' conditional bodies after their localizer is
+        gone, so both are read against the start)."""
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base, pools = torch.cuda.memory_reserved(), graph_pools()
+        real = CapturedStep.capture_odom
+        if not replay:      # the facade as it was: no odometry graph
+            CapturedStep.capture_odom = lambda self: None
+        try:
+            loc = make()
+            if not replay:
+                loc._odom_step = lambda: None   # every message eager
+            loc.warmup(scans[0], angles)
+            torch.cuda.synchronize()
+            out = {"graph_pools": graph_pools() - pools}
+            drive(loc, 64)
+            torch.cuda.synchronize()
+        finally:
+            CapturedStep.capture_odom = real
+        out["peak"] = torch.cuda.max_memory_reserved() - base
+        del loc
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    mem = {"eager": peak(False), "replay": peak(True)}
+    check(mem["eager"]["graph_pools"] == mem["replay"]["graph_pools"]
+          and mem["replay"]["peak"] <= mem["eager"]["peak"],
+          f"[online] {tag}: the odometry graphs took memory: {mem}")
+
+    a, b = make(), make()
+    b._odom_step = lambda: None     # every message eager
+    before = ({f: getattr(a.state, f).clone() for f in STATE_TENSORS},
+              a.state.key.get_state().clone())
+    a.warmup(scans[0], angles)
+    b.warmup(scans[0], angles)
+    check(all(torch.equal(getattr(a.state, f), before[0][f])
+              for f in STATE_TENSORS)
+          and torch.equal(a.state.key.get_state(), before[1]),
+          f"[online] {tag}: warmup changed the state or the generator")
+    programs = ({"step": a.model} if a.staged is None else
+                {"big": a.staged.big, "small": a.staged.small})
+    nodes = {name: dict(a._odom_steps[m].odom_nodes)
+             for name, m in programs.items()}
+    online.compute_motion = lambda p, c: compute_motion(p.to(dev), c.to(dev))
+    pairs, card, mismatch = [], [], []
+    caps, ms_a, ms_b = [], [], []
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for loc in (a, b):
+                loc.on_odom(*map(float, poses[0]))
+            last = np.asarray(poses[0], np.float32)
+            for t in range(1, ODOM_SCANS + 1):
+                if t == 100:
+                    for loc in (a, b):
+                        loc.set_initial_pose(*map(float, poses[0]), seed=7)
+                        loc.on_odom(*map(float, poses[0]))
+                    last = np.asarray(poses[0], np.float32)
+                if t == 150:
+                    for i, loc in enumerate((a, b)):
+                        loc.load_checkpoint(f"{tmp}/{i}.npz")
+                        loc.on_odom(*map(float, poses[0]))
+                    last = np.asarray(poses[0], np.float32)
+                seen, msgs = odom_stream(poses, t, kidnap)
+                for m in msgs:
+                    t0 = time.perf_counter()
+                    a.on_odom(*m)
+                    t1 = time.perf_counter()
+                    b.on_odom(*m)
+                    ms_a.append(t1 - t0)
+                    ms_b.append(time.perf_counter() - t1)
+                    curr = np.asarray(m, np.float32)
+                    pairs.append((last, curr))
+                    card.append(a.state.delta.clone())
+                    last = curr
+                ests = [loc.on_scan(scans[seen], angles)["pose3"]
+                        for loc in (a, b)]
+                same = (ests[0] == ests[1]
+                        and a.state.n_max == b.state.n_max
+                        and torch.equal(a.state.key.get_state(),
+                                        b.state.key.get_state())
+                        and all(torch.equal(getattr(a.state, f),
+                                            getattr(b.state, f))
+                                for f in STATE_TENSORS))
+                if not same:
+                    mismatch.append(t)
+                caps.append(a.state.n_max)
+                if t == 120:
+                    for i, loc in enumerate((a, b)):
+                        loc.save_checkpoint(f"{tmp}/{i}.npz")
+    finally:
+        online.compute_motion = on_host
+    host = torch.stack([on_host(torch.from_numpy(p), torch.from_numpy(c))
+                        for p, c in pairs])
+    diff = (torch.stack(card).cpu() - host).abs()
+    handoffs = sum(x != y for x, y in zip(caps, caps[1:]))
+    res = {"scans": ODOM_SCANS, "messages": len(pairs),
+           "mismatched_scans": mismatch[:10], "handoffs": handoffs,
+           "delta_max_abs_diff": float(diff.max()),
+           "delta_ulps_differing": int((diff > 0).sum()),
+           "memory_bytes": mem, "odom_graph_nodes": nodes,
+           "on_odom_ms_replay": 1e3 * float(np.median(ms_a)),
+           "on_odom_ms_eager": 1e3 * float(np.median(ms_b))}
+    print(f"[online] {tag} odometry replay: {json.dumps(res)} on {smi}")
+    check(not mismatch, f"[online] {tag}: replayed on_odom differs from "
+          f"the eager one after scans {mismatch[:10]}")
+    return res
+
+
+def online_odom_checks(cfg, gm, scans, angles, poses, smi) -> dict:
+    """``drive_online_odom`` for the staged main path and ``FilterConfig()``
+    (its "reject" retries) on the circle."""
+    from mcmh_localization_tpu_torch.config import FilterConfig
+    from mcmh_localization_tpu_torch.filter.online import OnlineLocalizer
+
+    default = FilterConfig(initialized=True, initial_pose=START)
+    return {
+        "staged": drive_online_odom(
+            "staged", lambda: OnlineLocalizer(
+                cfg, gm, seed=0, staged=True, tracking_ess_threshold=0.9),
+            scans, angles, poses, smi),
+        "default": drive_online_odom(
+            "FilterConfig()", lambda: OnlineLocalizer(default, gm, seed=0),
+            scans, angles, poses, smi)}
+
+
 def sync_count(fn) -> tuple:
     """(result, host syncs) of ``fn``: the synchronizing CUDA calls
     ``torch.cuda.set_sync_debug_mode("warn")`` reports."""
@@ -3365,6 +3563,7 @@ def main(argv=None) -> int:
     for name in ("corr_field_build", "corr_lookup", "expand_sorted", "run_if"):
         check(path_counts["online"].get(name, 0) > 0,
               f"[online] {name} never launched")
+    online_odom_checks(cfg, gm, scans, angles, poses, smi)
 
     stamps.append(("single", time.perf_counter()))
     # -- 5. the single-program flagship: make_model at 1M, ungated coarse

@@ -13,7 +13,9 @@ is read).  One process, in this order:
    calls; every span's total, self time and count, host syncs, bodies run
    and each program's stage times a scan; and the slowest 1% of
    ``on_scan`` calls split by child, with the odometry before them (the
-   records by scan number).
+   records by scan number); the odometry messages by kind a scan (replayed,
+   copied in, eager) against what the replay path should give, and its
+   ``online.odom.predict`` span a scan.
 2. launches and bitwise: a window of ``SCANS`` scans from one seed with
    tracing off and one with it on: each program's captured step, its nodes
    a replay (``CapturedStep.launches_per_scan``), and the states, the
@@ -85,6 +87,8 @@ def cell_run(name: str, seed: int, seconds: float, on: bool, hook=None,
                            window_s=run.window_s,
                            odom_s=float(run.odom_s.sum()),
                            scan_s=run.scan_s.copy(),
+                           caps=run.capacities.copy(),
+                           msgs=run.traffic.odom_per_scan,
                            hook=hook(run) if hook else None)
             return mod.read(run)
         return SimpleNamespace(read=read)
@@ -138,6 +142,31 @@ def tail_split(rec: dict, share: float) -> dict:
     return out
 
 
+def odom_reading(got: dict) -> dict:
+    """The window's odometry messages by kind (``filter/online.py``'s
+    counters) a scan, against what the replay path should give: replays
+    of at least 99% of the messages, a copy-in for each hand-off (the
+    window's first scan may follow one in the settle), no eager message,
+    no capture; and the ``online.odom.predict`` span a scan."""
+    n = got["scans"]
+    tr = got["tracing"]
+    cnt = tr["counters"]
+    msgs = n * got["msgs"]
+    caps = got["caps"]
+    handoffs = int(np.count_nonzero(caps[1:] != caps[:-1]))
+    kinds = {k: cnt.get(k, 0) for k in ("odom_replay", "odom_copy_in",
+                                        "odom_eager")}
+    captures = tr["spans"].get("graph.capture", {}).get("count", 0)
+    ok = (kinds["odom_replay"] >= 0.99 * msgs and kinds["odom_eager"] == 0
+          and handoffs <= kinds["odom_copy_in"] <= handoffs + 1
+          and captures == 0)
+    predict = tr["spans"].get("online.odom.predict", {}).get("total_ns", 0)
+    return {"messages": msgs, "handoffs": handoffs, "captures": captures,
+            **kinds, "per_scan": {k: v / n for k, v in kinds.items()},
+            "replay_share": kinds["odom_replay"] / msgs,
+            "predict_span_ms_per_scan": predict * 1e-6 / n, "as_expected": ok}
+
+
 def window_reading(out: dict, got: dict) -> dict:
     """Part 1's numbers of one run with tracing on."""
     from mcmh_localization_tpu_torch.utils import profiling
@@ -155,6 +184,7 @@ def window_reading(out: dict, got: dict) -> dict:
                                   v["self_ns"] * 1e-6 / n, v["count"]]
                               for k, v in sorted(spans.items())},
         "host_syncs_per_scan": tr["counters"].get("host_sync", 0) / n,
+        "odom": odom_reading(got),
         "bodies_per_scan": {k: v / n for k, v in tr["bodies"].items()},
         # each program's ms a scan of its own, and the scans it ran
         "stages": {p: {**{s: v[s]["ns"] * 1e-6 / v["begin"]["count"]
@@ -176,6 +206,8 @@ def check_window(name: str) -> dict:
                "scan_p99_ms": out["metrics"]["scan_p99_ms"]["value"]}
         if on:
             row["inside"] = window_reading(out, got)
+            log(f"[{name}] odometry in the window: "
+                f"{json.dumps(row['inside']['odom'])}")
         runs.append(row)
         log(f"[{name}] window: {json.dumps(row)}")
     cost = {str(s): 100.0 * (1 - next(r["scans_per_s"] for r in runs

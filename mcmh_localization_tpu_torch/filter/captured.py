@@ -39,16 +39,30 @@ on every replay: the graph is captured with its own generator registered
 (``CUDAGraph.register_generator_state``), which takes the caller's
 generator state before the replays and gives it back after them, so the
 caller's stream moves as under eager steps, draw for draw.
+
+A correct-only step (``predict=False``, the one ``OnlineLocalizer.on_scan``
+replays) also serves the odometry: ``capture_odom`` captures one
+message's device work, ``predict_in_place`` on the same buffers from the
+two poses in ``poses`` (the delta, the proposal, the anchor's advance),
+into the correct graph's memory pool, drawing from the same registered
+generator.  The facade makes the buffers hold its state (``load``: a copy
+only where they hold another), copies the poses in and replays
+(``replay_odom``); the state it then holds is the buffers themselves, the
+generator included, so a scan's run copies nothing in.  Neither graph
+leaves a live tensor in the pool (the buffers are allocated before both
+captures), and both replay on one stream, so they share it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import weakref
 
 import torch
 
 from mcmh_localization_tpu_torch.filter.estimate import PoseEstimate
 from mcmh_localization_tpu_torch.filter.state import FilterState, copy_generator
+from mcmh_localization_tpu_torch.models.motion import compute_motion
 from mcmh_localization_tpu_torch.ops import _cuda
 from mcmh_localization_tpu_torch.ops import graph as cgraph
 from mcmh_localization_tpu_torch.utils import profiling
@@ -76,6 +90,28 @@ def _storage(t: torch.Tensor) -> int:
     return t.untyped_storage().data_ptr()
 
 
+def _store(buf: FilterState, new: FilterState) -> None:
+    """Copy a step's new state into the buffers ``buf``: a field whose new
+    value is another field's buffer first (prev_particles takes the buffer
+    of particles), before that buffer is overwritten."""
+    order = sorted(STATE_TENSORS, key=lambda f: not any(
+        _storage(getattr(new, f)) == _storage(getattr(buf, g))
+        for g in STATE_TENSORS if g != f))
+    for f in order:
+        src, dst = getattr(new, f), getattr(buf, f)
+        if src.data_ptr() != dst.data_ptr():
+            dst.copy_(src)
+
+
+def predict_in_place(model, buf: FilterState, poses: torch.Tensor) -> None:
+    """One odometry message on the buffers ``buf``, in place: the delta
+    between the (2, 3) ``poses`` (previous, current), ``model.predict`` on
+    it (drawing from ``buf.key``) and the new state stored back.  What
+    ``CapturedStep.capture_odom`` captures; eagerly, the facade's eager
+    ``on_odom`` with the delta computed where ``poses`` lives."""
+    _store(buf, model.predict(buf, compute_motion(poses[0], poses[1])))
+
+
 class CapturedStep:
     """One scan of ``model`` (its ``step``, or ``correct`` alone with
     ``predict=False``) captured on the card for states of ``n_max`` slots
@@ -86,11 +122,10 @@ class CapturedStep:
     def __init__(self, model, state: FilterState, beams: int,
                  predict: bool = True):
         dev = model.device
-        if dev.type != "cuda":
-            raise ValueError("CapturedStep: the model must live on the card")
         if not model.replays_graph:
             raise ValueError("CapturedStep: this model does not replay a "
-                             "captured step (its replays_graph is False)")
+                             "captured step (its replays_graph is False: "
+                             "it must live on the card)")
         self.model = model
         self.predict = predict
         self.n_max = state.n_max
@@ -101,13 +136,23 @@ class CapturedStep:
             key=self.gen)
         f32 = dict(dtype=torch.float32, device=dev)
         self.ranges = torch.zeros((MAX_SCANS, beams), **f32)
-        self.deltas = torch.zeros((MAX_SCANS, 3), **f32)
+        # the predicts' deltas; a correct-only step takes an odometry
+        # message's two poses instead (``replay_odom``)
+        self.deltas = torch.zeros((MAX_SCANS, 3), **f32) if predict else None
+        self.poses = None if predict else torch.zeros((2, 3), **f32)
         self.angles = None   # (beams,) or (beams, 2), set by the first run
         self.slot = torch.zeros((), dtype=torch.int64, device=dev)
         self.record = torch.zeros((MAX_SCANS, 12 + len(_INFO_SCALARS)),
                                   **f32)
         self.counts = torch.zeros(MAX_SCANS, dtype=torch.int32, device=dev)
         self.graph = None
+        self.odom_graph = None  # capture_odom's, its launches and nodes
+        self.odom_launches: dict[str, int] = {}
+        self.odom_nodes: dict[str, int] = {}
+        # the state the buffers hold (``holds``): a weak reference, so a
+        # run's result is not kept alive by the step
+        self._held = None
+        self._buf_ref = weakref.ref(self.buf)
         self.traced = False     # tracing was on at the capture
         # what one replay adds to the model's own tallies (the
         # collectives a DistModel's step calls), recorded at capture
@@ -118,10 +163,14 @@ class CapturedStep:
         the first scan's inputs, then capture it: on the card, capturing
         runs nothing.  With tracing on (``utils/profiling.py``), the
         step's stage stamps go into the graph, on the clock of the
-        model's ``name``.  A step captured before drops its graph first."""
+        model's ``name``.  A step captured before drops its graphs first,
+        and captures the odometry's again where it had one."""
         with profiling.span("graph.capture"):
+            odom = self.odom_graph is not None
             self._drop_graph()
             self._capture_graph()
+            if odom:
+                self._capture_odom_graph()
 
     def _capture_graph(self) -> None:
         model = self.model
@@ -146,9 +195,7 @@ class CapturedStep:
         with (cgraph.capturing(model.device) as cap, tally() as tallies,
               profiling.clocked(clock),
               torch.cuda.graph(g, capture_error_mode="thread_local")):
-            new, info = self._step(self.buf)
-            self._store(new)
-            self._record(info)
+            self._scan_body()
         self.tallies = tallies
         self.capture = cap
         self.nodes = cgraph.node_counts(g.raw_cuda_graph())
@@ -158,13 +205,88 @@ class CapturedStep:
         self.traced = traced
         _cuda.add_replayed(cap.taken, cap.launches[1:], cap.names)
 
+    def capture_odom(self) -> None:
+        """Capture one odometry message (``predict_in_place`` on the
+        buffers from ``poses``) into the correct graph's memory pool, with
+        the same generator registered.  The correct step must be captured
+        first."""
+        if self.predict or self.graph is None:
+            raise ValueError("CapturedStep.capture_odom: a correct-only "
+                             "step, captured first")
+        with profiling.span("graph.capture"):
+            self._capture_odom_graph()
+
+    def _capture_odom_graph(self) -> None:
+        dev = self.model.device
+        # the warm-up: the predict alone (it writes nothing in place) on a
+        # copy of the generator
+        sink = _cuda.set_sink({})   # the warm-up's launches are not the run's
+        try:
+            self.model.predict(self.buf.replace(key=copy_generator(self.gen)),
+                               compute_motion(self.poses[0], self.poses[1]))
+        finally:
+            _cuda.set_sink(sink)
+        torch.cuda.synchronize(dev)
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        g.register_generator_state(self.gen)
+        launches: dict[str, int] = {}
+        sink = _cuda.set_sink(launches)
+        try:
+            with torch.cuda.graph(g, pool=self.graph.pool(),
+                                  capture_error_mode="thread_local"):
+                self._odom_body()
+        finally:
+            _cuda.set_sink(sink)
+        self.odom_nodes = cgraph.node_counts(g.raw_cuda_graph())
+        g.instantiate()
+        self.odom_graph, self.odom_launches = g, launches
+
+    def holds(self, state: FilterState) -> bool:
+        """True where the buffers hold ``state``: the state a run of this
+        step returned, or the buffers after an odometry replay, and no run
+        on another state since."""
+        return self._held is not None and self._held() is state
+
+    def load(self, state: FilterState) -> bool:
+        """Make the buffers and the generator hold ``state`` before an
+        odometry replay: its tensors copied in where the buffers hold
+        another state (returns True then), its generator's state taken
+        where it is not the step's own."""
+        copied = not self.holds(state)
+        if copied:
+            _store(self.buf, state)
+        if state.key is not self.gen:
+            self.gen.set_state(state.key.get_state())
+        return copied
+
+    def replay_odom(self) -> FilterState:
+        """One replay of ``capture_odom``'s graph on the poses in
+        ``poses``: the new state is the buffers, ``key`` the step's
+        generator, advanced as by the eager predict."""
+        self.odom_graph.replay()
+        _cuda.add_launches(self.odom_launches)
+        self._held = self._buf_ref
+        return self.buf
+
     def _drop_graph(self) -> None:
-        """The graph goes first, then its bodies' pool."""
+        """The graphs go first, then the bodies' pool."""
         cap = getattr(self, "capture", None)
+        self.odom_graph = None
         self.graph = None
         if cap is not None:
             self.capture = None
             cap.release()
+
+    def _scan_body(self) -> None:
+        """What the correct (or whole) step's graph holds: one scan on the
+        buffers, its new state stored and its StepInfo recorded."""
+        new, info = self._step(self.buf)
+        _store(self.buf, new)
+        self._record(info)
+
+    def _odom_body(self) -> None:
+        """What the odometry's graph holds."""
+        predict_in_place(self.model, self.buf, self.poses)
 
     def _step(self, state: FilterState):
         """One scan on the inputs at the record's slot."""
@@ -173,19 +295,6 @@ class CapturedStep:
             delta = self.deltas.index_select(0, self.slot).reshape(3)
             return self.model.step(state, ranges, self.angles, delta)
         return self.model.correct(state, ranges, self.angles)
-
-    def _store(self, new: FilterState) -> None:
-        """Copy the step's new state into the buffers: a field whose new
-        value is another field's buffer first (prev_particles takes the
-        buffer of particles), before that buffer is overwritten."""
-        buf = self.buf
-        order = sorted(STATE_TENSORS, key=lambda f: not any(
-            _storage(getattr(new, f)) == _storage(getattr(buf, g))
-            for g in STATE_TENSORS if g != f))
-        for f in order:
-            src, dst = getattr(new, f), getattr(buf, f)
-            if src.data_ptr() != dst.data_ptr():
-                dst.copy_(src)
 
     def _record(self, info) -> None:
         est = info.estimate
@@ -252,6 +361,7 @@ class CapturedStep:
         state.key.set_state(self.gen.get_state())
         out = state.replace(**{f: getattr(self.buf, f).clone()
                                for f in STATE_TENSORS})
+        self._held = weakref.ref(out)
         return out, chunks[0] if len(chunks) == 1 else concat_infos(chunks)
 
     def scan(self, state: FilterState, ranges: torch.Tensor,

@@ -11,15 +11,28 @@ map built by the port's entry points with their default device, the CPU
 for a map built with ``device="cpu"``.
 
 On the card, ``on_scan`` replays its program's correct step captured in a
-CUDA graph (``filter/captured.py``; every config is ``graph_capturable``);
-the odometry's predict steps run eagerly.  On the CPU the correct step
-runs eagerly.
+CUDA graph (``filter/captured.py``; every config is ``graph_capturable``),
+and under ``predict_batching="per_message"`` each ``on_odom`` message
+after the first is one replay of a second graph on that step's buffers:
+the message's two poses written into a slot of a pinned host ring
+(``_PinnedRing``; the scans' ranges take one too), copied to the card
+without blocking, and the delta, the
+proposal and the anchor's advance computed there
+(``captured.py::predict_in_place``).  The state copies into the buffers
+only where they hold another (after a hand-off, ``set_initial_pose`` or
+``load_checkpoint``); between ``on_odom`` and ``on_scan`` the state is the
+buffers themselves, its generator the step's.  A message before its
+program's step was ever captured, ``per_scan`` batching and the CPU run
+eagerly (on the CPU the correct step too).
 
 With tracing on (``utils/profiling.py``), both calls record spans where
 their work happens, each carrying the number of the scan (``on_odom``'s,
-the scan it precedes): ``online.on_odom`` with ``online.odom.motion``
-(``compute_motion``) and ``online.odom.predict`` (the predict: the delta's
-copy to the device, the proposal, the anchor's advance); ``online.on_scan``
+the scan it precedes): ``online.on_odom`` with ``online.odom.predict``
+(the replay: the ring's write, the copy, the copy-in where there is one;
+eagerly, the delta's copy to the device, the proposal, the anchor's
+advance) and, eagerly, ``online.odom.motion`` (``compute_motion`` on the
+host), and the counters ``odom_replay``, ``odom_copy_in`` and
+``odom_eager`` (a message of each kind); ``online.on_scan``
 with ``online.scan.inputs`` (the scan's copy, the angles),
 ``online.scan.replay`` (the correct step), ``online.scan.policy`` (the
 staged policy's read and the hand-off) and ``online.scan.estimate`` (the
@@ -39,6 +52,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from mcmh_localization_tpu_torch.filter.captured import STATE_TENSORS
 from mcmh_localization_tpu_torch.filter.estimate import COV6_SLOTS
 from mcmh_localization_tpu_torch.filter.state import FilterState, copy_generator
 from mcmh_localization_tpu_torch.filter.step import (
@@ -50,6 +64,64 @@ from mcmh_localization_tpu_torch.models.motion import compute_motion
 from mcmh_localization_tpu_torch.utils import profiling
 from mcmh_localization_tpu_torch.utils.angles import yaw_from_quaternion
 from mcmh_localization_tpu_torch.viz import TFReanchorer
+
+
+# the pinned slots of the odometry's poses and of the scans' ranges: the
+# messages and scans that may come between two scans' host reads before
+# one waits for a copy
+POSE_SLOTS = 32
+RANGE_SLOTS = 2
+
+
+class _Done:
+    """The CPU's stand-in for a slot's CUDA event: a host copy has run when
+    it returns."""
+
+    def record(self) -> None:
+        pass
+
+    def synchronize(self) -> None:
+        pass
+
+
+class _PinnedRing:
+    """Inputs on their way to the card: ``slots`` pinned host slots of one
+    shape, each written on the host (``take``) and copied to the card
+    without blocking (``send``), which records the slot's event.  A slot is
+    written again only once the copy that last read it has run: a scan's
+    host read waits for every copy queued before it (``drained``), so a
+    slot waits on its event only where more inputs than slots come between
+    two scans."""
+
+    def __init__(self, device: torch.device, shape: tuple, slots: int):
+        cuda = device.type == "cuda"
+        self.host = torch.zeros((slots, *shape), dtype=torch.float32,
+                                pin_memory=cuda)
+        self._np = self.host.numpy()
+        self._slots = list(self.host.unbind(0))
+        event = torch.cuda.Event if cuda else _Done
+        self.events = [event() for _ in range(slots)]
+        self.next = 0
+        self.since = 0      # inputs sent since the last drain
+
+    def take(self) -> np.ndarray:
+        """The next slot's host view, to be written and then sent."""
+        if self.since >= len(self.events):
+            self.events[self.next].synchronize()
+        return self._np[self.next]
+
+    def send(self, dst: torch.Tensor) -> torch.Tensor:
+        """Copy the slot ``take`` gave into ``dst`` (returned)."""
+        i = self.next
+        dst.copy_(self._slots[i], non_blocking=True)
+        self.events[i].record()
+        self.next = (i + 1) % len(self.events)
+        self.since += 1
+        return dst
+
+    def drained(self) -> None:
+        """Every copy sent so far has run (a host read waited for them)."""
+        self.since = 0
 
 
 class OnlineLocalizer:
@@ -116,6 +188,13 @@ class OnlineLocalizer:
         self.reanchor = TFReanchorer()
         # per-scan live view (viz.FrameRecorder); None = no rendering
         self.frame_recorder = frame_recorder
+        # the odometry's replays: each program's correct-only captured step
+        # (by model), the scans' beams it was captured for; on the card the
+        # messages' poses and the scans' ranges go through pinned rings
+        self._odom_steps: dict = {}
+        self._beams: int | None = None
+        self._poses: _PinnedRing | None = None
+        self._ranges: _PinnedRing | None = None
 
     @property
     def device(self) -> torch.device:
@@ -135,13 +214,27 @@ class OnlineLocalizer:
         self._predicted_from = None
 
     def _scan_inputs(self, ranges, angles, angle_min, angle_max):
-        ranges = as_f32(ranges, self.device)
+        ranges = self._ranges_on_device(ranges)
         if angles is None:
             angles = torch.linspace(angle_min, angle_max, ranges.shape[0],
                                     dtype=torch.float32, device=self.device)
         else:
             angles = as_f32(angles, self.device)
         return ranges, angles
+
+    def _ranges_on_device(self, ranges) -> torch.Tensor:
+        """The scan's ranges on the map's device.  On the card, ranges from
+        the host go through a pinned slot without blocking: a blocking copy
+        would wait for the odometry's replays still queued."""
+        if self.device.type != "cuda" or (isinstance(ranges, torch.Tensor)
+                                          and ranges.is_cuda):
+            return as_f32(ranges, self.device)
+        shape = tuple(np.shape(ranges))
+        if self._ranges is None or self._ranges.host.shape[1:] != shape:
+            self._ranges = _PinnedRing(self.device, shape, RANGE_SLOTS)
+        self._ranges.take()[...] = np.asarray(ranges, dtype=np.float32)
+        return self._ranges.send(torch.empty(shape, dtype=torch.float32,
+                                             device=self.device))
 
     def warmup(self, ranges, angles=None, angle_min=-np.pi, angle_max=np.pi):
         """Run one throwaway predict+correct per program this localizer can
@@ -152,10 +245,21 @@ class OnlineLocalizer:
         and fills PyTorch's allocator and library caches.  The steps run on
         copies of the state's generator, so the localizer's state, its
         random stream, the odometry bookkeeping and the estimate cache are
-        untouched.  The online twin of the JAX
-        ``filter.staged.warmup_staged``."""
+        untouched.  Under ``predict_batching="per_message"`` it also
+        captures each program's odometry graph (``CapturedStep.capture_odom``).
+        The online twin of the JAX ``filter.staged.warmup_staged``."""
         ranges, angles = self._scan_inputs(ranges, angles, angle_min, angle_max)
+        self._beams = ranges.shape[0]
         delta = torch.zeros(3, dtype=torch.float32, device=self.device)
+        for step in self._odom_steps.values():
+            if self.state.key is step.gen:
+                # the state of an odometry replay: the throwaway scans
+                # below write the step's buffers and advance its generator
+                kw = ({f: getattr(self.state, f).clone()
+                       for f in STATE_TENSORS}
+                      if self.state is step.buf else {})
+                self.state = self.state.replace(
+                    key=copy_generator(step.gen), **kw)
 
         def copy(st: FilterState) -> FilterState:
             return st.replace(key=copy_generator(self.state.key))
@@ -175,9 +279,15 @@ class OnlineLocalizer:
             grow_state(small_state, self._n_big)
             programs = [(self.staged.big, copy(big_state)),
                         (self.staged.small, copy(small_state))]
+        per_message = self.config.predict_batching == "per_message"
         for model, st in programs:
             st = model.predict(st, delta)
             _correct_scan(model, st, ranges, angles)
+            if per_message and model.replays_graph:
+                step = model.captured(st, self._beams, predict=False)
+                self._odom_steps[model] = step
+                if step.odom_graph is None:
+                    step.capture_odom()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -187,20 +297,62 @@ class OnlineLocalizer:
 
         With config.predict_batching="per_scan" this is host-side
         bookkeeping only (no device dispatch); on_scan runs one predict
-        covering all odometry since the previous scan."""
+        covering all odometry since the previous scan.  On the card, once
+        the program's step is captured, the message is one replay
+        (``_replay_odom``); otherwise the predict runs eagerly."""
         with profiling.span("online.on_odom", self.scan_count):
             curr = np.asarray([x, y, yaw], dtype=np.float32)
             if self._last_odom is None:
                 self._predicted_from = curr
             elif self.config.predict_batching == "per_message":
-                with profiling.span("online.odom.motion"):
-                    delta = compute_motion(torch.from_numpy(self._last_odom),
-                                           torch.from_numpy(curr))
-                with profiling.span("online.odom.predict"):
-                    self.state = self.model.predict(self.state, delta)
+                step = self._odom_step()
+                if step is not None:
+                    with profiling.span("online.odom.predict"):
+                        self.state = self._replay_odom(step, curr)
+                else:
+                    profiling.count("odom_eager")
+                    with profiling.span("online.odom.motion"):
+                        delta = compute_motion(
+                            torch.from_numpy(self._last_odom),
+                            torch.from_numpy(curr))
+                    with profiling.span("online.odom.predict"):
+                        self.state = self.model.predict(self.state, delta)
                 self._predicted_from = curr
             self._last_odom = curr
             self.reanchor.on_odom(x, y, yaw, stamp)
+
+    def _odom_step(self):
+        """The running program's correct-only ``CapturedStep`` where it
+        replays this message: the program replays its steps (the card) and
+        its correct step has been captured (by ``warmup`` or a scan); its
+        odometry graph is captured here if it is not yet.  None: the eager
+        predict."""
+        model = self.model
+        step = self._odom_steps.get(model)
+        if step is None:
+            if self._beams is None or not model.replays_graph:
+                return None
+            step = model.captured(self.state, self._beams, predict=False)
+            self._odom_steps[model] = step
+        if step.graph is None:
+            return None
+        if step.odom_graph is None:
+            step.capture_odom()
+        if self._poses is None:
+            self._poses = _PinnedRing(self.device, (2, 3), POSE_SLOTS)
+        return step
+
+    def _replay_odom(self, step, curr: np.ndarray) -> FilterState:
+        """One message as a replay: the state into the step's buffers where
+        they hold another, the two poses through the ring, the graph."""
+        if step.load(self.state):
+            profiling.count("odom_copy_in")
+        slot = self._poses.take()
+        slot[0] = self._last_odom
+        slot[1] = curr
+        self._poses.send(step.poses)
+        profiling.count("odom_replay")
+        return step.replay_odom()
 
     def on_odom_quaternion(self, x, y, qx, qy, qz, qw):
         """Odometry with quaternion orientation, as a ROS Odometry carries."""
@@ -221,6 +373,7 @@ class OnlineLocalizer:
         with profiling.span("online.scan.inputs"):
             ranges, angles = self._scan_inputs(ranges, angles, angle_min,
                                                angle_max)
+        self._beams = ranges.shape[0]
         if (
             self.config.predict_batching == "per_scan"
             and self._last_odom is not None
@@ -240,6 +393,10 @@ class OnlineLocalizer:
                 self._hand_off(info)
         with profiling.span("online.scan.estimate"):
             est = self.estimate()
+        # the estimate's read waited for the inputs' copies
+        for ring in (self._poses, self._ranges):
+            if ring is not None:
+                ring.drained()
         if est:
             # the pose_broadcaster loop: one map->odom re-anchor per
             # estimate (pose_broadcaster.py:31-35)

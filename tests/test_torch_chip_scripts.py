@@ -194,3 +194,31 @@ def test_lut_launch_ablation_edits_this_tree_s_kernel():
     assert "for (int g0 = g_lo; g0 < g_hi; g0 += kg)" in src
     entry = src[src.index('extern "C" int mcmh_lut_field('):]
     assert "g_lo" not in entry and "accumulate" not in entry
+
+
+def test_trace_check_reads_the_odometry_counters():
+    """``chip_trace_check.odom_reading``: as expected where replays are
+    99% or more of the window's messages, copy-ins equal the hand-offs
+    (one more where the window opens on one), no message ran eagerly and
+    nothing was captured; the ``online.odom.predict`` span a scan."""
+    import chip_trace_check as tc
+
+    caps = np.array([1024, 1024, 2000, 2000, 1024, 1024])
+
+    def reading(spans=None, **counters):
+        spans = {"online.odom.predict": {"total_ns": 6e6, "count": 36},
+                 **(spans or {})}
+        return tc.odom_reading({"scans": 6, "msgs": 6, "caps": caps,
+                                "tracing": {"counters": counters,
+                                            "spans": spans}})
+
+    r = reading(odom_replay=36, odom_copy_in=2)
+    assert r["as_expected"] and r["handoffs"] == 2 and r["messages"] == 36
+    assert r["predict_span_ms_per_scan"] == 1.0
+    assert r["per_scan"]["odom_copy_in"] == 2 / 6
+    assert reading(odom_replay=36, odom_copy_in=3)["as_expected"]
+    assert not reading(odom_replay=36, odom_copy_in=1)["as_expected"]
+    assert not reading(odom_replay=35, odom_eager=1,
+                       odom_copy_in=2)["as_expected"]
+    assert not reading({"graph.capture": {"total_ns": 1, "count": 1}},
+                       odom_replay=36, odom_copy_in=2)["as_expected"]

@@ -1,12 +1,14 @@
 """One run of one cell of the localizer's benchmark.
 
 The cell names a configuration and a traffic mix (``BENCHMARK.json``); the
-run makes the map and the traffic from the seed, builds the live entry
-point ``filter/online.py::OnlineLocalizer`` on them and warms it up
+configuration's sensor module (``sensors/<name>.py``) makes the map, the
+traffic is made from the seed, and the run builds the live entry point
+``filter/online.py::OnlineLocalizer`` on them and warms it up
 (loading the kernels, capturing each program's step), settles it on the
 first scans, then replays the stream closed-loop for the window: for each
-scan, its odometry messages through ``on_odom`` and the scan's ranges,
-from the host, through ``on_scan``, which returns the pose on the host.
+scan, its odometry messages through ``on_odom`` and the scan's ranges
+(with the sensor's angles, where it has its own), from the host, through
+``on_scan``, which returns the pose on the host.
 With ``trace`` a profiled stretch of scans follows the window.  Then the
 sampled scans are recomputed by the plain reference
 (``reference/check.py``) and the metrics read by their readers
@@ -17,10 +19,9 @@ from __future__ import annotations
 
 import contextlib
 import gc
-import math
 import sys
 import time
-from types import SimpleNamespace
+from types import ModuleType, SimpleNamespace
 from typing import NamedTuple
 
 import numpy as np
@@ -43,6 +44,7 @@ class Cell(NamedTuple):
     map: dict          # maps/<map>.json
     end_to_end: list   # metric entries this cell reports untraced
     per_layer: list    # and traced
+    sensor: ModuleType  # sensors/<conf["sensor"]>.py
 
 
 def _reports(metric: dict, cell: str) -> bool:
@@ -50,14 +52,16 @@ def _reports(metric: dict, cell: str) -> bool:
 
 
 def cell(name: str, overrides: dict | None = None) -> Cell:
-    """The cell ``name`` of ``BENCHMARK.json`` with its files.
-    ``overrides``: {"filter": {...}, "traffic": {...}, "run": {...},
-    "map": map spec} merged over the files (the CPU tests' small sizes)."""
+    """The cell ``name`` of ``BENCHMARK.json`` with its files and its
+    sensor module.  ``overrides``: {"filter": {...}, "traffic": {...},
+    "run": {...}, "map": map spec} merged over the files (the CPU tests'
+    small sizes)."""
     spec = world.benchmark_spec()
     entry = next((w for w in spec["workloads"] if w["name"] == name), None)
     if entry is None:
         raise KeyError(f"no workload {name!r} in BENCHMARK.json")
     conf = world.load("configs", entry["config"])
+    sensor = world.sensor(conf.get("sensor", world.DEFAULT_SENSOR))
     traffic = world.load("traffic", entry["traffic"])
     run = world.load("workloads", name)
     mp = world.load("maps", conf["map"])
@@ -68,7 +72,7 @@ def cell(name: str, overrides: dict | None = None) -> Cell:
     return Cell(name, conf, {**traffic, **o.get("traffic", {})},
                 {**run, **o.get("run", {})}, o.get("map", mp),
                 [m for m in spec["end_to_end"] if _reports(m, name)],
-                [m for m in spec["per_layer"] if _reports(m, name)])
+                [m for m in spec["per_layer"] if _reports(m, name)], sensor)
 
 
 class Pinned:
@@ -206,20 +210,17 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, device,
     benchmark's own runs do not)."""
     from mcmh_localization_tpu_torch.config import FilterConfig
     from mcmh_localization_tpu_torch.filter.online import OnlineLocalizer
-    from mcmh_localization_tpu_torch.maps.grid_map import build_grid_map
 
     device = torch.device(device)
     cuda = device.type == "cuda"
     c = cell(name, overrides)
-    res, origin = c.map["resolution"], tuple(c.map["origin"])
-    occ = world.occupancy(c.map)
-    dist = world.distance(occ, res)
+    w = c.sensor.build_world(c.conf, c.map)
     settle = c.traffic["settle_scans"]
     n_prof = c.run["profiled_scans"] if traced else 0
     total = settle + 1 + int(seconds * c.run["max_scans_per_s"]) + n_prof
     phases = {"start": time.perf_counter() - t_start}
-    traffic = generate.make(c.traffic, occ, dist, res, origin, total, seed,
-                            device)
+    traffic = generate.make(c.traffic, w.occ, w.dist, w.res, w.origin, total,
+                            seed, device, c.sensor.scanner(w, c.traffic, device))
     msgs = _messages(traffic)
     fseed = generate.seeds(seed)[2]
     if cuda:
@@ -229,22 +230,22 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, device,
     phases["traffic"] = time.perf_counter() - t_start
 
     # the localizer's set-up: map, programs, warm-up (captures), settle
-    gm = build_grid_map(occ, res, origin, device=device)
+    maps = c.sensor.program_maps(w, c.conf, device)
     staged = c.conf.get("staged") or {}
-    loc = OnlineLocalizer(FilterConfig(**c.conf["filter"]), gm, seed=fseed,
+    loc = OnlineLocalizer(FilterConfig(**c.conf["filter"]), seed=fseed,
                           initial_pose=tuple(map(float, traffic.gt[0])),
-                          staged=bool(staged), **staged)
+                          staged=bool(staged), **maps, **staged)
     phases["localizer"] = time.perf_counter() - t_start
-    loc.warmup(traffic.ranges[0])
+    loc.warmup(traffic.ranges[0], traffic.angles)
     phases["warmup"] = time.perf_counter() - t_start
     loc.on_odom(*map(float, traffic.odom[0]))
     for t in range(1, settle + 1):
         for m in msgs[t].tolist():
             loc.on_odom(*m)
-        loc.on_scan(traffic.ranges[t])
+        loc.on_scan(traffic.ranges[t], traffic.angles)
     if cuda:
         torch.cuda.synchronize(device)
-    progs = ref.programs(c.conf)
+    progs = ref.programs(c.conf, c.sensor)
     small_cap = progs["small"].n_max if "small" in progs else None
     n_big = max(p.n_max for p in progs.values())
     first = settle + 1
@@ -278,7 +279,7 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, device,
                     loc.on_odom(*m)
             t1 = time.perf_counter()
             with span("bench.on_scan"):
-                est = loc.on_scan(traffic.ranges[t])
+                est = loc.on_scan(traffic.ranges[t], traffic.angles)
             t2 = time.perf_counter()
         except Exception as e:  # a scan that raised counts as failed
             failed += 1
@@ -349,22 +350,21 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, device,
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    rmap = ref.make_map(occ, dist, res, origin, c.conf["filter"], device)
-    angles = torch.linspace(-math.pi, math.pi, traffic.n_beams,
-                            dtype=torch.float32, device=device)
-    rmap16 = (ref.make_map(occ, dist, res, origin, c.conf["filter"], device,
-                           torch.bfloat16) if control else None)
+    rmap = c.sensor.reference_map(w, c.conf["filter"], device)
+    angles = c.sensor.reference_angles(w, c.traffic, device)
+    rmap16 = (c.sensor.reference_map(w, c.conf["filter"], device,
+                                     torch.bfloat16) if control else None)
     rows, ctrl = [], []
     for rec in records:
         rec = rec._replace(particles=rec.particles.to(device),
                            weights=rec.weights.to(device),
                            anchor=rec.anchor.to(device))
         ranges = torch.from_numpy(traffic.ranges[rec.scan]).to(device)
-        want = check.recompute(rec, c.conf, rmap, ranges, angles)
+        want = check.recompute(rec, c.conf, c.sensor, rmap, ranges, angles)
         rows.append(check.gaps(rec, want, c.conf))
         if control:
-            low = check.recompute(rec, c.conf, rmap16, ranges, angles,
-                                  torch.bfloat16)
+            low = check.recompute(rec, c.conf, c.sensor, rmap16, ranges,
+                                  angles, torch.bfloat16)
             ctrl.append(check.gaps(check.control_record(rec, low, c.conf),
                                    want, c.conf))
     numbers = check.worst(rows)

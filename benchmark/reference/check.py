@@ -9,7 +9,8 @@ Numbers, each the largest over the sampled scans:
 * ``pose_gap_m``, ``yaw_gap_rad``: the pose that ``on_scan`` returned to
   the host against the reference's estimate;
 * ``cov_gap``: the returned covariance (x, y, yaw), the Frobenius norm of
-  the difference over the reference's;
+  the difference over the reference's; 0 on a scan whose weights leave the
+  covariance's denominator 1 - sum(w^2) under ``COV_MIN_DENOM``;
 * ``ess_gap``: the effective sample size of the weights after the
   Metropolis-Hastings choice, relative;
 * ``wfast_gap``: the fast augmented-MCL average the state holds after the
@@ -43,6 +44,11 @@ import torch
 from benchmark.reference import filter as ref
 
 COV_SLOTS = (0, 1, 5, 6, 7, 11, 30, 31, 35)   # the 3x3 in ROS's 6x6
+# The covariance is held where its aweights denominator 1 - sum(w^2) is at
+# least this.  Below it one particle all but holds the set, and the float32
+# rounding of that sum near 1 (about 1e-7) over the denominator is the gap:
+# 1.43e-6 read 0.06 on the card (PERF.md, section 2).
+COV_MIN_DENOM = 1e-3
 NUMBERS = ("pose_gap_m", "yaw_gap_rad", "cov_gap", "ess_gap", "wfast_gap",
            "count_gap", "accept_gap", "set_mean_gap_m", "set_cov_gap",
            "set_ess_gap", "handoff_mismatch", "draws_mismatch")
@@ -101,8 +107,9 @@ def gaps(rec: Record, res: ref.Result, conf: dict) -> dict:
         "pose_gap_m": math.hypot(rec.pose[0] - mean[0], rec.pose[1] - mean[1]),
         "yaw_gap_rad": abs(float(ref.wrap(torch.tensor(rec.pose[2] - mean[2],
                                                        dtype=torch.float64)))),
-        "cov_gap": float(np.linalg.norm(rec.cov - cov)
-                         / max(np.linalg.norm(cov), 1e-30)),
+        "cov_gap": (float(np.linalg.norm(rec.cov - cov)
+                           / max(np.linalg.norm(cov), 1e-30))
+                    if 1.0 - 1.0 / res.ess >= COV_MIN_DENOM else 0.0),
         "ess_gap": abs(rec.ess - res.ess) / max(res.ess, 1e-30),
         "wfast_gap": abs(rec.w_fast_after - res.w_fast)
         / max(abs(res.w_fast), 1e-30),
@@ -146,13 +153,14 @@ def control_record(rec: Record, res: ref.Result, conf: dict) -> Record:
         gen_after=res.gen_state)
 
 
-def recompute(rec: Record, conf: dict, m: ref.Map, ranges, angles,
+def recompute(rec: Record, conf: dict, sensor, m: ref.Map, ranges, angles,
               dtype=torch.float32) -> ref.Result:
-    """The reference's scan ``rec`` on the device the records live on."""
+    """The reference's scan ``rec`` on the device the records live on,
+    scored by the configuration's sensor module (``sensors/<name>.py``)."""
     dev = rec.particles.device
     gen = torch.Generator(device=dev)
     gen.set_state(rec.gen_state)
-    prog = ref.programs(conf)[rec.program]
+    prog = ref.programs(conf, sensor)[rec.program]
     state = ref.State(rec.particles, rec.weights, rec.count, rec.w_slow,
                       rec.w_fast, rec.anchor, rec.streak)
     return ref.scan(state, rec.odom_msgs, rec.last_odom, ranges, angles, m,

@@ -1,5 +1,6 @@
 """Plain PyTorch reference of one scan of the localizer: the odometry
-messages' motion proposals, then the scan's correction (the scorer, the
+messages' motion proposals, then the scan's correction (the scorer, which
+the configuration's sensor module gives, ``sensors/<name>.py``; the
 Metropolis-Hastings choice, the augmented-MCL averages, the window anchor,
 the pose estimate, the ESS gate, the KLD resampling with the augmented-MCL
 injection, and the staged hand-off).
@@ -37,11 +38,9 @@ import torch
 
 BLIND = -50.0        # no valid beam (parallel_utils.py:147)
 INVALID = -100.0     # a pose on a non-free cell, motion_validity="score"
-LOG_FLOOR = 1e-6     # parallel_utils.py:141
 KLD_JITTER = (0.001, 0.001, 0.02)   # parallel_utils.py:552
 KLD_STAGE1 = 131072  # the escalating stop rule's first prefix
 POOL = 65536         # injected poses come from a tiled pool of free cells
-AUTO_CORR_MIN_STATE = 8192
 
 
 def wrap(a):
@@ -53,74 +52,64 @@ class Program(NamedTuple):
 
     cfg: dict            # the filter keys
     n_max: int
-    scorer: str          # "corr" or "exact"
+    role: str            # "big", "small" or "single"
     aggregation: str     # "mean" or "sum"
-    window: int          # corr window cells (0: the full map)
-    theta_bins: int      # corr theta window bins (0: all)
     ess_threshold: float
     refill: bool         # injection sized by the capacity (BIG)
+    # the sensor module's scorer of this program's scans (its ``program``
+    # sets it): scorer(ranges, angles, map, program, anchor, delta, dtype)
+    # -> score(poses), the anchor advanced by the scan's odometry and
+    # delta its last message's motion
+    scorer: object = None
 
 
-def programs(conf: dict) -> dict:
+def programs(conf: dict, sensor=None) -> dict:
     """{"big": Program, "small": Program} of a staged configuration, or
-    {"single": Program}: the staged BIG program scores the whole map at
-    every bin, sums the beams and refills its injection to capacity; SMALL
-    holds 1.3 x min_particles rounded up to 1024 slots, the window with no
-    coarse fallback, and its ESS gate."""
+    {"single": Program}: the staged BIG program scores the whole map,
+    sums the beams and refills its injection to capacity; SMALL holds 1.3 x
+    min_particles rounded up to 1024 slots, the configuration's window and
+    its ESS gate; a single program is the configuration as it stands.
+    ``sensor``: the configuration's sensor module, which sets each
+    program's ``scorer`` (the window among it) and raises for a program it
+    has no reference for."""
     f = conf["filter"]
     n_max = f["max_particles"]
-
-    def scorer(n):
-        impl = f.get("likelihood_impl", "auto")
-        if impl == "auto":
-            return "corr" if n >= AUTO_CORR_MIN_STATE else "exact"
-        return {"corr": "corr", "jnp": "exact"}[impl]
-
     agg = f.get("score_aggregation", "mean")
     ess = f.get("resample_ess_threshold", 1.0)
     if not conf.get("staged"):
-        if f.get("corr_window_cells") and scorer(n_max) == "corr":
-            raise NotImplementedError("the single corr program's coarse "
-                                      "fallback has no reference yet")
-        return {"single": Program(f, n_max, scorer(n_max), agg, 0, 0, ess,
-                                  False)}
-    staged = conf["staged"]
-    cap = -(-int(1.3 * f["min_particles"]) // 1024) * 1024
-    cap = min(max(cap, 1024), n_max)
-    return {
-        "big": Program(f, n_max, scorer(n_max), "sum", 0, 0, ess, True),
-        "small": Program(f, cap, scorer(n_max), agg,
-                         f.get("corr_window_cells", 0),
-                         f.get("corr_theta_window_bins", 0),
-                         staged.get("tracking_ess_threshold", ess), False),
-    }
+        progs = {"single": Program(f, n_max, "single", agg, ess, False)}
+    else:
+        staged = conf["staged"]
+        cap = -(-int(1.3 * f["min_particles"]) // 1024) * 1024
+        cap = min(max(cap, 1024), n_max)
+        progs = {
+            "big": Program(f, n_max, "big", "sum", ess, True),
+            "small": Program(f, cap, "small", agg,
+                             staged.get("tracking_ess_threshold", ess), False),
+        }
+    if sensor is not None:
+        progs = {k: sensor.program(p) for k, p in progs.items()}
+    return progs
 
 
 class Map(NamedTuple):
-    occ: torch.Tensor        # (H, W) int8
-    log_field: torch.Tensor  # (H, W)
+    occ: torch.Tensor        # (H, W) int8 navigation grid
     free_xy: torch.Tensor    # (F, 2) free-cell centres, row-major order
     res: float
     origin: tuple
+    field: object            # the sensor module's own (its scorer reads it)
 
 
-def make_map(occ: np.ndarray, dist: np.ndarray, res: float, origin,
-             f: dict, device, dtype=torch.float32) -> Map:
-    """The likelihood field ``log(max(z_hit N(d; sigma_hit) + z_rand /
-    max_range, 1e-6))`` (no hit term past max_range) and the free cells."""
-    d = torch.from_numpy(dist).to(device=device, dtype=torch.float64)
-    s = f["sigma_hit"]
-    p_hit = torch.exp(-0.5 * d * d / (s * s)) / math.sqrt(2 * math.pi * s * s)
-    p_hit = torch.where(d <= f["max_range"], p_hit, 0.0)
-    p = f["z_hit"] * p_hit + f["z_rand"] / f["max_range"]
-    log_field = torch.log(torch.clamp(p, min=LOG_FLOOR)).to(dtype)
+def make_map(occ: np.ndarray, res: float, origin, device, field) -> Map:
+    """The navigation grid and its free cells on ``device``, with the
+    sensor module's ``field``."""
     rows, cols = np.nonzero(occ == 0)
     free = np.stack([origin[0] + (cols + 0.5) * res,
                      origin[1] + (rows + 0.5) * res], axis=1)
     o32 = np.float32(origin[0]), np.float32(origin[1])
-    return Map(torch.from_numpy(occ).to(device), log_field,
+    return Map(torch.from_numpy(occ).to(device),
                torch.from_numpy(free.astype(np.float32)).to(device),
-               float(np.float32(res)), (float(o32[0]), float(o32[1])))
+               float(np.float32(res)), (float(o32[0]), float(o32[1])), field)
 
 
 class State(NamedTuple):
@@ -209,107 +198,6 @@ def advance(anchor, delta):
     return torch.stack([anchor[0] + delta[1] * torch.cos(th1),
                         anchor[1] + delta[1] * torch.sin(th1),
                         wrap(th1 + delta[2])])
-
-
-def _beams(ranges, angles, f, dtype):
-    valid = torch.isfinite(ranges) & (ranges < f["max_range"])
-    r = torch.where(valid, ranges, 0.0)
-    return (r * torch.cos(angles)).to(dtype), (r * torch.sin(angles)).to(dtype), valid
-
-
-def corr_scorer(ranges, angles, m: Map, prog: Program, origin3, dtype):
-    """Correlation-field scores: the field ``F[k, y, x]``, the summed log
-    field at every valid beam's endpoint from cell (y, x) at the centre
-    heading of theta bin k (endpoint offsets truncated to cells, off-map
-    endpoints add 0), built once a scan; then one read per pose.  Occupied
-    or unknown cells score INVALID per beam under motion_validity="score",
-    poses off the map INVALID, poses in the map but outside the window
-    BLIND.  Returns the scorer of (N, 3) poses."""
-    f = prog.cfg
-    k_all = f.get("corr_n_theta", 120)
-    h, w = m.occ.shape
-    dev = ranges.device
-    inv_res = float(np.float32(1.0) / np.float32(m.res))
-    u, v, valid = _beams(ranges, angles, f, torch.float32)
-    n_valid = int(valid.sum())
-    cnt = max(n_valid, 1)
-    pad = int(-(-f["max_range"] // m.res)) + 2
-    if prog.window:
-        oy0, ox0, kstart = (int(x) for x in origin3)
-        fh = fw = prog.window
-        nbins = prog.theta_bins or k_all
-    else:
-        oy0 = ox0 = kstart = 0
-        fh, fw, nbins = h, w, k_all
-    thetas = ((kstart + torch.arange(nbins, dtype=torch.float32, device=dev)
-               + 0.5) * (2.0 * math.pi / k_all) - math.pi)
-    c, s = torch.cos(thetas)[:, None], torch.sin(thetas)[:, None]
-    ox = ((c * u - s * v) * inv_res).to(torch.int64)
-    oy = ((s * u + c * v) * inv_res).to(torch.int64)
-    padded = torch.nn.functional.pad(m.log_field, (pad, pad, pad, pad))
-    wp = padded.shape[1]
-    flat = padded.reshape(-1)
-    base = ((oy0 + pad + torch.arange(fh, device=dev))[:, None] * wp
-            + (ox0 + pad + torch.arange(fw, device=dev))[None, :])
-    field = torch.zeros((nbins, fh, fw), dtype=dtype, device=dev)
-    for j in torch.nonzero(valid).flatten().tolist():
-        field += flat[base[None] + (oy[:, j] * wp + ox[:, j])[:, None, None]]
-    if f.get("motion_validity") == "score":
-        occ = m.occ[oy0:oy0 + fh, ox0:ox0 + fw]
-        field = field + torch.where(occ == 0, 0.0, INVALID * cnt).to(dtype)
-    pi32 = float(np.float32(np.pi))
-    tscale = float(np.float32(k_all / (2 * math.pi)))
-
-    def score(poses):
-        px, py, pth = poses.float().unbind(1)
-        mx = ((px - m.origin[0]) * inv_res).to(torch.int32)
-        my = ((py - m.origin[1]) * inv_res).to(torch.int32)
-        k_rel = (((pth + pi32) * tscale).to(torch.int32) % k_all - kstart) % k_all
-        mxw, myw = mx - ox0, my - oy0
-        covered = (k_rel < nbins) & (mxw >= 0) & (mxw < fw) & (myw >= 0) \
-            & (myw < fh)
-        in_map = (mx >= 0) & (mx < w) & (my >= 0) & (my < h)
-        total = field[k_rel.clamp(0, nbins - 1).long(),
-                      myw.clamp(0, fh - 1).long(), mxw.clamp(0, fw - 1).long()]
-        total = torch.where(in_map & covered, total, 0.0)
-        out = total if prog.aggregation == "sum" else total / cnt
-        out = torch.where(in_map & ~covered, BLIND, out)
-        if f.get("motion_validity") == "score":
-            out = torch.where(in_map, out, INVALID * cnt
-                              if prog.aggregation == "sum" else INVALID)
-        if n_valid == 0:
-            out = torch.full_like(out, BLIND)
-        return out.to(dtype)
-
-    return score
-
-
-def exact_scorer(ranges, angles, m: Map, prog: Program, dtype):
-    """Likelihood-field scores beam by beam (parallel_utils.py:85-149):
-    each valid beam's endpoint cell by ``(l - origin) / res`` truncated,
-    off-map endpoints add 0, the mean over the valid beams.  Returns the
-    scorer of (N, 3) poses."""
-    f = prog.cfg
-    if f.get("motion_validity") == "score":
-        raise NotImplementedError("the exact scorer's validity wrap")
-    u, v, valid = _beams(ranges, angles, f, dtype)
-    h, w = m.occ.shape
-    return lambda poses: _exact(poses.to(dtype), u, v, valid, m, prog, h, w)
-
-
-def _exact(p, u, v, valid, m, prog, h, w):
-    c, s = torch.cos(p[:, 2:3]), torch.sin(p[:, 2:3])
-    lx = p[:, 0:1] + c * u[valid] - s * v[valid]
-    ly = p[:, 1:2] + s * u[valid] + c * v[valid]
-    mx = cell_of(lx.float(), m.origin[0], m.res)
-    my = cell_of(ly.float(), m.origin[1], m.res)
-    in_map = (mx >= 0) & (mx < w) & (my >= 0) & (my < h)
-    vals = m.log_field[my.clamp(0, h - 1).long(), mx.clamp(0, w - 1).long()]
-    total = torch.where(in_map, vals, 0.0).sum(dim=1)
-    n_valid = int(valid.sum())
-    if n_valid == 0:
-        return torch.full_like(total, BLIND)
-    return total if prog.aggregation == "sum" else total / n_valid
 
 
 def softmax(scores, mask):
@@ -456,26 +344,7 @@ def scan(state: State, odom_msgs: list, last_odom, ranges, angles, m: Map,
     alpha = (f["alpha1"], f["alpha2"], f["alpha3"], f["alpha4"])
     d = delta.to(dev, dtype)
 
-    # the window: centred on the anchor, its heading backed off half the
-    # scan's rotation
-    origin3 = None
-    if prog.window:
-        h, w = m.occ.shape
-        inv_res = float(np.float32(1.0) / np.float32(m.res))
-        a32 = anchor
-        half = prog.window // 2
-        ox0 = int(((a32[0] - m.origin[0]) * inv_res).to(torch.int32)) - half
-        oy0 = int(((a32[1] - m.origin[1]) * inv_res).to(torch.int32)) - half
-        ox0, oy0 = min(max(ox0, 0), w - prog.window), min(max(oy0, 0), h - prog.window)
-        k_all = f.get("corr_n_theta", 120)
-        mt = wrap(a32[2] - 0.5 * (delta[0].to(dev) + delta[2].to(dev)))
-        kmid = int(((mt + math.pi) * (k_all / (2.0 * math.pi))).to(torch.int32)) % k_all
-        origin3 = (oy0, ox0, (kmid - prog.theta_bins // 2) % k_all)
-
-    if prog.scorer == "corr":
-        score = corr_scorer(ranges, angles, m, prog, origin3, dtype)
-    else:
-        score = exact_scorer(ranges, angles, m, prog, dtype)
+    score = prog.scorer(ranges, angles, m, prog, anchor, delta, dtype)
 
     first = parts[0]
     s_post = score(torch.where(mask[:, None], parts, first))

@@ -3,11 +3,12 @@ made from a seed and a traffic file's parameters.
 
 The benchmark's own plain-torch copies of the port's scenario code
 (``sim/trajectory.py``: ``square_trajectory``, ``fit_trajectory_to_map``,
-``second_placement``; ``sim/simulator.py``: the fixed-step ray cast with
-unknown cells as obstacles, the range noise on returned beams, and
-``_noisy_odometry``), so the yardstick does not move when the program's
-copies do.  Two departures, both to make a tour that can run for any number
-of scans:
+``second_placement``; ``sim/simulator.py``: the range noise on returned
+beams and ``_noisy_odometry``), so the yardstick does not move when the
+program's copies do.  The clean ranges of a pose come from the
+configuration's sensor module (``sensors/<name>.py::scanner``: the
+likelihood field's is the simulator's fixed-step 2-D ray cast).  Two
+departures, both to make a tour that can run for any number of scans:
 
 * a lap of the square turns by exactly pi/2 at each corner (the turn rate
   is set so its ticks make a right angle; the port's 0.9 rad/s over
@@ -23,7 +24,7 @@ and so the work a scan asks for.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -36,7 +37,18 @@ class Traffic(NamedTuple):
     placement: np.ndarray    # (T,) int8 which placement of the tour
     odom_per_scan: int
     max_range: float
-    n_beams: int
+    n_beams: int             # M, the ranges of a scan
+    angles: object           # what a driver hands with every scan: (M,) or
+                             # (M, 2); None, the localizer's default sweep
+
+
+class Scanner(NamedTuple):
+    """What a sensor module gives the generator (``sensors/<name>.py::
+    scanner``)."""
+
+    clean: Callable          # (N, 3) float32 poses on the device -> (N, M)
+                             # float32 noiseless ranges there
+    angles: object           # Traffic.angles
 
 
 def seeds(seed: int, n: int = 3) -> list[int]:
@@ -108,31 +120,6 @@ def placements(occ, dist, res, origin, lap, p: dict) -> list[np.ndarray]:
     return [c - lap[:, :2].mean(axis=0) for c in out]
 
 
-def raycast(poses: torch.Tensor, angles: torch.Tensor, occ: torch.Tensor,
-            res: float, origin, max_range: float,
-            ray_step: float) -> torch.Tensor:
-    """(N, M) ranges: march each beam in ``ray_step`` steps; the first
-    non-free cell (occupied or unknown) returns its distance, leaving the
-    map or no hit returns ``max_range``."""
-    h, w = occ.shape
-    n_steps = int(max_range / ray_step)
-    d = torch.arange(1, n_steps + 1, dtype=torch.float32,
-                     device=poses.device) * ray_step
-    a = poses[:, 2:3] + angles[None, :]
-    x = poses[:, 0, None, None] + torch.cos(a)[..., None] * d
-    y = poses[:, 1, None, None] + torch.sin(a)[..., None] * d
-    mx = ((x - origin[0]) / res).to(torch.int32)
-    my = ((y - origin[1]) / res).to(torch.int32)
-    out = ~((mx >= 0) & (mx < w) & (my >= 0) & (my < h))
-    cell = occ[my.clamp(0, h - 1).long(), mx.clamp(0, w - 1).long()]
-    hit = ~out & (cell != 0)
-    event = out | hit
-    first = event.to(torch.uint8).argmax(dim=-1)
-    first_hit = hit.gather(-1, first[..., None])[..., 0]
-    return torch.where(event.any(dim=-1) & first_hit, d[first],
-                       max_range).to(torch.float32)
-
-
 def noisy_odometry(gt: np.ndarray, alpha, seed: int) -> np.ndarray:
     """(T, 3) odometry: the true per-step (rot1, trans, rot2) with
     alpha-scaled Gaussian noise, integrated from the first true pose."""
@@ -157,13 +144,20 @@ def noisy_odometry(gt: np.ndarray, alpha, seed: int) -> np.ndarray:
 
 
 def make(p: dict, occ_np: np.ndarray, dist_np: np.ndarray, res: float,
-         origin, scans: int, seed: int, device) -> Traffic:
+         origin, scans: int, seed: int, device,
+         scanner: Scanner | None = None) -> Traffic:
     """``scans`` scans of the mix ``p`` on the map: laps of the tour at
     the first placement, and, with ``kidnap_every`` > 0, the scans
     switching between the two placements every that many scans after
-    ``settle_scans`` (the odometry blind to it).  The lap's scans are ray
-    cast once a placement on ``device``; every scan gets its own range
-    noise there."""
+    ``settle_scans`` (the odometry blind to it).  The lap's clean scans
+    come from ``scanner`` once a placement on ``device`` (by default the
+    default sensor's on this grid); every scan gets its own range noise
+    there."""
+    if scanner is None:
+        from benchmark import world
+
+        scanner = world.sensor(world.DEFAULT_SENSOR).scanner(
+            world.World(occ_np, dist_np, res, tuple(origin)), p, device)
     odom_seed, noise_seed, _ = seeds(seed)
     lap = square_lap(p)
     spots = placements(occ_np, dist_np, res, origin, lap, p)
@@ -176,19 +170,16 @@ def make(p: dict, occ_np: np.ndarray, dist_np: np.ndarray, res: float,
     tick = t % len(lap)
     gt = lap[tick].copy()
     gt[:, :2] += np.stack(spots)[place]
-    occ = torch.from_numpy(occ_np).to(device)
-    angles = torch.linspace(-math.pi, math.pi, p["n_beams"],
-                            dtype=torch.float32, device=device)
     lap_scans = []
     for spot in spots:
         poses = lap.copy()
         poses[:, :2] += spot
-        lap_scans.append(raycast(
-            torch.from_numpy(poses.astype(np.float32)).to(device), angles,
-            occ, res, origin, p["max_range_m"], p["ray_step_m"]))
+        lap_scans.append(scanner.clean(
+            torch.from_numpy(poses.astype(np.float32)).to(device)))
     lap_scans = torch.stack(lap_scans)                      # (P, L, M)
+    n_beams = lap_scans.shape[-1]
     idx = torch.from_numpy(place.astype(np.int64) * len(lap) + tick).to(device)
-    clean = lap_scans.reshape(-1, p["n_beams"])[idx]
+    clean = lap_scans.reshape(-1, n_beams)[idx]
     gen = torch.Generator(device=device).manual_seed(noise_seed)
     noise = torch.randn(clean.shape, generator=gen, device=device)
     hit = clean < p["max_range_m"]
@@ -202,5 +193,5 @@ def make(p: dict, occ_np: np.ndarray, dist_np: np.ndarray, res: float,
     return Traffic(ranges=ranges.cpu().numpy(), odom=odom,
                    gt=gt.astype(np.float32), placement=place,
                    odom_per_scan=int(p["odom_per_scan"]),
-                   max_range=float(p["max_range_m"]),
-                   n_beams=int(p["n_beams"]))
+                   max_range=float(p["max_range_m"]), n_beams=int(n_beams),
+                   angles=scanner.angles)

@@ -1,8 +1,9 @@
 """The benchmark's own files, found by name: configurations, cells, traffic
-mixes and maps are JSON files under this folder, and a per-layer metric is
-a module under ``metrics/``.  Also the map as the benchmark makes it: the
-occupancy grid from a map file and its distance transform, computed here
-(scipy) and not by the program under test."""
+mixes and maps are JSON files under this folder, a per-layer metric is a
+module under ``metrics/`` and a sensor model a module under ``sensors/``.
+Also the map as the benchmark makes it: the occupancy grid from a map
+file's rectangles and its distance transform, computed here (scipy) and not
+by the program under test."""
 
 from __future__ import annotations
 
@@ -11,12 +12,28 @@ import json
 import re
 from pathlib import Path
 from types import ModuleType
+from typing import NamedTuple
 
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 OCCUPIED, FREE = 100, 0
+# the sensor of a configuration file that names none
+DEFAULT_SENSOR = "likelihood_field"
+
+
+class World(NamedTuple):
+    """A configuration's map as the benchmark makes it, by its sensor
+    module: the 2-D navigation grid that the tour's placements, the
+    reference's motion checks and its injection read, and what the module
+    itself adds (a voxel volume, ...)."""
+
+    occ: np.ndarray     # (H, W) int8: 0 free, 100 occupied, -1 unknown
+    dist: np.ndarray    # (H, W) float32 m to the nearest non-free cell
+    res: float
+    origin: tuple
+    own: object = None
 
 
 def _checked(name: str) -> str:
@@ -34,17 +51,28 @@ def load(kind: str, name: str) -> dict:
     return json.loads(path.read_text())
 
 
-def metric_reader(name: str) -> ModuleType:
-    """The module ``metrics/<name>.py`` that reads the per-layer metric
-    ``name``: it defines ``read(run)``, which returns a number or None."""
-    path = ROOT / "metrics" / f"{_checked(name)}.py"
+def _module(kind: str, name: str, what: str) -> ModuleType:
+    path = ROOT / kind / f"{_checked(name)}.py"
     if not path.is_file():
-        raise FileNotFoundError(f"no reader for metric {name!r} ({path})")
+        raise FileNotFoundError(f"no {what} {name!r} ({path})")
     spec = importlib.util.spec_from_file_location(
-        f"locbench_metric_{name.replace('.', '_').replace('-', '_')}", path)
+        f"locbench_{kind}_{name.replace('.', '_').replace('-', '_')}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def metric_reader(name: str) -> ModuleType:
+    """The module ``metrics/<name>.py`` that reads the per-layer metric
+    ``name``: it defines ``read(run)``, which returns a number or None."""
+    return _module("metrics", name, "reader for metric")
+
+
+def sensor(name: str) -> ModuleType:
+    """The module ``sensors/<name>.py`` of a configuration's ``"sensor"``:
+    everything of the benchmark that depends on the sensor model and its
+    map (``sensors/likelihood_field.py`` says what it defines)."""
+    return _module("sensors", name, "sensor module")
 
 
 def benchmark_spec() -> dict:

@@ -3,15 +3,17 @@
 in the benchmark's cells.  Each run is ``benchmark/harness.py::run_cell``
 untraced (as ``--trace 0``), with the program's tracing switched from
 outside: on before the run, so the warm-up captures each program's step
-with its stage stamps; the records reset as the window starts (the
-harness's set-up line) and collected as it ends (before its first metric
+with its stage stamps; the set-up's spans (``setup.*``: the beam
+tables' build) read and the records reset as the window starts (the
+harness's set-up line), and collected as it ends (before its first metric
 is read).  One process, in this order:
 
 1. the window: ``WINDOW`` seconds a run, tracing off, on, on, off at two
    seeds (each seed off and on).  Tracing's cost on ``scans_per_s``; the
    spans of each call against the harness's host clock around the same
    calls; every span's total, self time and count, host syncs, bodies run
-   and each program's stage times a scan; and the slowest 1% of
+   (the coarse builds among them, gated or not) and each program's stage
+   times a scan; the set-up's spans; and the slowest 1% of
    ``on_scan`` calls split by child, with the odometry before them (the
    records by scan number); the odometry messages by kind a scan (replayed,
    copied in, eager) against what the replay path should give, and its
@@ -47,7 +49,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 CELLS = ("house_staged_1m.square_track", "house_amcl_default.square_track",
-         "house_staged_1m.kidnap")
+         "house_staged_1m.kidnap", "house_beam_100k.kidnap")
 SEEDS = (2**31 + 977, 2**31 + 4099)
 WINDOW = 20.0      # part 1: seconds of a window
 SCANS = 200        # part 2: scans of a window
@@ -62,7 +64,8 @@ def log(*a) -> None:
 def cell_run(name: str, seed: int, seconds: float, on: bool, hook=None,
              overrides: dict | None = None):
     """One run of the cell with tracing ``on``: (the result line, what the
-    window recorded: ``tracing`` (``profiling.collect``), ``records``,
+    set-up and the window recorded: ``setup`` (the set-up's spans),
+    ``tracing`` (the window's ``profiling.collect``), ``records``,
     the harness's ``scans``, ``window_s``, ``odom_s`` (summed) and
     ``scan_s`` (each call), and ``hook(run)`` on the harness's run)."""
     from benchmark import harness, world
@@ -72,6 +75,7 @@ def cell_run(name: str, seed: int, seconds: float, on: bool, hook=None,
 
     def hlog(*a) -> None:
         if str(a[0]).startswith("set-up"):
+            got["setup"] = profiling.collect()["spans"]
             profiling.reset()       # the window starts next
         print(*a, file=sys.stderr, flush=True)
 
@@ -81,7 +85,7 @@ def cell_run(name: str, seed: int, seconds: float, on: bool, hook=None,
         mod = reader(metric)
 
         def read(run):
-            if not got:
+            if "tracing" not in got:
                 got.update(tracing=profiling.collect(),
                            records=profiling.records(), scans=run.scans,
                            window_s=run.window_s,
@@ -186,6 +190,9 @@ def window_reading(out: dict, got: dict) -> dict:
         "host_syncs_per_scan": tr["counters"].get("host_sync", 0) / n,
         "odom": odom_reading(got),
         "bodies_per_scan": {k: v / n for k, v in tr["bodies"].items()},
+        "setup_spans_ms": {k: v["total_ns"] * 1e-6
+                           for k, v in got["setup"].items()
+                           if k.startswith("setup.")},
         # each program's ms a scan of its own, and the scans it ran
         "stages": {p: {**{s: v[s]["ns"] * 1e-6 / v["begin"]["count"]
                           for s in profiling.STAGES[1:]},

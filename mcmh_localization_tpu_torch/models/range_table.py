@@ -58,13 +58,14 @@ from mcmh_localization_tpu_torch.ops.fused_score import (
     window_score,
 )
 from mcmh_localization_tpu_torch.ops.gather import PI_F32, gather_2d, theta_scale
-from mcmh_localization_tpu_torch.ops.graph import run_if
+from mcmh_localization_tpu_torch.ops.graph import run_always, run_if
 from mcmh_localization_tpu_torch.ops.scan_scores import (
     Mixture,
     TableGeometry,
     TableLevels,
     table_scores,
 )
+from mcmh_localization_tpu_torch.utils import profiling
 from mcmh_localization_tpu_torch.utils.f32 import divide, scalar
 
 
@@ -100,10 +101,13 @@ def quantize_table(table: torch.Tensor, max_range: float,
 
 
 def make_beam_tables(grid_map, config) -> BeamTables:
-    """The beam score field's precompute for a map (JAX :93-103)."""
-    table = build_range_table(grid_map, config.beam_table_n_theta,
-                              config.max_range)
-    return as_beam_tables(table, config)
+    """The beam score field's precompute for a map (JAX :93-103): the
+    range table's build and quantization, the span ``setup.beam_tables``
+    under tracing (its host time: the launches, not their end)."""
+    with profiling.span("setup.beam_tables"):
+        table = build_range_table(grid_map, config.beam_table_n_theta,
+                                  config.max_range)
+        return as_beam_tables(table, config)
 
 
 def as_beam_tables(table, config) -> BeamTables:
@@ -378,7 +382,9 @@ def beam_field_scores(
     ``corr_coarse_factor > 0``, its build ``run_if`` on
     ``coarse_gate_escapees`` in-map escapees (JAX's 0-or-1-iteration
     while_loop, :629-646: a conditional node in a captured step), else
-    take BLIND_SCORE.
+    take BLIND_SCORE.  With the gate at 0 the build runs on every scan
+    (``ops/graph.py::run_always``: under tracing its runs are counted as
+    the gated body's are).
 
     ``shard_bins_axis``: a process group over whose ranks the fine and
     coarse fields build their theta bins (``_sharded_bin_stack``).  Under
@@ -461,6 +467,10 @@ def beam_field_scores(
                                  coarse_build,
                                  [fill.expand(hc * kc, wc).contiguous()],
                                  donate=True)
+        elif shard_bins_axis is None:
+            # built on every scan, and counted as the gated body is
+            (coarse_t,) = run_always(coarse_build, lambda: [torch.empty(
+                (hc * kc, wc), dtype=torch.float32, device=dev)])
         else:
             (coarse_t,) = coarse_build()
         if score_validity:

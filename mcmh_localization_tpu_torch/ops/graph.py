@@ -15,6 +15,9 @@ nothing for a branch it does not take: the injection ``lax.cond``
   reads ``pred`` on the host and runs ``body`` behind an ``if``: the
   helper's plain version, as every kernel has one.
 
+``run_always(body, carry)`` is a body with no gate, counted as a gated
+one is.
+
 Under tracing (``utils/profiling.py``) both forms count the runs of each
 body by its function's name: the node's counter on the card, a host
 counter in the plain version.
@@ -164,6 +167,23 @@ def run_if(pred: torch.Tensor, body, carry: list, donate: bool = False
     finally:
         cap.end()
     return out
+
+
+def run_always(body, carry) -> list:
+    """``body()``, a body that runs on every step, counted under tracing
+    (``utils/profiling.py``) as ``run_if`` counts a body that ran: while a
+    step is captured with tracing on, as the body of an IF node on a true
+    predicate, whose counter counts the replays (``carry()`` gives the
+    node's outputs, tensors of the body's shapes and dtypes); anywhere
+    else, the call and the plain version's count.  With tracing off it is
+    the call alone, captured or not."""
+    if (profiling.enabled() and _active is not None
+            and torch.cuda.is_current_stream_capturing()):
+        out = carry()
+        return run_if(torch.ones((), dtype=torch.bool, device=out[0].device),
+                      body, out, donate=True)
+    profiling.ran(getattr(body, "__name__", ""))
+    return list(body())
 
 
 # libcuda's CUgraphNodeType values that node_counts names

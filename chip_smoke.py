@@ -66,6 +66,18 @@
    scans in both cell forms, form (a) at 2 x 20k poses on a 2160-beam
    scan in its level and per-pair forms, and form (b) at 2 x 20k poses on
    a 32-ring x 1024 = 32 768-beam scan.
+   ``[weight_chain]``: the filter step's weight chain
+   (``csrc/weight_chain.cu``, ``ops/weight_chain.py``) against the plain
+   PyTorch chain at the four cells' shapes (the default configuration's
+   5000 slots, the beam cell's 100k, SMALL's 130 048 with the carry,
+   BIG's 1M with "sum"; a seventh of the slots past the count), and its
+   other variants (symmetric, no MH, no guard, the reference's w_avg and
+   backward delta, "cluster", "anchor" with the margin, not adaptive) at
+   5000 and 130 048: the accepts that flip at u = alpha counted and
+   bounded, every other field within the tolerances stated at
+   ``CHAIN_RTOL_WEIGHTS``; a second call and three replays of a captured
+   call bitwise the first; timed beside its bound (bytes) and the plain
+   chain, with the launches a call.
 4. ``[main]``: the staged main path: AMHAMCL, KLD-adaptive at 1M capacity /
    100k minimum, 360 beams, the staged two-program runner with a 0.9
    tracking ESS gate and the windowed corr scorer, on a procedural 384x384
@@ -1783,6 +1795,241 @@ def compare_beam_kernel(gm, beam_model, ranges, angles, rows):
     next(r for r in rows if r["name"] == "window_score")["shapes"].append(row)
 
 
+# [weight_chain]: the four cells' correct steps, (tag, slots): the default
+# configuration's 5000, the beam cell's 100k, SMALL's 130 048 and BIG's 1M;
+# each with a seventh of its slots past the count
+CHAIN_SHAPES = (("default", 5000), ("beam", 100_000), ("small", 130_048),
+                ("big", 1_000_000))
+# the other variants the kernels take, checked at 5000 and at SMALL's slots
+CHAIN_VARIANTS = {
+    "symmetric": dict(mode="MHAMCL", resample_ess_threshold=0.9),
+    "no_mh": dict(mode="AMCL", resample_ess_threshold=0.9),
+    "noguard_carry_sum": dict(ref_compat_assym_guard=False,
+                              resample_ess_threshold=0.9,
+                              score_aggregation="sum"),
+    "ref_w_avg_bwd": dict(ref_compat_w_avg=True,
+                          ref_compat_backward_delta=True,
+                          ref_compat_assym_guard=False),
+    "cluster": dict(estimate_mode="cluster", ref_compat_assym_guard=False),
+    "anchor_margin_sum": dict(estimate_mode="anchor", anchor_score_margin=0.5,
+                              score_aggregation="sum",
+                              anchor_commit_scans=2),
+    "not_adaptive": dict(mode="AMHMCL", ref_compat_assym_guard=False),
+}
+# Tolerances of the kernels against the plain chain on the card.  Each
+# slot's arithmetic is the plain chain's, operation by operation; the sums
+# (the softmax's, the normaliser, the averages, the masses, the moments)
+# are taken in another order, each within a few ulps a term of the f32
+# sum: a relative 1e-5 on the weights and averages, 1e-4 on the masses and
+# the ESS, 1e-3 on the covariance (about a mean that cancels), 1e-4 m on
+# the mean.  A slot whose u lies within that rounding of alpha can accept
+# in one and reject in the other: such flips are counted, at most
+# CHAIN_FLIPS_PER_SLOT a slot (about 1e-6 a slot at these alphas) plus 2,
+# and their slots are left out of the weights' comparison.
+CHAIN_RTOL_WEIGHTS = 1e-5
+CHAIN_RTOL_MASS = 1e-4
+CHAIN_RTOL_COV = 1e-3
+CHAIN_ATOL_MEAN = 1e-4
+CHAIN_FLIPS_PER_SLOT = 1e-5
+# A weight at or below it may come from a subnormal exp (BIG's sums of 360
+# beams spread the scores over hundreds of nats): there the last bit of the
+# normaliser moves it by more than its relative share, so it is held to an
+# absolute CHAIN_ATOL_TINY instead.
+CHAIN_NORMAL = 1e-30
+CHAIN_ATOL_TINY = 1e-36
+
+
+def chain_config(tag: str, **kw):
+    """The FilterConfig of a cell's correct step (the chain reads only its
+    mode and flags), with ``kw`` on top."""
+    from mcmh_localization_tpu_torch.config import FilterConfig
+
+    by_tag = {"default": {}, "beam": {},
+              "small": dict(resample_ess_threshold=0.9),
+              "big": dict(score_aggregation="sum", injection_refill=True)}
+    return FilterConfig().replace(**{**by_tag[tag], **kw})
+
+
+def chain_inputs(n: int, config, dev, seed: int):
+    """(state, s_both, ranges, u) of n slots: a cloud around START and its
+    moved copy, carried weights over the count (a seventh of the slots
+    past it), scores of the config's aggregation, a 360-beam scan with a
+    ninth of its beams invalid."""
+    from mcmh_localization_tpu_torch.filter.state import FilterState
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    count = n - n // 7
+    prev = torch.stack([START[0] + 0.3 * randn(n), START[1] + 0.3 * randn(n),
+                        START[2] + 0.2 * randn(n)], 1)
+    delta = torch.tensor([0.05, 0.03, -0.02], device=dev)
+    th = prev[:, 2] + delta[0] + 0.02 * randn(n)
+    step = delta[1] + 0.01 * randn(n)
+    cur = torch.stack([prev[:, 0] + step * torch.cos(th),
+                       prev[:, 1] + step * torch.sin(th),
+                       (th + delta[2] + 0.02 * randn(n) + math.pi)
+                       % (2 * math.pi) - math.pi], 1).contiguous()
+    per_slot = config.score_aggregation == "sum"
+    s = (-250.0 + 25.0 * randn(2 * n)) if per_slot else (-2.5 + 0.4 * randn(2 * n))
+    if not config.use_mh:
+        s = s[:n].contiguous()
+    w = torch.softmax(0.5 * randn(n), 0)
+    w[count:] = 0.0
+    w = w / w.sum()
+    u = torch.rand((n,), generator=g, device=dev)
+    ranges = 0.3 + 5.7 * torch.rand((N_BEAMS,), generator=g, device=dev)
+    ranges[::9] = float("inf")
+    state = FilterState(
+        particles=cur, prev_particles=prev.contiguous(), weights=w,
+        count=torch.tensor(count, dtype=torch.int32, device=dev),
+        w_slow=torch.tensor(0.08, device=dev),
+        w_fast=torch.tensor(0.07, device=dev), delta=delta,
+        anchor=cur[3].clone(),
+        anchor_streak=torch.tensor(1, dtype=torch.int32, device=dev),
+        key=torch.Generator(device=dev).manual_seed(seed))
+    return state, s, ranges, u
+
+
+def chain_errors(got, want, count: int) -> dict:
+    """The kernels' result against the plain chain's: the flipped accepts
+    and each field's error (relative for the weights, averages, masses,
+    ESS and covariance; absolute for the accept rate and the mean, m)."""
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+    flips = (got.particles != want.particles).any(1)
+    keep = ~flips & (want.weights > CHAIN_NORMAL)
+    dw = ((got.weights - want.weights).abs()[keep] / want.weights[keep])
+    tiny = ~flips & (want.weights <= CHAIN_NORMAL)
+    same_zero = torch.equal(got.weights[want.weights == 0],
+                            want.weights[want.weights == 0])
+    return dict(
+        flips=int(flips.sum()),
+        weights=float(dw.max()) if dw.numel() else 0.0,
+        tiny_weights=float((got.weights - want.weights).abs()[tiny].max())
+        if tiny.any() else 0.0,
+        zeros_equal=bool(same_zero),
+        w_slow=rel(got.w_slow, want.w_slow),
+        w_fast=rel(got.w_fast, want.w_fast),
+        accept=float((got.accept_rate - want.accept_rate).abs()),
+        anchor_equal=bool(torch.equal(got.anchor, want.anchor)),
+        streak_equal=bool(torch.equal(got.anchor_streak, want.anchor_streak)),
+        mass=rel(got.anchor_mass, want.anchor_mass),
+        mean=float((got.estimate.mean - want.estimate.mean).abs().max()),
+        cov=float(torch.linalg.norm(got.estimate.cov - want.estimate.cov)
+                  / torch.linalg.norm(want.estimate.cov).clamp(min=1e-30)),
+        ess=rel(got.ess, want.ess))
+
+
+def check_chain(tag: str, err: dict, count: int) -> None:
+    flips_max = 2 + CHAIN_FLIPS_PER_SLOT * count
+    check(err["flips"] <= flips_max,
+          f"[weight_chain] {tag}: {err['flips']} flipped accepts > {flips_max}")
+    check(err["accept"] <= (err["flips"] + 0.5) / count,
+          f"[weight_chain] {tag}: accept rate off by {err['accept']}")
+    for k, tol in (("weights", CHAIN_RTOL_WEIGHTS), ("w_slow", CHAIN_RTOL_WEIGHTS),
+                   ("w_fast", CHAIN_RTOL_WEIGHTS), ("mass", CHAIN_RTOL_MASS),
+                   ("ess", CHAIN_RTOL_MASS), ("cov", CHAIN_RTOL_COV),
+                   ("mean", CHAIN_ATOL_MEAN),
+                   ("tiny_weights", CHAIN_ATOL_TINY)):
+        check(err[k] <= tol, f"[weight_chain] {tag}: {k} error {err[k]} > {tol}")
+    for k in ("zeros_equal", "anchor_equal", "streak_equal"):
+        check(err[k], f"[weight_chain] {tag}: {k} is False")
+
+
+def chain_bytes(n: int, config, m: int) -> int:
+    """The chain's bytes, each input read once and each output written
+    once: the scores, the carried weights, both sets, u, the scan; the
+    selected set and the weights (with MH) written."""
+    mh = config.use_mh
+    carry = config.resample_ess_threshold < 1.0
+    return (n * (8 if mh else 4) + (4 * n if carry else 0) + 24 * n
+            + (4 * n if mh else 0) + 4 * m + (12 * n if mh else 0) + 4 * n)
+
+
+def drive_weight_chain(dev, rows) -> dict:
+    """``[weight_chain]``: ``csrc/weight_chain.cu`` against the plain chain
+    on the card at the four cells' shapes (and the other variants at
+    SMALL's slots and at 5000), a second call and three replays of a
+    captured call bitwise the first call; timed beside its bound (bytes)
+    and the plain chain, with the launches a call."""
+    from mcmh_localization_tpu_torch.ops import _cuda
+    from mcmh_localization_tpu_torch.ops import weight_chain as wc
+
+    out = {}
+    smi = nvidia_smi_line()
+
+    def run_case(tag, n, config, seed, timed=False):
+        state, s, ranges, u = chain_inputs(n, config, dev, seed)
+        want = wc.weight_chain_plain(s, state, ranges, config, u)
+        _cuda.reset_launch_counts()
+        got = wc.weight_chain_cuda(s, state, ranges, config, u)
+        launched = _cuda.launch_counts().get("weight_chain", 0)
+        again = wc.weight_chain_cuda(s, state, ranges, config, u)
+        torch.cuda.synchronize()
+        fields = lambda r: [r.particles, r.weights, r.w_slow, r.w_fast,  # noqa: E731
+                            r.anchor, r.anchor_streak, r.anchor_mass,
+                            r.estimate.mean, r.estimate.cov, r.ess,
+                            r.accept_rate]
+        check(all(torch.equal(a, b) for a, b in zip(fields(got), fields(again))),
+              f"[weight_chain] {tag}: a second call differs from the first")
+        count = int(state.count)
+        err = chain_errors(got, want, count)
+        row = dict(n=n, count=count, launches=launched, **err)
+        print(f"[weight_chain] {tag} n={n} against the plain chain: "
+              f"{json.dumps(row)}")
+        check_chain(tag, err, count)
+        if timed:
+            ms = device_ms(lambda: wc.weight_chain_cuda(s, state, ranges,
+                                                        config, u))
+            pms = device_ms(lambda: wc.weight_chain_plain(s, state, ranges,
+                                                          config, u), runs=5)
+            nbytes = chain_bytes(n, config, ranges.numel())
+            rows.append(kernel_row(
+                "weight_chain", "weight_chain.cu",
+                "mcmh_localization_tpu/filter/step.py:651",
+                f"{tag} 2x{n} (count {count})", ms=ms, plain_ms=pms,
+                err=max(err["weights"], err["mean"]), ops=0, nbytes=nbytes,
+                launches_per_call=launched, flips=err["flips"]))
+            row.update(ms=ms, plain_ms=pms, bound_ms=bound_ms(0, nbytes)[0])
+        print(f"[weight_chain] {tag} n={n}: {json.dumps(row)} on {smi}")
+        return row, (state, s, ranges, u, got)
+
+    for i, (tag, n) in enumerate(CHAIN_SHAPES):
+        out[tag], held = run_case(tag, n, chain_config(tag), 1000 + i,
+                                  timed=True)
+        if tag == "small":
+            small = held
+    # the captured chain: three replays bitwise the eager call (the
+    # tickets' wrap leaves them at 0 for the next replay)
+    state, s, ranges, u, got = small
+    cfg = chain_config("small")
+    wc.weight_chain_cuda(s, state, ranges, cfg, u)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        cap = wc.weight_chain_cuda(s, state, ranges, cfg, u)
+    for k in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        check(torch.equal(cap.weights, got.weights)
+              and torch.equal(cap.estimate.cov, got.estimate.cov)
+              and torch.equal(cap.particles, got.particles),
+              f"[weight_chain] replay {k} differs from the eager call")
+    print(f"[weight_chain] small: 3 replays of the captured chain bitwise "
+          f"the eager call")
+    del graph, cap
+    for i, (name, kw) in enumerate(CHAIN_VARIANTS.items()):
+        for n in (5000, 130_048):
+            row, _ = run_case(f"{name}", n, chain_config("small", **kw),
+                              2000 + i)
+            out[f"{name}/{n}"] = row
+    return out
+
+
 def scan_at(gm, pose, m: int, max_range: float):
     """(ranges, angles): a ray-cast scan of ``m`` beams over [-pi, pi] from
     ``pose``."""
@@ -3460,6 +3707,8 @@ def main(argv=None) -> int:
           f"{MAP_CELLS}, {MAP_CELLS}) and its int8 forms built in "
           f"{time.perf_counter() - t0:.2f} s on {smi}")
     compare_past_caps(gm, beam_default, beam, vm, lidar_cfg, lidar, rows)
+    stamps.append(("weight_chain", time.perf_counter()))
+    drive_weight_chain(dev, rows)
     path_counts: dict[str, dict[str, int]] = {}
     path_scans: dict[str, int] = {}
 

@@ -11,7 +11,8 @@ is read).  One process, in this order:
 1. the window: ``WINDOW`` seconds a run, tracing off, on, on, off at two
    seeds (each seed off and on).  Tracing's cost on ``scans_per_s``; the
    spans of each call against the harness's host clock around the same
-   calls; every span's total, self time and count, host syncs, bodies run
+   calls; every span's total, self time and count, host syncs, the hand
+   kernels' launches and the weight chain's among them, bodies run
    (the coarse builds among them, gated or not) and each program's stage
    times a scan; the set-up's spans; and the slowest 1% of
    ``on_scan`` calls split by child, with the odometry before them (the
@@ -69,6 +70,7 @@ def cell_run(name: str, seed: int, seconds: float, on: bool, hook=None,
     the harness's ``scans``, ``window_s``, ``odom_s`` (summed) and
     ``scan_s`` (each call), and ``hook(run)`` on the harness's run)."""
     from benchmark import harness, world
+    from mcmh_localization_tpu_torch.ops import _cuda
     from mcmh_localization_tpu_torch.utils import profiling
 
     got: dict = {}
@@ -77,6 +79,7 @@ def cell_run(name: str, seed: int, seconds: float, on: bool, hook=None,
         if str(a[0]).startswith("set-up"):
             got["setup"] = profiling.collect()["spans"]
             profiling.reset()       # the window starts next
+            _cuda.reset_launch_counts()
         print(*a, file=sys.stderr, flush=True)
 
     reader = world.metric_reader
@@ -86,7 +89,8 @@ def cell_run(name: str, seed: int, seconds: float, on: bool, hook=None,
 
         def read(run):
             if "tracing" not in got:
-                got.update(tracing=profiling.collect(),
+                got.update(launches=_cuda.launch_counts(),
+                           tracing=profiling.collect(),
                            records=profiling.records(), scans=run.scans,
                            window_s=run.window_s,
                            odom_s=float(run.odom_s.sum()),
@@ -188,6 +192,10 @@ def window_reading(out: dict, got: dict) -> dict:
                                   v["self_ns"] * 1e-6 / n, v["count"]]
                               for k, v in sorted(spans.items())},
         "host_syncs_per_scan": tr["counters"].get("host_sync", 0) / n,
+        # the hand kernels' launches (replays counted), and the weight
+        # chain's (csrc/weight_chain.cu) among them
+        "hand_launches_per_scan": sum(got["launches"].values()) / n,
+        "chain_launches_per_scan": got["launches"].get("weight_chain", 0) / n,
         "odom": odom_reading(got),
         "bodies_per_scan": {k: v / n for k, v in tr["bodies"].items()},
         "setup_spans_ms": {k: v["total_ns"] * 1e-6

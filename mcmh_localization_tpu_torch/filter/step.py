@@ -6,9 +6,10 @@ the planar pose on its 2-D navigation slice).
 
 One scan is ``_predict`` (odometry proposal, with rejection retries under
 motion_validity="reject") then ``_correct`` (score the proposed and
-previous sets in one call, MH, augmented-MCL bookkeeping, anchor refresh,
-estimate, the optionally ESS-gated resample: KLD, "simple" or "lvr" in the
-adaptive modes, systematic otherwise).
+previous sets in one call; the weight chain, ``ops/weight_chain.py``: MH,
+augmented-MCL bookkeeping, anchor refresh, estimate, ESS; the optionally
+ESS-gated resample: KLD, "simple" or "lvr" in the adaptive modes,
+systematic otherwise).
 
 The JAX program's data-dependent choices stay on the device: the corr
 and beam fields' window origin is a tensor (``_window_origin``) that the
@@ -41,30 +42,19 @@ import numpy as np
 import torch
 
 from mcmh_localization_tpu_torch.filter.captured import graph_capturable
-from mcmh_localization_tpu_torch.filter.estimate import (
-    PoseEstimate,
-    cluster_mass,
-    estimate_pose,
-    estimate_pose_cluster,
-    row_at,
-)
+from mcmh_localization_tpu_torch.filter.estimate import PoseEstimate
 from mcmh_localization_tpu_torch.filter.init import (
     init_gaussian,
     init_uniform,
     uniform_draws,
 )
-from mcmh_localization_tpu_torch.filter.mh import asymmetric_mh, symmetric_mh
 from mcmh_localization_tpu_torch.filter.state import (
     FilterState,
     make_generator,
     make_state,
 )
 from mcmh_localization_tpu_torch.models.corr_field import correlation_field_scores
-from mcmh_localization_tpu_torch.models.motion import (
-    invert_delta,
-    motion_density,
-    sample_motion,
-)
+from mcmh_localization_tpu_torch.models.motion import sample_motion
 from mcmh_localization_tpu_torch.models.range_table import (
     beam_field_scores,
     build_range_table,
@@ -82,20 +72,18 @@ from mcmh_localization_tpu_torch.models.sensor import (
     raycast_beam_scores,
     wrap_score_with_validity,
 )
+# the module, not its names: ops/weight_chain.py imports filter/ modules,
+# so either package may be imported first
+from mcmh_localization_tpu_torch.ops import weight_chain as chain
 from mcmh_localization_tpu_torch.ops.graph import run_if
 from mcmh_localization_tpu_torch.ops.resampling import (
-    effective_sample_size,
     kld_noise_rows,
     kld_resample,
     multinomial_resample_indices,
-    softmax_weights,
     systematic_resample_particles,
 )
 from mcmh_localization_tpu_torch.ops.scan_scores import table_levels
-from mcmh_localization_tpu_torch.utils.angles import (
-    normalize_angle,
-    normalize_angle_about,
-)
+from mcmh_localization_tpu_torch.utils.angles import normalize_angle
 from mcmh_localization_tpu_torch.utils import profiling
 from mcmh_localization_tpu_torch.utils.f32 import scalar
 
@@ -394,52 +382,6 @@ def _window_origin(state: FilterState, grid_map, config,
     return window_origin_at(cx, cy, mean_t, grid_map, config, n_theta)
 
 
-def refresh_anchor(particles, weights, anchor, streak, config, mask,
-                   score_scale=1.0):
-    """Cluster-mass-gated, debounced window-anchor update; returns
-    (anchor, anchor_mass, streak).  See the JAX docstring (step.py:307)."""
-    w = torch.where(mask, weights, 0.0)
-    top = torch.argmax(w)
-    cand = row_at(particles, top).to(torch.float32)
-    rxy, rth = config.cluster_radius_xy, config.cluster_radius_theta
-    m_cand = cluster_mass(particles, w, cand, rxy, rth)
-    m_cur = cluster_mass(particles, w, anchor, rxy, rth)
-    d_xy = torch.hypot(cand[0] - anchor[0], cand[1] - anchor[1])
-    d_th = torch.abs(normalize_angle_about(cand[2], anchor[2]))
-    same_mode = (d_xy <= rxy) & (d_th <= rth)
-    migrate = m_cand > config.anchor_hysteresis * m_cur
-    if config.anchor_score_margin > 0.0:
-        d2 = ((particles[:, 0] - anchor[0]) ** 2
-              + (particles[:, 1] - anchor[1]) ** 2)
-        inc = (d2 <= rxy ** 2) & (
-            torch.abs(normalize_angle_about(particles[:, 2], anchor[2])) <= rth)
-        w_inc_top = torch.where(inc, w, 0.0).max()
-        w_cand_top = row_at(w, top)
-        migrate = migrate & (
-            w_inc_top < w_cand_top * torch.exp(
-                torch.as_tensor(-config.anchor_score_margin * score_scale)))
-    challenge = migrate & ~same_mode
-    streak = torch.where(challenge, streak + 1, 0).to(torch.int32)
-    migrate = migrate & (streak >= config.anchor_commit_scans)
-    adopt = same_mode | migrate
-    streak = torch.where(migrate, 0, streak).to(torch.int32)
-    return (
-        torch.where(adopt, cand, anchor).to(torch.float32),
-        torch.where(adopt, m_cand, m_cur),
-        streak,
-    )
-
-
-def _transition_probabilities(state: FilterState, config):
-    fwd = motion_density(state.prev_particles, state.particles, state.delta,
-                         config.alpha)
-    bwd_delta = invert_delta(state.delta,
-                             ref_compat=config.ref_compat_backward_delta)
-    bwd = motion_density(state.particles, state.prev_particles, bwd_delta,
-                         config.alpha)
-    return fwd, bwd
-
-
 def _p_random(state: FilterState, config) -> torch.Tensor:
     p = torch.clamp(1.0 - state.w_fast / (state.w_slow + 1e-9), min=0.0)
     return torch.where(p >= config.min_injection_prob, p, 0.0)
@@ -615,8 +557,9 @@ def _resample_draws(state: FilterState, grid_map, config, d: Draws,
 
 
 def _beam_count(ranges: torch.Tensor, config) -> torch.Tensor:
-    sig = ranges[:: config.step] if config.step > 1 else ranges
-    return (torch.isfinite(sig) & (sig < config.max_range)).sum()
+    """``ops/weight_chain.py::beam_count``, under the name the multi-device
+    step imports (``parallel/distributed.py``)."""
+    return chain.beam_count(ranges, config)
 
 
 def _correct(state: FilterState, ranges: torch.Tensor, angles: torch.Tensor,
@@ -646,73 +589,23 @@ def _correct(state: FilterState, ranges: torch.Tensor, angles: torch.Tensor,
     anchor = state.particles[0]
     p_sc = torch.where(mask[:, None], state.particles, anchor)
     carry_on = config.resample_ess_threshold < 1.0
-    log_carry = (torch.log(torch.clamp(state.weights, min=1e-30))
-                 if carry_on else 0.0)
     if config.use_mh:
-        n_max = state.n_max
         prev_sc = torch.where(mask[:, None], state.prev_particles, anchor)
         s_both = score(torch.cat([p_sc, prev_sc]))  # one field build
-        profiling.stamp("score")
-        s_post = s_both[:n_max]
-        weights_post = softmax_weights(s_post + log_carry, mask)
-        weights_pre = softmax_weights(s_both[n_max:] + log_carry, mask)
-        if config.asymmetric:
-            fwd, bwd = _transition_probabilities(state, config)
-            particles, weights, accepted = asymmetric_mh(
-                state.prev_particles, state.particles, weights_post,
-                weights_pre, fwd, bwd,
-                ref_compat_guard=config.ref_compat_assym_guard,
-                u=d.mh_u, generator=state.key)
-        else:
-            particles, weights, accepted = symmetric_mh(
-                state.prev_particles, state.particles, weights_post,
-                weights_pre, u=d.mh_u, generator=state.key)
-        accept_rate = (torch.where(mask, accepted, False).sum()
-                       / torch.clamp(state.count, min=1))
-        state = state.replace(particles=particles)
     else:
-        s_post = score(p_sc)
-        profiling.stamp("score")
-        weights = softmax_weights(s_post + log_carry, mask)
-        accept_rate = scalar(1.0, state.device)
-    profiling.stamp("mh")
+        s_both = score(p_sc)
+    profiling.stamp("score")
 
-    # -- augmented-MCL bookkeeping (update_acml_weights, :276-286)
-    weights = torch.where(mask, weights, 0.0)
-    weights = weights / torch.clamp(weights.sum(), min=1e-30)
-    if config.use_adaptive:
-        if config.ref_compat_w_avg:
-            w_avg = weights.sum() / torch.clamp(state.count, min=1)
-        else:
-            # per-beam geometric-mean likelihood of the current set
-            per_beam = (s_post / torch.clamp(_beam_count(ranges, config), min=1)
-                        if config.score_aggregation == "sum" else s_post)
-            w_avg = (torch.where(mask, torch.exp(per_beam), 0.0).sum()
-                     / torch.clamp(state.count, min=1))
-        state = state.replace(
-            w_slow=state.w_slow + config.alpha_slow * (w_avg - state.w_slow),
-            w_fast=state.w_fast + config.alpha_fast * (w_avg - state.w_fast),
-        )
-    state = state.replace(weights=weights)
-
-    # -- window anchor refresh on the pre-resample weights
-    scale = (torch.clamp(_beam_count(ranges, config), min=1).to(torch.float32)
-             if config.score_aggregation == "sum" else 1.0)
-    new_anchor, anchor_mass, new_streak = refresh_anchor(
-        state.particles, state.weights, state.anchor, state.anchor_streak,
-        config, mask, score_scale=scale)
-    state = state.replace(anchor=new_anchor, anchor_streak=new_streak)
-
-    # -- estimate before resampling (:327)
-    if config.estimate_mode in ("cluster", "anchor"):
-        est = estimate_pose_cluster(
-            state.particles, state.weights, mask,
-            radius_xy=config.cluster_radius_xy,
-            radius_theta=config.cluster_radius_theta,
-            anchor=state.anchor if config.estimate_mode == "anchor" else None)
-    else:
-        est = estimate_pose(state.particles, state.weights, mask)
-    ess = effective_sample_size(state.weights)
+    # -- softmax, MH, the augmented-MCL averages (update_acml_weights,
+    # :276-286), the anchor refresh on the pre-resample weights and the
+    # estimate before resampling (:327): ops/weight_chain.py, which
+    # stamps "mh" where the MH ends
+    ch = chain.weight_chain(s_both, state, ranges, config, u=d.mh_u)
+    state = state.replace(
+        particles=ch.particles, weights=ch.weights, w_slow=ch.w_slow,
+        w_fast=ch.w_fast, anchor=ch.anchor, anchor_streak=ch.anchor_streak)
+    est, ess, accept_rate = ch.estimate, ch.ess, ch.accept_rate
+    anchor_mass = ch.anchor_mass
     profiling.stamp("estimate")
 
     # -- resample, ESS-gated when the threshold is below 1 (run_if in

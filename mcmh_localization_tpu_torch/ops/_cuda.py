@@ -32,7 +32,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("corr_field_build.cu", "gather.cu", "rank.cu", "fused_score.cu",
            "likelihood.cu", "take.cu", "beam_field.cu", "scan_scores.cu",
-           "edt.cu", "graph_cond.cu", "bin_lut.cu", "trace_stamp.cu")
+           "edt.cu", "graph_cond.cu", "bin_lut.cu", "trace_stamp.cu",
+           "weight_chain.cu")
 HEADERS = ("thread_runs.cuh", "stage_beams.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -94,6 +95,20 @@ class VoxelArgs(ctypes.Structure):
             (name, _I) for name in ("h", "w", "sum_aggregation")]
 
 
+class ChainArgs(ctypes.Structure):
+    """csrc/weight_chain.cu's ``ChainArgs``, passed by value."""
+
+    _fields_ = [(name, _P) for name in (
+        "scores", "w_in", "particles", "prev", "delta", "u", "count",
+        "w_slow", "w_fast", "anchor", "streak", "ranges", "p_out", "w_out",
+        "out", "streak_out", "scratch")] + [(name, _I) for name in (
+            "n", "n_ranges", "range_step", "mh", "guard", "carry", "adaptive",
+            "ref_w_avg", "sum_agg", "est_mode", "margin_on", "ref_bwd",
+            "commit")] + [(name, _F) for name in (
+                "a1", "a2", "a3", "a4", "alpha_slow", "alpha_fast", "rxy",
+                "rxy2", "rth", "hysteresis", "neg_margin", "max_range")]
+
+
 _SIGNATURES = {
     "mcmh_corr_field_build": (_P, _I, _I, _P, _P, _I, _I, _P, _I, _I, _I, _P,
                               _P),
@@ -137,6 +152,9 @@ _SIGNATURES = {
     "mcmh_cond_begin": (_P, _P, _P, _P, _P),
     "mcmh_cond_end": (_P,),
     "mcmh_trace_stamp": (_P, _I, _I, _P),
+    "mcmh_weight_chain_scratch_floats": (_I,),
+    "mcmh_weight_chain_mh": (ChainArgs, _P),
+    "mcmh_weight_chain_estimate": (ChainArgs, _P),
 }
 
 _lib = None

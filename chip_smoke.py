@@ -28,9 +28,10 @@
    20k poses the f32 volume, and the beams in one tile (the first 500)
    in both forms (each ``torch.equal`` to its plain version, with the
    lanes a pose it ran with; (a)'s variants in both aggregations), the
-   window-score lookup of 2x1M poses (also on a
+   window-score lookup of 2x1M poses at its device-held origin (also on a
    misaligned view of 200 003 of them, in the beam op forms at the beam
-   path's geometry and 2x100k poses, and its escapee count at 2x1M), the
+   path's geometry and 2x100k poses, and its escapee count at 2x1M; both
+   also at the window's clamps, the theta wrap and kstart 0), the
    exact scorer at 2x1500 and 2x100k poses in both cell forms (bitwise,
    with the lanes a pose it ran with), the 1M resampling expansion
    (bitwise on the path's raw bound and on one with injected dips, beside
@@ -730,11 +731,13 @@ def field_build_row(tag, padded, ox, oy, fh, fw, m, lmax, table,
         library_ms=lms, library=f"conv2d, err {cerr:.3g}", **extra), out
 
 
-def window_score_row(fine_t, coarse_t, parts, geo, denom, n_valid,
+def window_score_row(fine_t, coarse_t, parts, geo, origin, denom, n_valid,
                      forms: str) -> dict:
-    """Kernel 5 on one cloud: bitwise against its plain version, timed
-    beside its bound (each pose read once and its score written, one fine
-    or one coarse value read a pose on the map)."""
+    """Kernel 5 on one cloud, the window's corner and first bin read from
+    the device-held ``origin`` (the paths' form): bitwise against its
+    plain version, timed beside its bound (each pose read once and its
+    score written, one fine or one coarse value read a pose on the map,
+    and the origin's 12 bytes)."""
     from mcmh_localization_tpu_torch.ops.fused_score import (
         window_indices,
         window_score,
@@ -742,37 +745,34 @@ def window_score_row(fine_t, coarse_t, parts, geo, denom, n_valid,
     )
 
     args = (fine_t, coarse_t, parts, geo, denom, -100.0)
-    out = window_score(*args, count=n_valid)
-    ref = window_score_plain(*args, count=n_valid)
-    covered, _, _, in_map = window_indices(parts, geo)
+    out = window_score(*args, count=n_valid, origin=origin)
+    ref = window_score_plain(*args, count=n_valid, origin=origin)
+    covered, _, _, in_map = window_indices(parts, geo, origin)
     torch.cuda.synchronize()
-    check(torch.equal(out, ref), f"window_score ({forms}): kernel != plain")
+    check(torch.equal(out, ref), f"window_score_at ({forms}): kernel != plain")
     n = parts.shape[0]
     n_esc = int((in_map & ~covered).sum())
     n_off = int((~in_map).sum())
-    ms = device_ms(lambda: window_score(*args, count=n_valid))
-    pms = device_ms(lambda: window_score_plain(*args, count=n_valid))
-    print(f"[kernel] window_score ({forms}): N={n} fine "
+    ms = device_ms(lambda: window_score(*args, count=n_valid, origin=origin))
+    pms = device_ms(lambda: window_score_plain(*args, count=n_valid,
+                                               origin=origin))
+    print(f"[kernel] window_score_at ({forms}): N={n} fine "
           f"{tuple(fine_t.shape)} coarse {tuple(coarse_t.shape)} "
           f"escapees={n_esc} off_map={n_off} bitwise=True")
     return kernel_row(
-        "window_score", "fused_score.cu", "fused_score_pallas.py:170",
+        "window_score_at", "fused_score.cu", "fused_score_pallas.py:170",
         f"{forms} N={n}", ms=ms, plain_ms=pms, err=0.0, ops=n,
         nbytes=n * (12 + 4) + gathered_bytes(fine_t, n - n_esc - n_off)
-        + gathered_bytes(coarse_t, n_esc), shapes=[])
+        + gathered_bytes(coarse_t, n_esc) + 12, shapes=[])
 
 
-def window_at_rows(fine_t, coarse_t, parts, geo, denom, n_valid,
-                   score_ms: float, esc_ms: float) -> list:
-    """Kernel 5's ``_at`` entries, the window's corner and first bin read
-    from device memory (the flagship's form), at the flagship's shape: the
-    score and the escapee count ``torch.equal`` to their plain versions
-    (given the same origin tensor) and to the launch-argument kernels at
-    the window's clamps (corner at 0 and at h - win), at the theta wrap
-    (kstart = n_theta - 1), at the flagship's window and with the corner
-    alone, under a geometry that holds another window; then timed at the flagship's window beside
-    the launch-argument form (``score_ms``, ``esc_ms``, timed on the same
-    cloud).  Returns the two rows."""
+def window_origin_checks(fine_t, coarse_t, parts, geo, denom, n_valid,
+                         window) -> None:
+    """Kernel 5 at other origins than the flagship's ``window`` (oy0, ox0,
+    kstart), at the flagship's shape: the window's clamps (corner at 0
+    and at h - win), the theta wrap (kstart = n_theta - 1) and kstart 0
+    (a window without a theta window); the score and the escapee count
+    ``torch.equal`` to their plain versions."""
     from mcmh_localization_tpu_torch.ops.fused_score import (
         window_escapees,
         window_escapees_plain,
@@ -781,70 +781,30 @@ def window_at_rows(fine_t, coarse_t, parts, geo, denom, n_valid,
         window_score_plain,
     )
 
-    dev = parts.device
-    n = parts.shape[0]
+    oy0, ox0, kstart = window
     cases = {
-        "corner at 0": (0, 0, geo.kstart),
-        "corner at h - win": (geo.h - geo.fh, geo.w - geo.fw, geo.kstart),
-        "theta wrap": (geo.oy0, geo.ox0, geo.n_theta - 1),
-        "flagship window": (geo.oy0, geo.ox0, geo.kstart),
-        # a (2,) origin (no theta window): kstart stays the geometry's
-        "corner only": (geo.oy0, geo.ox0),
+        "corner at 0": (0, 0, kstart),
+        "corner at h - win": (geo.h - geo.fh, geo.w - geo.fw, kstart),
+        "theta wrap": (oy0, ox0, geo.n_theta - 1),
+        "kstart 0": (oy0, ox0, 0),
     }
-    other = geo._replace(ox0=1, oy0=2, kstart=3)
+    args = (fine_t, coarse_t, parts, geo, denom, -100.0)
     for tag, o in cases.items():
-        origin = torch.tensor(o, dtype=torch.int32, device=dev)
-        host = geo._replace(oy0=o[0], ox0=o[1],
-                            kstart=o[2] if len(o) > 2 else other.kstart)
-        args = (fine_t, coarse_t, parts)
-        got = window_score(*args, other, denom, -100.0, count=n_valid,
-                           origin=origin)
-        ref = window_score_plain(*args, other, denom, -100.0, count=n_valid,
-                                 origin=origin)
-        launch = window_score(*args, host, denom, -100.0, count=n_valid)
-        esc = [int(window_escapees(parts, other, origin=origin)),
-               int(window_escapees_plain(parts, other, origin=origin)),
-               int(window_escapees(parts, host))]
-        covered, _, _, in_map = window_indices(parts, host)
+        origin = torch.tensor(o, dtype=torch.int32, device=parts.device)
+        got = window_score(*args, count=n_valid, origin=origin)
+        ref = window_score_plain(*args, count=n_valid, origin=origin)
+        esc = [int(window_escapees(parts, geo, origin)),
+               int(window_escapees_plain(parts, geo, origin))]
+        covered, _, _, _ = window_indices(parts, geo, origin)
         torch.cuda.synchronize()
-        check(torch.equal(got, ref) and torch.equal(got, launch),
-              f"window_score_at ({tag}, origin {o}): kernel != plain or != "
-              "the launch-argument kernel")
-        check(esc[0] == esc[1] == esc[2], f"window_escapees_at ({tag}, "
-              f"origin {o}): kernel, plain, launch-argument counts {esc}")
+        check(torch.equal(got, ref), f"window_score_at ({tag}, origin {o}): "
+              "kernel != plain")
+        check(esc[0] == esc[1], f"window_escapees_at ({tag}, origin {o}): "
+              f"kernel, plain counts {esc}")
         print(f"[kernel] window_score_at / window_escapees_at ({tag}, origin "
-              f"(oy0, ox0, kstart) = {o}): N=2x{n // 2}, "
+              f"(oy0, ox0, kstart) = {o}): N=2x{parts.shape[0] // 2}, "
               f"{int(covered.sum())} covered, {esc[0]} escapees; bitwise "
-              "its plain version and the launch-argument kernel")
-    o = cases["flagship window"]
-    origin = torch.tensor(o, dtype=torch.int32, device=dev)
-    covered, _, _, in_map = window_indices(parts, geo)
-    n_fine = int((covered & in_map).sum())
-    n_esc = int((~covered & in_map).sum())
-    ms = device_ms(lambda: window_score(fine_t, coarse_t, parts, other, denom,
-                                        -100.0, count=n_valid, origin=origin))
-    pms = device_ms(lambda: window_score_plain(
-        fine_t, coarse_t, parts, other, denom, -100.0, count=n_valid,
-        origin=origin))
-    ms_e = device_ms(lambda: window_escapees(parts, other, origin=origin))
-    pms_e = device_ms(lambda: window_escapees_plain(parts, other,
-                                                    origin=origin))
-    print(f"[kernel] window_score_at N=2x{n // 2}: {ms:.4f} ms beside the "
-          f"launch-argument form's {score_ms:.4f}; window_escapees_at "
-          f"{ms_e:.4f} beside {esc_ms:.4f}, on {nvidia_smi_line()}")
-    # window_score_row's work, and the origin's 12 bytes
-    score_row = kernel_row(
-        "window_score_at", "fused_score.cu", "fused_score_pallas.py:170",
-        f"corr op forms N=2x{n // 2}, origin in device memory", ms=ms,
-        plain_ms=pms, err=0.0, ops=n,
-        nbytes=n * (12 + 4) + gathered_bytes(fine_t, n_fine)
-        + gathered_bytes(coarse_t, n_esc) + 12, prev_ms=score_ms)
-    esc_row = kernel_row(
-        "window_escapees_at", "fused_score.cu",
-        "mcmh_localization_tpu/models/corr_field.py:553",
-        f"N=2x{n // 2}, origin in device memory", ms=ms_e, plain_ms=pms_e,
-        err=0.0, ops=n, nbytes=12 * n + 4 + 12, prev_ms=esc_ms)
-    return [score_row, esc_row]
+              "its plain version")
 
 
 def rank_pattern_rows(r: int, gen) -> list:
@@ -983,19 +943,14 @@ def compare_kernels(gm, cfg, small_cfg, log_field, ranges, angles, rows):
     cov = torch.diag(torch.tensor(cfg.initial_cov))
     geo_big = LookupGeometry(gm.origin_xy[0], gm.origin_xy[1], gm.inv_res,
                              cfg.corr_n_theta, cfg.corr_n_theta, h, w, h, w)
-    # SMALL: the window and theta window at the device-held origin (the
-    # step's form); the earlier form took them as launch arguments
-    geo_small_host = LookupGeometry(gm.origin_xy[0], gm.origin_xy[1],
-                                    gm.inv_res, cfg.corr_n_theta, tw, win,
-                                    win, h, w, kstart=kstart,
-                                    window=(ox0, oy0))
-    geo_small = geo_small_host._replace(kstart=None, window=None,
-                                        theta_window=True, space_window=True)
+    # SMALL: the window and theta window at the device-held origin
+    geo_small = LookupGeometry(gm.origin_xy[0], gm.origin_xy[1], gm.inv_res,
+                               cfg.corr_n_theta, tw, win, win, h, w,
+                               theta_window=True, space_window=True)
     look = []
-    for tag, n, field, geo, agg, o, host_geo in (
-            ("BIG", 1_000_000, field_big, geo_big, "sum", None, None),
-            ("SMALL", 130_048, field_small, geo_small, "mean", origin,
-             geo_small_host)):
+    for tag, n, field, geo, agg, o in (
+            ("BIG", 1_000_000, field_big, geo_big, "sum", None),
+            ("SMALL", 130_048, field_small, geo_small, "mean", origin)):
         parts = init_gaussian(START, cov, 2 * n, gm, generator=gen)
         out = corr_lookup(field, parts, n_valid, geo, agg, True, origin=o)
         ref = corr_lookup_plain(field, parts, n_valid, geo, agg, True,
@@ -1014,23 +969,10 @@ def compare_kernels(gm, cfg, small_cfg, log_field, ranges, angles, rows):
                                            True, origin=o))
         pms = device_ms(lambda: corr_lookup_plain(field, parts, n_valid, geo,
                                                   agg, True, origin=o))
-        extra = {}
-        if host_geo is not None:
-            check(torch.equal(corr_lookup(field, parts, n_valid, host_geo,
-                                          agg, True), out),
-                  f"corr_lookup {tag}: the launch-argument form != the "
-                  "device-origin form")
-            extra["prev_ms"] = device_ms(lambda: corr_lookup(
-                field, parts, n_valid, host_geo, agg, True))
-            print(f"[kernel] corr_lookup {tag}: device-held origin {ms:.4f} "
-                  f"ms beside the launch-argument form's "
-                  f"{extra['prev_ms']:.4f} ms, bitwise equal, on "
-                  f"{nvidia_smi_line()}")
         look.append(kernel_row(
             "corr_lookup", "gather.cu", "gather_pallas.py:96",
             f"{tag} N=2x{n}", ms=ms, plain_ms=pms, err=0.0, ops=2 * n,
-            nbytes=2 * n * (3 * 4 + 4) + gathered_bytes(field, 2 * n),
-            **extra))
+            nbytes=2 * n * (3 * 4 + 4) + gathered_bytes(field, 2 * n)))
         parts_s = parts
     rows.append({**look[0], "shapes": look[1:]})
 
@@ -1179,15 +1121,16 @@ def compare_slice2_kernels(gm, single_cfg, log_field, ranges, angles,
     n = 2_000_000
     nbins, fh, fw = field_small.shape
     geo = window_geometry(gm, single_cfg, single_cfg.corr_n_theta, nbins,
-                          fh, fw)._replace(ox0=window[0], oy0=window[1],
-                                           kstart=window[2])
+                          fh, fw)
+    ox0, oy0, kstart = window
+    origin = torch.tensor([oy0, ox0, kstart], dtype=torch.int32, device=dev)
     fine_t = field_small.transpose(0, 1).reshape(fh * nbins, fw).contiguous()
     cfield = _coarse_field(u, v, valid, log_field, gm, single_cfg)
     coarse_t = cfield.transpose(0, 1).reshape(hc * kc, wc).contiguous()
     parts = mixed_cloud(n, gm, cov, gen)
     n_valid = valid.sum().to(torch.int32)
     denom = n_valid.clamp(min=1).to(torch.float32)
-    window_row = window_score_row(fine_t, coarse_t, parts, geo, denom,
+    window_row = window_score_row(fine_t, coarse_t, parts, geo, origin, denom,
                                   n_valid, "corr op forms")
     # a view whose base is 12 bytes past an aligned one, N mod 4 = 3 (one
     # pose a thread at this N), timed
@@ -1195,36 +1138,39 @@ def compare_slice2_kernels(gm, single_cfg, log_field, ranges, angles,
     check(rag.data_ptr() % 16 != 0 and rag.shape[0] % 4 != 0,
           "the ragged view is aligned")
     window_row["shapes"].append(window_score_row(
-        fine_t, coarse_t, rag, geo, denom, n_valid,
+        fine_t, coarse_t, rag, geo, origin, denom, n_valid,
         "corr op forms, misaligned base"))
     # the gate's count at 2x1M: the kernel vs the plain count
-    esc = window_escapees(parts, geo)
-    n_esc = int(window_escapees_plain(parts, geo))
+    esc = window_escapees(parts, geo, origin)
+    n_esc = int(window_escapees_plain(parts, geo, origin))
     torch.cuda.synchronize()
-    check(int(esc) == n_esc, f"window_escapees {int(esc)} != plain {n_esc}")
-    check(int(window_escapees(rag, geo)) == int(window_escapees_plain(rag, geo)),
-          "window_escapees (misaligned base) != plain")
+    check(int(esc) == n_esc, f"window_escapees_at {int(esc)} != plain {n_esc}")
+    check(int(window_escapees(rag, geo, origin))
+          == int(window_escapees_plain(rag, geo, origin)),
+          "window_escapees_at (misaligned base) != plain")
     # and the whole mixed cloud less its first pose: four poses a thread,
     # misaligned (4-byte pose loads), N mod 4 = 3 (a ragged last thread)
     tail = parts[1:]
     check(torch.equal(window_score(fine_t, coarse_t, tail, geo, denom, -100.0,
-                                   count=n_valid),
+                                   count=n_valid, origin=origin),
                       window_score_plain(fine_t, coarse_t, tail, geo, denom,
-                                         -100.0, count=n_valid)),
-          "window_score (parts[1:]): kernel != plain")
-    check(int(window_escapees(tail, geo)) == int(window_escapees_plain(tail, geo)),
-          "window_escapees (parts[1:]) != plain")
-    ms_e = device_ms(lambda: window_escapees(parts, geo))
-    pms_e = device_ms(lambda: window_escapees_plain(parts, geo))
-    print(f"[kernel] window_escapees N=2x{n // 2}: {n_esc} escapees, "
+                                         -100.0, count=n_valid,
+                                         origin=origin)),
+          "window_score_at (parts[1:]): kernel != plain")
+    check(int(window_escapees(tail, geo, origin))
+          == int(window_escapees_plain(tail, geo, origin)),
+          "window_escapees_at (parts[1:]) != plain")
+    ms_e = device_ms(lambda: window_escapees(parts, geo, origin))
+    pms_e = device_ms(lambda: window_escapees_plain(parts, geo, origin))
+    print(f"[kernel] window_escapees_at N=2x{n // 2}: {n_esc} escapees, "
           "bitwise (the same count as the plain version, also on the "
           "misaligned view)")
-    # each pose read once, one count written
+    # each pose read once, one count written, the origin's 12 bytes read
     esc_row = kernel_row(
-        "window_escapees", "fused_score.cu",
+        "window_escapees_at", "fused_score.cu",
         "mcmh_localization_tpu/models/corr_field.py:553",
         f"N=2x{n // 2}", ms=ms_e, plain_ms=pms_e, err=0.0, ops=n,
-        nbytes=12 * n + 4)
+        nbytes=12 * n + 4 + 12)
     # the beam score field's op forms (divide by res, divide by the bin
     # width, clip before the window) on these tables: bitwise; timed at the
     # beam path's own geometry in compare_beam_kernel
@@ -1233,21 +1179,17 @@ def compare_slice2_kernels(gm, single_cfg, log_field, ranges, angles,
         theta_scale=float(np.float32(2.0 * math.pi / geo.n_theta)),
         clip_before_window=True)
     out = window_score(fine_t, coarse_t, parts, geo_b, denom, -100.0,
-                       count=n_valid)
+                       count=n_valid, origin=origin)
     ref = window_score_plain(fine_t, coarse_t, parts, geo_b, denom, -100.0,
-                             count=n_valid)
+                             count=n_valid, origin=origin)
     torch.cuda.synchronize()
-    check(torch.equal(out, ref), "window_score (beam op forms): kernel != plain")
-    print(f"[kernel] window_score, beam op forms (fine_div, theta_div, "
+    check(torch.equal(out, ref),
+          "window_score_at (beam op forms): kernel != plain")
+    print(f"[kernel] window_score_at, beam op forms (fine_div, theta_div, "
           f"clip_before_window): N=2x{n // 2} bitwise=True")
-    # every path now reads its window from device memory (the _at rows
-    # below): the launch-argument entries are the form those are timed
-    # beside, on no path
-    for row in (window_row, esc_row):
-        row["on_main_path"] = False
+    window_origin_checks(fine_t, coarse_t, parts, geo, denom, n_valid,
+                         (oy0, ox0, kstart))
     rows += [window_row, esc_row]
-    rows += window_at_rows(fine_t, coarse_t, parts, geo, denom, n_valid,
-                           window_row["ms"], ms_e)
 
     # kernel 6: the exact scorer at 2x1500 and 2x100k poses, 360 beams, on
     # the 384^2 log field; the [exact] path's multiply form and the "jnp"
@@ -1785,14 +1727,16 @@ def compare_beam_kernel(gm, beam_model, ranges, angles, rows):
         win * tw, win).contiguous()
     coarse_t = fields[1].reshape(kc, hc, wc).transpose(0, 1).reshape(
         hc * kc, wc).contiguous()
-    geo = _beam_geometry(gm, k, tw, kstart, win, (ox0, oy0),
-                         (cfg.corr_coarse_factor, kc, hc, wc))
+    geo = _beam_geometry(gm, k, tw, win, (cfg.corr_coarse_factor, kc, hc, wc))
+    origin = torch.tensor([oy0, ox0, kstart], dtype=torch.int32,
+                          device=ranges.device)
     parts = mixed_cloud(2 * 100_000, gm, cov, gen)
     n_valid = valid.sum().to(torch.int32)
-    row = window_score_row(fine_t, coarse_t, parts, geo,
+    row = window_score_row(fine_t, coarse_t, parts, geo, origin,
                            n_valid.clamp(min=1).to(torch.float32), n_valid,
                            "beam op forms")
-    next(r for r in rows if r["name"] == "window_score")["shapes"].append(row)
+    next(r for r in rows if r["name"] == "window_score_at")["shapes"].append(
+        row)
 
 
 # [weight_chain]: the four cells' correct steps, (tag, slots): the default

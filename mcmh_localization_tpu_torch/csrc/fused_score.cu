@@ -44,16 +44,15 @@
 //    parts[1:]) takes the same kernel with 4-byte pose loads, and the last
 //    thread of a ragged N reads and writes its 1-3 particles one by one;
 //    the output is the wrapper's own allocation and always aligned.
-// mcmh_window_escapees counts the in-map particles the window does not
+// mcmh_window_escapees_at counts the in-map particles the window does not
 // cover (the coarse-build gate) in the same layout, with one atomic add
 // per block.
-// mcmh_window_score_at and mcmh_window_escapees_at read the window's
-// (oy0, ox0) corner, and its first theta bin kstart where asked, from
-// device memory (the step's origin, which filter/step.py::_window_origin
-// computes and clamps on the card) in place of WindowArgs' fields: each
-// thread loads the 8 or 12 bytes once, behind its early return, through
-// the read-only cache, so a block's threads share one line.  Every op form
-// and the blind case stay as in the launch-argument entries.
+// Both entries read the window's (oy0, ox0) corner and its first theta bin
+// kstart (0 without a theta window) from three ints in device memory (the
+// step's origin, which filter/step.py::window_origin_at computes and
+// clamps on the card): each thread loads the 12 bytes once, behind its
+// early return, through the read-only cache, so a block's threads share
+// one line.
 // Tried and dropped (chip_kernel_ab.py, the kernels alone at 2 x 1M, in
 // turns, NVIDIA H100 80GB HBM3 at 700 W): the first kernel's one particle a
 // thread, 0.0181-0.0183 ms (0.0225-0.0232 as its wrapper called it) where
@@ -79,7 +78,7 @@
 struct WindowArgs {
   float origin_x, origin_y, fine_scale, theta_scale, pi_f, res_c, kc_scale;
   float blind_score;
-  int n_theta, nbins, kstart, fh, fw, h, w, ox0, oy0, kc, hc, wc;
+  int n_theta, nbins, fh, fw, h, w, kc, hc, wc;
   int fine_div, theta_div, clip_before_window;
 };
 
@@ -92,9 +91,20 @@ struct WindowIndex {
   bool covered, in_map;
 };
 
+// The window's (oy0, ox0) corner and first theta bin, read from the three
+// ints of the device-held origin.
+struct Origin {
+  int oy0, ox0, kstart;
+};
+
+__device__ __forceinline__ Origin read_origin(const int* __restrict__ origin) {
+  return {__ldg(origin), __ldg(origin + 1), __ldg(origin + 2)};
+}
+
 __device__ __forceinline__ WindowIndex window_index(float px, float py,
                                                     float pth,
-                                                    const WindowArgs& a) {
+                                                    const WindowArgs& a,
+                                                    const Origin& o) {
   const float dx = __fsub_rn(px, a.origin_x);
   const float dy = __fsub_rn(py, a.origin_y);
   const float fx = a.fine_div ? __fdiv_rn(dx, a.fine_scale)
@@ -107,14 +117,14 @@ __device__ __forceinline__ WindowIndex window_index(float px, float py,
   const float tb = a.theta_div ? __fdiv_rn(tpi, a.theta_scale)
                                : __fmul_rn(tpi, a.theta_scale);
   const int tbin = wrap_mod(__float2int_rz(tb), a.n_theta);
-  const int k_rel = wrap_mod(tbin - a.kstart, a.n_theta);
+  const int k_rel = wrap_mod(tbin - o.kstart, a.n_theta);
   const bool in_theta = k_rel < a.nbins;
   const int tbin_w = in_theta ? k_rel : 0;
 
   WindowIndex r;
   r.in_map = mx >= 0 && mx < a.w && my >= 0 && my < a.h;
-  const int mxw = (a.clip_before_window ? clampi(mx, 0, a.w - 1) : mx) - a.ox0;
-  const int myw = (a.clip_before_window ? clampi(my, 0, a.h - 1) : my) - a.oy0;
+  const int mxw = (a.clip_before_window ? clampi(mx, 0, a.w - 1) : mx) - o.ox0;
+  const int myw = (a.clip_before_window ? clampi(my, 0, a.h - 1) : my) - o.oy0;
   r.covered = in_theta && mxw >= 0 && mxw < a.fw && myw >= 0 && myw < a.fh;
   if (r.covered) {
     r.row = clampi(myw, 0, a.fh - 1) * a.nbins + tbin_w;
@@ -129,15 +139,6 @@ __device__ __forceinline__ WindowIndex window_index(float px, float py,
   return r;
 }
 
-// (oy0, ox0[, kstart]) from device memory where the entry was given them
-__device__ __forceinline__ void read_origin(const int* __restrict__ origin,
-                                            int origin_len, WindowArgs& a) {
-  if (origin == nullptr) return;
-  a.oy0 = __ldg(origin);
-  a.ox0 = __ldg(origin + 1);
-  if (origin_len > 2) a.kstart = __ldg(origin + 2);
-}
-
 template <int P>
 __global__ void __launch_bounds__(kThreads) window_score_kernel(
     const float* __restrict__ fine, const float* __restrict__ coarse,
@@ -145,11 +146,11 @@ __global__ void __launch_bounds__(kThreads) window_score_kernel(
     const float* __restrict__ denom_ptr, float denom,
     const float* __restrict__ fill_ptr, float fill,
     const int* __restrict__ count, const int* __restrict__ origin,
-    int origin_len, WindowArgs a, float* __restrict__ out) {
+    WindowArgs a, float* __restrict__ out) {
   const long long i0 =
       (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) * P;
   if (i0 >= n) return;
-  read_origin(origin, origin_len, a);
+  const Origin o = read_origin(origin);
   float p[3 * P];
   load_poses<P>(particles, i0, n, vec, p);
   const bool seen = count == nullptr || __ldg(count) > 0;
@@ -159,7 +160,8 @@ __global__ void __launch_bounds__(kThreads) window_score_kernel(
   bool in_map[P];
 #pragma unroll
   for (int k = 0; k < P; ++k) {
-    const WindowIndex r = window_index(p[3 * k], p[3 * k + 1], p[3 * k + 2], a);
+    const WindowIndex r =
+        window_index(p[3 * k], p[3 * k + 1], p[3 * k + 2], a, o);
     src[k] = r.covered ? fine + static_cast<long long>(r.row) * a.fw + r.lane
                        : coarse + static_cast<long long>(r.row) * a.wc + r.lane;
     in_map[k] = r.in_map;
@@ -177,20 +179,20 @@ __global__ void __launch_bounds__(kThreads) window_score_kernel(
 template <int P>
 __global__ void __launch_bounds__(kThreads) window_escapees_kernel(
     const float* __restrict__ particles, int n, bool vec,
-    const int* __restrict__ origin, int origin_len, WindowArgs a,
+    const int* __restrict__ origin, WindowArgs a,
     int* __restrict__ n_escaped) {
   __shared__ int s_warp[kThreads / 32];
   const long long i0 =
       (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) * P;
   int escaped = 0;
   if (i0 < n) {
-    read_origin(origin, origin_len, a);
+    const Origin o = read_origin(origin);
     float p[3 * P];
     load_poses<P>(particles, i0, n, vec, p);
 #pragma unroll
     for (int k = 0; k < P; ++k) {
       const WindowIndex r =
-          window_index(p[3 * k], p[3 * k + 1], p[3 * k + 2], a);
+          window_index(p[3 * k], p[3 * k + 1], p[3 * k + 2], a, o);
       escaped += (i0 + k < n && r.in_map && !r.covered) ? 1 : 0;
     }
   }
@@ -210,66 +212,57 @@ cudaError_t launch_score(const float* fine, const float* coarse,
                          const float* particles, int n,
                          const float* denom_ptr, float denom,
                          const float* fill_ptr, float fill, const int* count,
-                         const int* origin, int origin_len,
-                         const WindowArgs& a, float* out,
+                         const int* origin, const WindowArgs& a, float* out,
                          cudaStream_t stream) {
   const int blocks = blocks_for(n, P, kThreads);
   window_score_kernel<P><<<blocks, kThreads, 0, stream>>>(
       fine, coarse, particles, n, aligned_to(particles, 16), denom_ptr, denom,
-      fill_ptr, fill, count, origin, origin_len, a, out);
+      fill_ptr, fill, count, origin, a, out);
   return cudaGetLastError();
 }
 
 template <int P>
 cudaError_t launch_escapees(const float* particles, int n, const int* origin,
-                            int origin_len, const WindowArgs& a,
-                            int* n_escaped, cudaStream_t stream) {
+                            const WindowArgs& a, int* n_escaped,
+                            cudaStream_t stream) {
   const int blocks = blocks_for(n, P, kThreads);
   window_escapees_kernel<P><<<blocks, kThreads, 0, stream>>>(
-      particles, n, aligned_to(particles, 16), origin, origin_len, a,
-      n_escaped);
+      particles, n, aligned_to(particles, 16), origin, a, n_escaped);
   return cudaGetLastError();
 }
 
 int score(const float* fine, const float* coarse, const float* particles,
           int n, const float* denom_ptr, float denom, const float* fill_ptr,
-          float fill, const int* count, const int* origin, int origin_len,
-          const WindowArgs& a, int poses, float* out, void* stream) {
+          float fill, const int* count, const int* origin, const WindowArgs& a,
+          int poses, float* out, void* stream) {
   if (n <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (poses) {
     case 4:
       return launch_score<4>(fine, coarse, particles, n, denom_ptr, denom,
-                             fill_ptr, fill, count, origin, origin_len, a,
-                             out, st);
+                             fill_ptr, fill, count, origin, a, out, st);
     case 2:
       return launch_score<2>(fine, coarse, particles, n, denom_ptr, denom,
-                             fill_ptr, fill, count, origin, origin_len, a,
-                             out, st);
+                             fill_ptr, fill, count, origin, a, out, st);
     case 1:
       return launch_score<1>(fine, coarse, particles, n, denom_ptr, denom,
-                             fill_ptr, fill, count, origin, origin_len, a,
-                             out, st);
+                             fill_ptr, fill, count, origin, a, out, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 int escapees(const float* particles, int n, const int* origin,
-             int origin_len, const WindowArgs& a, int poses, int* n_escaped,
-             void* stream) {
+             const WindowArgs& a, int poses, int* n_escaped, void* stream) {
   if (n <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (poses) {
     case 4:
-      return launch_escapees<4>(particles, n, origin, origin_len, a,
-                                n_escaped, st);
+      return launch_escapees<4>(particles, n, origin, a, n_escaped, st);
     case 2:
-      return launch_escapees<2>(particles, n, origin, origin_len, a,
-                                n_escaped, st);
+      return launch_escapees<2>(particles, n, origin, a, n_escaped, st);
     case 1:
-      return launch_escapees<1>(particles, n, origin, origin_len, a,
-                                n_escaped, st);
+      return launch_escapees<1>(particles, n, origin, a, n_escaped, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -278,47 +271,25 @@ int escapees(const float* particles, int n, const int* origin,
 }  // namespace
 
 // denom and fill: read from the device where the pointer is not null,
-// else the value given; count may be null (no blind case).  poses: the
-// particles a thread, 1, 2 or 4 (ops/_cuda.py::poses_per_thread).
-extern "C" int mcmh_window_score(const float* fine, const float* coarse,
-                                 const float* particles, int n,
-                                 const float* denom_ptr, float denom,
-                                 const float* fill_ptr, float fill,
-                                 const int* count, WindowArgs a, int poses,
-                                 float* out, void* stream) {
-  return score(fine, coarse, particles, n, denom_ptr, denom, fill_ptr, fill,
-               count, nullptr, 0, a, poses, out, stream);
-}
-
-// origin: origin_len (2 or 3) ints in device memory, (oy0, ox0[, kstart]),
-// in place of a's; a kstart not given there is a's.
+// else the value given; count may be null (no blind case).  origin: the
+// three ints (oy0, ox0, kstart) in device memory.  poses: the particles a
+// thread, 1, 2 or 4 (ops/_cuda.py::poses_per_thread).
 extern "C" int mcmh_window_score_at(const float* fine, const float* coarse,
                                     const float* particles, int n,
                                     const float* denom_ptr, float denom,
                                     const float* fill_ptr, float fill,
                                     const int* count, const int* origin,
-                                    int origin_len, WindowArgs a, int poses,
-                                    float* out, void* stream) {
-  if (origin == nullptr || origin_len < 2 || origin_len > 3) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return score(fine, coarse, particles, n, denom_ptr, denom, fill_ptr, fill,
-               count, origin, origin_len, a, poses, out, stream);
-}
-
-extern "C" int mcmh_window_escapees(const float* particles, int n,
-                                    WindowArgs a, int poses, int* n_escaped,
+                                    WindowArgs a, int poses, float* out,
                                     void* stream) {
-  return escapees(particles, n, nullptr, 0, a, poses, n_escaped, stream);
+  if (origin == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return score(fine, coarse, particles, n, denom_ptr, denom, fill_ptr, fill,
+               count, origin, a, poses, out, stream);
 }
 
 extern "C" int mcmh_window_escapees_at(const float* particles, int n,
-                                       const int* origin, int origin_len,
-                                       WindowArgs a, int poses,
-                                       int* n_escaped, void* stream) {
-  if (origin == nullptr || origin_len < 2 || origin_len > 3) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return escapees(particles, n, origin, origin_len, a, poses, n_escaped,
-                  stream);
+                                       const int* origin, WindowArgs a,
+                                       int poses, int* n_escaped,
+                                       void* stream) {
+  if (origin == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return escapees(particles, n, origin, a, poses, n_escaped, stream);
 }

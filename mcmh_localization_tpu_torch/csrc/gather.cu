@@ -5,8 +5,8 @@
 // TPU kernel turns a random gather into one-hot MXU products over bf16
 // hi/lo table planes; here a gather is one f32 load, exact.
 //
-//   mcmh_gather_2d:   out[i] = table[y[i], x[i]]   (indices in bounds)
-//   mcmh_corr_lookup: the corr scorer's whole per-particle lookup
+//   mcmh_gather_2d:      out[i] = table[y[i], x[i]]   (indices in bounds)
+//   mcmh_corr_lookup_at: the corr scorer's whole per-particle lookup
 //     (models/corr_field.py::correlation_field_scores, the index math of
 //     :466-490 and the masks and fills of :641-665) fused with the gather:
 //     pose -> (theta bin, row, col) -> field value -> aggregation divide ->
@@ -36,9 +36,9 @@
 //    is the wrapper's own allocation and always aligned.
 // mcmh_corr_lookup_at reads the window's (oy0, ox0) corner and its first
 // theta bin from three ints in device memory (filter/step.py::
-// _window_origin computes them on the card), loaded with the valid-beam
-// count before the poses; mcmh_corr_lookup, the earlier form, takes them as
-// launch arguments.
+// window_origin_at computes them on the card), loaded with the valid-beam
+// count before the poses; the full-map lookup has neither window and
+// passes no origin.
 
 #include <cuda_runtime.h>
 
@@ -69,8 +69,7 @@ __global__ void __launch_bounds__(kThreads) gather_2d_kernel(
 struct LookupArgs {
   int nbins, fh, fw;
   float origin_x, origin_y, inv_res, pi_f, theta_scale;
-  int n_theta, kstart, use_theta_win;
-  int ox0, oy0, use_window;
+  int n_theta, use_theta_win, use_window;
   int map_h, map_w;
   int sum_aggregation, score_validity;
   float blind_score, invalid_score;
@@ -85,10 +84,11 @@ __global__ void __launch_bounds__(kThreads) corr_lookup_kernel(
       (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) * P;
   if (i0 >= n) return;
   const int count = __ldg(n_valid);
+  int oy0 = 0, ox0 = 0, kstart = 0;
   if (origin != nullptr) {  // (oy0, ox0, kstart) on the card
-    a.oy0 = __ldg(origin);
-    a.ox0 = __ldg(origin + 1);
-    a.kstart = __ldg(origin + 2);
+    oy0 = __ldg(origin);
+    ox0 = __ldg(origin + 1);
+    kstart = __ldg(origin + 2);
   }
   float p[3 * P];
   load_poses<P>(particles, i0, n, vec, p);
@@ -108,7 +108,7 @@ __global__ void __launch_bounds__(kThreads) corr_lookup_kernel(
         a.n_theta);
     bool in_theta = true;
     if (a.use_theta_win) {  // :474-477
-      const int k_rel = wrap_mod(tbin - a.kstart, a.n_theta);
+      const int k_rel = wrap_mod(tbin - kstart, a.n_theta);
       in_theta = k_rel < a.nbins;
       tbin = in_theta ? k_rel : 0;
     }
@@ -116,8 +116,8 @@ __global__ void __launch_bounds__(kThreads) corr_lookup_kernel(
     bool in_window = true;
     int mxc, myc;
     if (a.use_window) {  // :481-486
-      const int mxw = mx - a.ox0;
-      const int myw = my - a.oy0;
+      const int mxw = mx - ox0;
+      const int myw = my - oy0;
       in_window = mxw >= 0 && mxw < a.fw && myw >= 0 && myw < a.fh;
       mxc = clampi(mxw, 0, a.fw - 1);
       myc = clampi(myw, 0, a.fh - 1);
@@ -211,43 +211,9 @@ extern "C" int mcmh_gather_2d(const float* table, int h, int w, const int* y,
   }
 }
 
-// poses: the particles a thread, 1, 2 or 4 (ops/_cuda.py::poses_per_thread)
-extern "C" int mcmh_corr_lookup(const float* field, int nbins, int fh, int fw,
-                                const float* particles, int n,
-                                const int* n_valid, float origin_x,
-                                float origin_y, float inv_res, float pi_f,
-                                float theta_scale, int n_theta, int kstart,
-                                int use_theta_win, int ox0, int oy0,
-                                int use_window, int map_h, int map_w,
-                                int sum_aggregation, int score_validity,
-                                float blind_score, float invalid_score,
-                                int poses, float* out, void* stream) {
-  LookupArgs a;
-  a.nbins = nbins;
-  a.fh = fh;
-  a.fw = fw;
-  a.origin_x = origin_x;
-  a.origin_y = origin_y;
-  a.inv_res = inv_res;
-  a.pi_f = pi_f;
-  a.theta_scale = theta_scale;
-  a.n_theta = n_theta;
-  a.kstart = kstart;
-  a.use_theta_win = use_theta_win;
-  a.ox0 = ox0;
-  a.oy0 = oy0;
-  a.use_window = use_window;
-  a.map_h = map_h;
-  a.map_w = map_w;
-  a.sum_aggregation = sum_aggregation;
-  a.score_validity = score_validity;
-  a.blind_score = blind_score;
-  a.invalid_score = invalid_score;
-  return lookup(field, particles, n, n_valid, nullptr, a, poses, out, stream);
-}
-
 // origin: (oy0, ox0, kstart), three ints in device memory, read where
-// use_window / use_theta_win ask for them (null when neither does)
+// use_window / use_theta_win ask for them (null when neither does).
+// poses: the particles a thread, 1, 2 or 4 (ops/_cuda.py::poses_per_thread)
 extern "C" int mcmh_corr_lookup_at(const float* field, int nbins, int fh,
                                    int fw, const float* particles, int n,
                                    const int* n_valid, float origin_x,
@@ -268,10 +234,7 @@ extern "C" int mcmh_corr_lookup_at(const float* field, int nbins, int fh,
   a.pi_f = pi_f;
   a.theta_scale = theta_scale;
   a.n_theta = n_theta;
-  a.kstart = 0;
   a.use_theta_win = use_theta_win;
-  a.ox0 = 0;
-  a.oy0 = 0;
   a.use_window = use_window;
   a.map_h = map_h;
   a.map_w = map_w;

@@ -4,8 +4,7 @@ JAX package's compiled trajectory run (``make_run`` wraps the step in
 filter/step.py:872-882).
 
 On a CUDA device, ``FilterModel.run`` replays one captured step per scan
-for every config (``graph_capturable``), in any mode, resampler, ESS gate
-and motion validity:
+for every config, in any mode, resampler, ESS gate and motion validity:
 
 * the likelihood-field "corr" scorer over the full map (the staged BIG
   program), a window without the coarse fallback (the staged SMALL
@@ -75,15 +74,6 @@ STATE_TENSORS = ("particles", "prev_particles", "weights", "count", "w_slow",
 # StepInfo's f32 scalars, packed in one record row after mean and cov
 _INFO_SCALARS = ("ess", "accept_rate", "p_random", "w_slow", "w_fast",
                  "anchor_mass")
-
-
-def graph_capturable(config) -> bool:
-    """True for the configs whose step reads nothing on the host, so that
-    ``FilterModel.run`` replays it as a CUDA graph on a CUDA device: every
-    sensor model (the likelihood field in each scorer and window form, the
-    beam model in every ``beam_impl``, the 3-D lidar); see the module
-    docstring."""
-    return config.sensor_model in ("likelihood_field", "beam", "lidar3d")
 
 
 def _storage(t: torch.Tensor) -> int:

@@ -11,7 +11,7 @@ map built by the port's entry points with their default device, the CPU
 for a map built with ``device="cpu"``.
 
 On the card, ``on_scan`` replays its program's correct step captured in a
-CUDA graph (``filter/captured.py``; every config is ``graph_capturable``),
+CUDA graph (``filter/captured.py``; every config is captured),
 and under ``predict_batching="per_message"`` each ``on_odom`` message
 after the first is one replay of a second graph on that step's buffers:
 the message's two poses written into a slot of a pinned host ring

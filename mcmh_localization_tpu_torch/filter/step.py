@@ -20,8 +20,8 @@ the KLD escalation (resampling.py:464) and the coarse builds' escapee
 gates go through ``ops/graph.py::run_if``: conditional nodes in a captured
 step, host ``if``s in an eager one.  On the card, ``FilterModel.run``
 replays a step captured in a CUDA graph for every config
-(``filter/captured.py::graph_capturable``; the JAX ``lax.scan`` of
-step.py:872-882 compiles the trajectory once); ``run_eager`` is its plain
+(``filter/captured.py``; the JAX ``lax.scan`` of step.py:872-882 compiles
+the trajectory once); ``run_eager`` is its plain
 version, the Python loop of eager steps, which every CPU run takes.
 
 Random draws: each scan's draws come from the state's generator, or from
@@ -41,7 +41,6 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from mcmh_localization_tpu_torch.filter.captured import graph_capturable
 from mcmh_localization_tpu_torch.filter.estimate import PoseEstimate
 from mcmh_localization_tpu_torch.filter.init import (
     init_gaussian,
@@ -699,9 +698,9 @@ class FilterModel:
 
     @property
     def replays_graph(self) -> bool:
-        """True where ``run`` replays a captured step: on a CUDA device, for
-        a config ``filter/captured.py::graph_capturable`` names."""
-        return self.device.type == "cuda" and graph_capturable(self.config)
+        """True where ``run`` replays a captured step: on a CUDA device,
+        for every config (``filter/captured.py``)."""
+        return self.device.type == "cuda"
 
     def captured(self, state, beams: int, predict: bool = True):
         """The ``CapturedStep`` of this model for ``state``'s slots and

@@ -33,7 +33,10 @@ from mcmh_localization_tpu_torch.models.sensor import (
     INVALID_SCORE,
     log_likelihood_field,
 )
-from mcmh_localization_tpu_torch.models.range_table import _sharded_bin_stack
+from mcmh_localization_tpu_torch.models.range_table import (
+    _sharded_bin_stack,
+    field_origin,
+)
 from mcmh_localization_tpu_torch.ops.corr_field_build import corr_field_build
 from mcmh_localization_tpu_torch.ops.fused_score import (
     WindowGeometry,
@@ -173,10 +176,11 @@ def correlation_field_scores(
     normalization, blind penalty, coarse fallback and motion-validity fold
     as the JAX scorer.
 
-    ``window_origin``: the window's (oy0, ox0, kstart), an int32 tensor on
-    the card (``filter/step.py::_window_origin``; the field build and the
-    lookup read it from device memory) or a sequence of ints
-    (``window_origin_tensor``).
+    ``window_origin``: the window's (oy0, ox0, kstart), the step's int32
+    tensor on the card, clamped there (``filter/step.py::
+    window_origin_at``), which the field build and the lookups read from
+    device memory as it is; or a sequence (oy0, ox0[, kstart]) of ints,
+    clamped by ``models/range_table.py::field_origin``.
 
     ``offsets``: optional (ox, oy) from ``_bin_offsets`` (global zero-band
     row), and ``coarse_offsets`` the coarse field's, to score with offsets
@@ -208,9 +212,12 @@ def correlation_field_scores(
     use_coarse = use_window and bool(config.corr_coarse_factor)
     tw = config.corr_theta_window_bins
     dev = log_field.device
-    origin = (window_origin_tensor(window_origin, h, w, win, dev)
-              if use_window else None)
     use_theta_win = bool(tw) and use_window and len(window_origin) == 3
+    origin = None
+    if use_window:
+        origin = (window_origin if isinstance(window_origin, torch.Tensor)
+                  else field_origin(window_origin, h, w, win, use_theta_win,
+                                    dev))
     nbins = tw if use_theta_win else n_theta
     if offsets is None:
         ox, oy = _bin_offsets(u, v, valid, grid_map.inv_res, n_theta, pad,
@@ -240,12 +247,11 @@ def correlation_field_scores(
         field = field + pen_total * torch.where(occ_win == 0, 0.0, 1.0)[None]
 
     if use_coarse:
-        # the window-score kernel reads the corner (and, with a theta
-        # window, the first bin) from the device-held origin
+        # the window-score kernel reads the corner and the first bin from
+        # the device-held origin
         return _window_scores_with_coarse(
             field, particles, u, v, valid, n_valid, log_field, grid_map,
-            config, n_theta, origin if use_theta_win else origin[:2],
-            coarse_offsets)
+            config, n_theta, origin, coarse_offsets)
 
     geo = LookupGeometry(
         origin_x=grid_map.origin_xy[0], origin_y=grid_map.origin_xy[1],
@@ -274,34 +280,20 @@ def build_correlation_field(log_field, u, v, valid, inv_res, n_theta: int,
     return corr_field_build(padded, ox, oy, h, w, zero_row=zero_band_row)
 
 
-def window_origin_tensor(window_origin, h: int, w: int, win: int,
-                         device) -> torch.Tensor:
-    """The (3,) int32 (oy0, ox0, kstart) window origin on ``device``: the
-    step's tensor as it is (``filter/step.py::_window_origin`` clamps it
-    on the card), or a sequence (oy0, ox0[, kstart]) of ints clamped to
-    ``[0, h - win]`` and ``[0, w - win]`` here (kstart 0 when absent)."""
-    if isinstance(window_origin, torch.Tensor):
-        return window_origin.to(device=device, dtype=torch.int32)
-    oy0, ox0 = (int(x) for x in window_origin[:2])
-    kstart = int(window_origin[2]) if len(window_origin) == 3 else 0
-    return torch.tensor([min(max(oy0, 0), h - win), min(max(ox0, 0), w - win),
-                         kstart], dtype=torch.int32, device=device)
-
-
 def window_geometry(grid_map, config, n_theta, nbins, fh,
                     fw) -> WindowGeometry:
     """The corr scorer's lookup geometry for the window-score kernel: the
     multiply forms (``(p - origin) * inv_res``, ``(pth + pi) * n_theta /
     2pi``) and the coarse cell ``f32(f * res)`` divided (JAX :193-208).
     The window's corner and first bin are the origin's, which the kernel
-    reads from device memory (``window_score(..., origin=)``): here 0."""
+    reads from device memory (``window_score(..., origin=)``)."""
     h, w = grid_map.height, grid_map.width
     kc, hc, wc = coarse_shape(config, h, w)
     return WindowGeometry(
         origin_x=grid_map.origin_xy[0], origin_y=grid_map.origin_xy[1],
         fine_scale=grid_map.inv_res, theta_scale=theta_scale(n_theta),
-        n_theta=n_theta, nbins=nbins, kstart=0, fh=fh, fw=fw, h=h, w=w,
-        ox0=0, oy0=0, kc=kc, hc=hc, wc=wc,
+        n_theta=n_theta, nbins=nbins, fh=fh, fw=fw, h=h, w=w, kc=kc, hc=hc,
+        wc=wc,
         res_c=float(np.float32(config.corr_coarse_factor * grid_map.res)),
         kc_scale=theta_scale(kc))
 
@@ -312,7 +304,7 @@ def _window_scores_with_coarse(field, particles, u, v, valid, n_valid,
     """The windowed lookup with the coarse fallback (JAX :515-616): covered
     particles read the (nbins, fh, fw) fine ``field``, in-map escapees the
     coarse one, through the window-score kernel at the device-held
-    ``origin`` ((oy0, ox0, kstart), or (oy0, ox0) without a theta window).
+    ``origin`` (oy0, ox0, kstart).
 
     With ``coarse_gate_escapees`` the coarse build is ``run_if`` on the
     escapee count reaching the gate (JAX's 0-or-1-iteration while_loop,

@@ -314,42 +314,48 @@ def _beam_coarse_field(lp, count, angles, grid_map, tables: BeamTables,
     return cfield
 
 
-def _beam_geometry(grid_map, n_theta, nbins, kstart, win, window,
-                   coarse) -> WindowGeometry:
+def _beam_geometry(grid_map, n_theta, nbins, win, coarse) -> WindowGeometry:
     """The window-score geometry in the beam field's op forms: the pose's
     cell by ``/ res``, its bin by ``/ (2 pi / n_theta)``, window coords
     clipped to the map first; the coarse cell by ``/ f32(f * res)`` and bin
-    by ``* f32(kc / 2 pi)`` (JAX :559-572, :377-394).  ``window`` is (ox0,
-    oy0), the window's corner as launch arguments (``beam_field_scores``
-    passes 0s and the device-held origin instead); ``coarse`` is (f, kc,
-    hc, wc), or None for no coarse table."""
+    by ``* f32(kc / 2 pi)`` (JAX :559-572, :377-394).  The window's corner
+    and first bin are the origin's (``field_origin``), which the lookups
+    read from device memory; ``coarse`` is (f, kc, hc, wc), or None for no
+    coarse table."""
     f, kc, hc, wc = coarse if coarse is not None else (0, 0, 0, 0)
     return WindowGeometry(
         origin_x=grid_map.origin_xy[0], origin_y=grid_map.origin_xy[1],
         fine_scale=grid_map.res,
         theta_scale=float(np.float32(2.0 * math.pi / n_theta)),
-        n_theta=n_theta, nbins=nbins, kstart=kstart, fh=win, fw=win,
-        h=grid_map.height, w=grid_map.width, ox0=window[0], oy0=window[1],
-        kc=kc, hc=hc, wc=wc, res_c=float(np.float32(f * grid_map.res)),
+        n_theta=n_theta, nbins=nbins, fh=win, fw=win, h=grid_map.height,
+        w=grid_map.width, kc=kc, hc=hc, wc=wc,
+        res_c=float(np.float32(f * grid_map.res)),
         kc_scale=theta_scale(kc) if kc else 0.0,
         fine_div=True, theta_div=True, clip_before_window=True)
 
 
 def field_origin(window_origin, h: int, w: int, win: int,
                  theta_window: bool, device) -> torch.Tensor:
-    """The beam field's window origin as an int32 tensor on ``device``:
-    (oy0, ox0, kstart) under a theta window, else (oy0, ox0), the corner
-    clamped to ``[0, h - win]`` x ``[0, w - win]`` on the device as JAX
-    clips it (:443-449).  ``window_origin`` is the step's tensor
-    (``filter/step.py::_window_origin``) or a sequence of ints."""
+    """The window origin as the kernels and their plain versions read it:
+    a (3,) int32 tensor (oy0, ox0, kstart) on ``device``, the corner
+    clamped to ``[0, h - win]`` x ``[0, w - win]`` as JAX clips it
+    (:443-449), kstart the theta window's first bin.
+
+    ``window_origin``: a sequence (oy0, ox0[, kstart]) of ints, clamped
+    here, kstart 0 without ``theta_window`` (a 2-long one has none, as in
+    JAX); or an int32 tensor of that form, clamped on its device (the
+    step's, ``filter/step.py::window_origin_at``, holds kstart 0 without a
+    theta window)."""
     if not isinstance(window_origin, torch.Tensor):
-        window_origin = torch.tensor([int(x) for x in window_origin],
-                                     dtype=torch.int32)
+        oy0, ox0 = (int(x) for x in window_origin[:2])
+        kstart = int(window_origin[2]) if theta_window else 0
+        return torch.tensor([min(max(oy0, 0), h - win),
+                             min(max(ox0, 0), w - win), kstart],
+                            dtype=torch.int32, device=device)
     o = window_origin.to(device=device, dtype=torch.int32)
-    parts = [o[0].clamp(0, h - win), o[1].clamp(0, w - win)]
-    if theta_window:
-        parts.append(o[2])
-    return torch.stack(parts)
+    kstart = o[2] if o.shape[0] > 2 else torch.zeros_like(o[0])
+    return torch.stack([o[0].clamp(0, h - win), o[1].clamp(0, w - win),
+                        kstart])
 
 
 def beam_field_scores(
@@ -370,10 +376,10 @@ def beam_field_scores(
     first bin), one read per particle.
 
     ``window_origin``: the window's (oy0, ox0[, kstart]), the step's int32
-    tensor on the card or a sequence of ints; the corner is clamped on the
-    device (``field_origin``), and the field build (``lut_field_at``) and
-    the lookups (kernel 5's ``_at`` entries) read it from device memory,
-    so the step reads nothing on the host.
+    tensor on the card or a sequence of ints, clamped into the map by
+    ``field_origin``; the field build (``lut_field_at``) and the lookups
+    (kernel 5) read it from device memory, so the step reads nothing on
+    the host.
 
     ``impl``: "lut" (and "auto", on every device) builds the field with
     the LUT kernel (its plain version on the CPU); "dense" evaluates each
@@ -450,7 +456,7 @@ def beam_field_scores(
     if config.corr_coarse_factor > 0 and tables.qtc is not None:
         _, hc, wc = tables.qtc.shape
         kc = config.corr_coarse_n_theta
-        geo = _beam_geometry(grid_map, n_theta, nbins, 0, win, (0, 0),
+        geo = _beam_geometry(grid_map, n_theta, nbins, win,
                              (config.corr_coarse_factor, kc, hc, wc))
 
         def coarse_build():
@@ -481,7 +487,7 @@ def beam_field_scores(
                             cnt if mean else 1.0, fill_oom, count=count,
                             origin=origin)
 
-    geo = _beam_geometry(grid_map, n_theta, nbins, 0, win, (0, 0), None)
+    geo = _beam_geometry(grid_map, n_theta, nbins, win, None)
     covered, row, lane, in_map = window_indices(particles, geo, origin=origin)
     totals = gather_2d(fine_t, row.to(torch.int32).contiguous(),
                        lane.to(torch.int32).contiguous())

@@ -74,8 +74,8 @@ class WindowArgs(ctypes.Structure):
     _fields_ = [(name, _F) for name in (
         "origin_x", "origin_y", "fine_scale", "theta_scale", "pi_f", "res_c",
         "kc_scale", "blind_score")] + [(name, _I) for name in (
-            "n_theta", "nbins", "kstart", "fh", "fw", "h", "w", "ox0", "oy0",
-            "kc", "hc", "wc", "fine_div", "theta_div", "clip_before_window")]
+            "n_theta", "nbins", "fh", "fw", "h", "w", "kc", "hc", "wc",
+            "fine_div", "theta_div", "clip_before_window")]
 
 
 class TableArgs(ctypes.Structure):
@@ -113,10 +113,6 @@ _SIGNATURES = {
     "mcmh_corr_field_build": (_P, _I, _I, _P, _P, _I, _I, _P, _I, _I, _I, _P,
                               _P),
     "mcmh_gather_2d": (_P, _I, _I, _P, _P, _I, _I, _P, _P),
-    "mcmh_corr_lookup": (
-        _P, _I, _I, _I, _P, _I, _P, _F, _F, _F, _F, _F, _I, _I, _I, _I, _I,
-        _I, _I, _I, _I, _I, _F, _F, _I, _P, _P,
-    ),
     "mcmh_corr_lookup_at": (
         _P, _I, _I, _I, _P, _I, _P, _F, _F, _F, _F, _F, _I, _I, _I, _P, _I,
         _I, _I, _I, _F, _F, _I, _P, _P,
@@ -127,14 +123,10 @@ _SIGNATURES = {
     "mcmh_rank_epoch_limit": (),
     "mcmh_rank_in_sorted": (_P, _I, _I, _P, ctypes.c_uint, _P, _P, _P, _P, _P),
     "mcmh_expand_sorted": (_P, _I, _P, _I, _I, _P, _P, _P, _P, _P),
-    "mcmh_window_score": (
-        _P, _P, _P, _I, _P, _F, _P, _F, _P, WindowArgs, _I, _P, _P,
-    ),
     "mcmh_window_score_at": (
-        _P, _P, _P, _I, _P, _F, _P, _F, _P, _P, _I, WindowArgs, _I, _P, _P,
+        _P, _P, _P, _I, _P, _F, _P, _F, _P, _P, WindowArgs, _I, _P, _P,
     ),
-    "mcmh_window_escapees": (_P, _I, WindowArgs, _I, _P, _P),
-    "mcmh_window_escapees_at": (_P, _I, _P, _I, WindowArgs, _I, _P, _P),
+    "mcmh_window_escapees_at": (_P, _I, _P, WindowArgs, _I, _P, _P),
     "mcmh_likelihood_scores": (
         _P, _I, _P, _P, _P, _I, _P, _I, _I, _F, _F, _F, _I, _P, _I, _F, _I,
         _P, _P,

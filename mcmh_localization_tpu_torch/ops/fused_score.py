@@ -13,11 +13,10 @@ kernels take any contiguous (N, 3) pose array and any N: a view whose base
 is not 16-byte aligned (``parts[1:]``) and an N that is not a multiple of
 their poses a thread (``poses_per_thread``) are handled inside them.
 
-The window's corner and first theta bin come as launch arguments (the
-geometry's ``ox0``, ``oy0``, ``kstart``: the beam score field) or, with
-``origin=``, from a device tensor that the ``_at`` kernels read (the corr
-scorer, whose window origin the step computes on the card): their launches
-count as ``window_score_at`` and ``window_escapees_at``.
+The window's corner and first theta bin come from ``origin``, a (3,)
+int32 device tensor (oy0, ox0, kstart), kstart 0 without a theta window,
+which the ``_at`` kernels read (the step computes it on the card): their
+launches count as ``window_score_at`` and ``window_escapees_at``.
 """
 
 from __future__ import annotations
@@ -47,13 +46,10 @@ class WindowGeometry(NamedTuple):
     theta_scale: float
     n_theta: int
     nbins: int
-    kstart: int
     fh: int
     fw: int
     h: int
     w: int
-    ox0: int
-    oy0: int
     kc: int
     hc: int
     wc: int
@@ -64,13 +60,6 @@ class WindowGeometry(NamedTuple):
     clip_before_window: bool = False
 
 
-def _window_at(g: WindowGeometry, origin: torch.Tensor | None):
-    """(ox0, oy0, kstart): the geometry's, or read on the device from
-    ``origin`` ((oy0, ox0[, kstart]) int32; a kstart it does not hold is
-    the geometry's) as 0-d tensors, never on the host."""
-    if origin is None:
-        return g.ox0, g.oy0, g.kstart
-    return origin[1], origin[0], origin[2] if origin.shape[0] > 2 else g.kstart
 
 
 def window_cells(table: torch.Tensor, origin: torch.Tensor, fh: int,
@@ -86,13 +75,13 @@ def window_cells(table: torch.Tensor, origin: torch.Tensor, fh: int,
 
 
 def window_indices(particles: torch.Tensor, g: WindowGeometry,
-                   origin: torch.Tensor | None = None):
+                   origin: torch.Tensor):
     """(covered, row, lane, in_map) per particle: a fine-table index where
     ``covered``, else a coarse-table one (fused_score_pallas.py:71-115);
     with ``kc = 0`` (no coarse table) the clamped fine index throughout.
-    ``origin``: the window's corner (and first bin) in device memory, in
-    place of the geometry's (``_window_at``)."""
-    ox0, oy0, kstart = _window_at(g, origin)
+    ``origin``: the window's (oy0, ox0, kstart), read on the tensor's
+    device as 0-d tensors, never on the host."""
+    oy0, ox0, kstart = origin[0], origin[1], origin[2]
     px, py, pth = particles[:, 0], particles[:, 1], particles[:, 2]
     dx = px - g.origin_x
     dy = py - g.origin_y
@@ -134,7 +123,8 @@ def _as_scalar(x, device) -> torch.Tensor:
 
 def window_score_plain(fine: torch.Tensor, coarse: torch.Tensor,
                        particles: torch.Tensor, g: WindowGeometry, denom,
-                       fill, count=None, origin=None) -> torch.Tensor:
+                       fill, count=None, *, origin: torch.Tensor
+                       ) -> torch.Tensor:
     covered, row, lane, in_map = window_indices(particles, g, origin)
     row, lane = row.to(torch.int64), lane.to(torch.int64)
     v_fine = fine.reshape(-1)[torch.where(covered, row * g.fw + lane, 0)]
@@ -152,44 +142,40 @@ def window_args(g: WindowGeometry) -> _cuda.WindowArgs:
     """The geometry as the kernels' by-value C struct."""
     return _cuda.WindowArgs(
         g.origin_x, g.origin_y, g.fine_scale, g.theta_scale, PI_F32, g.res_c,
-        g.kc_scale, BLIND_SCORE, g.n_theta, g.nbins, g.kstart, g.fh, g.fw, g.h, g.w,
-        g.ox0, g.oy0, g.kc, g.hc, g.wc, int(g.fine_div), int(g.theta_div),
+        g.kc_scale, BLIND_SCORE, g.n_theta, g.nbins, g.fh, g.fw, g.h, g.w,
+        g.kc, g.hc, g.wc, int(g.fine_div), int(g.theta_div),
         int(g.clip_before_window))
 
 
 def _check_origin(name: str, origin: torch.Tensor) -> None:
-    if (origin.dtype != torch.int32 or origin.dim() != 1
-            or origin.shape[0] not in (2, 3)):
-        raise ValueError(f"{name}: origin must be a (2,) or (3,) int32 "
-                         "tensor (oy0, ox0[, kstart])")
+    if origin.dtype != torch.int32 or origin.shape != (3,):
+        raise ValueError(f"{name}: origin must be a (3,) int32 tensor "
+                         "(oy0, ox0, kstart)")
 
 
 def window_score(fine: torch.Tensor, coarse: torch.Tensor,
                  particles: torch.Tensor, g: WindowGeometry, denom, fill,
-                 count=None, origin: torch.Tensor | None = None
-                 ) -> torch.Tensor:
+                 count=None, *, origin: torch.Tensor) -> torch.Tensor:
     """(N,) scores: ``fine`` (fh * nbins, fw) and ``coarse`` (hc * kc, wc)
     f32 theta-minor tables, ``particles`` (N, 3); ``denom`` and ``fill``
     floats or 0-d tensors; with ``count`` (the 0-d int valid-beam count),
-    the blind penalty where ``count <= 0``.  ``origin``: a (3,) or (2,)
-    int32 tensor (oy0, ox0[, kstart]) that the kernel reads from device
-    memory in place of the geometry's window (``mcmh_window_score_at``);
-    None, the geometry's, as launch arguments.  CPU tensors take the plain
+    the blind penalty where ``count <= 0``.  ``origin``: the (3,) int32
+    window origin (oy0, ox0, kstart) that the kernel reads from device
+    memory (``mcmh_window_score_at``).  CPU tensors take the plain
     version."""
     if particles.device.type == "cpu":
         return window_score_plain(fine, coarse, particles, g, denom, fill,
-                                  count, origin)
+                                  count, origin=origin)
     dev = particles.device
     cnt = None if count is None else torch.as_tensor(
         count, device=dev).to(torch.int32).reshape(())
     # a 0-d tensor goes to the kernel by pointer, a python number by value
     denom, fill = (_as_scalar(x, dev) if isinstance(x, torch.Tensor)
                    else float(x) for x in (denom, fill))
-    _cuda.require_cuda("window_score", fine, coarse, particles,
-                       *(x for x in (denom, fill, cnt, origin)
+    _cuda.require_cuda("window_score", fine, coarse, particles, origin,
+                       *(x for x in (denom, fill, cnt)
                          if isinstance(x, torch.Tensor)))
-    if origin is not None:
-        _check_origin("window_score", origin)
+    _check_origin("window_score", origin)
     if (fine.dtype != torch.float32 or coarse.dtype != torch.float32
             or particles.dtype != torch.float32):
         raise ValueError("window_score: tables and particles must be float32")
@@ -204,54 +190,35 @@ def window_score(fine: torch.Tensor, coarse: torch.Tensor,
         (x.data_ptr(), 0.0) if isinstance(x, torch.Tensor) else (None, x)
         for x in (denom, fill))
     cnt_p = None if cnt is None else cnt.data_ptr()
-    lib = _cuda.library()
-    if origin is None:
-        code = lib.mcmh_window_score(
-            fine.data_ptr(), coarse.data_ptr(), particles.data_ptr(), n,
-            denom_p, denom_v, fill_p, fill_v, cnt_p, window_args(g),
-            poses_per_thread(n), out.data_ptr(), _cuda.stream_of(particles))
-    else:
-        code = lib.mcmh_window_score_at(
-            fine.data_ptr(), coarse.data_ptr(), particles.data_ptr(), n,
-            denom_p, denom_v, fill_p, fill_v, cnt_p, origin.data_ptr(),
-            origin.shape[0], window_args(g), poses_per_thread(n),
-            out.data_ptr(), _cuda.stream_of(particles))
-    _cuda.check_launch("window_score" if origin is None else "window_score_at",
-                       code)
+    code = _cuda.library().mcmh_window_score_at(
+        fine.data_ptr(), coarse.data_ptr(), particles.data_ptr(), n, denom_p,
+        denom_v, fill_p, fill_v, cnt_p, origin.data_ptr(), window_args(g),
+        poses_per_thread(n), out.data_ptr(), _cuda.stream_of(particles))
+    _cuda.check_launch("window_score_at", code)
     return out
 
 
 def window_escapees_plain(particles: torch.Tensor, g: WindowGeometry,
-                          origin: torch.Tensor | None = None
-                          ) -> torch.Tensor:
+                          origin: torch.Tensor) -> torch.Tensor:
     covered, _, _, in_map = window_indices(particles, g, origin)
     return (in_map & ~covered).sum().to(torch.int32)
 
 
 def window_escapees(particles: torch.Tensor, g: WindowGeometry,
-                    origin: torch.Tensor | None = None) -> torch.Tensor:
+                    origin: torch.Tensor) -> torch.Tensor:
     """0-d int32 count of in-map particles the window does not cover: the
     coarse-build gate's count (JAX corr_field.py:553).  ``origin``: as
     ``window_score`` takes it (``mcmh_window_escapees_at``)."""
     if particles.device.type == "cpu":
         return window_escapees_plain(particles, g, origin)
-    _cuda.require_cuda("window_escapees", particles,
-                       *(() if origin is None else (origin,)))
+    _cuda.require_cuda("window_escapees", particles, origin)
+    _check_origin("window_escapees", origin)
     if particles.dtype != torch.float32 or particles.shape[1:] != (3,):
         raise ValueError("window_escapees: particles must be (N, 3) float32")
     n = particles.shape[0]
     out = torch.zeros(1, dtype=torch.int32, device=particles.device)
-    lib = _cuda.library()
-    if origin is None:
-        code = lib.mcmh_window_escapees(
-            particles.data_ptr(), n, window_args(g), poses_per_thread(n),
-            out.data_ptr(), _cuda.stream_of(particles))
-    else:
-        _check_origin("window_escapees", origin)
-        code = lib.mcmh_window_escapees_at(
-            particles.data_ptr(), n, origin.data_ptr(), origin.shape[0],
-            window_args(g), poses_per_thread(n), out.data_ptr(),
-            _cuda.stream_of(particles))
-    _cuda.check_launch("window_escapees" if origin is None
-                       else "window_escapees_at", code)
+    code = _cuda.library().mcmh_window_escapees_at(
+        particles.data_ptr(), n, origin.data_ptr(), window_args(g),
+        poses_per_thread(n), out.data_ptr(), _cuda.stream_of(particles))
+    _cuda.check_launch("window_escapees_at", code)
     return out.reshape(())

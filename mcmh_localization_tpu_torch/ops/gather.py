@@ -66,12 +66,11 @@ class LookupGeometry(NamedTuple):
     """Static description of one scan's field for the per-particle lookup.
 
     ``origin_x``/``origin_y``/``inv_res`` are the map's f32 values as
-    python floats.  The windows come in one of two forms: ``kstart``, the
-    theta window's first global bin, and ``window``, the spatial window's
-    (ox0, oy0) cell corner, as host ints (None: all ``n_theta`` bins, the
-    full map); or ``theta_window`` / ``space_window`` set, with the values
-    in the (oy0, ox0, kstart) int32 tensor the lookup takes as ``origin``
-    (the step's window origin, computed on the card)."""
+    python floats.  ``theta_window`` / ``space_window``: the field covers
+    ``nbins`` theta bins from the first bin kstart / an (fh, fw) window at
+    the cell corner (oy0, ox0), values the lookup reads from its (3,)
+    int32 ``origin`` (oy0, ox0, kstart) (the step's window origin, computed
+    on the card); neither, all ``n_theta`` bins over the full map."""
 
     origin_x: float
     origin_y: float
@@ -82,23 +81,19 @@ class LookupGeometry(NamedTuple):
     fw: int
     map_h: int
     map_w: int
-    kstart: int | None = None
-    window: tuple[int, int] | None = None
     theta_window: bool = False
     space_window: bool = False
 
 
 def _windows(g: LookupGeometry, origin):
-    """(kstart, (ox0, oy0)) of ``g``, ints or 0-d tensors of ``origin``;
-    None where the window is off."""
-    if g.theta_window or g.space_window:
-        if origin is None:
-            raise ValueError("corr_lookup: the geometry's windows need the "
-                             "origin tensor")
-        kstart = origin[2] if g.theta_window else None
-        window = (origin[1], origin[0]) if g.space_window else None
-        return kstart, window
-    return g.kstart, g.window
+    """(kstart, (ox0, oy0)) of ``g``, 0-d tensors of ``origin``; None
+    where the window is off."""
+    if (g.theta_window or g.space_window) and origin is None:
+        raise ValueError("corr_lookup: the geometry's windows need the "
+                         "origin tensor")
+    kstart = origin[2] if g.theta_window else None
+    window = (origin[1], origin[0]) if g.space_window else None
+    return kstart, window
 
 
 def corr_lookup_indices(particles: torch.Tensor, g: LookupGeometry,
@@ -181,39 +176,13 @@ def corr_lookup(field: torch.Tensor, particles: torch.Tensor,
         raise ValueError("corr_lookup: field/particles shape mismatch")
     n = particles.shape[0]
     out = torch.empty(n, dtype=torch.float32, device=field.device)
-    lib = _cuda.library()
-    if device_form:
-        code = lib.mcmh_corr_lookup_at(
-            field.data_ptr(), g.nbins, g.fh, g.fw, particles.data_ptr(), n,
-            n_valid.data_ptr(), g.origin_x, g.origin_y, g.inv_res, PI_F32,
-            theta_scale(g.n_theta), g.n_theta, int(g.theta_window),
-            int(g.space_window), origin.data_ptr(), g.map_h, g.map_w,
-            int(aggregation == "sum"), int(score_validity), BLIND_SCORE,
-            INVALID_SCORE, _cuda.poses_per_thread(n), out.data_ptr(),
-            _cuda.stream_of(field))
-    else:
-        code = lib.mcmh_corr_lookup(
-            *lookup_args(field, particles, n_valid, g, aggregation,
-                         score_validity),
-            _cuda.poses_per_thread(n), out.data_ptr(), _cuda.stream_of(field),
-        )
+    code = _cuda.library().mcmh_corr_lookup_at(
+        field.data_ptr(), g.nbins, g.fh, g.fw, particles.data_ptr(), n,
+        n_valid.data_ptr(), g.origin_x, g.origin_y, g.inv_res, PI_F32,
+        theta_scale(g.n_theta), g.n_theta, int(g.theta_window),
+        int(g.space_window), origin.data_ptr() if device_form else None,
+        g.map_h, g.map_w, int(aggregation == "sum"), int(score_validity),
+        BLIND_SCORE, INVALID_SCORE, _cuda.poses_per_thread(n),
+        out.data_ptr(), _cuda.stream_of(field))
     _cuda.check_launch("corr_lookup", code)
     return out
-
-
-def lookup_args(field: torch.Tensor, particles: torch.Tensor,
-                n_valid: torch.Tensor, g: LookupGeometry, aggregation: str,
-                score_validity: bool) -> tuple:
-    """``mcmh_corr_lookup``'s arguments up to the poses a thread: the
-    pointers and the geometry's host-int windows as the C call takes
-    them."""
-    ox0, oy0 = g.window if g.window is not None else (0, 0)
-    return (
-        field.data_ptr(), g.nbins, g.fh, g.fw, particles.data_ptr(),
-        particles.shape[0], n_valid.data_ptr(), g.origin_x, g.origin_y,
-        g.inv_res, PI_F32, theta_scale(g.n_theta), g.n_theta,
-        g.kstart if g.kstart is not None else 0, int(g.kstart is not None),
-        ox0, oy0, int(g.window is not None), g.map_h, g.map_w,
-        int(aggregation == "sum"), int(score_validity), BLIND_SCORE,
-        INVALID_SCORE,
-    )

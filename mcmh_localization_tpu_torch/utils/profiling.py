@@ -170,6 +170,8 @@ class _Spans:
         if self.stack:
             raise RuntimeError("profiling.reset: spans are open")
         self.n = 0
+        self.names.clear()
+        self.ids.clear()
 
     def records(self) -> dict:
         n = self.n

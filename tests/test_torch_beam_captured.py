@@ -113,9 +113,9 @@ def test_beam_field_device_origin(box_maps, case, impl):
     want = np.asarray(jrt.beam_field_scores(
         jnp.asarray(parts), jnp.asarray(ranges), jnp.asarray(angles), jm,
         jcfg, jtab, K, tuple(jnp.int32(x) for x in wo), impl="dense"))
-    geo = trt._beam_geometry(tm, K, nbins, kstart, WIN, (ox0, oy0), None)
-    covered, _, _, in_map = (x.numpy() for x in window_indices(_t(parts),
-                                                               geo))
+    geo = trt._beam_geometry(tm, K, nbins, WIN, None)
+    covered, _, _, in_map = (x.numpy() for x in window_indices(
+        _t(parts), geo, torch.tensor([oy0, ox0, kstart], dtype=torch.int32)))
     fine = covered & in_map
     assert fine.sum() >= 250 and (~fine).sum() >= 100
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
@@ -123,11 +123,34 @@ def test_beam_field_device_origin(box_maps, case, impl):
     np.testing.assert_array_equal(got.numpy()[~fine], want[~fine])
     origin = trt.field_origin(torch.tensor(wo, dtype=torch.int32), 64, 64,
                               WIN, bool(tw), "cpu")
-    assert origin.tolist() == [oy0, ox0] + ([kstart] if tw else [])
+    assert origin.tolist() == [oy0, ox0, kstart]
     if case == "low_clamp":
         assert (oy0, ox0) == (0, 0)
     if case == "high_clamp":
         assert (oy0, ox0) == (64 - WIN, 64 - WIN)
+
+
+def test_field_origin_is_the_kernels_one_form():
+    """``field_origin`` gives each form of origin as the (3,) int32 (oy0,
+    ox0, kstart) the kernels read, on the box map (64 x 64 cells, a
+    32-cell window): ints clamped into the map as JAX clips them
+    (:443-449), kstart kept under a theta window and 0 without one (a
+    2-long origin has none); the step's int32 tensor, and a 2-long one,
+    give the same numbers, clamped on their device."""
+    cases = [  # (origin, theta window, want)
+        ((-7, -3, 20), True, [0, 0, 20]),
+        ((50, 40, 45), True, [32, 32, 45]),
+        ((16, 12, 30), False, [16, 12, 0]),
+        ((16, 12), False, [16, 12, 0]),
+    ]
+    for wo, theta, want in cases:
+        got = trt.field_origin(wo, 64, 64, WIN, theta, "cpu")
+        assert got.dtype == torch.int32 and got.tolist() == want, wo
+        # the step's tensor holds kstart 0 without a theta window
+        held = wo if theta or len(wo) == 2 else (*wo[:2], 0)
+        t = trt.field_origin(torch.tensor(held, dtype=torch.int32), 64, 64,
+                             WIN, theta, "cpu")
+        assert t.dtype == torch.int32 and t.tolist() == want, held
 
 
 def _gate_parts(n_esc: int) -> np.ndarray:

@@ -1,7 +1,8 @@
 """The card's scripts (chip_smoke.py, chip_kernel_ab.py,
-chip_trace_check.py) on the CPU: they import without jax, and their host-side helpers (the A/B script's sector
-counts and index helpers) do what their docstrings say.  The scripts
-themselves need a card."""
+chip_trace_check.py) on the CPU: they import without jax, and their
+host-side helpers (the smoke run's operation counts, the A/B script's
+kernel 7 ablation, the trace check's odometry reading) do what their
+docstrings say.  The scripts themselves need a card."""
 
 import os
 import subprocess
@@ -92,70 +93,6 @@ def test_dist_helpers_import_without_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-
-
-def _room():
-    from mcmh_localization_tpu_torch.maps import voxel_map as tvm
-
-    occ = np.zeros((10, 40, 48), dtype=np.int8)
-    occ[0] = 100
-    occ[:, 0, :] = occ[:, -1, :] = occ[:, :, 0] = occ[:, :, -1] = 100
-    return tvm.build_voxel_map(occ, 0.1, (-2.4, -2.0, 0.0), device="cpu")
-
-
-def test_voxel_sectors_counts_distinct_sectors_a_warp_load():
-    """``voxel_sectors`` on two clouds: 64 copies of one pose read one
-    sector and one line a warp load in every layout at G = 1, and G
-    sectors at most at G lanes; a spread cloud reads more, and never more
-    than 32."""
-    import chip_kernel_ab as ab
-    from mcmh_localization_tpu_torch.config import FilterConfig
-    from mcmh_localization_tpu_torch.models.sensor3d import (
-        scan_beams,
-        voxel_geometry,
-    )
-
-    vm = _room()
-    cfg = FilterConfig(max_range=3.0)
-    az = np.linspace(-np.pi, np.pi, 48, endpoint=False)
-    dirs = torch.tensor(np.stack([az, np.full(48, -0.1)], 1),
-                        dtype=torch.float32)
-    ranges = torch.full((48,), 1.5)
-    u, v, zrow, live, _ = scan_beams(ranges, dirs, vm, cfg, 0.5)
-    geo = voxel_geometry(vm)
-    same = torch.tensor([[0.1, 0.2, 0.3]]).expand(64, 3).contiguous()
-    for g in (1, 2, 4):
-        got = ab.voxel_sectors(same, u, v, zrow, live, geo, g, n_poses=64)
-        for sectors, lines in got.values():
-            assert 1.0 <= sectors <= g and 1.0 <= lines <= g
-    one = ab.voxel_sectors(same, u, v, zrow, live, geo, 1, n_poses=64)
-    assert all(x == (1.0, 1.0) for x in one.values())
-    rng = np.random.default_rng(0)
-    spread = torch.tensor(np.stack([rng.uniform(-1.5, 1.5, 64),
-                                    rng.uniform(-1.5, 1.5, 64),
-                                    rng.uniform(-np.pi, np.pi, 64)], 1),
-                          dtype=torch.float32)
-    got = ab.voxel_sectors(spread, u, v, zrow, live, geo, 1, n_poses=64)
-    for sectors, lines in got.values():
-        assert 4.0 < sectors <= 32.0 and lines <= 32.0
-
-
-def test_table_scorer_indices_are_the_scorer_reads():
-    """``table_scorer_indices``: one (cell, bin) pair a pose and beam, the
-    cell in the map and the bin in [0, K)."""
-    import chip_kernel_ab as ab
-    from mcmh_localization_tpu_torch.maps.grid_map import build_grid_map
-
-    gm = build_grid_map(np.zeros((32, 40), np.int8), 0.05, (-1.0, -0.8),
-                        device="cpu")
-    angles = torch.linspace(-3.0, 3.0, 7)
-    y, x = ab.table_scorer_indices(gm, 10, angles, 12,
-                                   torch.Generator().manual_seed(0),
-                                   torch.diag(torch.tensor([0.05, 0.05, 0.1])))
-    assert y.shape == x.shape == (70,)
-    assert y.dtype == x.dtype == torch.int32
-    assert int(y.min()) >= 0 and int(y.max()) < 32 * 40
-    assert int(x.min()) >= 0 and int(x.max()) < 12
 
 
 def test_table_ops_counts_the_form_s_work():

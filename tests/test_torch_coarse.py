@@ -46,7 +46,8 @@ def torch_map(house_map):
 def _fused_case(flags):
     """The inputs of tests/test_fused_lookup.py::test_fused_matches_spec_
     bitwise: an in-window cluster, escapees anywhere in the map, and poses
-    mostly off the map."""
+    mostly off the map; the window origin (oy0, ox0, kstart) as the int32
+    tensor the lookups take."""
     fine_div, theta_div, clip_before = flags
     rng = np.random.default_rng(0)
     n_theta, nbins, fh, fw = 120, 24, 64, 64
@@ -75,12 +76,12 @@ def _fused_case(flags):
     geo = WindowGeometry(
         origin_x=float(np.float32(-9.6)), origin_y=float(np.float32(-9.6)),
         fine_scale=float(fine_scale), theta_scale=float(theta_scale),
-        n_theta=n_theta, nbins=nbins, kstart=97, fh=fh, fw=fw, h=384, w=384,
-        ox0=150, oy0=140, kc=kc, hc=hc, wc=wc,
-        res_c=float(np.float32(res_c)),
+        n_theta=n_theta, nbins=nbins, fh=fh, fw=fw, h=384, w=384, kc=kc,
+        hc=hc, wc=wc, res_c=float(np.float32(res_c)),
         kc_scale=float(np.float32(kc / (2.0 * np.pi))), fine_div=fine_div,
         theta_div=theta_div, clip_before_window=clip_before)
-    return field_t, cfield_t, parts, spec, geo
+    origin = torch.tensor([140, 150, 97], dtype=torch.int32)
+    return field_t, cfield_t, parts, spec, geo, origin
 
 
 FLAG_SETS = [(False, False, False), (True, True, True)]
@@ -91,10 +92,11 @@ def test_window_score_bitwise_vs_index_spec(flags):
     """Index triples bitwise equal to the numpy spec of the TPU kernel's
     semantics, values bitwise equal to the table read, divided and
     filled."""
-    field_t, cfield_t, parts, spec, geo = _fused_case(flags)
+    field_t, cfield_t, parts, spec, geo, origin = _fused_case(flags)
     rows, lanes, in_map = _spec_rows_lanes(parts[:, 0], parts[:, 1],
                                            parts[:, 2], **spec)
-    covered, row, lane, in_map_t = window_indices(torch.from_numpy(parts), geo)
+    covered, row, lane, in_map_t = window_indices(torch.from_numpy(parts), geo,
+                                                  origin)
     covered, row = covered.numpy(), row.numpy()
     np.testing.assert_array_equal(
         np.where(covered, row, spec["coarse_base"] + row), rows)
@@ -105,7 +107,7 @@ def test_window_score_bitwise_vs_index_spec(flags):
     denom, fill = np.float32(37.0), np.float32(-123.0)
     got = window_score(torch.from_numpy(field_t), torch.from_numpy(cfield_t),
                        torch.from_numpy(parts), geo, float(denom),
-                       float(fill)).numpy()
+                       float(fill), origin=origin).numpy()
     cb = spec["coarse_base"]
     read = np.where(covered,
                     field_t[np.where(covered, rows, 0), np.where(covered, lanes, 0)],
@@ -116,10 +118,11 @@ def test_window_score_bitwise_vs_index_spec(flags):
     # a count of 0 valid beams gives the blind score everywhere
     blind = window_score(torch.from_numpy(field_t), torch.from_numpy(cfield_t),
                          torch.from_numpy(parts), geo, float(denom),
-                         float(fill), count=torch.tensor(0)).numpy()
+                         float(fill), count=torch.tensor(0),
+                         origin=origin).numpy()
     assert (blind == -50.0).all()
     # the gate's count is the in-map escapees
-    assert int(window_escapees(torch.from_numpy(parts), geo)) == int(
+    assert int(window_escapees(torch.from_numpy(parts), geo, origin)) == int(
         (~covered & in_map).sum())
 
 
@@ -130,7 +133,7 @@ def test_window_score_ragged_view_vs_index_spec(flags):
     ragged last thread take: values and the escapee count bitwise equal to
     the index spec on those poses, and to the whole array's scores at
     their positions."""
-    field_t, cfield_t, parts, spec, geo = _fused_case(flags)
+    field_t, cfield_t, parts, spec, geo, origin = _fused_case(flags)
     full = torch.from_numpy(parts)
     view = full[1:-2]
     assert view.shape[0] % 4 == 1 and view.storage_offset() == 3
@@ -145,11 +148,14 @@ def test_window_score_ragged_view_vs_index_spec(flags):
     denom, fill = np.float32(37.0), np.float32(-123.0)
     want = np.where(in_map, read / denom, fill).astype(np.float32)
     tables = torch.from_numpy(field_t), torch.from_numpy(cfield_t)
-    got = window_score(*tables, view, geo, float(denom), float(fill)).numpy()
+    got = window_score(*tables, view, geo, float(denom), float(fill),
+                       origin=origin).numpy()
     np.testing.assert_array_equal(got, want)
-    whole = window_score(*tables, full, geo, float(denom), float(fill)).numpy()
+    whole = window_score(*tables, full, geo, float(denom), float(fill),
+                         origin=origin).numpy()
     np.testing.assert_array_equal(got, whole[1:-2])
-    assert int(window_escapees(view, geo)) == int((~covered & in_map).sum())
+    assert int(window_escapees(view, geo, origin)) == int(
+        (~covered & in_map).sum())
 
 
 def test_poses_per_thread_rule():
@@ -170,11 +176,11 @@ def test_window_score_vs_tpu_kernel_interpret(flags):
     """The TPU kernel reads through split bf16 hi/lo planes, a TPU
     approximation of about |v| * 2^-16 (hi keeps 8 bits, lo the next 8):
     the port's exact read agrees within |v| * 2^-15."""
-    field_t, cfield_t, parts, spec, geo = _fused_case(flags)
+    field_t, cfield_t, parts, spec, geo, origin = _fused_case(flags)
     denom, fill = np.float32(37.0), np.float32(-123.0)
     got = window_score(torch.from_numpy(field_t), torch.from_numpy(cfield_t),
                        torch.from_numpy(parts), geo, float(denom),
-                       float(fill)).numpy()
+                       float(fill), origin=origin).numpy()
     want = np.asarray(fused_window_score_gather(
         jnp.asarray(field_t), jnp.asarray(cfield_t),
         jnp.asarray(parts[:, 0]), jnp.asarray(parts[:, 1]),
@@ -304,7 +310,7 @@ def _origin_case(flags, case):
     """``_fused_case`` with a cluster of 1024 poses in the window at the
     case's (oy0, ox0) with headings across its theta window (its 24 bins
     from kstart on, past the wrap), so each origin covers poses."""
-    field_t, cfield_t, parts, spec, geo = _fused_case(flags)
+    field_t, cfield_t, parts, spec, geo, _ = _fused_case(flags)
     oy0, ox0, kstart = ORIGIN_CASES[case]
     rng = np.random.default_rng(7)
     n = 1024
@@ -317,6 +323,22 @@ def _origin_case(flags, case):
     parts = np.concatenate([parts, cluster])
     spec = dict(spec, ox0=ox0, oy0=oy0, kstart=kstart)
     return field_t, cfield_t, parts, spec, geo, (oy0, ox0, kstart)
+
+
+def _spec_scores(field_t, cfield_t, parts, spec, denom, fill):
+    """(scores, covered, in_map) of the numpy index spec: the table read at
+    the spec's (row, lane), divided by ``denom`` in the map, ``fill`` off
+    it."""
+    rows, lanes, in_map = _spec_rows_lanes(parts[:, 0], parts[:, 1],
+                                           parts[:, 2], **spec)
+    cb = spec["coarse_base"]
+    covered = rows < cb
+    read = np.where(covered,
+                    field_t[np.where(covered, rows, 0), np.where(covered, lanes, 0)],
+                    cfield_t[np.where(covered, 0, rows - cb),
+                             np.where(covered, 0, lanes)])
+    return (np.where(in_map, read / np.float32(denom), np.float32(fill))
+            .astype(np.float32), covered, in_map)
 
 
 def _jax_escapees(parts, spec):
@@ -343,37 +365,38 @@ def _jax_escapees(parts, spec):
 @pytest.mark.parametrize("flags", FLAG_SETS, ids=["corr_forms", "beam_forms"])
 def test_window_score_device_origin(flags, case):
     """The window-score and escapee plain versions with the window read
-    from a device tensor (``origin=``, the ``_at`` kernels' form) at the
-    window's clamps and at the theta wrap: bitwise equal to the
-    launch-argument form at the same window (a geometry holding another
-    window, which the origin overrides), also with a (2,) origin that
-    keeps the geometry's kstart; and, as the launch-argument form is,
-    within the TPU kernel's bf16 hi/lo read (|v| * 2^-15) of JAX's
+    from the origin tensor (the ``_at`` kernels' form) at the window's
+    clamps and at the theta wrap: bitwise equal to the numpy index spec of
+    the TPU kernel's semantics at that window, also with kstart 0 (the
+    origin of a window without a theta window); and within the TPU
+    kernel's bf16 hi/lo read (|v| * 2^-15) of JAX's
     ``fused_window_score_gather`` in interpret mode.  The escapee count
-    equals JAX's ``jnp.sum(in_map & ~covered)`` (corr forms)."""
+    equals the spec's and JAX's ``jnp.sum(in_map & ~covered)`` (corr
+    forms)."""
     field_t, cfield_t, parts, spec, geo, origin = _origin_case(flags, case)
     oy0, ox0, kstart = origin
     tables = torch.from_numpy(field_t), torch.from_numpy(cfield_t)
     tp = torch.from_numpy(parts)
-    at = torch.tensor(origin, dtype=torch.int32)
-    other = geo._replace(ox0=3, oy0=5, kstart=11)
-    host = geo._replace(ox0=ox0, oy0=oy0, kstart=kstart)
     denom, fill, count = 37.0, -123.0, torch.tensor(90)
-    got = window_score(*tables, tp, other, denom, fill, count=count,
-                       origin=at)
-    want = window_score(*tables, tp, host, denom, fill, count=count)
-    assert torch.equal(got, want)
-    two = window_score(*tables, tp, other._replace(kstart=kstart), denom,
-                       fill, count=count, origin=at[:2])
-    assert torch.equal(two, want)
-    covered, _, _, in_map = window_indices(tp, host)
+    for k0 in (kstart, 0):
+        at = torch.tensor((oy0, ox0, k0), dtype=torch.int32)
+        want, covered, in_map = _spec_scores(field_t, cfield_t, parts,
+                                             dict(spec, kstart=k0), denom,
+                                             fill)
+        got = window_score(*tables, tp, geo, denom, fill, count=count,
+                           origin=at)
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert int(window_escapees(tp, geo, at)) == int(
+            (~covered & in_map).sum())
+    at = torch.tensor(origin, dtype=torch.int32)
+    got = window_score(*tables, tp, geo, denom, fill, count=count, origin=at)
+    covered, _, _, in_map = window_indices(tp, geo, at)
     assert covered.sum() >= 500 and (~covered & in_map).any()
     if case == "theta_wrap":   # covered headings on both sides of +-pi
         th = tp[covered, 2]
         assert (th > 3.0).any() and (th < -3.0).any()
-    n_esc = int(window_escapees(tp, other, origin=at))
-    assert n_esc == int(window_escapees(tp, host)) == int(
-        (~covered & in_map).sum())
+    n_esc = int(window_escapees(tp, geo, origin=at))
+    assert n_esc == int((~covered & in_map).sum())
     if flags == FLAG_SETS[0]:
         assert n_esc == _jax_escapees(parts, spec)
     jax_scores = np.asarray(fused_window_score_gather(

@@ -7,6 +7,8 @@ samples.  The CUDA graph itself (capture, replay, conditional nodes) runs
 only on the card: ``chip_smoke.py``'s ``[graph]`` phase checks it there.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 
@@ -29,9 +31,6 @@ from mcmh_localization_tpu_torch.convert import (  # noqa: E402
     state_from_numpy,
 )
 from mcmh_localization_tpu_torch.filter import step as tstep  # noqa: E402
-from mcmh_localization_tpu_torch.filter.captured import (  # noqa: E402
-    graph_capturable,
-)
 from mcmh_localization_tpu_torch.filter.staged import make_staged_model  # noqa: E402
 from mcmh_localization_tpu_torch.models import corr_field as tcf  # noqa: E402
 from mcmh_localization_tpu_torch.models import range_table as trt  # noqa: E402
@@ -50,6 +49,15 @@ from tests.torch_guard import HostRead, no_host_reads  # noqa: E402
 
 def _t(x):
     return torch.from_numpy(np.array(x))
+
+
+def _replays_on_card(config) -> bool:
+    """``FilterModel.replays_graph`` of ``config`` on a CUDA device: a
+    stand-in model whose map reports the card, made without one."""
+    model = object.__new__(tstep.FilterModel)
+    model.config = config
+    model.grid_map = SimpleNamespace(device=torch.device("cuda"))
+    return model.replays_graph
 
 
 @pytest.fixture(scope="module")
@@ -92,13 +100,13 @@ def test_main_path_step_reads_nothing_on_the_host(house_map, torch_map,
     """One step of each staged program (BIG at 8192 slots, with the KLD
     escalation reachable and injecting; SMALL at 4096, ESS-gated) under
     the guard: no host read escapes outside the gates' plain version.
-    Both programs are graph-capturable by config."""
+    Both programs replay a captured step on a CUDA device."""
     monkeypatch.setattr(tres, "_KLD_STAGE1", 1024)
     staged = make_staged_model(FilterConfig(**_main_path_kw()), torch_map,
                                tracking_capacity=4096,
                                tracking_ess_threshold=0.9)
     model = staged.big if program == "big" else staged.small
-    assert graph_capturable(model.config)
+    assert _replays_on_card(model.config)
     state = model.init(0)
     # an injecting scan: the augmented-MCL averages apart
     state = state.replace(w_slow=torch.tensor(1.0), w_fast=torch.tensor(0.5))
@@ -115,7 +123,7 @@ def test_eager_config_trips_the_guard(house_map, torch_map, monkeypatch):
     build (the form the beam model had before its origin stayed on the
     device) raises ``HostRead``; the same step as shipped passes."""
     cfg = FilterConfig(**_beam_kw(coarse_gate_escapees=8))
-    assert graph_capturable(cfg)
+    assert _replays_on_card(cfg)
     model = tstep.make_model(cfg, torch_map)
     ranges, angles, delta = _scan_inputs(house_map)
     with no_host_reads(monkeypatch):
@@ -131,8 +139,8 @@ def test_eager_config_trips_the_guard(house_map, torch_map, monkeypatch):
 
 
 def test_graph_capturable_by_config():
-    """The captured run is chosen by config: both staged programs of the
-    main path, the window with the coarse fallback (gated or not), the
+    """Every config replays a captured step on a CUDA device: both staged
+    programs of the main path, the window with the coarse fallback (gated or not), the
     exact scorer ("jnp", "pallas", and "auto" resolving to it) under both
     motion validities, the 3-D lidar, and the beam model in every impl
     ("field", "table", "dense", "auto"); never on the CPU."""
@@ -152,7 +160,7 @@ def test_graph_capturable_by_config():
         capturable.append(FilterConfig(
             sensor_model="beam", beam_impl=impl, corr_window_cells=128))
     for cfg in capturable:
-        assert graph_capturable(cfg), cfg
+        assert _replays_on_card(cfg), cfg
     assert tstep._resolved_impl(FilterConfig(), "cuda") == "jnp"
     model = tstep.make_model(
         FilterConfig(sensor_model="beam", beam_impl="dense",
@@ -298,7 +306,7 @@ def test_capturable_step_reads_nothing_on_the_host(house_map, torch_map,
                 motion_validity=spec["validity"]))
         model = tstep.make_model(cfg, torch_map)
         state = model.init(0)
-    assert graph_capturable(model.config)
+    assert _replays_on_card(model.config)
     builds = []
     if spec.get("side"):
         if spec["side"] == "above":
@@ -379,7 +387,7 @@ def test_gate_branches_match_jax_on_jax_draws(house_map, torch_map,
     else:
         kw.update(resample_ess_threshold=0.9)
     jcfg, tcfg = JConfig(**kw), FilterConfig(**kw)
-    assert graph_capturable(tcfg)
+    assert _replays_on_card(tcfg)
     ranges, angles, delta = _scan_inputs(house_map)
     jm = jstep.make_model(jcfg, house_map)
     js = jm.init(jax.random.PRNGKey(0))
@@ -440,9 +448,9 @@ ORIGIN_CASES = {
 def test_window_origin_matches_jax(house_map, torch_map, case):
     """``_window_origin`` is a (3,) int32 tensor equal to JAX's origin
     clipped as JAX's scorer clips it; the corr scores at it match JAX's
-    (rtol 1e-5, f32 field sums in another order); and the field build and
-    lookup at the device-held origin equal, bitwise, the earlier host form
-    (the region sliced out on the host, the window as host ints)."""
+    (rtol 1e-5, f32 field sums in another order); and the field build at
+    the device-held origin equals, bitwise, the region sliced out on the
+    host, and the lookup there the lookup at the origin JAX's ints give."""
     spec = ORIGIN_CASES[case]
     kw = _main_path_kw(num_particles=512, max_particles=512, min_particles=64,
                        corr_window_cells=WIN, corr_theta_window_bins=TW,
@@ -486,8 +494,9 @@ def test_window_origin_matches_jax(house_map, torch_map, case):
         n_theta=N_THETA, window_origin=origin).numpy()
     np.testing.assert_allclose(t_scores, j_scores, rtol=1e-5, atol=1e-5)
 
-    # kernel 1's and kernel 2's plain versions: the device-held origin
-    # against the host form, bitwise
+    # kernel 1's and kernel 2's plain versions at the device-held origin,
+    # bitwise: the build against the host-sliced region, the lookup against
+    # the one at JAX's origin
     log_field = _t(lf)
     pad = tcf.pad_cells_for(tcfg, torch_map)
     padded0 = torch.nn.functional.pad(log_field, (pad, pad, pad, pad))
@@ -512,13 +521,14 @@ def test_window_origin_matches_jax(house_map, torch_map, case):
     n_valid = valid.sum().to(torch.int32)
     common = (torch_map.origin_xy[0], torch_map.origin_xy[1],
               torch_map.inv_res, N_THETA, TW, WIN, WIN, h, w)
-    dev_geo = LookupGeometry(*common, theta_window=True, space_window=True)
-    host_geo = LookupGeometry(*common, kstart=want[2], window=(ox0, oy0))
+    geo = LookupGeometry(*common, theta_window=True, space_window=True)
+    spec_origin = torch.tensor(want, dtype=torch.int32)
     for agg in ("mean", "sum"):
         assert torch.equal(
-            corr_lookup(field, _t(parts), n_valid, dev_geo, agg, True,
+            corr_lookup(field, _t(parts), n_valid, geo, agg, True,
                         origin=origin),
-            corr_lookup(field, _t(parts), n_valid, host_geo, agg, True))
+            corr_lookup(field, _t(parts), n_valid, geo, agg, True,
+                        origin=spec_origin))
 
 
 # ---------------------------------------------------------------------------

@@ -95,8 +95,9 @@ def test_bin_offsets_match_jax_up_to_trig_ulps(house_map, torch_map):
 
 
 def _jax_lookup_indices(house_map, parts, window):
-    """(tbin, myc, mxc, in_map, covered), in_theta, in_window and the
-    port's LookupGeometry arguments: the JAX scorer's index math
+    """(tbin, myc, mxc, in_map, covered), in_theta, in_window, the port's
+    LookupGeometry arguments and the lookup's window origin tensor (None
+    for the full map): the JAX scorer's index math
     (corr_field.py:466-490) for the full map or a 64-cell window at
     (oy0, ox0) with 16 theta bins from kstart."""
     h, w = house_map.occupancy.shape
@@ -114,7 +115,7 @@ def _jax_lookup_indices(house_map, parts, window):
         in_theta = jnp.ones_like(in_map)
         in_window = jnp.ones_like(in_map)
         mxc, myc = jnp.clip(mx, 0, fw - 1), jnp.clip(my, 0, fh - 1)
-        geo_kw = {}
+        geo_kw, origin = {}, None
     else:
         oy0, ox0, kstart = window
         nbins, fh, fw = 16, win, win
@@ -124,9 +125,10 @@ def _jax_lookup_indices(house_map, parts, window):
         mxw, myw = mx - ox0, my - oy0
         in_window = (mxw >= 0) & (mxw < fw) & (myw >= 0) & (myw < fh)
         mxc, myc = jnp.clip(mxw, 0, fw - 1), jnp.clip(myw, 0, fh - 1)
-        geo_kw = dict(kstart=kstart, window=(ox0, oy0))
+        geo_kw = dict(theta_window=True, space_window=True)
+        origin = torch.tensor([oy0, ox0, kstart], dtype=torch.int32)
     return ((tbin, myc, mxc, in_map, in_window & in_theta), in_theta,
-            in_window, (N_THETA, nbins, fh, fw, h, w), geo_kw)
+            in_window, (N_THETA, nbins, fh, fw, h, w), geo_kw, origin)
 
 
 def _geometry(torch_map, geo_args, geo_kw):
@@ -140,11 +142,11 @@ def test_lookup_index_triples_bitwise(house_map, torch_map, window):
     """The fused lookup's (theta bin, row, col) and masks equal the JAX
     scorer's index math (corr_field.py:466-490) bitwise."""
     parts = _particles(4000, 5)
-    want, in_theta, in_window, geo_args, geo_kw = _jax_lookup_indices(
-        house_map, parts, window)
+    want, in_theta, in_window, geo_args, geo_kw, origin = (
+        _jax_lookup_indices(house_map, parts, window))
     in_map = want[3]
     got = corr_lookup_indices(torch.from_numpy(parts),
-                              _geometry(torch_map, geo_args, geo_kw))
+                              _geometry(torch_map, geo_args, geo_kw), origin)
     for name, g, wv in zip(("tbin", "myc", "mxc", "in_map", "covered"),
                            got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(wv), err_msg=name)
@@ -172,7 +174,7 @@ def test_corr_lookup_on_a_misaligned_view_bitwise_vs_jax(
     full = _particles(4003, 5)
     view = torch.from_numpy(full)[1:-1]
     assert view.storage_offset() == 3 and view.shape[0] == 4001  # 12 bytes
-    (tbin, myc, mxc, in_map, covered), _, _, geo_args, geo_kw = (
+    (tbin, myc, mxc, in_map, covered), _, _, geo_args, geo_kw, origin = (
         _jax_lookup_indices(house_map, full[1:-1], window))
     _, nbins, fh, fw, _, _ = geo_args
     field = np.random.default_rng(3).normal(
@@ -193,7 +195,7 @@ def test_corr_lookup_on_a_misaligned_view_bitwise_vs_jax(
     got = corr_lookup(torch.from_numpy(field), view,
                       torch.tensor(count, dtype=torch.int32),
                       _geometry(torch_map, geo_args, geo_kw), aggregation,
-                      True).numpy()
+                      True, origin=origin).numpy()
     np.testing.assert_array_equal(got, want)
     if count:
         assert (want == INVALID_SCORE * (count if aggregation == "sum" else 1)
@@ -237,6 +239,33 @@ def test_correlation_field_scores_match_jax(house_map, torch_map, mode,
     if mode == "windowed":
         assert (want == -50.0).any()
     assert (want <= -100.0).any()
+
+
+@pytest.mark.parametrize("coarse", [0, 4], ids=["window", "window_coarse"])
+def test_int_origin_scores_as_the_clamped_tensor(house_map, torch_map,
+                                                 coarse):
+    """An origin of ints past the map's edges, which ``field_origin``
+    clamps as JAX clips it, scores bitwise as the clamped origin given as
+    the step's int32 tensor, with and without the coarse fallback (kernel
+    2's and kernel 5's plain versions): one origin form either way."""
+    cfg = FilterConfig(max_range=5.0, likelihood_impl="corr",
+                       corr_n_theta=N_THETA, motion_validity="score",
+                       score_aggregation="mean", corr_window_cells=64,
+                       corr_theta_window_bins=16, corr_coarse_factor=coarse)
+    ranges, angles = _scan(house_map, (1.0, 1.0, 0.4))
+    scan = (torch.from_numpy(ranges), torch.from_numpy(angles), torch_map, cfg)
+    # the house map is 192 x 192 cells: a 64-cell corner clamps to [0, 128];
+    # each cloud lies about its clamped window
+    for wo, clamped, center in (((150, 140, 44), (128, 128, 44), (3.0, 3.0)),
+                                ((-20, -5, 5), (0, 0, 5), (-3.5, -3.5))):
+        parts = torch.from_numpy(_particles(2000, 13, center))
+        got = tcf.correlation_field_scores(parts, *scan, n_theta=N_THETA,
+                                           window_origin=wo)
+        want = tcf.correlation_field_scores(
+            parts, *scan, n_theta=N_THETA,
+            window_origin=torch.tensor(clamped, dtype=torch.int32))
+        assert torch.equal(got, want)
+        assert (want > -50.0).any()     # poses scored in the window
 
 
 def test_scorer_own_offsets_and_log_field_close_to_jax(house_map, torch_map):

@@ -324,8 +324,10 @@ def test_beam_field_scores_match_jax_dense(box_maps, coarse, aggregation,
         jtab, k_bins, tuple(jnp.int32(x) for x in wo), impl="dense"))
     got = trt.beam_field_scores(_t(parts), _t(ranges), _t(angles), tm, tcfg,
                                 ttab, k_bins, wo).numpy()
-    geo = trt._beam_geometry(tm, k_bins, 6, kstart, 32, (16, 16), None)
-    covered, _, _, in_map = (x.numpy() for x in window_indices(_t(parts), geo))
+    geo = trt._beam_geometry(tm, k_bins, 6, 32, None)
+    origin = torch.tensor([16, 16, kstart], dtype=torch.int32)
+    covered, _, _, in_map = (x.numpy() for x in window_indices(_t(parts), geo,
+                                                               origin))
     cnt = int((np.isfinite(ranges) & (ranges < 2.0)).sum())
     div = cnt if aggregation == "mean" else 1
     fine = covered & in_map
@@ -687,7 +689,8 @@ def test_window_indices_at_the_beam_bench_geometry():
 
     gm = build_grid_map(np.zeros((384, 384), np.int8), 0.05, (-9.6, -9.6),
                         device="cpu")
-    geo = trt._beam_geometry(gm, 96, 24, 90, 64, (150, 140), (4, 24, 96, 96))
+    geo = trt._beam_geometry(gm, 96, 24, 64, (4, 24, 96, 96))
+    origin = torch.tensor([140, 150, 90], dtype=torch.int32)
     rng = np.random.default_rng(1)
     n = 20000
     parts = np.stack([
@@ -702,7 +705,7 @@ def test_window_indices_at_the_beam_bench_geometry():
         kc=24, hc=96, wc=96, res_c=0.2, clip_before_window=True,
         coarse_base=64 * 24)
     covered, row, lane, in_map_t = (x.numpy() for x in
-                                    window_indices(_t(parts), geo))
+                                    window_indices(_t(parts), geo, origin))
     np.testing.assert_array_equal(np.where(covered, row, 64 * 24 + row), rows)
     np.testing.assert_array_equal(lane, lanes)
     np.testing.assert_array_equal(in_map_t, in_map)

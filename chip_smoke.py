@@ -12,9 +12,9 @@
    BIG field K=120 384^2 M=360, SMALL/window field K=32 128^2, coarse field
    K=36 96^2 (bitwise, beside a ``conv2d`` yardstick), lookups of 2x1M and
    2x130048 poses (also on the misaligned view ``parts[1:]``),
-   ``gather_2d`` on the SMALL window table and the free mask of the
-   "reject" retries (FilterConfig()'s and the 100k exact run's; each also
-   on a misaligned view of its indices), kernel 2's two fused forms: (a)
+   ``gather_2d`` on the SMALL window table and the free mask at 4 x
+   FilterConfig()'s and 4 x the 100k exact run's slots (each also on a
+   misaligned view of its indices), kernel 2's two fused forms: (a)
    the range-table scorer at the staged beam BIG program's 2 x 1M poses
    (a mixed cloud around START, 360 beams of the house scan, K=96, the
    table's uint8 level form and its per-scan LUT) and the [beam] table
@@ -79,6 +79,16 @@
    ``CHAIN_RTOL_WEIGHTS``; a second call and three replays of a captured
    call bitwise the first; timed beside its bound (bytes) and the plain
    chain, with the launches a call.
+   ``[motion]``: the odometry message's motion step (``csrc/motion.cu``,
+   ``ops/motion.py``) against the plain PyTorch chain at the four cells'
+   shapes (5000 slots with "reject"'s 4 retries, 100k, 130 048 and 1M
+   with the raw draw), and at 5000 and 5003 (a ragged last thread) on a
+   0.3 m message, in both forms (from a delta into new tensors; from the
+   two poses in place, the previous set kept) and on a view one row past
+   an aligned base, bitwise, the generator after each call equal; one
+   launch a call; timed (the kernel on given normals, the message with
+   torch's draw) beside its bound (bytes) and the plain chain, with the
+   odometry graph's nodes a message of the plain chain and of the kernel.
 4. ``[main]``: the staged main path: AMHAMCL, KLD-adaptive at 1M capacity /
    100k minimum, 360 beams, the staged two-program runner with a 0.9
    tracking ESS gate and the windowed corr scorer, on a procedural 384x384
@@ -123,7 +133,8 @@
 6. ``[exact]``: ``FilterConfig()`` with the exact "pallas" scorer and
    motion_validity="reject" in all six modes (1500 particles, min 100, max
    5000), each under 0.25 m over its last 8 scans with the exact scorer
-   and ``gather_2d`` launched; then corr vs exact ms/scan at 1500 and 100k
+   and the motion kernel (which reads the free mask of the "reject"
+   retries) launched; then corr vs exact ms/scan at 1500 and 100k
    particles (where "auto"'s crossover lies on this card).
 7. ``[beam]``: the ray-cast beam model at the bench's beam point
    (``bench.py:391-398``): AMHAMCL at 100k particles, the windowed beam
@@ -195,7 +206,7 @@
    (bitwise), ROS1 and ROS2 bag files; ``single --staged`` at 1M / 100k
    (RMSE under 0.2 m, a hand-off, the results file and 178 metrics lines,
    kernels 1-3 launched) and ``FilterConfig()`` at 1500 particles (RMSE
-   under 0.25 m, the exact scorer, ``gather_2d`` and the expansion
+   under 0.25 m, the exact scorer, the motion kernel and the expansion
    launched), each with its ms/scan by the host clock; ``warmup_staged``
    timed, the generator's state unchanged.
    ``[dist]``: the multi-rank filter (``parallel/distributed.py``,
@@ -982,9 +993,10 @@ def compare_kernels(gm, cfg, small_cfg, log_field, ranges, angles, rows):
     y = (tbin * win + myc).to(torch.int32).contiguous()
     x = mxc.to(torch.int32).contiguous()
     gather_row = {**gather_2d_row("SMALL window", table, y, x), "shapes": []}
-    # the exact paths' free-cell test of the "reject" retries
-    # (GridMap.is_free_world, maps/grid_map.py:90): retries x n_max
-    # candidates, for FilterConfig() and the [exact] 100k "jnp" run
+    # the free-cell test (GridMap.is_free_world, maps/grid_map.py:112) at
+    # retries x n_max candidates, for FilterConfig() and the [exact] 100k
+    # "jnp" run: the "score" validity wrap's read; the "reject" retries
+    # read the free mask inside csrc/motion.cu
     for n_max in (state_size(FilterConfig()), 100_000):
         n = FilterConfig().motion_retries * n_max
         gy, gx = free_mask_indices(gm, n, gen, cov)
@@ -2240,7 +2252,7 @@ def drive_fleet(gm, scans, angles, deltas, poses, smi, counts) -> dict:
           f"bitwise its lone run over 4 scans; launches {counts}")
     check((errs < 0.2).all(), f"[batched] final errors {errs} m, not all "
           "under 0.2 m")
-    for name in ("likelihood_scores", "gather_2d", "expand_sorted"):
+    for name in ("likelihood_scores", "motion", "expand_sorted"):
         check(counts.get(name, 0) > 0, f"[batched] {name} never launched")
     return functools.partial(events_run, fleet, states, seq, angles,
                              dls), ms_fleet
@@ -3303,7 +3315,7 @@ def drive_eval(cfg, gm, smi, reset, counts) -> list:
         launches.append(("eval_exact", c, n + 1))
         check(np.isfinite(res.est).all() and res.rmse < 0.25,
               f"[eval] FilterConfig() RMSE {res.rmse:.4f} m >= 0.25 m")
-        for name in ("likelihood_scores", "gather_2d", "expand_sorted"):
+        for name in ("likelihood_scores", "motion", "expand_sorted"):
             check(c.get(name, 0) > 0,
                   f"[eval] FilterConfig(): {name} never launched")
         print(f"[eval] single FilterConfig() (1500 particles, 'auto' -> "
@@ -3541,6 +3553,186 @@ def drive_dryrun() -> None:
     graft_entry.dryrun_multichip(1)
 
 
+# [motion]: the four cells' odometry messages, (tag, slots, validity): the
+# default configuration's 5000 with "reject" and its 4 retries, the beam
+# cell's 100k, SMALL's 130 048 and BIG's 1M with the raw draw
+MOTION_SHAPES = (("default", 5000, "reject"), ("beam", 100_000, "score"),
+                 ("small", 130_048, "score"), ("big", 1_000_000, "score"))
+# a message of the tour (0.15 m/s at 30 Hz) and one of 0.3 m with a turn,
+# which sends more "reject" candidates past a wall; (previous, current)
+MOTION_POSES = {"tour": ((0.0, 0.0, 0.3), (0.005, 0.0015, 0.302)),
+                "long": ((0.0, 0.0, 0.3), (0.25, 0.16, -0.4))}
+
+
+def motion_state(n: int, dev, seed: int):
+    """A FilterState of n slots spread over the house (walls and the
+    unknown band too, so every "reject" outcome occurs), any heading."""
+    from mcmh_localization_tpu_torch.filter.state import FilterState
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    half = MAP_CELLS * RES / 2 - 0.2
+    u = torch.rand((n, 3), generator=g, device=dev)
+    parts = torch.stack([half * (2 * u[:, 0] - 1), half * (2 * u[:, 1] - 1),
+                         math.pi * (2 * u[:, 2] - 1)], 1).contiguous()
+    f32 = dict(dtype=torch.float32, device=dev)
+    return FilterState(
+        particles=parts, prev_particles=torch.zeros((n, 3), **f32),
+        weights=torch.full((n,), 1.0 / n, **f32),
+        count=torch.tensor(n, dtype=torch.int32, device=dev),
+        w_slow=torch.zeros((), **f32), w_fast=torch.zeros((), **f32),
+        delta=torch.zeros(3, **f32), anchor=parts[0].clone(),
+        anchor_streak=torch.zeros((), dtype=torch.int32, device=dev),
+        key=torch.Generator(device=dev).manual_seed(seed + 1))
+
+
+def motion_copy(state):
+    from mcmh_localization_tpu_torch.filter.captured import STATE_TENSORS
+    from mcmh_localization_tpu_torch.filter.state import copy_generator
+
+    return state.replace(**{f: getattr(state, f).clone()
+                            for f in STATE_TENSORS},
+                         key=copy_generator(state.key))
+
+
+def motion_mismatch(a, b) -> list:
+    """The fields of two states (or of two (proposal, anchor) pairs, and
+    the generators) that differ, with the rows of the first that do."""
+    from mcmh_localization_tpu_torch.filter.captured import STATE_TENSORS
+
+    pairs = (list(zip(("particles", "anchor"), a, b)) if isinstance(a, tuple)
+             else [(f, getattr(a, f), getattr(b, f)) for f in STATE_TENSORS])
+    out = []
+    for name, x, y in pairs:
+        if not torch.equal(x, y):
+            rows = torch.nonzero((x != y).reshape(x.shape[0], -1).any(1))
+            out.append(f"{name}: {rows.numel()} rows differ, first "
+                       f"{rows[:3, 0].tolist()}")
+    return out
+
+
+def motion_tried(state, delta, config, noise, gm) -> torch.Tensor:
+    """(n,) the candidates a "reject" slot reads: up to its first free one,
+    all R where none is."""
+    from mcmh_localization_tpu_torch.models.motion import sample_motion
+
+    valid = torch.stack([gm.valid_mask(sample_motion(
+        state.particles, delta, config.alpha, noise=noise[r]))
+        for r in range(noise.shape[0])])
+    first = valid.to(torch.uint8).argmax(0) + 1
+    return torch.where(valid.any(0), first, noise.shape[0])
+
+
+def motion_nodes(state, fn) -> dict:
+    """The nodes of ``fn`` on ``state`` captured in a graph (its generator
+    registered), as an odometry graph holds them."""
+    from mcmh_localization_tpu_torch.ops import graph as cgraph
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    g.register_generator_state(state.key)
+    with torch.cuda.graph(g):
+        fn()
+    nodes = cgraph.node_counts(g.raw_cuda_graph())
+    return {k: v for k, v in nodes.items() if v}
+
+
+def drive_motion(dev, gm, rows) -> dict:
+    """``[motion]``: ``csrc/motion.cu`` against the plain chain on the card
+    at the four cells' shapes (and at 5000 "reject" slots on the long
+    message, on 5003 slots, whose last thread is ragged, and on a view one
+    row past an aligned base), in both forms, bitwise, the generator after
+    each call equal to the plain chain's; one launch a call; timed (the
+    kernel alone on given normals, and the message with torch's draw)
+    beside its bound (bytes) and the plain chain; the odometry graph's
+    nodes a message, the plain chain's and the kernel's."""
+    from mcmh_localization_tpu_torch.config import FilterConfig
+    from mcmh_localization_tpu_torch.models.motion import compute_motion
+    from mcmh_localization_tpu_torch.ops import _cuda
+    from mcmh_localization_tpu_torch.ops import motion
+
+    out = {}
+    smi = nvidia_smi_line()
+    cases = [(tag, n, v, "tour", True) for tag, n, v in MOTION_SHAPES]
+    cases += [("default_long", 5000, "reject", "long", False),
+              ("ragged", 5003, "reject", "long", False),
+              ("ragged_score", 5003, "score", "tour", False)]
+    for i, (tag, n, validity, msg, timed) in enumerate(cases):
+        config = FilterConfig(motion_validity=validity)
+        state = motion_state(n, dev, 3000 + i)
+        poses = torch.tensor(MOTION_POSES[msg], dtype=torch.float32,
+                             device=dev)
+        delta = compute_motion(poses[0], poses[1])
+        bad = []
+        a, b = motion_copy(state), motion_copy(state)
+        _cuda.reset_launch_counts()
+        got = motion.predict(a, delta, config, gm)
+        launched = _cuda.launch_counts().get("motion", 0)
+        want = motion.predict_plain(b, delta, config, gm)
+        bad += [f"functional {m}" for m in motion_mismatch(got, want)]
+        if not torch.equal(a.key.get_state(), b.key.get_state()):
+            bad.append("functional: the generators differ")
+        a, b = motion_copy(state), motion_copy(state)
+        motion.predict_in_place(a, poses, config, gm)
+        motion.predict_in_place_plain(b, poses, config, gm)
+        bad += [f"in place {m}" for m in motion_mismatch(a, b)]
+        if not torch.equal(a.key.get_state(), b.key.get_state()):
+            bad.append("in place: the generators differ")
+        # a view one row past an aligned base: the kernel's 4-byte loads
+        noise = motion.draw_noise(motion_copy(state), config)
+        view = state.replace(particles=state.particles[1:],
+                             anchor=state.anchor.clone())
+        sub = noise[1:] if noise.dim() == 2 else noise[:, 1:].contiguous()
+        got = motion.predict(view, delta, config, gm, noise=sub)
+        want = motion.predict_plain(view, delta, config, gm, noise=sub)
+        bad += [f"misaligned view {m}" for m in motion_mismatch(got, want)]
+        kept = (want[0] == view.particles).all(1).sum()
+        torch.cuda.synchronize()
+        row = dict(n=n, validity=validity, message=msg, launches=launched,
+                   kept_old_pose=int(kept), mismatches=bad)
+        print(f"[motion] {tag} n={n} {validity} {msg}: against the plain "
+              f"chain {json.dumps(row)}")
+        check(not bad and launched == 1,
+              f"[motion] {tag}: the kernel differs from the plain chain or "
+              f"launched {launched} kernels: {bad}")
+        if timed:
+            a, b = motion_copy(state), motion_copy(state)
+            r = motion.retries(config)
+            tried = (motion_tried(state, delta, config, noise, gm)
+                     if r else torch.ones(n, device=dev))
+            reads = int(tried.sum())
+            # the set read, its normals up to each slot's first free
+            # candidate (and a free-mask value each under "reject"), the
+            # proposal written, and in place the set kept
+            nbytes = 12 * n + 12 * reads + (4 * reads if r else 0) + 12 * n
+            ms = device_ms(lambda: motion.predict(a, delta, config, gm,
+                                                  noise=noise))
+            ms_in = device_ms(lambda: motion.predict_in_place(
+                a, poses, config, gm, noise=noise))
+            msg_ms = device_ms(lambda: motion.predict_in_place(
+                a, poses, config, gm))
+            pms = device_ms(lambda: motion.predict_in_place_plain(
+                b, poses, config, gm), runs=5)
+            nodes = {
+                "plain": motion_nodes(b, lambda: motion.predict_in_place_plain(
+                    b, poses, config, gm)),
+                "kernel": motion_nodes(a, lambda: motion.predict_in_place(
+                    a, poses, config, gm))}
+            rows.append(kernel_row(
+                "motion", "motion.cu", "mcmh_localization_tpu/filter/step.py:80",
+                f"{tag} n={n} {validity}", ms=ms, plain_ms=pms, err=0.0,
+                ops=0, nbytes=nbytes, in_place_ms=ms_in,
+                in_place_bound_ms=bound_ms(0, nbytes + 12 * n)[0],
+                message_ms=msg_ms, odom_graph_nodes=nodes,
+                candidates_read=reads, launches_per_call=launched))
+            row.update(ms=ms, in_place_ms=ms_in, message_ms=msg_ms,
+                       plain_message_ms=pms, bound_ms=bound_ms(0, nbytes)[0],
+                       nodes=nodes)
+            print(f"[motion] {tag} n={n}: {json.dumps(row)} on {smi}")
+        out[tag] = row
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None,
@@ -3653,6 +3845,8 @@ def main(argv=None) -> int:
     compare_past_caps(gm, beam_default, beam, vm, lidar_cfg, lidar, rows)
     stamps.append(("weight_chain", time.perf_counter()))
     drive_weight_chain(dev, rows)
+    stamps.append(("motion", time.perf_counter()))
+    drive_motion(dev, gm, rows)
     path_counts: dict[str, dict[str, int]] = {}
     path_scans: dict[str, int] = {}
 
@@ -3883,8 +4077,9 @@ def main(argv=None) -> int:
               f"last 8 {err8:.4f} m; count {int(st.count)}; launches {c}")
         check(np.isfinite(e).all(), f"[exact] {mode}: non-finite estimate")
         check(err8 < 0.25, f"[exact] {mode}: error {err8:.3f} m >= 0.25 m")
-        check(c.get("likelihood_scores", 0) > 0 and c.get("gather_2d", 0) > 0,
-              f"[exact] {mode}: the exact scorer or gather_2d never launched")
+        check(c.get("likelihood_scores", 0) > 0 and c.get("motion", 0) > 0,
+              f"[exact] {mode}: the exact scorer or the motion kernel never "
+              "launched")
     cross = {}
     for n in (1500, 100_000):
         for impl in ("corr", "jnp"):
@@ -4238,7 +4433,7 @@ def main(argv=None) -> int:
     print(f"[dist] kernel launches: {dist_counts}")
     for name in ("corr_field_build", "corr_lookup", "window_score_at",
                  "expand_sorted", "lut_field", "lut_field_at", "bin_lut",
-                 "voxel_scores", "likelihood_scores", "gather_2d"):
+                 "voxel_scores", "likelihood_scores", "gather_2d", "motion"):
         check(any(c.get(name, 0) for c in dist_counts.values()),
               f"[dist] {name} never launched")
 

@@ -12,7 +12,8 @@ is read).  One process, in this order:
    seeds (each seed off and on).  Tracing's cost on ``scans_per_s``; the
    spans of each call against the harness's host clock around the same
    calls; every span's total, self time and count, host syncs, the hand
-   kernels' launches and the weight chain's among them, bodies run
+   kernels' launches, the weight chain's and the motion kernel's (a
+   message) among them, bodies run
    (the coarse builds among them, gated or not) and each program's stage
    times a scan; the set-up's spans; and the slowest 1% of
    ``on_scan`` calls split by child, with the odometry before them (the
@@ -21,13 +22,17 @@ is read).  One process, in this order:
    ``online.odom.predict`` span a scan.
 2. launches and bitwise: a window of ``SCANS`` scans from one seed with
    tracing off and one with it on: each program's captured step, its nodes
-   a replay (``CapturedStep.launches_per_scan``), and the states, the
-   generator and the pose after the window equal.
+   a replay (``CapturedStep.launches_per_scan``) and its odometry
+   graph's nodes a message (``CapturedStep.odom_nodes``), and the states,
+   the generator and the pose after the window equal.
 3. stages against the profiler, in the run with tracing on: ``REPLAYS``
    replays of each program's captured step under ``torch.profiler``, the
    stamps' sum against each replay's extent on the card (its kernels,
-   copies and memsets from the first to the last).  Last, because a
-   profiler session slows every later launch in the process.
+   copies and memsets from the first to the last); then ``REPLAYS``
+   replays of the program's odometry graph on the same state (one
+   message of ``ODOM_STEP``), each one's extent and busy time on the
+   card.  Last, because a profiler session slows every later launch in
+   the process.
 
     python3 chip_trace_check.py [--cells a,b]
 
@@ -53,9 +58,15 @@ CELLS = ("house_staged_1m.square_track", "house_amcl_default.square_track",
          "house_staged_1m.kidnap", "house_beam_100k.kidnap")
 SEEDS = (2**31 + 977, 2**31 + 4099)
 WINDOW = 20.0      # part 1: seconds of a window
+# part 1: traffic for 3000 scans a second (the workload files' 1000 runs
+# out under a faster program)
+WINDOW_TRAFFIC = {"run": {"max_scans_per_s": 3000}}
 SCANS = 200        # part 2: scans of a window
 REPLAYS = 20       # part 3: replays of each program under the profiler
 TAIL = 0.01        # part 1: the share of slowest on_scan calls split
+# part 3: the odometry message the graph replays, (x, y, yaw) moved from
+# the state's estimate: a 30 Hz message at the tour's 0.15 m/s
+ODOM_STEP = (0.005, 0.0, 0.002)
 
 
 def log(*a) -> None:
@@ -119,8 +130,10 @@ def programs(loc) -> dict:
 
 
 def launches(loc) -> dict:
-    """{program/capacity: launches_per_scan of its captured correct step}."""
-    return {f"{name}/{n_max}": cs.launches_per_scan()
+    """{program/capacity: launches_per_scan of its captured correct step,
+    with its odometry graph's nodes a message under "odom"}."""
+    return {f"{name}/{n_max}": {**cs.launches_per_scan(),
+                                "odom": dict(cs.odom_nodes)}
             for name, model in programs(loc).items()
             for (n_max, _, _), cs in model._graphs.items()
             if cs.graph is not None}
@@ -196,6 +209,9 @@ def window_reading(out: dict, got: dict) -> dict:
         # chain's (csrc/weight_chain.cu) among them
         "hand_launches_per_scan": sum(got["launches"].values()) / n,
         "chain_launches_per_scan": got["launches"].get("weight_chain", 0) / n,
+        # the motion kernel's (csrc/motion.cu) launches an odometry message
+        "motion_launches_per_message":
+            got["launches"].get("motion", 0) / (n * got["msgs"]),
         "odom": odom_reading(got),
         "bodies_per_scan": {k: v / n for k, v in tr["bodies"].items()},
         "setup_spans_ms": {k: v["total_ns"] * 1e-6
@@ -215,7 +231,8 @@ def check_window(name: str) -> dict:
     runs = []
     for seed, on in zip((SEEDS[0], SEEDS[0], SEEDS[1], SEEDS[1]),
                         (False, True, True, False)):
-        out, got = cell_run(name, seed, WINDOW, on)
+        out, got = cell_run(name, seed, WINDOW, on,
+                            overrides=WINDOW_TRAFFIC)
         row = {"seed": seed, "on": on, "correct": out["correct"],
                "scans_per_s": out["metrics"]["scans_per_s"]["value"],
                "scan_p99_ms": out["metrics"]["scan_p99_ms"]["value"]}
@@ -257,9 +274,10 @@ def chrome_events(prof) -> list:
 
 
 def replay_device_ms(events: list) -> dict:
-    """{"launches", "extent_ms", "stamped_ms"} of the trace's graph
-    launches: the device time from each launch's first node to its last,
-    and from its first stage stamp to its last, summed."""
+    """{"launches", "extent_ms", "busy_ms", "ops", "stamped_ms"} of the
+    trace's graph launches: the device time from each launch's first node
+    to its last, its nodes' own time and count, and the time from its
+    first stage stamp to its last, summed."""
     launch = {e["args"]["correlation"] for e in events
               if e.get("name") == "cudaGraphLaunch" and "args" in e
               and "correlation" in e["args"]}
@@ -268,15 +286,47 @@ def replay_device_ms(events: list) -> dict:
         if (e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
                 and e.get("args", {}).get("correlation") in launch):
             groups.setdefault(e["args"]["correlation"], []).append(e)
-    extent = stamped = 0.0
+    extent = busy = stamped = 0.0
+    ops = 0
     for evs in groups.values():
         extent += (max(e["ts"] + e["dur"] for e in evs)
                    - min(e["ts"] for e in evs))
+        busy += sum(e["dur"] for e in evs)
+        ops += len(evs)
         st = sorted(e["ts"] for e in evs if "trace_stamp" in e["name"])
         if len(st) >= 2:
             stamped += st[-1] - st[0]
     return {"launches": len(groups), "extent_ms": extent * 1e-3,
-            "stamped_ms": stamped * 1e-3}
+            "busy_ms": busy * 1e-3, "ops": ops, "stamped_ms": stamped * 1e-3}
+
+
+def odom_device_ms(cs, state, device) -> dict:
+    """``REPLAYS`` replays of ``cs``'s odometry graph (captured here where
+    it is not yet) on ``state``, one message of ``ODOM_STEP`` from the
+    state's estimate, under the profiler: each replay's extent, busy time
+    and device operations, ms and counts a message."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mcmh_localization_tpu_torch.filter.state import copy_generator
+
+    if cs.odom_graph is None:
+        cs.capture_odom()
+    start = [float(v) for v in state.anchor.cpu()]
+    cs.poses.copy_(torch.tensor(
+        [start, [a + d for a, d in zip(start, ODOM_STEP)]],
+        dtype=torch.float32, device=device))
+    cs.load(state.replace(key=copy_generator(state.key)))
+    cs.replay_odom()
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(REPLAYS):
+            cs.replay_odom()
+        torch.cuda.synchronize(device)
+    dev = replay_device_ms(chrome_events(prof))
+    return {k: (v / REPLAYS if k != "launches" else v)
+            for k, v in dev.items() if k != "stamped_ms"}
 
 
 def check_stages(run) -> dict:
@@ -324,7 +374,8 @@ def check_stages(run) -> dict:
                      "counts": {s: stages[s]["count"]
                                 for s in profiling.STAGES},
                      "profiler": {k: (v / REPLAYS if k != "launches" else v)
-                                  for k, v in dev.items()}}
+                                  for k, v in dev.items()},
+                     "odom_profiler": odom_device_ms(cs, s0, run.device)}
     return out
 
 

@@ -42,10 +42,11 @@ caller's stream moves as under eager steps, draw for draw.
 A correct-only step (``predict=False``, the one ``OnlineLocalizer.on_scan``
 replays) also serves the odometry: ``capture_odom`` captures one
 message's device work, ``predict_in_place`` on the same buffers from the
-two poses in ``poses`` (the delta, the proposal, the anchor's advance),
-into the correct graph's memory pool, drawing from the same registered
-generator.  The facade makes the buffers hold its state (``load``: a copy
-only where they hold another), copies the poses in and replays
+two poses in ``poses`` (the delta, the proposal, the anchor's advance:
+torch's draw and one kernel, ``ops/motion.py``), into the correct graph's
+memory pool, drawing from the same registered generator.  The facade
+makes the buffers hold its state (``load``: a copy only where they hold
+another), copies the poses in and replays
 (``replay_odom``); the state it then holds is the buffers themselves, the
 generator included, so a scan's run copies nothing in.  Neither graph
 leaves a live tensor in the pool (the buffers are allocated before both
@@ -64,6 +65,7 @@ from mcmh_localization_tpu_torch.filter.state import FilterState, copy_generator
 from mcmh_localization_tpu_torch.models.motion import compute_motion
 from mcmh_localization_tpu_torch.ops import _cuda
 from mcmh_localization_tpu_torch.ops import graph as cgraph
+from mcmh_localization_tpu_torch.ops import motion
 from mcmh_localization_tpu_torch.utils import profiling
 
 # the scans one replay loop records before the record is copied out
@@ -95,11 +97,14 @@ def _store(buf: FilterState, new: FilterState) -> None:
 
 def predict_in_place(model, buf: FilterState, poses: torch.Tensor) -> None:
     """One odometry message on the buffers ``buf``, in place: the delta
-    between the (2, 3) ``poses`` (previous, current), ``model.predict`` on
-    it (drawing from ``buf.key``) and the new state stored back.  What
-    ``CapturedStep.capture_odom`` captures; eagerly, the facade's eager
-    ``on_odom`` with the delta computed where ``poses`` lives."""
-    _store(buf, model.predict(buf, compute_motion(poses[0], poses[1])))
+    between the (2, 3) ``poses`` (previous, current), ``model``'s motion
+    step on it (drawing from ``buf.key``) and the new state written back
+    (``ops/motion.py::predict_in_place``: on the card torch's draw and one
+    kernel).  What ``CapturedStep.capture_odom`` captures; it equals
+    ``model.predict`` on the delta followed by ``_store``, and eagerly the
+    facade's eager ``on_odom`` with the delta computed where ``poses``
+    lives."""
+    motion.predict_in_place(buf, poses, model.config, model.grid_map)
 
 
 class CapturedStep:

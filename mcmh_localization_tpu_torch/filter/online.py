@@ -281,6 +281,11 @@ class OnlineLocalizer:
                         (self.staged.small, copy(small_state))]
         per_message = self.config.predict_batching == "per_message"
         for model, st in programs:
+            if model.replays_graph:
+                # the step's buffers first: they live as long as the
+                # localizer, and the throwaway predict's tensors, freed
+                # after it, then leave no hole among them in the cache
+                model.captured(st, self._beams, predict=False)
             st = model.predict(st, delta)
             _correct_scan(model, st, ranges, angles)
             if per_message and model.replays_graph:

@@ -53,7 +53,6 @@ from mcmh_localization_tpu_torch.filter.state import (
     make_state,
 )
 from mcmh_localization_tpu_torch.models.corr_field import correlation_field_scores
-from mcmh_localization_tpu_torch.models.motion import sample_motion
 from mcmh_localization_tpu_torch.models.range_table import (
     beam_field_scores,
     build_range_table,
@@ -71,6 +70,7 @@ from mcmh_localization_tpu_torch.models.sensor import (
     raycast_beam_scores,
     wrap_score_with_validity,
 )
+from mcmh_localization_tpu_torch.ops import motion
 # the module, not its names: ops/weight_chain.py imports filter/ modules,
 # so either package may be imported first
 from mcmh_localization_tpu_torch.ops import weight_chain as chain
@@ -192,32 +192,21 @@ def concat_infos(chunks: list, device=None, batch: tuple = ()) -> StepInfo:
 # predict (odom) step
 # ---------------------------------------------------------------------------
 
-def advance_anchor(anchor: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
-    """Noise-free rot1/trans/rot2 odometry applied to the anchor pose."""
-    th1 = anchor[2] + delta[0]
-    x = anchor[0] + delta[1] * torch.cos(th1)
-    y = anchor[1] + delta[1] * torch.sin(th1)
-    return torch.stack([x, y, normalize_angle(th1 + delta[2])]).to(torch.float32)
-
-
 def _predict(state: FilterState, delta: torch.Tensor, grid_map, config,
              draws: Draws | None = None) -> FilterState:
     """Motion proposal (move_particles, amcmh_localizer.py:384-408): the
     raw draw under motion_validity="score", else ``motion_retries`` draws
-    checked against the map."""
+    checked against the map; the anchor advanced by the delta
+    (``ops/motion.py``: one kernel after torch's draw on the card)."""
     delta = torch.as_tensor(delta, dtype=torch.float32, device=state.device)
-    proposed = sample_motion(
-        state.particles, delta, config.alpha,
-        noise=draws.motion if draws is not None else None,
-        generator=state.key, grid_map=grid_map,
-        retries=(0 if config.motion_validity == "score"
-                 else config.motion_retries),
-    )
+    proposed, anchor = motion.predict(
+        state, delta, config, grid_map,
+        noise=draws.motion if draws is not None else None)
     return state.replace(
         prev_particles=state.particles,
         particles=proposed,
         delta=delta,
-        anchor=advance_anchor(state.anchor, delta),
+        anchor=anchor,
     )
 
 

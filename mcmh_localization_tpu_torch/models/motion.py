@@ -31,6 +31,14 @@ def compute_motion(odom_prev: torch.Tensor, odom_curr: torch.Tensor) -> torch.Te
     return torch.stack([rot1, trans, rot2])
 
 
+def advance_anchor(anchor: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """Noise-free rot1/trans/rot2 odometry applied to the anchor pose."""
+    th1 = anchor[2] + delta[0]
+    x = anchor[0] + delta[1] * torch.cos(th1)
+    y = anchor[1] + delta[1] * torch.sin(th1)
+    return torch.stack([x, y, normalize_angle(th1 + delta[2])]).to(torch.float32)
+
+
 def invert_delta(delta: torch.Tensor, ref_compat: bool = False) -> torch.Tensor:
     """The reverse motion of ``delta``: ``(pi - rot2, trans, -rot1 - pi)``
     wrapped, or the reference's rigid-body quirk with ``ref_compat``."""

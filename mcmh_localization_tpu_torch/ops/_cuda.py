@@ -33,7 +33,7 @@ BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 SOURCES = ("corr_field_build.cu", "gather.cu", "rank.cu", "fused_score.cu",
            "likelihood.cu", "take.cu", "beam_field.cu", "scan_scores.cu",
            "edt.cu", "graph_cond.cu", "bin_lut.cu", "trace_stamp.cu",
-           "weight_chain.cu")
+           "weight_chain.cu", "motion.cu")
 HEADERS = ("thread_runs.cuh", "stage_beams.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -109,6 +109,17 @@ class ChainArgs(ctypes.Structure):
                 "rxy2", "rth", "hysteresis", "neg_margin", "max_range")]
 
 
+class MotionArgs(ctypes.Structure):
+    """csrc/motion.cu's ``MotionArgs``, passed by value."""
+
+    _fields_ = [(name, _P) for name in (
+        "noise", "particles", "poses", "delta", "anchor", "free_mask",
+        "proposed", "prev_out", "delta_out", "anchor_out")] + [
+            (name, _I) for name in ("n", "retries", "h", "w")] + [
+                (name, _F) for name in ("a1", "a2", "a3", "a4", "origin_x",
+                                        "origin_y", "res")]
+
+
 _SIGNATURES = {
     "mcmh_corr_field_build": (_P, _I, _I, _P, _P, _I, _I, _P, _I, _I, _I, _P,
                               _P),
@@ -147,6 +158,7 @@ _SIGNATURES = {
     "mcmh_weight_chain_scratch_floats": (_I,),
     "mcmh_weight_chain_mh": (ChainArgs, _P),
     "mcmh_weight_chain_estimate": (ChainArgs, _P),
+    "mcmh_motion": (MotionArgs, _P),
 }
 
 _lib = None

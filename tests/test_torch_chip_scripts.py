@@ -159,3 +159,31 @@ def test_trace_check_reads_the_odometry_counters():
                        odom_copy_in=2)["as_expected"]
     assert not reading({"graph.capture": {"total_ns": 1, "count": 1}},
                        odom_replay=36, odom_copy_in=2)["as_expected"]
+
+
+def test_trace_check_sums_each_graph_launch_on_the_card():
+    """``chip_trace_check.replay_device_ms``: for the graph launches of a
+    trace, the extent from each one's first device operation to its last,
+    their own time and count, and the time between the first and last
+    stage stamp; device work that no graph launch queued is left out."""
+    import chip_trace_check as tc
+
+    def op(name, cat, ts, dur, corr):
+        return {"name": name, "cat": cat, "ts": ts, "dur": dur,
+                "args": {"correlation": corr}}
+
+    events = [
+        {"name": "cudaGraphLaunch", "args": {"correlation": 1}},
+        {"name": "cudaGraphLaunch", "args": {"correlation": 2}},
+        {"name": "cudaLaunchKernel", "args": {"correlation": 7}},
+        op("randn", "kernel", 10.0, 2.0, 1),
+        op("trace_stamp_kernel", "kernel", 13.0, 1.0, 1),
+        op("trace_stamp_kernel", "kernel", 20.0, 1.0, 1),
+        op("copy", "gpu_memcpy", 30.0, 4.0, 2),
+        op("eager", "kernel", 0.0, 50.0, 7),
+    ]
+    r = tc.replay_device_ms(events)
+    assert r["launches"] == 2 and r["ops"] == 4
+    assert r["extent_ms"] == pytest.approx((11.0 + 4.0) * 1e-3)
+    assert r["busy_ms"] == pytest.approx(8.0 * 1e-3)
+    assert r["stamped_ms"] == pytest.approx(7.0 * 1e-3)

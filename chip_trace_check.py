@@ -4,9 +4,9 @@ in the benchmark's cells.  Each run is ``benchmark/harness.py::run_cell``
 untraced (as ``--trace 0``), with the program's tracing switched from
 outside: on before the run, so the warm-up captures each program's step
 with its stage stamps; the set-up's spans (``setup.*``: the beam
-tables' build) read and the records reset as the window starts (the
-harness's set-up line), and collected as it ends (before its first metric
-is read).  One process, in this order:
+tables' build, the voxel map's and its tables') read and the records reset
+as the window starts (the harness's set-up line), and collected as it ends
+(before its first metric is read).  One process, in this order:
 
 1. the window: ``WINDOW`` seconds a run, tracing off, on, on, off at two
    seeds (each seed off and on).  Tracing's cost on ``scans_per_s``; the
@@ -55,7 +55,8 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 CELLS = ("house_staged_1m.square_track", "house_amcl_default.square_track",
-         "house_staged_1m.kidnap", "house_beam_100k.kidnap")
+         "house_staged_1m.kidnap", "house_beam_100k.kidnap",
+         "building_lidar3d_100k.vlp16_kidnap")
 SEEDS = (2**31 + 977, 2**31 + 4099)
 WINDOW = 20.0      # part 1: seconds of a window
 # part 1: traffic for 3000 scans a second (the workload files' 1000 runs
@@ -344,9 +345,12 @@ def check_stages(run) -> dict:
 
     loc = run.loc
     ranges = torch.from_numpy(run.traffic.ranges[-1]).to(run.device)
-    angles = torch.linspace(-3.141592653589793, 3.141592653589793,
-                            ranges.shape[0], dtype=torch.float32,
-                            device=run.device)
+    if run.traffic.angles is None:   # the localizer's default sweep
+        angles = torch.linspace(-3.141592653589793, 3.141592653589793,
+                                ranges.shape[0], dtype=torch.float32,
+                                device=run.device)
+    else:                            # the sensor's own, (M, 2) for 3-D
+        angles = torch.as_tensor(run.traffic.angles, device=run.device)
     st = loc.state
     states = {"step": st}
     if loc.staged is not None:

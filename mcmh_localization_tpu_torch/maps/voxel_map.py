@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from mcmh_localization_tpu_torch.maps.grid_map import GridMap, build_grid_map
+from mcmh_localization_tpu_torch.utils import profiling
 from mcmh_localization_tpu_torch.utils.device import (
     DEFAULT_DEVICE,
     resolve_device,
@@ -94,25 +95,28 @@ def build_voxel_map(
     """A VoxelMap on ``device`` (the card unless told otherwise; raises
     without one) with its 3-D EDT, scipy's on the host over the occupied
     voxels (``> 50``), capped at ``max_distance`` when given (JAX
-    voxel_map.py:68-94)."""
+    voxel_map.py:68-94).  Under tracing the EDT and the copy to the device
+    are the span ``setup.voxel_map``."""
     dev = resolve_device(device)
-    occ = np.asarray(occupancy, dtype=np.int8)
-    occupied = occ > 50
-    if occupied.any():
-        from scipy.ndimage import distance_transform_edt
+    with profiling.span("setup.voxel_map"):
+        occ = np.asarray(occupancy, dtype=np.int8)
+        occupied = occ > 50
+        if occupied.any():
+            from scipy.ndimage import distance_transform_edt
 
-        dist = distance_transform_edt(~occupied, sampling=resolution)
-    else:
-        dist = np.full(occ.shape, 1e6, dtype=np.float64)
-    if max_distance is not None:
-        dist = np.minimum(dist, max_distance)
-    return VoxelMap(
-        occupancy=torch.from_numpy(occ.copy()).to(dev),
-        distance=torch.from_numpy(dist.astype(np.float32)).to(dev),
-        resolution=float(resolution),
-        origin=(float(origin[0]), float(origin[1]), float(origin[2])),
-        max_distance=None if max_distance is None else float(max_distance),
-    )
+            dist = distance_transform_edt(~occupied, sampling=resolution)
+        else:
+            dist = np.full(occ.shape, 1e6, dtype=np.float64)
+        if max_distance is not None:
+            dist = np.minimum(dist, max_distance)
+        return VoxelMap(
+            occupancy=torch.from_numpy(occ.copy()).to(dev),
+            distance=torch.from_numpy(dist.astype(np.float32)).to(dev),
+            resolution=float(resolution),
+            origin=(float(origin[0]), float(origin[1]), float(origin[2])),
+            max_distance=(None if max_distance is None
+                          else float(max_distance)),
+        )
 
 
 def raycast3d(

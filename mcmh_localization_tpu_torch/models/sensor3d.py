@@ -35,6 +35,7 @@ from mcmh_localization_tpu_torch.ops.scan_scores import (
     voxel_levels,
     voxel_scores,
 )
+from mcmh_localization_tpu_torch.utils import profiling
 from mcmh_localization_tpu_torch.utils.f32 import divide
 
 
@@ -50,9 +51,11 @@ class Lidar3dTable(NamedTuple):
 
 def lidar3d_table(voxel_map: VoxelMap, config) -> Lidar3dTable:
     """The sensor table of ``voxel_map`` under ``config``, on the map's
-    device."""
-    log_volume = lidar3d_log_volume(voxel_map, config)
-    return Lidar3dTable(voxel_map, log_volume, voxel_levels(log_volume))
+    device: under tracing the span ``setup.voxel_tables`` (its host time:
+    the launches, and the level form's wait for the distinct values)."""
+    with profiling.span("setup.voxel_tables"):
+        log_volume = lidar3d_log_volume(voxel_map, config)
+        return Lidar3dTable(voxel_map, log_volume, voxel_levels(log_volume))
 
 
 def lidar3d_log_volume(voxel_map: VoxelMap, config) -> torch.Tensor:

@@ -49,6 +49,7 @@ from mcmh_localization_tpu_torch.ops.likelihood import (
     lanes_per_particle,
     valid_first,
 )
+from mcmh_localization_tpu_torch.utils import profiling
 from mcmh_localization_tpu_torch.utils.f32 import divide
 
 # The raw beams a tile of the kernels' beam staging (csrc/scan_scores.cu:
@@ -220,13 +221,16 @@ def voxel_levels(volume: torch.Tensor) -> VoxelLevels:
     the level form where it has at most ``MAX_VOXEL_LEVELS`` distinct
     values (every voxel beyond about 6.5 sigma from a surface holds the
     same one), else the volume itself.  The level form's kernel takes
-    planes under 2^22 voxels a side and an index under 2^31 voxels."""
+    planes under 2^22 voxels a side and an index under 2^31 voxels.
+    Under tracing a volume left in its f32 form counts one
+    ``voxel_f32_volume``."""
     d, h, w = volume.shape
     hp, wp = -(-h // TILE) * TILE, -(-w // TILE) * TILE
-    if max(h, w) >= 1 << 22 or d * hp * wp >= 1 << 31:
-        return VoxelLevels(None, None, volume.contiguous())
-    levels, inverse = _levels(volume)
-    if levels.numel() > MAX_VOXEL_LEVELS:
+    levels = None
+    if max(h, w) < 1 << 22 and d * hp * wp < 1 << 31:
+        levels, inverse = _levels(volume)
+    if levels is None or levels.numel() > MAX_VOXEL_LEVELS:
+        profiling.count("voxel_f32_volume")
         return VoxelLevels(None, None, volume.contiguous())
     return VoxelLevels(
         tile_planes(inverse.to(torch.int16).reshape(volume.shape)),
